@@ -1,0 +1,54 @@
+"""The port imports nothing of JAX or of the JAX package: every module of
+``avion_tpu_torch`` and ``chip_smoke.py`` import in a fresh interpreter
+where those names are blocked."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import avion_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "avion_tpu")
+
+_SCRIPT = r"""
+import importlib, sys
+blocked = {blocked!r}
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in blocked:
+            raise ImportError("blocked: " + name)
+        return None
+
+for name in list(sys.modules):
+    if name.split(".")[0] in blocked:
+        del sys.modules[name]
+sys.meta_path.insert(0, Block())
+for mod in {modules!r}:
+    importlib.import_module(mod)
+sys.path.insert(0, {root!r})
+importlib.import_module("chip_smoke")
+print("imported", len({modules!r}))
+"""
+
+
+def _modules():
+    out = ["avion_tpu_torch"]
+    for info in pkgutil.walk_packages(avion_tpu_torch.__path__,
+                                      "avion_tpu_torch."):
+        out.append(info.name)
+    return out
+
+
+def test_port_imports_nothing_of_jax():
+    modules = _modules()
+    assert "avion_tpu_torch.serve.server" in modules
+    assert "avion_tpu_torch.ops.flash_attention" in modules
+    script = _SCRIPT.format(blocked=BLOCKED, modules=modules, root=ROOT)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert f"imported {len(modules)}" in res.stdout
