@@ -11,6 +11,9 @@ import torch
 # OpenAI CLIP channel statistics
 OPENAI_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_STD = (0.26862954, 0.26130258, 0.27577711)
+# ImageNet channel statistics
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def normalize_video(video: torch.Tensor, mean=OPENAI_MEAN, std=OPENAI_STD,

@@ -1,4 +1,4 @@
-"""CLIP text transformer, inference only (``avion_tpu.models.text``):
+"""CLIP text transformer (``avion_tpu.models.text``):
 token + learned positional embedding, a causal transformer (causality
 inside the attention kernel), ``ln_final``, EOT pooling (argmax over the
 token ids; EOT is the highest id).  The projection to the joint space
@@ -15,14 +15,16 @@ from avion_tpu_torch.models.layers import LayerNorm, Transformer, gelu
 class TextTransformer(nn.Module):
     def __init__(self, context_length: int = 77, vocab_size: int = 49408,
                  width: int = 512, heads: int = 8, layers: int = 12, act=gelu,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, remat: bool = False,
+                 remat_policy: str = "save_attn"):
         super().__init__()
         self.dtype = dtype
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(
             torch.randn(context_length, width) * 0.01)
         self.transformer = Transformer(width, layers, heads, act, dtype,
-                                       causal=True)
+                                       causal=True, remat=remat,
+                                       remat_policy=remat_policy)
         self.ln_final = LayerNorm(width, dtype)
 
     def forward(self, text: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/*.cu`` source compiles on its own into a shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds).  The
-library lands in ``ops/.build/`` under a name that carries the hash of its
-source and flags: an edited source rebuilds, an unchanged one loads the
+plain C interface (no PyTorch headers, so a build takes seconds); device
+code they share lives in ``csrc/*.cuh`` headers.  The library lands in
+``ops/.build/`` under a name that carries the hash of its source, the
+headers and the flags: an edited source rebuilds, an unchanged one loads the
 library already there.  Nothing is compiled when a module is imported;
 :func:`library` builds at first use.
 """
@@ -42,9 +43,12 @@ def nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
+    # the hash covers the source and every shared header it may include
     h = hashlib.sha256()
-    with open(os.path.join(CSRC, source), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")

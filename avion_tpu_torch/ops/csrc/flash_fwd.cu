@@ -1,9 +1,16 @@
-// Flash-attention forward (inference: no logsumexp output) for Hopper, sm_90a.
+// Flash-attention forward for Hopper, sm_90a.
 //
-// Replaces the Pallas TPU kernel `_fwd_infer_kernel`
-// (avion_tpu/ops/flash_attention.py, reached from `_fwd_fused` with
-// need_lse=False): softmax(sm_scale * Q K^T [+ causal mask]) V read straight
-// off the fused qkv projection output, in the log2 domain.
+// Replaces two Pallas TPU kernels of avion_tpu/ops/flash_attention.py,
+// both reached from `_fwd_fused`: `_fwd_infer_kernel` (need_lse=False, the
+// serving path) and `_fwd_kernel` (need_lse=True, the training forward,
+// which also writes each row's logsumexp for the backward).  They compute
+// softmax(sm_scale * Q K^T [+ causal mask]) V read straight off the fused
+// qkv projection output, in the log2 domain; one template flag, kWriteLse,
+// separates them.
+//
+// lse is the row logsumexp of the log2-domain scores, m + log2(l), as f32
+// [B, H, S] (the TPU layout [B, H/hpp, hpp, S_pad] exists only for its lane
+// packing).  Rows past S are not written.
 //
 // Numerics follow the TPU kernel: sm_scale * log2(e) is folded into the q
 // tile (rounded back to bf16) before the score product, probabilities use
@@ -30,18 +37,14 @@
 //   - causal blocks stop at the diagonal tile, halving the text tower's work.
 // wgmma and TMA (the route to the card's full rate) are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace avion;
+
 constexpr int kBlockM = 64;  // query rows per block, 16 per warp
 constexpr int kBlockN = 64;  // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;  // bf16 elements of padding per shared-memory row
 
 template <int D>
 struct Tile {
@@ -50,74 +53,11 @@ struct Tile {
   static constexpr int kSmemBytes = (kBlockM * kLd + 4 * kElems) * 2;
 };
 
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// c += a * b for one m16n8k16 bf16 tile with f32 accumulators.
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* smem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float s) {
-  float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
-  return pack_bf16(f.x * s, f.y * s);
-}
-
-// Copy rows [row0, row0 + 64) of one head's D columns into shared memory;
-// rows at or past `rows` are zero-filled and never read from memory.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const int row = row0 + r;
-    const bool valid = row < rows;
-    const __nv_bfloat16* g = src + (valid ? row * row_stride + c : 0);
-    cp_async_16(smem + r * Tile<D>::kLd + c, g, valid);
-  }
-}
-
-template <int D, bool kCausal>
+template <int D, bool kCausal, bool kWriteLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                     __nv_bfloat16* __restrict__ out, int seq, int width,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int seq, int width,
                      long long in_batch_stride, long long in_row_stride,
                      long long out_batch_stride, long long out_row_stride,
                      float scale_log2) {
@@ -146,10 +86,10 @@ __global__ void __launch_bounds__(kThreads)
   int n_tiles = (seq + kBlockN - 1) / kBlockN;
   if (kCausal) n_tiles = min(n_tiles, q0 / kBlockN + 1);
 
-  load_tile<D>(s_q, q_src, in_row_stride, q0, seq);
+  load_tile<kBlockN, D>(s_q, q_src, in_row_stride, q0, seq);
   cp_async_commit();
-  load_tile<D>(s_k, k_src, in_row_stride, 0, seq);
-  load_tile<D>(s_v, v_src, in_row_stride, 0, seq);
+  load_tile<kBlockN, D>(s_k, k_src, in_row_stride, 0, seq);
+  load_tile<kBlockN, D>(s_v, v_src, in_row_stride, 0, seq);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -181,9 +121,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < n_tiles) {
-      load_tile<D>(s_k + (buf ^ 1) * Tile<D>::kElems, k_src, in_row_stride,
+      load_tile<kBlockN, D>(s_k + (buf ^ 1) * Tile<D>::kElems, k_src, in_row_stride,
                    (t + 1) * kBlockN, seq);
-      load_tile<D>(s_v + (buf ^ 1) * Tile<D>::kElems, v_src, in_row_stride,
+      load_tile<kBlockN, D>(s_v + (buf ^ 1) * Tile<D>::kElems, v_src, in_row_stride,
                    (t + 1) * kBlockN, seq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -264,20 +204,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16(acc_s[2 * kk][0], acc_s[2 * kk][1]);
-      a[1] = pack_bf16(acc_s[2 * kk][2], acc_s[2 * kk][3]);
-      a[2] = pack_bf16(acc_s[2 * kk + 1][0], acc_s[2 * kk + 1][1]);
-      a[3] = pack_bf16(acc_s[2 * kk + 1][2], acc_s[2 * kk + 1][3]);
-      const int mat = lane / 8;
-      const __nv_bfloat16* vp =
-          v_t + (kk * 16 + (mat & 1) * 8 + lane % 8) * kLd + (mat >> 1) * 8;
-#pragma unroll
-      for (int dt = 0; dt < D / 16; ++dt) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vp + dt * 16);
-        mma_16816(acc_o[2 * dt], a, b[0], b[1]);
-        mma_16816(acc_o[2 * dt + 1], a, b[2], b[3]);
-      }
+      pack_c_as_a(a, acc_s[2 * kk], acc_s[2 * kk + 1]);
+      mma_rows_b<kDTiles>(acc_o, a, v_t, kLd, kk * 16);
     }
     __syncthreads();  // this buffer is refilled two iterations on
   }
@@ -293,6 +221,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + r * 8;
     if (row >= seq) continue;
+    if (kWriteLse && tig == 0)
+      lse[(static_cast<long long>(batch) * gridDim.y + head) * seq + row] =
+          m_run[r] + log2f(l_run[r]);
     const float inv = 1.f / l_run[r];
     __nv_bfloat16* o_row = o_dst + row * out_row_stride;
 #pragma unroll
@@ -303,12 +234,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool kCausal>
-int launch(const void* qkv, void* out, int batch, int seq, int heads,
-           long long in_batch_stride, long long in_row_stride,
+template <int D, bool kCausal, bool kWriteLse>
+int launch(const void* qkv, void* out, float* lse, int batch, int seq,
+           int heads, long long in_batch_stride, long long in_row_stride,
            long long out_batch_stride, long long out_row_stride,
            float scale_log2, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<D, kCausal>;
+  auto kernel = flash_fwd_kernel<D, kCausal, kWriteLse>;
   constexpr int smem = Tile<D>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -316,7 +247,7 @@ int launch(const void* qkv, void* out, int batch, int seq, int heads,
   const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-      seq, heads * D, in_batch_stride, in_row_stride, out_batch_stride,
+      lse, seq, heads * D, in_batch_stride, in_row_stride, out_batch_stride,
       out_row_stride, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -327,9 +258,11 @@ extern "C" {
 
 // qkv: [batch, >= seq rows, 3 * heads * head_dim] bf16, rows `in_row_stride`
 // elements apart, q/k/v sections at column 0, W and 2W (W = heads*head_dim).
-// out: [batch, seq, W] bf16.  Launches on `stream`; returns the launch's
-// cudaError_t (0 on success).
-int avion_flash_fwd_bf16(const void* qkv, void* out, int batch, int seq,
+// out: [batch, seq, W] bf16.  lse: null (inference) or [batch, heads, seq]
+// f32, the row logsumexp in log2 units.  Launches on `stream`; returns the
+// launch's cudaError_t (0 on success).
+int avion_flash_fwd_bf16(const void* qkv, void* out, void* lse, int batch,
+                         int seq,
                          int heads, int head_dim, long long in_batch_stride,
                          long long in_row_stride, long long out_batch_stride,
                          long long out_row_stride, int causal,
@@ -337,24 +270,25 @@ int avion_flash_fwd_bf16(const void* qkv, void* out, int batch, int seq,
   if (batch <= 0 || seq <= 0 || heads <= 0 || batch > 65535 || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define AVION_LAUNCH(D, C)                                                   \
-  return launch<D, C>(qkv, out, batch, seq, heads, in_batch_stride,          \
-                      in_row_stride, out_batch_stride, out_row_stride,       \
-                      scale_log2, s)
+  float* l = static_cast<float*>(lse);
+#define AVION_LAUNCH(D, C, L)                                                \
+  return launch<D, C, L>(qkv, out, l, batch, seq, heads, in_batch_stride,    \
+                         in_row_stride, out_batch_stride, out_row_stride,    \
+                         scale_log2, s)
+#define AVION_LAUNCH_LSE(D, C) \
+  if (l) AVION_LAUNCH(D, C, true); \
+  AVION_LAUNCH(D, C, false)
   if (head_dim == 64) {
-    if (causal) AVION_LAUNCH(64, true);
-    AVION_LAUNCH(64, false);
+    if (causal) { AVION_LAUNCH_LSE(64, true); }
+    AVION_LAUNCH_LSE(64, false);
   }
   if (head_dim == 128) {
-    if (causal) AVION_LAUNCH(128, true);
-    AVION_LAUNCH(128, false);
+    if (causal) { AVION_LAUNCH_LSE(128, true); }
+    AVION_LAUNCH_LSE(128, false);
   }
+#undef AVION_LAUNCH_LSE
 #undef AVION_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-const char* avion_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -41,7 +41,7 @@ def test_kernel_matches_plain(cuda, b, s, h, d, causal):
     fa.reset_launches()
     out = fa.flash_attention_fused_qkv(qkv, h, s, causal=causal)
     torch.cuda.synchronize()
-    assert fa.launches == 1
+    assert dict(fa.launches) == {"flash_fwd": 1}
     ref = fa.flash_attention_fused_qkv_plain(qkv.float(), h, s,
                                              causal=causal)
     assert out.shape == (b, s, h * d) and out.dtype == torch.bfloat16
@@ -76,3 +76,54 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention_fused_qkv(wide[..., ::2], 2, 16)  # column stride
     with pytest.raises(ValueError):
         fa.flash_attention_fused_qkv(wide[..., 1:385], 2, 16)  # misaligned
+
+
+@pytest.mark.parametrize("b,s,h,d,causal,combined", [
+    (2, 1, 2, 64, False, None), (2, 63, 3, 64, True, None),
+    (2, 77, 8, 64, True, None), (3, 65, 1, 64, True, False),
+    (2, 200, 3, 128, False, None), (2, 130, 2, 128, True, False),
+    (1, 785, 12, 64, False, None), (1, 785, 12, 64, False, False),
+    (1, 785, 6, 128, False, None), (1, 1100, 2, 64, False, None),
+])
+def test_backward_matches_plain(cuda, b, s, h, d, causal, combined):
+    """Autograd through the training forward and the backward route the
+    rule (or the override) picks, against the plain f32 gradient; rows past
+    ``s`` get none."""
+    rows = s + 5
+    qkv = _qkv(b, s, h, d, rows=rows).to(cuda, torch.bfloat16)
+    do = _qkv(b, s, h, d, seed=1)[..., :h * d].to(cuda, torch.bfloat16)
+    old = fa._COMBINED_BWD
+    try:
+        fa._COMBINED_BWD = combined
+        x = qkv.clone().requires_grad_()
+        fa.reset_launches()
+        fa.flash_attention_fused_qkv(x, h, s, causal=causal).backward(do)
+        torch.cuda.synchronize()
+        route = (("flash_bwd_combined",) if fa.use_combined_bwd(s)
+                 else ("flash_bwd_dq", "flash_bwd_dkv"))
+    finally:
+        fa._COMBINED_BWD = old
+    assert dict(fa.launches) == {"flash_fwd_lse": 1, **{n: 1 for n in route}}
+    y = qkv.float().requires_grad_()
+    fa.flash_attention_fused_qkv_plain(y, h, s, causal=causal).backward(
+        do.float())
+    assert torch.count_nonzero(x.grad[:, s:]) == 0
+    w = h * d
+    for i in range(3):
+        got = x.grad[:, :s, i * w:(i + 1) * w].float()
+        ref = y.grad[:, :s, i * w:(i + 1) * w]
+        diff = got - ref
+        assert diff.abs().max().item() <= BF16_TOL
+        if ref.norm() > 0:  # with one key dq and dk are exactly zero
+            assert (diff.norm() / ref.norm()).item() <= 1.5e-2
+
+
+def test_backward_rejects_what_it_does_not_take(cuda):
+    qkv = _qkv(1, 16, 2, 64).to(cuda, torch.bfloat16)
+    out, lse = fa.flash_fwd_lse(qkv, 2, 16, False, 0.125)
+    do = torch.randn(1, 16, 128, device=cuda)
+    with pytest.raises(ValueError):  # f32 output gradient
+        fa.flash_bwd(do, qkv, out, lse, 2, 16, False, 0.125)
+    strided = torch.randn(1, 16, 256, device=cuda).bfloat16()[..., ::2]
+    with pytest.raises(ValueError):  # right shape, not contiguous
+        fa.flash_bwd(strided, qkv, out, lse, 2, 16, False, 0.125)

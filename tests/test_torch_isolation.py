@@ -46,6 +46,11 @@ def test_port_imports_nothing_of_jax():
     modules = _modules()
     assert "avion_tpu_torch.serve.server" in modules
     assert "avion_tpu_torch.ops.flash_attention" in modules
+    for mod in ("train.pretrain_clip", "train.loop", "train.steps",
+                "optim.factory", "optim.schedules", "losses.losses",
+                "core.checkpoint", "core.train_state", "core.meters",
+                "core.logging", "data.loader", "parallel.launch"):
+        assert f"avion_tpu_torch.{mod}" in modules
     script = _SCRIPT.format(blocked=BLOCKED, modules=modules, root=ROOT)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
