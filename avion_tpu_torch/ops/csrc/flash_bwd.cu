@@ -6,473 +6,663 @@
 //
 // Replaces three Pallas TPU kernels of avion_tpu/ops/flash_attention.py:
 //   - `_bwd_combined_kernel` (used while ceil(S, 128) <= 1024): dq, dk and
-//     dv from one score recompute.  Here: `bwd_kv_kernel<..., kDq=true>`
-//     plus `dq_convert_kernel`;
+//     dv from one score recompute.  Here: `delta_kernel`, then
+//     `bwd_kv_kernel<..., kDq=true>`, then `dq_convert_kernel`;
 //   - `_bwd_dkv_kernel`: dk and dv per key tile from transposed scores.
-//     Here: `bwd_kv_kernel<..., kDq=false>`;
+//     Here: `delta_kernel`, then `bwd_kv_kernel<..., kDq=false>`;
 //   - `_bwd_dq_kernel`: dq per query tile, delta computed in-kernel.  Here:
 //     `bwd_dq_kernel`.
-// The three share their device code (one file, templates on D in {64, 128}
-// and on causal).
+// Templates on D in {64, 128} and on causal; Hopper helpers in
+// flash_sm90.cuh.
 //
 // Math, in the log2 domain of the forward (flash_fwd.cu): S2 = (q scaled
-// by sm_scale * log2(e), rounded to bf16) k^T, P = exp2(S2 - lse) with the
-// forward's lse, dP = dO V^T, dS = P * (dP - delta) with delta = rowsum(dO *
-// O), then dV = bf16(P)^T dO, dK = bf16(dS)^T Q * sm_scale and dQ = bf16(dS)
-// K * sm_scale, every product in bf16 with f32 accumulation.
+// by sm_scale * log2(e) in f32, rounded to bf16) k^T, P = exp2(S2 - lse)
+// with the forward's lse, so P is the forward's P; dP = dO V^T, dS = P *
+// (dP - delta) with delta = rowsum(dO * O), then dV = bf16(P)^T dO, dK =
+// bf16(dS)^T Q * sm_scale and dQ = bf16(dS) K * sm_scale, every product in
+// bf16 with f32 accumulation.
 //
 // What bounds it on an H100.  The backward does five S x S x D products to
-// the forward's two (2.5x the tensor-core work; the split route recomputes
-// the scores and dP once more, seven).  At the visual tower's S = 785 that
-// is far above the card's ~295 flop/byte ridge: it is bound by tensor-core
-// operations, and the causal text tower (S = 77) by bytes.  The TPU kernel
-// holds the whole [S_pad, S_pad] score tile of a (batch, head-group) in
-// VMEM; 227 KB of shared memory cannot, so the design is FlashAttention-2's:
-//   - one block per (key tile of 64, head, batch), 4 warps with 16 keys
-//     each, looping over query tiles (64 rows at D = 64, 32 at D = 128 to
-//     stay within 255 registers); dk and dv accumulate in registers for the
-//     whole loop, S^T and dP^T never leave registers, and P^T / dS^T are
-//     repacked in registers as the A operand of the dV / dK products;
-//   - query, dO, lse and delta tiles are double-buffered in shared memory
-//     (cp.async), keys and values stay resident;
-//   - the combined route also needs dq, a sum over key tiles, i.e. across
-//     blocks: dS goes through shared memory, each block computes its
-//     [rows, D] share of dQ and adds it with f32 atomics into an f32
-//     scratch [B, S, W], which dq_convert_kernel scales and casts into the
-//     dq section.  The atomics make dq's summation order, and so its last
-//     bits, vary from run to run; the split route has none;
-//   - no padding of S: ragged tiles are zero-filled by cp.async, keys past
-//     S are masked to -inf before exp2, query rows past S get lse = +inf
-//     (so P = 0 and dS = 0) and no row past S is stored;
+// the forward's two (the split route recomputes the scores and dP once
+// more, seven).  At the visual tower's S = 785 and S = 3137 that is far
+// above the card's ~295 flop/byte ridge: tensor-core operations bound it.
+// The causal text tower (S = 77, one key tile) does little arithmetic per
+// byte and is bound by bytes and launch latency.  On this card only wgmma
+// reaches the tensor cores' full rate, and it wants its operands in
+// swizzled shared memory, fed without the math warps' help.  So:
+//   - each block is one consumer warpgroup (64 keys of the dk/dv kernel, or
+//     64 query rows of the dq kernel) and a producer warpgroup that gives
+//     its registers to the consumers (setmaxnreg, 24 against 232 a thread)
+//     and of which one warp keeps TMA loads in flight through a 2-stage
+//     ring of mbarriers (full / empty); two blocks share an SM;
+//   - dk/dv kernel: K and V stay resident; the ring carries the query
+//     tiles (Q, dO, lse, delta).  S^T = K Q~^T and dP^T = V dO^T with both
+//     operands in shared memory; dV += bf16(P^T) dO and dK += bf16(dS^T) Q
+//     with A taken from the accumulators repacked in registers and B read
+//     MN-major.  Q~ (q scaled and rounded as the forward does it) is made
+//     once per stage into a buffer of its own, not once per product;
+//   - dq kernel: Q (scaled once, in place) and dO stay resident; the ring
+//     carries (K, V).  S = Q~ K^T, dP = dO V^T, dQ += bf16(dS) K;
+//   - the combined route's dq is a sum over key tiles, i.e. across blocks.
+//     Each block writes dS^T to shared memory, forms its [64, D] share of
+//     dQ by wgmma (dS read MN-major), stages it in shared memory (row-major,
+//     16-byte chunks swizzled against bank conflicts) and adds it to an f32
+//     scratch with one bulk reduce-add (FlashAttention-3's scheme; no
+//     per-element atomics); dq_convert_kernel scales and casts it into the
+//     dq section.  The order of the sums, and so dq's last bits, varies from
+//     run to run; the split route's does not;
+//   - no padding of S: the tensor maps end at row S, so TMA zero-fills the
+//     ragged tile and never reads a row past S; keys past S are masked to
+//     -inf before exp2 (against inf * 0 when an lse is below -128), query
+//     rows past S get lse = +inf (P = 0, dS = 0), and no row past S is
+//     stored;
 //   - causal: key tiles skip the query tiles wholly above the diagonal, and
-//     the dq kernel stops at the diagonal tile.
-// mma.sync m16n8k16; wgmma and TMA are later work.
+//     the dq kernel stops at the diagonal tile;
+//   - delta = rowsum(dO * O), which the JAX package computes outside its
+//     combined and dkv kernels, is delta_kernel here: one pass over dO and
+//     O (bytes bound);
+//   - P = exp2(S2 - lse) by the special-function unit (ex2.approx, relative
+//     error ~2^-22, far below bf16(P)'s 2^-9).
 
-#include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
 using namespace avion;
+using namespace avion::sm90;
 
-constexpr int kBlockK = 64;   // keys per block of the dk/dv kernel
-constexpr int kBlockQd = 64;  // query rows per block of the dq kernel
+constexpr int kBlock = 64;        // keys, query rows and rows of every tile
+constexpr int kConsumers = 128;   // one consumer warpgroup
+constexpr int kStages = 2;        // of the ring
+// and a producer warpgroup, of which one warp works: setmaxnreg moves
+// registers a warpgroup at a time
+constexpr int kBwdThreads = kConsumers + 128;
+// two blocks an SM give each thread kEntryRegs at launch (ptxas); the
+// producer warpgroup hands what it does not need to the consumers
+constexpr int kEntryRegs = 128, kProducerRegs = 24, kConsumerRegs = 232;
+static_assert(128 * (kEntryRegs - kProducerRegs) ==
+                  kConsumers * (kConsumerRegs - kEntryRegs),
+              "register hand-over must balance");
 
-template <int D>
-struct KvTile {
-  static constexpr int kBlockQ = D == 64 ? 64 : 32;  // query rows per step
-  static constexpr int kLd = D + kPad;
-  static constexpr int kLdS = kBlockK + kPad;  // pitch of the dS tile
-  // K, V; Q and dO double-buffered; dS; lse and delta double-buffered
-  static constexpr int kSmemBytes =
-      (2 * kBlockK * kLd + 4 * kBlockQ * kLd + kBlockQ * kLdS) * 2 +
-      4 * kBlockQ * 4;
+// byte offsets of the dk/dv kernel's shared memory, from a 1024-aligned base
+template <int D, bool kDq>
+struct KvSmem {
+  static constexpr int kTile = D / 64 * kTileBytes;  // one [64, D] tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kTile;
+  static constexpr int kQ = kV + kTile;                   // per stage
+  static constexpr int kDo = kQ + kStages * kTile;        // per stage
+  static constexpr int kQs = kDo + kStages * kTile;       // per stage: q~
+  static constexpr int kDs = kQs + kStages * kTile;       // dS^T [keys][queries]
+  static constexpr int kDqStage = kDs + (kDq ? kTileBytes : 0);  // f32 dQ share
+  static constexpr int kLse = kDqStage + (kDq ? kBlock * D * 4 : 0);  // per stage
+  static constexpr int kDelta = kLse + kStages * kBlock * 4;          // per stage
+  static constexpr int kBars = kDelta + kStages * kBlock * 4;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
 };
 
+// byte offsets of the dq kernel's shared memory
 template <int D>
-struct DqTile {
-  static constexpr int kLd = D + kPad;
-  // Q, dO; K and V double-buffered; lse, delta
-  static constexpr int kSmemBytes =
-      (2 * kBlockQd * kLd + 4 * kBlockK * kLd) * 2 + 2 * kBlockQd * 4;
+struct DqSmem {
+  static constexpr int kTile = D / 64 * kTileBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQ + kTile;
+  static constexpr int kK = kDo + kTile;              // per stage
+  static constexpr int kV = kK + kStages * kTile;     // per stage
+  static constexpr int kDelta = kV + kStages * kTile;
+  static constexpr int kBars = kDelta + kBlock * 4;
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
 };
-
-// One A fragment (16 rows from `row0`, k-step at column `col`) of a
-// row-major bf16 tile in shared memory.
-__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* x,
-                                       int ld, int row0, int col) {
-  const int lane = threadIdx.x % 32;
-  const __nv_bfloat16* p = x + (row0 + lane / 4) * ld + col + (lane % 4) * 2;
-  a[0] = ld_u32(p);
-  a[1] = ld_u32(p + 8 * ld);
-  a[2] = ld_u32(p + 8);
-  a[3] = ld_u32(p + 8 * ld + 8);
-}
 
 // dk and dv (and, with kDq, this key tile's share of dq) for one
-// (key tile, head, batch).
+// (key tile of 64, head, batch).
 template <int D, bool kCausal, bool kDq>
-__global__ void __launch_bounds__(kThreads)
-    bwd_kv_kernel(const __nv_bfloat16* __restrict__ qkv,
-                  const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    bwd_kv_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                  const __grid_constant__ CUtensorMap map_do,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dqkv,
                   float* __restrict__ dq_acc, int seq, int width,
-                  long long in_batch_stride, long long in_row_stride,
                   long long g_batch_stride, long long g_row_stride,
                   float scale_log2, float sm_scale) {
-  using T = KvTile<D>;
-  constexpr int kBlockQ = T::kBlockQ;
-  constexpr int kLd = T::kLd;
-  constexpr int kLdS = T::kLdS;
-  constexpr int kQTiles = kBlockQ / 8;  // n-tiles of S^T and dP^T
-  constexpr int kDTiles = D / 8;
+  using L = KvSmem<D, kDq>;
+  constexpr int kChunks = D / 64;  // 64-column tiles across the head
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* s_k = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* s_v = s_k + kBlockK * kLd;
-  __nv_bfloat16* s_q = s_v + kBlockK * kLd;     // 2 buffers
-  __nv_bfloat16* s_do = s_q + 2 * kBlockQ * kLd;  // 2 buffers
-  __nv_bfloat16* s_ds = s_do + 2 * kBlockQ * kLd;
-  float* s_lse = reinterpret_cast<float*>(s_ds + kBlockQ * kLdS);  // 2 buffers
-  float* s_delta = s_lse + 2 * kBlockQ;                             // 2 buffers
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_bar = empty + kStages;
+  float* s_lse = reinterpret_cast<float*>(smem + L::kLse);
+  float* s_delta = reinterpret_cast<float*>(smem + L::kDelta);
 
-  const int k0 = blockIdx.x * kBlockK;
+  const int k0 = blockIdx.x * kBlock;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tig = lane % 4;
+  const int n_q = (seq + kBlock - 1) / kBlock;
+  const int t0 = kCausal ? blockIdx.x : 0;  // earlier rows see no key here
+  const int n_steps = n_q - t0;
 
-  const __nv_bfloat16* q_src = qkv + batch * in_batch_stride + head * D;
-  const __nv_bfloat16* k_src = q_src + width;
-  const __nv_bfloat16* v_src = q_src + 2 * width;
-  const __nv_bfloat16* do_src =
-      dout + static_cast<long long>(batch) * seq * width + head * D;
-  const long long row_base = (static_cast<long long>(batch) * gridDim.y + head)
-                             * seq;  // of lse and delta
-
-  auto load_q_tile = [&](int t, int buf) {
-    load_tile<kBlockQ, D>(s_q + buf * kBlockQ * kLd, q_src, in_row_stride,
-                          t * kBlockQ, seq);
-    load_tile<kBlockQ, D>(s_do + buf * kBlockQ * kLd, do_src, width,
-                          t * kBlockQ, seq);
-    if (threadIdx.x < kBlockQ) {
-      const int q = t * kBlockQ + threadIdx.x;
-      s_lse[buf * kBlockQ + threadIdx.x] =
-          q < seq ? lse[row_base + q] : INFINITY;  // P = 0 past S
-      s_delta[buf * kBlockQ + threadIdx.x] = q < seq ? delta[row_base + q] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // every producer lane (lse, delta) + TMA bytes
+      mbar_init(&empty[s], kConsumers);
     }
-  };
-
-  const int n_q = (seq + kBlockQ - 1) / kBlockQ;
-  const int t0 = kCausal ? k0 / kBlockQ : 0;  // earlier rows see no key here
-
-  load_tile<kBlockK, D>(s_k, k_src, in_row_stride, k0, seq);
-  load_tile<kBlockK, D>(s_v, v_src, in_row_stride, k0, seq);
-  load_q_tile(t0, 0);
-  cp_async_commit();
-
-  float acc_dk[kDTiles][4], acc_dv[kDTiles][4];
-#pragma unroll
-  for (int n = 0; n < kDTiles; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
-  const int key_a = k0 + warp * 16 + g;  // key of c0/c1; c2/c3 are key_a + 8
-
-  for (int t = t0; t < n_q; ++t) {
-    const int buf = (t - t0) & 1;
-    if (t + 1 < n_q) {
-      load_q_tile(t + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* q_t = s_q + buf * kBlockQ * kLd;
-    const __nv_bfloat16* do_t = s_do + buf * kBlockQ * kLd;
-    const float* lse_t = s_lse + buf * kBlockQ;
-    const float* delta_t = s_delta + buf * kBlockQ;
-    const int q0 = t * kBlockQ;
-
-    // S^T = K (scaled q)^T and dP^T = V dO^T: 16 keys x kBlockQ per warp
-    float acc_s[kQTiles][4], acc_dp[kQTiles][4];
-#pragma unroll
-    for (int j = 0; j < kQTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_s[j][e] = acc_dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      load_a(ak, s_k, kLd, warp * 16, kk * 16);
-      load_a(av, s_v, kLd, warp * 16, kk * 16);
-#pragma unroll
-      for (int j = 0; j < kQTiles; ++j) {
-        const __nv_bfloat16* qp = q_t + (j * 8 + g) * kLd + kk * 16 + tig * 2;
-        mma_16816(acc_s[j], ak, scale_bf16x2(ld_u32(qp), scale_log2),
-                  scale_bf16x2(ld_u32(qp + 8), scale_log2));
-        const __nv_bfloat16* dp = do_t + (j * 8 + g) * kLd + kk * 16 + tig * 2;
-        mma_16816(acc_dp[j], av, ld_u32(dp), ld_u32(dp + 8));
-      }
-    }
-
-    // P^T = exp2(S^T - lse) with keys past S (and, if causal, past the
-    // query) at -inf; dS^T = P^T (dP^T - delta)
-#pragma unroll
-    for (int j = 0; j < kQTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key_a + (e >> 1) * 8;
-        const int ql = j * 8 + tig * 2 + (e & 1);
-        float s = acc_s[j][e];
-        if (key >= seq || (kCausal && key > q0 + ql)) s = -INFINITY;
-        const float p = exp2f(s - lse_t[ql]);
-        acc_s[j][e] = p;
-        acc_dp[j][e] = p * (acc_dp[j][e] - delta_t[ql]);
-      }
-
-    // dV += bf16(P^T) dO, dK += bf16(dS^T) Q: depth along the query rows
-#pragma unroll
-    for (int kk = 0; kk < kBlockQ / 16; ++kk) {
-      uint32_t a[4];
-      pack_c_as_a(a, acc_s[2 * kk], acc_s[2 * kk + 1]);
-      mma_rows_b<kDTiles>(acc_dv, a, do_t, kLd, kk * 16);
-      pack_c_as_a(a, acc_dp[2 * kk], acc_dp[2 * kk + 1]);
-      mma_rows_b<kDTiles>(acc_dk, a, q_t, kLd, kk * 16);
-    }
-
-    if (kDq) {
-      // dS, query-major, through shared memory; then dQ[q0 .., :] +=
-      // bf16(dS) K over this block's 64 keys, split over the 4 warps as
-      // (16-row group, column range) and added with f32 atomics
-#pragma unroll
-      for (int j = 0; j < kQTiles; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s_ds[(j * 8 + tig * 2 + (e & 1)) * kLdS + warp * 16 + g +
-               (e >> 1) * 8] = __float2bfloat16_rn(acc_dp[j][e]);
-      __syncthreads();
-      constexpr int kRowGroups = kBlockQ / 16;
-      constexpr int kCols = D / (kWarps / kRowGroups);
-      const int rg = warp % kRowGroups;
-      const int c0 = (warp / kRowGroups) * kCols;
-      float acc_dq[kCols / 8][4];
-#pragma unroll
-      for (int n = 0; n < kCols / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc_dq[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, s_ds, kLdS, rg * 16, kk * 16);
-        mma_rows_b<kCols / 8>(acc_dq, a, s_k + c0, kLd, kk * 16);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int q = q0 + rg * 16 + g + r * 8;
-        if (q >= seq) continue;
-        float* dst = dq_acc + (static_cast<long long>(batch) * seq + q) * width +
-                     head * D + c0 + tig * 2;
-#pragma unroll
-        for (int n = 0; n < kCols / 8; ++n) {
-          atomicAdd(dst + n * 8, acc_dq[n][2 * r]);
-          atomicAdd(dst + n * 8 + 1, acc_dq[n][2 * r + 1]);
-        }
-      }
-    }
-    __syncthreads();  // these buffers are refilled next iteration
+    mbar_init(kv_bar, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  // store dk (times sm_scale) and dv for keys below S
-  __nv_bfloat16* dst = dqkv + batch * g_batch_stride + head * D + tig * 2;
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warp: K, V once; then (Q, dO, lse, delta) per stage
+    regs_dealloc<kProducerRegs>();
+    const int lane = threadIdx.x - kConsumers;
+    if (lane >= 32) return;  // the warpgroup's other warps have no work
+    const long long row_base =
+        (static_cast<long long>(batch) * gridDim.y + head) * seq;
+    if (lane == 0) {
+      tma_prefetch_map(&map_qkv);
+      tma_prefetch_map(&map_do);
+      mbar_arrive_expect_tx(kv_bar, 2 * L::kTile);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key_a + r * 8;
-    if (key >= seq) continue;
-    __nv_bfloat16* row = dst + key * g_row_stride;
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load_tile(smem + L::kK + c * kTileBytes, &map_qkv, kv_bar,
+                      width + head * D + 64 * c, k0, batch);
+        tma_load_tile(smem + L::kV + c * kTileBytes, &map_qkv, kv_bar,
+                      2 * width + head * D + 64 * c, k0, batch);
+      }
+    }
+    for (int i = 0; i < n_steps; ++i) {
+      const int stage = i % kStages;
+      mbar_wait(&empty[stage], ((i / kStages) & 1) ^ 1);
+      const int q0 = (t0 + i) * kBlock;
+      for (int r = lane; r < kBlock; r += 32) {
+        const int q = q0 + r;
+        s_lse[stage * kBlock + r] = q < seq ? lse[row_base + q] : INFINITY;
+        s_delta[stage * kBlock + r] = q < seq ? delta[row_base + q] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[stage], 2 * L::kTile);
 #pragma unroll
-    for (int n = 0; n < kDTiles; ++n) {
-      *reinterpret_cast<uint32_t*>(row + width + n * 8) = pack_bf16(
-          acc_dk[n][2 * r] * sm_scale, acc_dk[n][2 * r + 1] * sm_scale);
-      *reinterpret_cast<uint32_t*>(row + 2 * width + n * 8) =
-          pack_bf16(acc_dv[n][2 * r], acc_dv[n][2 * r + 1]);
+        for (int c = 0; c < kChunks; ++c) {
+          const int off = stage * L::kTile + c * kTileBytes;
+          tma_load_tile(smem + L::kQ + off, &map_qkv, &full[stage],
+                        head * D + 64 * c, q0, batch);
+          tma_load_tile(smem + L::kDo + off, &map_do, &full[stage],
+                        head * D + 64 * c, q0, batch);
+        }
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup: 64 keys, 16 a warp
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int warp = tid / 32;
+    const int g = (tid % 32) / 4;
+    const int tq = tid % 4;
+    const unsigned char* s_k = smem + L::kK;
+    const unsigned char* s_v = smem + L::kV;
+    const int key_a = k0 + warp * 16 + g;  // key of rows i = 0; +8 for i = 1
+
+    float acc_dk[kChunks][32], acc_dv[kChunks][32];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc_dk[c][e] = acc_dv[c][e] = 0.f;
+
+    mbar_wait(kv_bar, 0);
+    for (int i = 0; i < n_steps; ++i) {
+      const int stage = i % kStages;
+      const int q0 = (t0 + i) * kBlock;
+      mbar_wait(&full[stage], (i / kStages) & 1);
+      const unsigned char* s_q = smem + L::kQ + stage * L::kTile;
+      const unsigned char* s_do = smem + L::kDo + stage * L::kTile;
+      unsigned char* s_qs = smem + L::kQs + stage * L::kTile;
+      const float* lse_t = s_lse + stage * kBlock;
+      const float* delta_t = s_delta + stage * kBlock;
+
+      // q~ = bf16(q * sm_scale * log2(e)), once per stage
+      scale_tile<L::kTile, kConsumers>(s_qs, s_q, scale_log2, tid);
+      fence_proxy_async();
+      bar_sync(1, kConsumers);
+
+      // S^T = K q~^T and dP^T = V dO^T: [64 keys, 64 queries]
+      float acc_s[32], acc_dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0, 0>(acc_s, desc_k(s_k + kk / 4 * kTileBytes, kk % 4),
+                       desc_k(s_qs + kk / 4 * kTileBytes, kk % 4), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0, 0>(acc_dp, desc_k(s_v + kk / 4 * kTileBytes, kk % 4),
+                       desc_k(s_do + kk / 4 * kTileBytes, kk % 4), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_s);
+      fence_regs(acc_dp);
+
+      // P^T = exp2(S^T - lse) with keys past S (and, if causal, past the
+      // query) at -inf; dS^T = P^T (dP^T - delta)
+      const bool masked = k0 + kBlock > seq || (kCausal && i == 0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int ql = 8 * j + 2 * tq;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + ql);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_t + ql);
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * j + 2 * ii + e;
+            const int key = key_a + 8 * ii;
+            float s = acc_s[idx];
+            if (masked && (key >= seq || (kCausal && key > q0 + ql + e)))
+              s = -INFINITY;
+            const float p = exp2_approx(s - (e ? l2.y : l2.x));
+            acc_s[idx] = p;
+            acc_dp[idx] = p * (acc_dp[idx] - (e ? d2.y : d2.x));
+          }
+      }
+
+      // dV += bf16(P^T) dO, dK += bf16(dS^T) Q: depth along the queries
+      uint32_t a_p[4][4], a_ds[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        acc_as_a(a_p[k], acc_s, k);
+        acc_as_a(a_ds[k], acc_dp, k);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          wgmma_rs<1>(acc_dv[c], a_p[k], desc_mn(s_do + c * kTileBytes, k), 1);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          wgmma_rs<1>(acc_dk[c], a_ds[k], desc_mn(s_q + c * kTileBytes, k), 1);
+      wgmma_commit();
+
+      if (kDq) {
+        // dS^T into shared memory, swizzled as TMA would write it
+        unsigned char* s_ds = smem + L::kDs;
+        const int r0 = warp * 16 + g;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int c0 = 16 * k + 2 * tq;
+          *reinterpret_cast<uint32_t*>(s_ds + sw128_offset(r0, c0)) = a_ds[k][0];
+          *reinterpret_cast<uint32_t*>(s_ds + sw128_offset(r0 + 8, c0)) = a_ds[k][1];
+          *reinterpret_cast<uint32_t*>(s_ds + sw128_offset(r0, c0 + 8)) = a_ds[k][2];
+          *reinterpret_cast<uint32_t*>(s_ds + sw128_offset(r0 + 8, c0 + 8)) = a_ds[k][3];
+        }
+        fence_proxy_async();
+        if (tid == 0) bulk_wait_read();  // the last share has left the stage
+        bar_sync(1, kConsumers);
+
+        // dQ[q0 .., :] share = bf16(dS) K over these 64 keys, 64 columns at
+        // a time, staged row-major [64][D] f32 with the 16-byte chunks of
+        // row r swizzled by r % 8 (no bank conflicts), then bulk-added to
+        // dq_acc by one thread
+        float* stage_dq = reinterpret_cast<float*>(smem + L::kDqStage);
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          float acc_dq[32];
+          wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            wgmma_ss<1, 1>(acc_dq, desc_mn(s_ds, k),
+                           desc_mn(s_k + c * kTileBytes, k), k);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc_dq);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int ii = 0; ii < 2; ++ii) {
+              const int r = warp * 16 + g + 8 * ii;
+              const int chunk = (16 * c + 2 * j + (tq >> 1)) ^ (r & 7);
+              *reinterpret_cast<float2*>(stage_dq + r * D + chunk * 4 +
+                                         (tq & 1) * 2) =
+                  make_float2(acc_dq[4 * j + 2 * ii], acc_dq[4 * j + 2 * ii + 1]);
+            }
+        }
+        fence_proxy_async();
+        bar_sync(1, kConsumers);
+        if (tid == 0)
+          bulk_reduce_add_f32(
+              dq_acc + ((static_cast<long long>(batch) * gridDim.y + head) * n_q +
+                        t0 + i) * (kBlock * D),
+              stage_dq, kBlock * D * 4);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        fence_regs(acc_dv[c]);
+        fence_regs(acc_dk[c]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        fence_regs(a_p[k]);
+        fence_regs(a_ds[k]);
+      }
+      mbar_arrive(&empty[stage]);
+    }
+    if (kDq && tid == 0) bulk_wait();
+
+    // store dk (times sm_scale) and dv for keys below S
+    __nv_bfloat16* dst = dqkv + batch * g_batch_stride + head * D + 2 * tq;
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int key = key_a + 8 * ii;
+      if (key >= seq) continue;
+      __nv_bfloat16* row = dst + key * g_row_stride;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int idx = 4 * j + 2 * ii;
+          const int col = 64 * c + 8 * j;
+          *reinterpret_cast<uint32_t*>(row + width + col) =
+              pack_bf16(acc_dk[c][idx] * sm_scale, acc_dk[c][idx + 1] * sm_scale);
+          *reinterpret_cast<uint32_t*>(row + 2 * width + col) =
+              pack_bf16(acc_dv[c][idx], acc_dv[c][idx + 1]);
+        }
     }
   }
 }
 
-// dq for one (query tile, head, batch), with delta = rowsum(dO * O)
+// dq for one (query tile of 64, head, batch), with delta = rowsum(dO * O)
 // computed here from dO and the forward's output.
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-    bwd_dq_kernel(const __nv_bfloat16* __restrict__ qkv,
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    bwd_dq_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                  const __grid_constant__ CUtensorMap map_do,
                   const __nv_bfloat16* __restrict__ dout,
                   const __nv_bfloat16* __restrict__ out,
                   const float* __restrict__ lse,
                   __nv_bfloat16* __restrict__ dqkv, int seq, int width,
-                  long long in_batch_stride, long long in_row_stride,
                   long long g_batch_stride, long long g_row_stride,
                   float scale_log2, float sm_scale) {
-  constexpr int kLd = DqTile<D>::kLd;
-  constexpr int kElems = kBlockK * kLd;
-  constexpr int kDTiles = D / 8;
-  constexpr int kNTiles = kBlockK / 8;
+  using L = DqSmem<D>;
+  constexpr int kChunks = D / 64;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* s_do = s_q + kBlockQd * kLd;
-  __nv_bfloat16* s_k = s_do + kBlockQd * kLd;  // 2 buffers
-  __nv_bfloat16* s_v = s_k + 2 * kElems;        // 2 buffers
-  float* s_lse = reinterpret_cast<float*>(s_v + 2 * kElems);
-  float* s_delta = s_lse + kBlockQd;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_bar = empty + kStages;
+  float* s_delta = reinterpret_cast<float*>(smem + L::kDelta);
 
-  const int q0 = blockIdx.x * kBlockQd;
+  const int q0 = blockIdx.x * kBlock;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tig = lane % 4;
+  int n_tiles = (seq + kBlock - 1) / kBlock;
+  if (kCausal) n_tiles = min(n_tiles, static_cast<int>(blockIdx.x) + 1);
 
-  const __nv_bfloat16* q_src = qkv + batch * in_batch_stride + head * D;
-  const __nv_bfloat16* k_src = q_src + width;
-  const __nv_bfloat16* v_src = q_src + 2 * width;
-  const long long io_base = static_cast<long long>(batch) * seq * width +
-                            head * D;  // of dO and O
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  int n_tiles = (seq + kBlockK - 1) / kBlockK;
-  if (kCausal) n_tiles = min(n_tiles, q0 / kBlockK + 1);
-
-  load_tile<kBlockQd, D>(s_q, q_src, in_row_stride, q0, seq);
-  load_tile<kBlockQd, D>(s_do, dout + io_base, width, q0, seq);
-  cp_async_commit();
-  load_tile<kBlockK, D>(s_k, k_src, in_row_stride, 0, seq);
-  load_tile<kBlockK, D>(s_v, v_src, in_row_stride, 0, seq);
-  cp_async_commit();
-
-  // delta and lse of the tile's rows: two threads per row, half of D each
-  {
-    const int rl = threadIdx.x / 2;
-    const int row = q0 + rl;
-    float part = 0.f;
-    if (row < seq) {
-      const long long off = io_base + static_cast<long long>(row) * width +
-                            (threadIdx.x % 2) * (D / 2);
-#pragma unroll 8
-      for (int c = 0; c < D / 2; c += 2) {
-        const float2 a = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(dout + off + c));
-        const float2 b = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(out + off + c));
-        part += a.x * b.x + a.y * b.y;
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warp: Q, dO once; then (K, V) per stage
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      tma_prefetch_map(&map_qkv);
+      tma_prefetch_map(&map_do);
+      mbar_arrive_expect_tx(q_bar, 2 * L::kTile);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        tma_load_tile(smem + L::kQ + c * kTileBytes, &map_qkv, q_bar,
+                      head * D + 64 * c, q0, batch);
+        tma_load_tile(smem + L::kDo + c * kTileBytes, &map_do, q_bar,
+                      head * D + 64 * c, q0, batch);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int stage = i % kStages;
+        mbar_wait(&empty[stage], ((i / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[stage], 2 * L::kTile);
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load_tile(smem + L::kK + stage * L::kTile + c * kTileBytes,
+                        &map_qkv, &full[stage], width + head * D + 64 * c,
+                        i * kBlock, batch);
+          tma_load_tile(smem + L::kV + stage * L::kTile + c * kTileBytes,
+                        &map_qkv, &full[stage], 2 * width + head * D + 64 * c,
+                        i * kBlock, batch);
+        }
       }
     }
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    if (threadIdx.x % 2 == 0) {
-      s_delta[rl] = part;
-      s_lse[rl] = row < seq
+  } else {
+    // ---- consumer warpgroup: 64 query rows, 16 a warp
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int warp = tid / 32;
+    const int g = (tid % 32) / 4;
+    const int tq = tid % 4;
+    const int row_a = q0 + warp * 16 + g;  // row of i = 0; +8 for i = 1
+
+    // delta of the tile's rows from global memory: two threads a row
+    {
+      const int rl = tid / 2;
+      const int row = q0 + rl;
+      float part = 0.f;
+      if (row < seq) {
+        const long long off =
+            (static_cast<long long>(batch) * seq + row) * width + head * D +
+            (tid % 2) * (D / 2);
+#pragma unroll
+        for (int c = 0; c < D / 2; c += 8) {
+          const uint4 a = *reinterpret_cast<const uint4*>(dout + off + c);
+          const uint4 b = *reinterpret_cast<const uint4*>(out + off + c);
+          const uint32_t* pa = reinterpret_cast<const uint32_t*>(&a);
+          const uint32_t* pb = reinterpret_cast<const uint32_t*>(&b);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float2 x = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&pa[u]));
+            const float2 y = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&pb[u]));
+            part += x.x * y.x + x.y * y.y;
+          }
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      if (tid % 2 == 0) s_delta[rl] = part;
+    }
+    float lse_r[2];
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int row = row_a + 8 * ii;
+      lse_r[ii] = row < seq
           ? lse[(static_cast<long long>(batch) * gridDim.y + head) * seq + row]
           : INFINITY;  // P = 0 past S
     }
-  }
-  cp_async_wait<1>();
-  __syncthreads();
 
-  // q fragments for this warp's 16 rows, pre-scaled by sm_scale*log2(e)
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(qf[kk], s_q, kLd, warp * 16, kk * 16);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qf[kk][i] = scale_bf16x2(qf[kk][i], scale_log2);
-  }
-  const int row_a = q0 + warp * 16 + g;  // row of c0/c1; c2/c3 are row_a + 8
-  const float lse_r[2] = {s_lse[warp * 16 + g], s_lse[warp * 16 + g + 8]};
-  const float delta_r[2] = {s_delta[warp * 16 + g], s_delta[warp * 16 + g + 8]};
+    // q~ = bf16(q * sm_scale * log2(e)), once, in place
+    mbar_wait(q_bar, 0);
+    unsigned char* s_q = smem + L::kQ;
+    const unsigned char* s_do = smem + L::kDo;
+    scale_tile<L::kTile, kConsumers>(s_q, s_q, scale_log2, tid);
+    fence_proxy_async();
+    bar_sync(1, kConsumers);
+    const float delta_r[2] = {s_delta[warp * 16 + g], s_delta[warp * 16 + g + 8]};
 
-  float acc_dq[kDTiles][4];
+    float acc_dq[kChunks][32];
 #pragma unroll
-  for (int n = 0; n < kDTiles; ++n)
+    for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dq[n][e] = 0.f;
+      for (int e = 0; e < 32; ++e) acc_dq[c][e] = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {
-      load_tile<kBlockK, D>(s_k + (buf ^ 1) * kElems, k_src, in_row_stride,
-                            (t + 1) * kBlockK, seq);
-      load_tile<kBlockK, D>(s_v + (buf ^ 1) * kElems, v_src, in_row_stride,
-                            (t + 1) * kBlockK, seq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int i = 0; i < n_tiles; ++i) {
+      const int stage = i % kStages;
+      const int kv0 = i * kBlock;
+      mbar_wait(&full[stage], (i / kStages) & 1);
+      const unsigned char* s_k = smem + L::kK + stage * L::kTile;
+      const unsigned char* s_v = smem + L::kV + stage * L::kTile;
+
+      // S = q~ K^T and dP = dO V^T: [64 rows, 64 keys]
+      float acc_s[32], acc_dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0, 0>(acc_s, desc_k(s_q + kk / 4 * kTileBytes, kk % 4),
+                       desc_k(s_k + kk / 4 * kTileBytes, kk % 4), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<0, 0>(acc_dp, desc_k(s_do + kk / 4 * kTileBytes, kk % 4),
+                       desc_k(s_v + kk / 4 * kTileBytes, kk % 4), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_s);
+      fence_regs(acc_dp);
+
+      // P = exp2(S - lse), keys past S (and past the row, if causal) at
+      // -inf; dS = P (dP - delta)
+      const bool masked = kv0 + kBlock > seq || (kCausal && kv0 == q0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * j + 2 * ii + e;
+            const int key = kv0 + 8 * j + 2 * tq + e;
+            float s = acc_s[idx];
+            if (masked && (key >= seq || (kCausal && key > row_a + 8 * ii)))
+              s = -INFINITY;
+            const float p = exp2_approx(s - lse_r[ii]);
+            acc_dp[idx] = p * (acc_dp[idx] - delta_r[ii]);
+          }
+
+      // dQ += bf16(dS) K: depth along the keys, K read MN-major
+      uint32_t a_ds[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc_as_a(a_ds[k], acc_dp, k);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          wgmma_rs<1>(acc_dq[c], a_ds[k], desc_mn(s_k + c * kTileBytes, k), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) fence_regs(acc_dq[c]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) fence_regs(a_ds[k]);
+      mbar_arrive(&empty[stage]);
     }
-    __syncthreads();
-    const __nv_bfloat16* k_t = s_k + buf * kElems;
-    const __nv_bfloat16* v_t = s_v + buf * kElems;
-    const int kv0 = t * kBlockK;
 
-    // S = (scaled q) K^T and dP = dO V^T: 16 rows x 64 keys per warp
-    float acc_s[kNTiles][4], acc_dp[kNTiles][4];
+    __nv_bfloat16* dst = dqkv + batch * g_batch_stride + head * D + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
+    for (int ii = 0; ii < 2; ++ii) {
+      const int row = row_a + 8 * ii;
+      if (row >= seq) continue;
+      __nv_bfloat16* o_row = dst + row * g_row_stride;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc_s[j][e] = acc_dp[j][e] = 0.f;
+      for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ado[4];
-      load_a(ado, s_do, kLd, warp * 16, kk * 16);
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j) {
-        const __nv_bfloat16* kp = k_t + (j * 8 + g) * kLd + kk * 16 + tig * 2;
-        mma_16816(acc_s[j], qf[kk], ld_u32(kp), ld_u32(kp + 8));
-        const __nv_bfloat16* vp = v_t + (j * 8 + g) * kLd + kk * 16 + tig * 2;
-        mma_16816(acc_dp[j], ado, ld_u32(vp), ld_u32(vp + 8));
-      }
+        for (int j = 0; j < 8; ++j) {
+          const int idx = 4 * j + 2 * ii;
+          *reinterpret_cast<uint32_t*>(o_row + 64 * c + 8 * j) = pack_bf16(
+              acc_dq[c][idx] * sm_scale, acc_dq[c][idx + 1] * sm_scale);
+        }
     }
-
-    // P = exp2(S - lse), keys past S (and past the row, if causal) at -inf;
-    // dS = P (dP - delta)
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + j * 8 + tig * 2 + (e & 1);
-        const int row = row_a + (e >> 1) * 8;
-        float s = acc_s[j][e];
-        if (key >= seq || (kCausal && key > row)) s = -INFINITY;
-        const float p = exp2f(s - lse_r[e >> 1]);
-        acc_dp[j][e] = p * (acc_dp[j][e] - delta_r[e >> 1]);
-      }
-
-    // dQ += bf16(dS) K: depth along the keys
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      pack_c_as_a(a, acc_dp[2 * kk], acc_dp[2 * kk + 1]);
-      mma_rows_b<kDTiles>(acc_dq, a, k_t, kLd, kk * 16);
-    }
-    __syncthreads();  // this buffer is refilled two iterations on
-  }
-
-  __nv_bfloat16* dst = dqkv + batch * g_batch_stride + head * D + tig * 2;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + r * 8;
-    if (row >= seq) continue;
-    __nv_bfloat16* o_row = dst + row * g_row_stride;
-#pragma unroll
-    for (int n = 0; n < kDTiles; ++n)
-      *reinterpret_cast<uint32_t*>(o_row + n * 8) = pack_bf16(
-          acc_dq[n][2 * r] * sm_scale, acc_dq[n][2 * r + 1] * sm_scale);
   }
 }
 
-// dq section of dqkv = bf16(dq_acc * sm_scale); dq_acc is [B, S, W] f32.
-__global__ void dq_convert_kernel(const float* __restrict__ dq_acc,
-                                  __nv_bfloat16* __restrict__ dqkv, int seq,
-                                  int width, long long g_batch_stride,
-                                  long long g_row_stride, float sm_scale,
-                                  long long pairs) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < pairs; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long idx = 2 * i;
-    const long long row = idx / width;  // batch * seq + position
-    const int col = static_cast<int>(idx % width);
-    const float2 v = reinterpret_cast<const float2*>(dq_acc)[i];
-    *reinterpret_cast<uint32_t*>(dqkv + (row / seq) * g_batch_stride +
-                                 (row % seq) * g_row_stride + col) =
-        pack_bf16(v.x * sm_scale, v.y * sm_scale);
+// dq section of dqkv = bf16(dq_acc * sm_scale) for one (query tile, head,
+// batch).  dq_acc holds, per (batch, head, query tile), the [64, D] share
+// as the dk/dv kernel staged it: row-major, 16-byte chunks swizzled.
+template <int D>
+__global__ void __launch_bounds__(kConsumers)
+    dq_convert_kernel(const float* __restrict__ dq_acc,
+                      __nv_bfloat16* __restrict__ dqkv, int seq,
+                      long long g_batch_stride, long long g_row_stride,
+                      float sm_scale) {
+  constexpr int kRowChunks = D / 4;
+  const int t = blockIdx.x;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const float4* src = reinterpret_cast<const float4*>(
+      dq_acc + ((static_cast<long long>(batch) * gridDim.y + head) * gridDim.x +
+                t) * (kBlock * D));
+  __nv_bfloat16* dst = dqkv + batch * g_batch_stride + head * D;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kBlock * kRowChunks; i += kConsumers) {
+    const int r = i / kRowChunks;
+    const int c = i % kRowChunks;
+    const int row = t * kBlock + r;
+    if (row >= seq) break;  // rows only grow with i
+    const float4 v = src[r * kRowChunks + (c ^ (r & 7))];
+    *reinterpret_cast<uint2*>(dst + row * g_row_stride + 4 * c) = make_uint2(
+        pack_bf16(v.x * sm_scale, v.y * sm_scale),
+        pack_bf16(v.z * sm_scale, v.w * sm_scale));
+  }
+}
+
+// delta[b, h, s] = rowsum over head h's D columns of dO * O, in f32: one
+// warp a row of the [B * S, W] inputs, D / 8 lanes a head.
+template <int D>
+__global__ void __launch_bounds__(256)
+    delta_kernel(const __nv_bfloat16* __restrict__ dout,
+                 const __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ delta, int seq, int heads,
+                 long long rows) {
+  const long long row = blockIdx.x * 8ll + threadIdx.x / 32;
+  if (row >= rows) return;  // a whole warp
+  const int lane = threadIdx.x % 32;
+  const int width = heads * D;
+  const long long batch = row / seq;
+  const int pos = static_cast<int>(row % seq);
+  for (int base = 0; base < width; base += 256) {
+    const int c = base + lane * 8;
+    float part = 0.f;
+    if (c < width) {
+      const uint4 a = *reinterpret_cast<const uint4*>(dout + row * width + c);
+      const uint4 b = *reinterpret_cast<const uint4*>(out + row * width + c);
+      const uint32_t* pa = reinterpret_cast<const uint32_t*>(&a);
+      const uint32_t* pb = reinterpret_cast<const uint32_t*>(&b);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 x =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pa[u]));
+        const float2 y =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pb[u]));
+        part += x.x * y.x + x.y * y.y;
+      }
+    }
+#pragma unroll
+    for (int off = D / 16; off > 0; off /= 2)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (c < width && lane % (D / 8) == 0)
+      delta[(batch * heads + c / D) * seq + pos] = part;
   }
 }
 
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int smem) {
-  return cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // the register hand-over holds only at the entry count it was built for;
+  // a launch at another count could wait forever in setmaxnreg
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  return attr.numRegs == kEntryRegs ? cudaSuccess
+                                    : cudaErrorInvalidConfiguration;
 }
 
 struct Args {
@@ -480,7 +670,7 @@ struct Args {
   const void* dout;
   const void* out;
   const void* lse;
-  const void* delta;
+  void* delta;
   void* dq_acc;
   void* dqkv;
   int batch, seq, heads;
@@ -489,46 +679,69 @@ struct Args {
   cudaStream_t stream;
 };
 
+// tensor maps over qkv (columns 3W, rows seq, batch) and dO (W, seq, batch)
+cudaError_t make_maps(const Args& a, int head_dim, CUtensorMap* map_qkv,
+                      CUtensorMap* map_do) {
+  const long long w = static_cast<long long>(a.heads) * head_dim;
+  const long long row_bytes = a.in_row_stride * 2;
+  // a batch of one never steps the batch coordinate
+  const long long batch_bytes =
+      a.batch > 1 ? a.in_batch_stride * 2 : row_bytes * a.seq;
+  cudaError_t err = make_tile_map(map_qkv, a.qkv, 3 * w, a.seq, a.batch,
+                                  row_bytes, batch_bytes);
+  if (err != cudaSuccess) return err;
+  return make_tile_map(map_do, a.dout, w, a.seq, a.batch, w * 2,
+                       w * 2 * a.seq);
+}
+
 template <int D, bool kCausal, bool kDq>
 int launch_kv(const Args& a) {
   auto kernel = bwd_kv_kernel<D, kCausal, kDq>;
-  constexpr int smem = KvTile<D>::kSmemBytes;
+  constexpr int smem = KvSmem<D, kDq>::kBytes;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.seq + kBlockK - 1) / kBlockK, a.heads, a.batch);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.qkv),
+  CUtensorMap map_qkv, map_do;
+  err = make_maps(a, D, &map_qkv, &map_do);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(a.batch) * a.seq;
+  delta_kernel<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
+                    a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<__nv_bfloat16*>(a.dqkv), static_cast<float*>(a.dq_acc),
-      a.seq, a.heads * D, a.in_batch_stride, a.in_row_stride,
-      a.g_batch_stride, a.g_row_stride, a.scale_log2, a.sm_scale);
+      static_cast<const __nv_bfloat16*>(a.out), static_cast<float*>(a.delta),
+      a.seq, a.heads, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_q = (a.seq + kBlock - 1) / kBlock;
+  const dim3 grid(n_q, a.heads, a.batch);
+  kernel<<<grid, kBwdThreads, smem, a.stream>>>(
+      map_qkv, map_do, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.dqkv),
+      static_cast<float*>(a.dq_acc), a.seq, a.heads * D, a.g_batch_stride,
+      a.g_row_stride, a.scale_log2, a.sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || !kDq) return static_cast<int>(err);
-  const long long pairs =
-      static_cast<long long>(a.batch) * a.seq * a.heads * D / 2;
-  const long long want = (pairs + 255) / 256;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  dq_convert_kernel<<<blocks, 256, 0, a.stream>>>(
+  dq_convert_kernel<D><<<grid, kConsumers, 0, a.stream>>>(
       static_cast<const float*>(a.dq_acc), static_cast<__nv_bfloat16*>(a.dqkv),
-      a.seq, a.heads * D, a.g_batch_stride, a.g_row_stride, a.sm_scale, pairs);
+      a.seq, a.g_batch_stride, a.g_row_stride, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, bool kCausal>
 int launch_dq(const Args& a) {
   auto kernel = bwd_dq_kernel<D, kCausal>;
-  constexpr int smem = DqTile<D>::kSmemBytes;
+  constexpr int smem = DqSmem<D>::kBytes;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.seq + kBlockQd - 1) / kBlockQd, a.heads, a.batch);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.qkv),
-      static_cast<const __nv_bfloat16*>(a.dout),
+  CUtensorMap map_qkv, map_do;
+  err = make_maps(a, D, &map_qkv, &map_do);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.seq + kBlock - 1) / kBlock, a.heads, a.batch);
+  kernel<<<grid, kBwdThreads, smem, a.stream>>>(
+      map_qkv, map_do, static_cast<const __nv_bfloat16*>(a.dout),
       static_cast<const __nv_bfloat16*>(a.out),
       static_cast<const float*>(a.lse), static_cast<__nv_bfloat16*>(a.dqkv),
-      a.seq, a.heads * D, a.in_batch_stride, a.in_row_stride,
-      a.g_batch_stride, a.g_row_stride, a.scale_log2, a.sm_scale);
+      a.seq, a.heads * D, a.g_batch_stride, a.g_row_stride, a.scale_log2,
+      a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -559,42 +772,48 @@ int dispatch(Route route, int head_dim, int causal, const Args& a) {
 extern "C" {
 
 // Common arguments.  qkv: [batch, >= seq rows, 3W] bf16 (W = heads *
-// head_dim), rows `in_row_stride` elements apart.  dout (and out): [batch,
-// seq, W] bf16, contiguous.  lse, delta: [batch, heads, seq] f32, contiguous
-// (lse in log2 units, as the forward wrote it).  dqkv: [batch, >= seq rows,
-// 3W] bf16, rows `g_row_stride` elements apart; rows past seq are not
-// written.  scale_log2 must be the forward's (sm_scale * log2(e) as f32).
-// Each launches on `stream` and returns the cudaError_t (0 on success).
+// head_dim), rows `in_row_stride` and batches `in_batch_stride` elements
+// apart, both multiples of 8, 16-byte aligned.  dout and out (the
+// forward's output): [batch, seq, W] bf16, contiguous, 16-byte aligned.
+// lse: [batch, heads, seq] f32, contiguous, in log2 units as the forward
+// wrote it.  dqkv: [batch, >= seq rows, 3W] bf16, rows `g_row_stride`
+// elements apart; rows past seq are not written.  scale_log2 must be the
+// forward's (sm_scale * log2(e) as f32).  Each launches on `stream` and
+// returns the cudaError_t (0 on success; cudaErrorInvalidValue when a
+// tensor map cannot describe the input).
 
-// dq, dk and dv; dq_acc: [batch, seq, W] f32 scratch, zero on entry.
+// dq, dk and dv.  delta: [batch, heads, seq] f32 scratch (rowsum(dO * O)
+// is written there first); dq_acc: [batch, heads, ceil(seq / 64) * 64,
+// head_dim] f32 scratch, zero on entry.
 int avion_flash_bwd_combined_bf16(
-    const void* qkv, const void* dout, const void* lse, const void* delta,
-    void* dq_acc, void* dqkv, int batch, int seq, int heads, int head_dim,
+    const void* qkv, const void* dout, const void* out, const void* lse,
+    void* delta, void* dq_acc, void* dqkv, int batch, int seq, int heads,
+    int head_dim,
     long long in_batch_stride, long long in_row_stride,
     long long g_batch_stride, long long g_row_stride, int causal,
     float scale_log2, float sm_scale, void* stream) {
-  const Args a{qkv, dout, nullptr, lse, delta, dq_acc, dqkv, batch, seq,
+  const Args a{qkv, dout, out, lse, delta, dq_acc, dqkv, batch, seq,
                heads, in_batch_stride, in_row_stride, g_batch_stride,
                g_row_stride, scale_log2, sm_scale,
                static_cast<cudaStream_t>(stream)};
   return dispatch(kCombined, head_dim, causal, a);
 }
 
-// dk and dv only.
+// dk and dv only; delta as for the combined route.
 int avion_flash_bwd_dkv_bf16(
-    const void* qkv, const void* dout, const void* lse, const void* delta,
-    void* dqkv, int batch, int seq, int heads, int head_dim,
+    const void* qkv, const void* dout, const void* out, const void* lse,
+    void* delta, void* dqkv, int batch, int seq, int heads, int head_dim,
     long long in_batch_stride, long long in_row_stride,
     long long g_batch_stride, long long g_row_stride, int causal,
     float scale_log2, float sm_scale, void* stream) {
-  const Args a{qkv, dout, nullptr, lse, delta, nullptr, dqkv, batch, seq,
+  const Args a{qkv, dout, out, lse, delta, nullptr, dqkv, batch, seq,
                heads, in_batch_stride, in_row_stride, g_batch_stride,
                g_row_stride, scale_log2, sm_scale,
                static_cast<cudaStream_t>(stream)};
   return dispatch(kDkv, head_dim, causal, a);
 }
 
-// dq only; out: the forward's output, for delta.
+// dq only, with delta computed in the kernel.
 int avion_flash_bwd_dq_bf16(
     const void* qkv, const void* dout, const void* out, const void* lse,
     void* dqkv, int batch, int seq, int heads, int head_dim,

@@ -84,10 +84,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "avion_flash_fwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I,
                              _F, _P],
-    "avion_flash_bwd_combined_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _L, _L, _L, _L, _I, _F, _F, _P],
-    "avion_flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
-                                 _L, _L, _I, _F, _F, _P],
+    "avion_flash_bwd_combined_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _L, _L, _L, _L, _I, _F, _F, _P],
+    "avion_flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
+                                 _L, _L, _L, _I, _F, _F, _P],
     "avion_flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
                                 _L, _L, _I, _F, _F, _P],
 }
@@ -256,6 +256,10 @@ def _bwd_cuda(do, qkv, out, lse, heads, s, causal, sm_scale,
     leaving the other sections unwritten (to time each kernel)."""
     w, d, bstride, rstride = _check_cuda(qkv, heads, s)
     b, rows = qkv.shape[:2]
+    # the backward reads qkv through a TMA tensor map: positive strides
+    # below 2**40 bytes
+    if not (0 < rstride < 2**39 and (b == 1 or 0 < bstride < 2**39)):
+        raise ValueError(f"qkv strides {qkv.stride()} cannot be read by TMA")
     _check_dense("do", do, (b, s, w), torch.bfloat16)
     _check_dense("out", out, (b, s, w), torch.bfloat16)
     _check_dense("lse", lse, (b, heads, s), torch.float32)
@@ -267,33 +271,28 @@ def _bwd_cuda(do, qkv, out, lse, heads, s, causal, sm_scale,
     common = (b, s, heads, d, bstride, rstride, dqkv.stride(0),
               dqkv.stride(1), int(causal), float(sm_scale * LOG2E),
               float(sm_scale))
+    # rowsum(do * out) per head, written by the combined and dkv launchers
+    delta = torch.empty(b, heads, s, dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         if route == "combined":
-            delta = _delta(do, out, heads)
-            dq_acc = torch.zeros(b, s, w, dtype=torch.float32,
-                                 device=qkv.device)
+            # per (batch, head, query tile of 64) one [64, d] share
+            dq_acc = torch.zeros(b, heads, -(-s // 64) * 64, d,
+                                 dtype=torch.float32, device=qkv.device)
             _launch(BWD_SOURCE, "avion_flash_bwd_combined_bf16",
                     "flash_bwd_combined", qkv.data_ptr(), do.data_ptr(),
-                    lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-                    dqkv.data_ptr(), *common)
+                    out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dq_acc.data_ptr(), dqkv.data_ptr(), *common)
             return dqkv
         if route in ("split", "dq"):
             _launch(BWD_SOURCE, "avion_flash_bwd_dq_bf16", "flash_bwd_dq",
                     qkv.data_ptr(), do.data_ptr(), out.data_ptr(),
                     lse.data_ptr(), dqkv.data_ptr(), *common)
         if route in ("split", "dkv"):
-            delta = _delta(do, out, heads)
             _launch(BWD_SOURCE, "avion_flash_bwd_dkv_bf16", "flash_bwd_dkv",
-                    qkv.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), dqkv.data_ptr(), *common)
+                    qkv.data_ptr(), do.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+                    *common)
     return dqkv
-
-
-def _delta(do: torch.Tensor, out: torch.Tensor, heads: int) -> torch.Tensor:
-    """rowsum(do * out) per head, f32 [B, H, S] (computed outside the
-    kernels, as the JAX package does for its combined and dkv kernels)."""
-    return (_heads_first(do, heads) * _heads_first(out, heads)).sum(-1) \
-        .contiguous()
 
 
 @torch.library.custom_op("avion::flash_fwd_lse", mutates_args=())

@@ -8,7 +8,11 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. environment: torch / CUDA versions and the card's name and power limit;
 2. build: ``avion_tpu_torch/ops/csrc/flash_{fwd,bwd}.cu``, one ``nvcc``
-   each, started together;
+   each, started together; every instance of the backward's two kernels
+   must report 0 spill bytes (ptxas) and hold ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA loads) in its SASS (``cuobjdump -sass``), the combined
+   instance ``UBLKRED`` (dq by bulk reduce-add) and no per-element f32
+   atomic;
 3. kernel: every flash-attention kernel (bf16) against its plain f32
    version: the forward (inference and with lse) at the serving shapes
    (max abs error 3e-2, the JAX bf16 forward tolerance, RMS error at most
@@ -16,7 +20,9 @@ Phases (each raises on failure; the script then exits non-zero):
    dv at BWD_SHAPES (3e-2 and 1.5%), each with its time, the plain time,
    the time of ``scaled_dot_product_attention`` (its backward for the
    backward; a yardstick only, the port never calls it) and the least
-   time the card could take (``bound_ms``);
+   time the card could take (``bound_ms``); the backward also with its
+   TFLOP/s and its device time kernel by kernel (torch.profiler), among
+   them ``delta_kernel``'s alone (``delta_ms``);
 4. serve: a seeded random ``CLIP_VITB16`` checkpoint in the reference
    layout, served by ``avion_tpu_torch.serve.server.main`` at 4 frames on
    an ephemeral port; every endpoint is called, the answers checked, the
@@ -47,6 +53,7 @@ import json
 import math
 import os
 import queue
+import re
 import subprocess
 import sys
 import tempfile
@@ -129,11 +136,17 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def attn_flops(b, s, h, d, causal, products):
+    """``products`` S x S x D products, 2 flops a multiply-add, halved when
+    causal."""
+    return 2 * products * b * h * s * s * d / (2 if causal else 1)
+
+
 def bound(b, s, h, d, causal, products=2, tensors=4, rows=0):
     """Least time (ms): ``products`` S x S x D bf16 products (2 flops per
     multiply-add, halved when causal) against ``tensors`` [B, S, H*D] bf16
     tensors and ``rows`` [B, H, S] f32 rows, each read or written once."""
-    flops = 2 * products * b * h * s * s * d / (2 if causal else 1)
+    flops = attn_flops(b, s, h, d, causal, products)
     nbytes = tensors * b * s * h * d * 2 + rows * b * h * s * 4
     t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
@@ -152,17 +165,78 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
-    """Both kernel sources, one nvcc each, started together."""
+    """Both kernel sources, one nvcc each, started together; then the
+    backward's resources (ptxas) and instructions (SASS)."""
     log("== build")
     t0 = time.perf_counter()
     sources = (fa.SOURCE, fa.BWD_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.library, sources))
     log(f"built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s")
-    for source in sources:
-        for line in _build.build_logs.get(source, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  {source}: {line.strip()}")
+    for line in _build.build_logs.get(fa.SOURCE, "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"  {fa.SOURCE}: {line.strip()}")
+    check_bwd_build()
+
+
+# bwd_kv_kernel<D, causal, dq> and bwd_dq_kernel<D, causal>, mangled
+BWD_INSTANCE = re.compile(
+    r"(bwd_kv_kernel|bwd_dq_kernel)ILi(\d+)ELb([01])E(?:Lb([01])E)?")
+# a per-element f32 atomic on global memory (the bulk reduce is UBLKRED)
+F32_ATOMIC = re.compile(r"\b(?:RED|ATOMG?)\.\S*F32")
+
+
+def _instance(mangled: str):
+    m = BWD_INSTANCE.search(mangled)
+    if m is None:
+        return None
+    kind, d, causal, dq = m.groups()
+    if kind == "bwd_dq_kernel":
+        return f"bwd_dq_kernel<{d}, causal={causal}>", False
+    return f"bwd_kv_kernel<{d}, causal={causal}, dq={dq}>", dq == "1"
+
+
+def check_bwd_build() -> None:
+    """Every instance of the two backward kernels: registers and spills
+    from ptxas (0 spill bytes), and in its SASS wgmma (HGMMA) and TMA loads
+    (UTMALDG); the combined instance adds dq by bulk reduce (UBLKRED) with
+    no per-element f32 atomics."""
+    if fa.BWD_SOURCE not in _build.build_logs:  # loaded from an earlier build
+        _build._compile(fa.BWD_SOURCE, _build._lib_path(fa.BWD_SOURCE))
+    stats = {}
+    for block in _build.build_logs[fa.BWD_SOURCE].split(
+            "Compiling entry function '")[1:]:
+        name = _instance(block.split("'", 1)[0])
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          block)
+        if name and regs and spill:
+            stats[name[0]] = (int(regs.group(1)), int(spill.group(1))
+                              + int(spill.group(2)))
+    lib = _build._lib_path(fa.BWD_SOURCE)
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    bad, seen = [], 0
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = _instance(func.split("\n", 1)[0])
+        if name is None:
+            continue
+        seen += 1
+        label, combined = name
+        counts = {op: len(re.findall(rf"\b{op}\b", func))
+                  for op in ("HGMMA", "UTMALDG", "UBLKRED")}
+        counts["f32 RED/ATOM"] = len(F32_ATOMIC.findall(func))
+        regs, spills = stats.get(label, (None, None))
+        log(f"  {label}: {regs} registers at launch (setmaxnreg: producer "
+            f"24, consumers 232), {spills} spill bytes; SASS {counts}")
+        if not (counts["HGMMA"] and counts["UTMALDG"]) or spills != 0:
+            bad.append(label)
+        if combined and (not counts["UBLKRED"] or counts["f32 RED/ATOM"]):
+            bad.append(label + " (dq)")
+    if seen != 12 or bad:
+        raise RuntimeError(f"backward build check failed: {seen} of 12 "
+                           f"instances seen; failing {bad}")
 
 
 def _errors(got: torch.Tensor, ref: torch.Tensor):
@@ -283,7 +357,8 @@ def _check_backward(gen, rows, check, b, s, h, d, causal):
             f"{sec}_max_abs_err": (err, TOL),
             f"{sec}_rel_rms_err": (rel, BWD_REL_TOL)})
     del ref, out_p, lse_p
-    # run to run: the combined route sums dq with f32 atomics
+    # run to run: the combined route sums dq's shares by bulk reduce-add,
+    # in an order that varies
     spread = (fa.flash_bwd(do, qkv, out, lse, h, s, causal, scale).float()
               - got.float()).abs()
     q, k, v = (t.detach().requires_grad_() for t in
@@ -310,15 +385,24 @@ def _check_backward(gen, rows, check, b, s, h, d, causal):
            "plain_ms": cuda_ms(lambda: fa.flash_bwd_plain(
                do, qkv, out, lse, h, s, causal, scale), iters=3),
            # SDPA's backward alone: its forward + backward less its forward
-           "library_ms": cuda_ms(sdpa_fwd_bwd) - sdpa_fwd}
+           "library_ms": cuda_ms(sdpa_fwd_bwd) - sdpa_fwd,
+           "device_ms_by_kernel": _device_ms_by_kernel(
+               lambda: fa.flash_bwd(do, qkv, out, lse, h, s, causal, scale))}
+    # rowsum(dO * O) for the combined and dkv kernels (the dq kernel makes
+    # its own rows' inside)
+    row["delta_ms"] = sum(ms for name, ms in row["device_ms_by_kernel"].items()
+                          if "delta_kernel" in name)
     if route == "combined":
         row["bound_ms"], row["bound_by"] = bound(
             b, s, h, d, causal, products=5, tensors=8, rows=2)
+        row["tflops"] = attn_flops(b, s, h, d, causal, 5) / row["kernel_ms"] / 1e9
         rows["flash_bwd_combined"].append(row)
         log("flash_bwd_combined " + json.dumps(row))
         return
-    # each split kernel alone; q, k, v, do (and out) read, its sections
-    # written, lse (and delta) read
+    # the split route: 7 products; each split kernel alone: q, k, v, do
+    # (and out) read, its sections written, lse (and delta) read
+    row["split_route_tflops"] = (attn_flops(b, s, h, d, causal, 7)
+                                 / row["kernel_ms"] / 1e9)
     for name, part, products, tensors, nrows in (
             ("flash_bwd_dq", "dq", 3, 6, 1), ("flash_bwd_dkv", "dkv", 4, 6, 2)):
         r = dict(row, split_route_ms=row["kernel_ms"],
@@ -326,8 +410,30 @@ def _check_backward(gen, rows, check, b, s, h, d, causal):
                      do, qkv, out, lse, h, s, causal, scale, route=part)))
         r["bound_ms"], r["bound_by"] = bound(b, s, h, d, causal, products,
                                              tensors, nrows)
+        r["tflops"] = (attn_flops(b, s, h, d, causal, products)
+                       / r["kernel_ms"] / 1e9)
         rows[name].append(r)
         log(f"{name} " + json.dumps(r))
+
+
+def _device_ms_by_kernel(fn) -> dict:
+    """Device time of one call of ``fn`` by kernel name (torch.profiler),
+    after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    return by_name
 
 
 def random_checkpoint(path: str, seed: int = 0) -> None:
@@ -566,7 +672,8 @@ def _model_flops(model, batch: int) -> float:
 # device kernels by kind, first match wins
 KERNEL_GROUPS = (
     ("flash attention (this repo)", ("flash_fwd_kernel", "bwd_kv_kernel",
-                                     "bwd_dq_kernel", "dq_convert_kernel")),
+                                     "bwd_dq_kernel", "dq_convert_kernel",
+                                     "delta_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("LayerNorm", ("layer_norm",)),
     ("optimizer (foreach / multi-tensor)", ("multi_tensor", "foreach")),

@@ -1,5 +1,5 @@
-"""The port's CUDA flash-attention kernel against its plain version, on the
-card.  Skips without CUDA; run on a GPU machine (no JAX needed there) with
+"""The port's CUDA flash-attention kernels against their plain versions, on
+the card.  Skip without CUDA; run on a GPU machine (no JAX needed there) with
 
     python -m pytest --noconftest -m cuda tests/test_torch_flash_cuda.py
 """
@@ -116,6 +116,94 @@ def test_backward_matches_plain(cuda, b, s, h, d, causal, combined):
         assert diff.abs().max().item() <= BF16_TOL
         if ref.norm() > 0:  # with one key dq and dk are exactly zero
             assert (diff.norm() / ref.norm()).item() <= 1.5e-2
+
+
+def _backward_errors(qkv, do, h, s, causal, route):
+    """The kernels' backward on ``route`` ("combined" or "split") against
+    the plain f32 backward of the plain f32 forward of ``qkv[:, :s]``;
+    returns the gradient and (max abs error, RMS error over RMS reference)
+    per section, the ratio None where the reference is zero but for f32
+    rounding (dq and dk of a single key)."""
+    d = qkv.shape[-1] // 3 // h
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_lse(qkv, h, s, causal, scale)
+    fa.reset_launches()
+    got = fa._bwd_cuda(do, qkv, out, lse, h, s, causal, scale, route=route)
+    torch.cuda.synchronize()
+    assert dict(fa.launches) == ({"flash_bwd_combined": 1} if route == "combined"
+                                 else {"flash_bwd_dq": 1, "flash_bwd_dkv": 1})
+    x = qkv[:, :s].float()
+    out_p, lse_p = fa.flash_fwd_lse_plain(x, h, s, causal, scale)
+    ref = fa.flash_bwd_plain(do.float(), x, out_p, lse_p, h, s, causal, scale)
+    w = h * d
+    errs = []
+    for i in range(3):
+        sec = ref[..., i * w:(i + 1) * w]
+        diff = got[:, :s, i * w:(i + 1) * w].float() - sec
+        errs.append((diff.abs().max().item(),
+                     (diff.norm() / sec.norm()).item()
+                     if sec.abs().max() > 1e-4 else None))
+    return got, errs
+
+
+def _assert_close(errs):
+    for err, rel in errs:
+        assert err <= BF16_TOL, errs
+        assert rel is None or rel <= 1.5e-2, errs
+
+
+@pytest.mark.parametrize("route", ["combined", "split"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 200, 785, 3137])
+def test_backward_tile_edges(cuda, s, d, causal, route):
+    """Both routes at the edges of the 64-row tiles, against the plain f32
+    backward (max abs 3e-2, RMS error over RMS reference 1.5e-2)."""
+    h = 2
+    qkv = _qkv(1, s, h, d, seed=s).to(cuda, torch.bfloat16)
+    do = _qkv(1, s, h, d, seed=s + 1)[..., :h * d].to(cuda, torch.bfloat16)
+    _assert_close(_backward_errors(qkv, do, h, s, causal, route)[1])
+
+
+@pytest.mark.parametrize("route", ["combined", "split"])
+def test_backward_reads_only_the_first_s_rows(cuda, route):
+    """Rows past ``s`` hold NaN: the gradient is finite below ``s`` and
+    zero past it (the tensor maps end at row ``s``)."""
+    b, s, h, d = 2, 100, 2, 64
+    qkv = _qkv(b, s, h, d, rows=160).to(cuda, torch.bfloat16)
+    qkv[:, s:] = float("nan")
+    do = _qkv(b, s, h, d, seed=1)[..., :h * d].to(cuda, torch.bfloat16)
+    got, errs = _backward_errors(qkv, do, h, s, False, route)
+    assert torch.isfinite(got[:, :s]).all()
+    assert torch.count_nonzero(got[:, s:]) == 0
+    _assert_close(errs)
+
+
+@pytest.mark.parametrize("route", ["combined", "split"])
+def test_backward_takes_a_batch_strided_view(cuda, route):
+    """qkv a view whose batches lie further apart than ``rows * 3W``: the
+    tensor map's batch stride, not the row count, finds each batch."""
+    b, s, h, d = 3, 130, 2, 128
+    big = _qkv(b, s, h, d, rows=s + 40).to(cuda, torch.bfloat16)
+    qkv = big[:, :s]
+    assert qkv.stride(0) > s * qkv.shape[-1]
+    do = _qkv(b, s, h, d, seed=1)[..., :h * d].to(cuda, torch.bfloat16)
+    _, errs = _backward_errors(qkv, do, h, s, True, route)
+    _assert_close(errs)
+
+
+def test_split_backward_is_bit_for_bit_repeatable(cuda):
+    """The split route sums in a fixed order: two calls agree exactly."""
+    b, s, h, d = 2, 785, 4, 64
+    qkv = _qkv(b, s, h, d).to(cuda, torch.bfloat16)
+    do = _qkv(b, s, h, d, seed=1)[..., :h * d].to(cuda, torch.bfloat16)
+    out, lse = fa.flash_fwd_lse(qkv, h, s, False, d ** -0.5)
+    first = fa._bwd_cuda(do, qkv, out, lse, h, s, False, d ** -0.5,
+                         route="split")
+    second = fa._bwd_cuda(do, qkv, out, lse, h, s, False, d ** -0.5,
+                          route="split")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_backward_rejects_what_it_does_not_take(cuda):
