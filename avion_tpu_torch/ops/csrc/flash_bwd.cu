@@ -651,20 +651,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  // the register hand-over holds only at the entry count it was built for;
-  // a launch at another count could wait forever in setmaxnreg
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  return attr.numRegs == kEntryRegs ? cudaSuccess
-                                    : cudaErrorInvalidConfiguration;
-}
-
 struct Args {
   const void* qkv;
   const void* dout;
@@ -698,7 +684,7 @@ template <int D, bool kCausal, bool kDq>
 int launch_kv(const Args& a) {
   auto kernel = bwd_kv_kernel<D, kCausal, kDq>;
   constexpr int smem = KvSmem<D, kDq>::kBytes;
-  cudaError_t err = prepare(kernel, smem);
+  cudaError_t err = prepare_kernel(kernel, smem, kEntryRegs);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map_qkv, map_do;
   err = make_maps(a, D, &map_qkv, &map_do);
@@ -730,7 +716,7 @@ template <int D, bool kCausal>
 int launch_dq(const Args& a) {
   auto kernel = bwd_dq_kernel<D, kCausal>;
   constexpr int smem = DqSmem<D>::kBytes;
-  cudaError_t err = prepare(kernel, smem);
+  cudaError_t err = prepare_kernel(kernel, smem, kEntryRegs);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map_qkv, map_do;
   err = make_maps(a, D, &map_qkv, &map_do);

@@ -12,224 +12,369 @@
 // [B, H, S] (the TPU layout [B, H/hpp, hpp, S_pad] exists only for its lane
 // packing).  Rows past S are not written.
 //
-// Numerics follow the TPU kernel: sm_scale * log2(e) is folded into the q
-// tile (rounded back to bf16) before the score product, probabilities use
-// exp2 in f32, P is cast to bf16 before the PV product (f32 accumulation),
-// and the output is divided by the f32 row sum after PV.
+// Numerics follow the TPU kernel, and the backward (flash_bwd.cu) relies on
+// them: q is scaled by sm_scale * log2(e) in f32 and rounded back to bf16
+// (q~) before the score product, so the backward's P = exp2(q~ k^T - lse)
+// is this kernel's P; probabilities are exp2 in f32 by the special-function
+// unit (ex2.approx.ftz, relative error ~2^-22, as in the backward); P is
+// cast to bf16 before the PV product (f32 accumulation); the output is
+// divided by the f32 row sum after PV.
 //
 // What bounds it on an H100.  Attention at the CLIP shapes does 4*S*D flops
 // per 8*D bytes of q/k/v/out, i.e. S/2 flops per byte: the visual tower
 // (S = 785 or 3137) sits above the card's ~295 flop/byte ridge and is
-// bound by tensor-core operations; the causal text tower (S = 77) is far
-// below it and bound by bytes.  The TPU design keeps all of K/V for a
-// (batch, head-group) in VMEM and runs one big score matmul; 227 KB of
-// shared memory cannot hold that, so this kernel tiles K/V with an online
-// softmax (FlashAttention-2 style):
-//   - one thread block per (q-tile of 64 rows, head, batch), 4 warps with
-//     16 query rows each, so the score tile never leaves registers;
-//   - K/V tiles of 64 keys double-buffered in shared memory with cp.async,
-//     rows padded by 16 bytes so fragment loads are free of bank conflicts;
-//   - bf16 tensor cores through mma.sync m16n8k16 with f32 accumulation;
-//     the score accumulators are repacked in registers as the A operand of
-//     the PV product, and V fragments come from ldmatrix.trans;
-//   - no padding of S: the ragged last K/V tile is zero-filled and its
-//     columns masked to -inf, out-of-range query rows are not written;
-//   - causal blocks stop at the diagonal tile, halving the text tower's work.
-// wgmma and TMA (the route to the card's full rate) are later work.
+// bound by tensor-core operations; the causal text tower (S = 77, one key
+// tile) is far below it and bound by bytes and launch latency.  On this
+// card only wgmma reaches the tensor cores' full rate; it wants its
+// operands in swizzled shared memory, fed without the math warps' help;
+// and at D = 64 the softmax's exp2 keeps the special-function unit busy
+// about as long as the two products keep the tensor cores, so the two
+// have to run side by side (FlashAttention-3).  So:
+//   - a block is one consumer warpgroup (64 query rows, 16 a warp) and a
+//     producer warpgroup that hands its registers to the consumers
+//     (setmaxnreg, 24 against 232 a thread); two blocks share an SM, so one
+//     block's softmax runs beside the other's products and one's prologue
+//     and epilogue beside the other's main loop;
+//   - one producer thread loads the block's q tile once and rings K and V
+//     tiles of kKeys keys (128 at D = 64, 64 at D = 128, where two blocks
+//     of 128 would not fit in shared memory) through two stages each by
+//     TMA, on barriers of their own, K one tile ahead of V, so a stage of K
+//     is refilled as soon as its score product is done;
+//   - q~ is made once per block, in place in shared memory; S = q~ K^T
+//     is a shared-shared wgmma with both operands K-major (m64n128k16 at
+//     128 keys); O += bf16(P) V takes P from the score accumulators
+//     repacked as register A (acc_as_a) and V MN-major through the
+//     transpose bit, 64 output columns a product;
+//   - overlap within the warpgroup: tile j's S and tile j-1's PV are issued
+//     together, S is waited for alone, and tile j's softmax runs while PV
+//     is on the tensor cores (FlashAttention-3 §3.2);
+//   - no wgmma sits in a branch: ptxas serializes every wgmma of a kernel
+//     that has one on a divergent path (its C7520 note), which cost a
+//     quarter of the time in bring-up;
+//   - no padding of S: the tensor map ends at row S, so TMA zero-fills the
+//     ragged tile and never reads a row past S; keys at or past S (and,
+//     causal, past the row) go to -inf before exp2; no output row or lse
+//     past S is stored;
+//   - causal blocks stop at the diagonal tile and start longest first.
+// Two consumer warpgroups a block (128 rows sharing each K/V stage, one
+// block an SM), with or without a ping-pong between them on named barriers
+// (FlashAttention-3 §3.1), and 64-key tiles at D = 64 measured slower than
+// this layout on an H100; PERF.md has the times.
 
-#include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
 using namespace avion;
+using namespace avion::sm90;
 
-constexpr int kBlockM = 64;  // query rows per block, 16 per warp
-constexpr int kBlockN = 64;  // keys per K/V tile
+constexpr int kBlockM = 64;       // query rows a block: one warpgroup's
+constexpr int kConsumers = 128;
+// and a producer warpgroup, of which one thread works: setmaxnreg moves
+// registers a warpgroup at a time
+constexpr int kFwdThreads = kConsumers + 128;
+constexpr int kStages = 2;        // of K and of V each
+// registers a thread at launch (ptxas, from the launch bounds: two blocks
+// of 8 warps) and after the hand-over
+constexpr int kMinBlocks = 2;
+constexpr int kEntryRegs = 128;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 232;
+static_assert(128 * (kEntryRegs - kProducerRegs) ==
+                  kConsumers * (kConsumerRegs - kEntryRegs),
+              "register hand-over must balance");
 
+// byte offsets of the shared memory, from a 1024-aligned base
 template <int D>
-struct Tile {
-  static constexpr int kLd = D + kPad;                  // row pitch, elements
-  static constexpr int kElems = kBlockN * kLd;          // one K or V tile
-  static constexpr int kSmemBytes = (kBlockM * kLd + 4 * kElems) * 2;
+struct FwdSmem {
+  static constexpr int kKeys = D == 64 ? 128 : 64;
+  static constexpr int kQTile = D / 64 * kTileBytes;  // [64, D]
+  static constexpr int kKvChunk = kKeys * 128;        // [kKeys][64 columns]
+  static constexpr int kKvTile = D / 64 * kKvChunk;   // [kKeys, D]
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQTile;              // per stage
+  static constexpr int kV = kK + kStages * kKvTile;   // per stage
+  static constexpr int kBars = kV + kStages * kKvTile;
+  static constexpr int kBytes = kBars + (1 + 4 * kStages) * 8 + 1024;
 };
 
+// one [kKeys, D] tile of K or V (columns from col0) on `bar`
+template <int D, int kKeys>
+__device__ __forceinline__ void load_kv(unsigned char* dst,
+                                        const CUtensorMap* map, uint64_t* bar,
+                                        int col0, int row0, int batch) {
+  mbar_arrive_expect_tx(bar, D / 64 * kKeys * 128);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+    for (int r = 0; r < kKeys / 64; ++r)
+      tma_load_tile(dst + c * kKeys * 128 + r * kTileBytes, map, bar,
+                    col0 + 64 * c, row0 + 64 * r, batch);
+}
+
+// S = q~ K^T: [64 rows, kKeys keys], both operands K-major
+template <int D, int kKeys>
+__device__ __forceinline__ void issue_scores(float (&s)[kKeys / 2],
+                                             const unsigned char* q,
+                                             const unsigned char* k) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<0, 0>(s, desc_k(q + kk / 4 * kTileBytes, kk % 4),
+                   desc_k(k + kk / 4 * (kKeys * 128), kk % 4), kk);
+}
+
+// O += bf16(P) V: depth along the keys, V read MN-major
+template <int D, int kKeys>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 64][32],
+                                         uint32_t (&p)[kKeys / 16][4],
+                                         const unsigned char* v) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+#pragma unroll
+    for (int k = 0; k < kKeys / 16; ++k)
+      wgmma_rs<1>(o[c], p[k], desc_mn(v + c * (kKeys * 128), k), 1);
+}
+
+// keys at or past S and, causal, past the row to -inf; key0 is the key of
+// this thread's first column, row0 the row of its first accumulator row
+template <bool kCausal, int N>
+__device__ __forceinline__ void mask_scores(float (&s)[N], int key0, int row0,
+                                            int seq) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + 8 * j + e;
+        if (key >= seq || (kCausal && key > row0 + 8 * i))
+          s[4 * j + 2 * i + e] = -INFINITY;
+      }
+}
+
+// Online softmax over one tile, in place: with the running max m and this
+// thread's partial row sums l of its two rows, the scores become
+// exp2(s - m_new); alpha = exp2(m_old - m_new) rescales the old output.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      mx[i] = fmaxf(mx[i], fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+  float sub[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // the 4 threads of a row
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    sub[i] = mx[i] == -INFINITY ? 0.f : mx[i];  // a row with no key yet
+    alpha[i] = exp2_approx(m[i] - sub[i]);
+    m[i] = mx[i];
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * i + e];
+        x = exp2_approx(x - sub[i]);
+        l[i] += x;
+      }
+}
+
 template <int D, bool kCausal, bool kWriteLse>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
+__global__ void __launch_bounds__(kFwdThreads, kMinBlocks)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap map_qkv,
                      __nv_bfloat16* __restrict__ out,
                      float* __restrict__ lse, int seq, int width,
-                     long long in_batch_stride, long long in_row_stride,
                      long long out_batch_stride, long long out_row_stride,
                      float scale_log2) {
-  constexpr int kLd = Tile<D>::kLd;
-  constexpr int kKSteps = D / 16;   // k-steps of the score product
-  constexpr int kDTiles = D / 8;    // n-tiles of the output
-  constexpr int kNTiles = kBlockN / 8;
+  using L = FwdSmem<D>;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kChunks = D / 64;  // 64-column tiles across the head
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* s_k = s_q + kBlockM * kLd;           // 2 buffers
-  __nv_bfloat16* s_v = s_k + 2 * Tile<D>::kElems;     // 2 buffers
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full_k = q_bar + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty_k = full_v + kStages;
+  uint64_t* empty_v = empty_k + kStages;
 
-  const int q0 = blockIdx.x * kBlockM;
+  // causal: the blocks with the most key tiles start first
+  const int m_block = kCausal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = m_block * kBlockM;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;    // fragment row group
-  const int tig = lane % 4;  // thread in group
+  int n_tiles = (seq + kKeys - 1) / kKeys;
+  if (kCausal) n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kKeys + 1);
 
-  const __nv_bfloat16* q_src = qkv + batch * in_batch_stride + head * D;
-  const __nv_bfloat16* k_src = q_src + width;
-  const __nv_bfloat16* v_src = q_src + 2 * width;
-
-  int n_tiles = (seq + kBlockN - 1) / kBlockN;
-  if (kCausal) n_tiles = min(n_tiles, q0 / kBlockN + 1);
-
-  load_tile<kBlockN, D>(s_q, q_src, in_row_stride, q0, seq);
-  cp_async_commit();
-  load_tile<kBlockN, D>(s_k, k_src, in_row_stride, 0, seq);
-  load_tile<kBlockN, D>(s_v, v_src, in_row_stride, 0, seq);
-  cp_async_commit();
-  cp_async_wait<1>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], kConsumers / 32);  // one arrival a warp
+      mbar_init(&empty_v[s], kConsumers / 32);
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  // q fragments for this warp's 16 rows, pre-scaled by sm_scale*log2(e)
-  uint32_t qf[kKSteps][4];
-  {
-    const __nv_bfloat16* base = s_q + (warp * 16 + g) * kLd + tig * 2;
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer: q once, then K and V tiles through their rings
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      tma_prefetch_map(&map_qkv);
+      mbar_arrive_expect_tx(q_bar, L::kQTile);
 #pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      const __nv_bfloat16* p = base + kk * 16;
-      qf[kk][0] = scale_bf16x2(*reinterpret_cast<const uint32_t*>(p), scale_log2);
-      qf[kk][1] = scale_bf16x2(*reinterpret_cast<const uint32_t*>(p + 8 * kLd), scale_log2);
-      qf[kk][2] = scale_bf16x2(*reinterpret_cast<const uint32_t*>(p + 8), scale_log2);
-      qf[kk][3] = scale_bf16x2(*reinterpret_cast<const uint32_t*>(p + 8 * kLd + 8), scale_log2);
-    }
-  }
-
-  float acc_o[kDTiles][4];
-#pragma unroll
-  for (int n = 0; n < kDTiles; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_o[n][e] = 0.f;
-  // running max and this thread's partial row sum, rows g and g + 8
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  const int row_a = q0 + warp * 16 + g;  // row of c0/c1; c2/c3 are row_a + 8
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {
-      load_tile<kBlockN, D>(s_k + (buf ^ 1) * Tile<D>::kElems, k_src, in_row_stride,
-                   (t + 1) * kBlockN, seq);
-      load_tile<kBlockN, D>(s_v + (buf ^ 1) * Tile<D>::kElems, v_src, in_row_stride,
-                   (t + 1) * kBlockN, seq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* k_t = s_k + buf * Tile<D>::kElems;
-    const __nv_bfloat16* v_t = s_v + buf * Tile<D>::kElems;
-    const int kv0 = t * kBlockN;
-
-    // scores S = (scaled q) k^T, 16 x 64 per warp, log2 domain
-    float acc_s[kNTiles][4];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_s[j][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      const __nv_bfloat16* kp = k_t + (j * 8 + g) * kLd + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + kk * 16 + 8);
-        mma_16816(acc_s[j], qf[kk], b0, b1);
-      }
-    }
-
-    // mask keys past the sequence end and, if causal, past the query row
-    const bool ragged = kv0 + kBlockN > seq;
-    const bool diagonal = kCausal && kv0 + kBlockN - 1 > q0 + warp * 16;
-    if (ragged || diagonal) {
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = kv0 + j * 8 + tig * 2 + (e & 1);
-          const int row = row_a + (e >> 1) * 8;
-          if (key >= seq || (kCausal && key > row)) acc_s[j][e] = -INFINITY;
+      for (int c = 0; c < kChunks; ++c)
+        tma_load_tile(smem + L::kQ + c * kTileBytes, &map_qkv, q_bar,
+                      head * D + 64 * c, q0, batch);
+      // K runs one tile ahead of V, as the consumers use them
+      for (int i = 0; i <= n_tiles; ++i) {
+        if (i < n_tiles) {
+          const int stage = i % kStages;
+          mbar_wait(&empty_k[stage], ((i / kStages) & 1) ^ 1);
+          load_kv<D, kKeys>(smem + L::kK + stage * L::kKvTile, &map_qkv,
+                            &full_k[stage], width + head * D, i * kKeys,
+                            batch);
         }
-    }
-
-    // online softmax: new running max, rescale, probabilities
-    float m_tile[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      m_tile[0] = fmaxf(m_tile[0], fmaxf(acc_s[j][0], acc_s[j][1]));
-      m_tile[1] = fmaxf(m_tile[1], fmaxf(acc_s[j][2], acc_s[j][3]));
-    }
-    float sub[2], alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffffu, m_tile[r], 1));
-      m_tile[r] = fmaxf(m_tile[r], __shfl_xor_sync(0xffffffffu, m_tile[r], 2));
-      const float m_new = fmaxf(m_run[r], m_tile[r]);
-      sub[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
-      alpha[r] = exp2f(m_run[r] - sub[r]);
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kDTiles; ++n) {
-      acc_o[n][0] *= alpha[0];
-      acc_o[n][1] *= alpha[0];
-      acc_o[n][2] *= alpha[1];
-      acc_o[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(acc_s[j][e] - sub[e >> 1]);
-        acc_s[j][e] = p;
-        l_run[e >> 1] += p;
+        if (i > 0) {
+          const int stage = (i - 1) % kStages;
+          mbar_wait(&empty_v[stage], (((i - 1) / kStages) & 1) ^ 1);
+          load_kv<D, kKeys>(smem + L::kV + stage * L::kKvTile, &map_qkv,
+                            &full_v[stage], 2 * width + head * D,
+                            (i - 1) * kKeys, batch);
+        }
       }
-
-    // out += bf16(P) V: score accumulators become the A operand in place
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t a[4];
-      pack_c_as_a(a, acc_s[2 * kk], acc_s[2 * kk + 1]);
-      mma_rows_b<kDTiles>(acc_o, a, v_t, kLd, kk * 16);
     }
-    __syncthreads();  // this buffer is refilled two iterations on
-  }
+  } else {
+    // ---- consumers: 64 query rows, 16 a warp
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int tq = lane % 4;
+    const int row_a = q0 + warp * 16 + g;  // row of i = 0; +8 for i = 1
+    unsigned char* s_q = smem + L::kQ;
 
-  // finish the row sums across the 4 threads of a row, normalize, store
+    // q~ = bf16(q * sm_scale * log2(e)), once, in place; named barrier 1
+    // holds the consumers alone
+    mbar_wait(q_bar, 0);
+    scale_tile<L::kQTile, 128>(s_q, s_q, scale_log2, tid);
+    fence_proxy_async();
+    bar_sync(1, kConsumers);
+
+    float acc_s[kKeys / 2];
+    uint32_t a_p[kKeys / 16][4];
+    float acc_o[kChunks][32];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-  __nv_bfloat16* o_dst = out + batch * out_batch_stride + head * D + tig * 2;
+    for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + r * 8;
-    if (row >= seq) continue;
-    if (kWriteLse && tig == 0)
-      lse[(static_cast<long long>(batch) * gridDim.y + head) * seq + row] =
-          m_run[r] + log2f(l_run[r]);
-    const float inv = 1.f / l_run[r];
-    __nv_bfloat16* o_row = o_dst + row * out_row_stride;
+      for (int e = 0; e < 32; ++e) acc_o[c][e] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};  // this thread's columns only
+    float alpha[2];
+
+    // each warp tells the producer a stage is free once its products are
+    // done (wgmma.wait_group is warp-wide)
+    auto release = [&](uint64_t* bar) {
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // mask and softmax of key tile i's scores; P into register A
+    auto softmax = [&](int i) {
+      const int kv0 = i * kKeys;
+      if (kv0 + kKeys > seq ||
+          (kCausal && kv0 + kKeys - 1 > q0 + warp * 16))
+        mask_scores<kCausal>(acc_s, kv0 + 2 * tq, row_a, seq);
+      softmax_tile(acc_s, m_run, l_run, alpha);
+    };
+    auto pack_p = [&]() {
 #pragma unroll
-    for (int n = 0; n < kDTiles; ++n) {
-      *reinterpret_cast<uint32_t*>(o_row + n * 8) =
-          pack_bf16(acc_o[n][2 * r] * inv, acc_o[n][2 * r + 1] * inv);
+      for (int k = 0; k < kKeys / 16; ++k) acc_as_a(a_p[k], acc_s, k);
+    };
+
+    // key tile 0: its scores alone
+    mbar_wait(&full_k[0], 0);
+    wgmma_fence();
+    issue_scores<D, kKeys>(acc_s, s_q, smem + L::kK);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_s);
+    release(&empty_k[0]);
+    softmax(0);
+    pack_p();
+
+    // tile i's scores and tile i-1's PV in flight together; tile i's
+    // softmax runs while PV does
+    for (int i = 1; i < n_tiles; ++i) {
+      const int stage = i % kStages;
+      const int prev = (i - 1) % kStages;
+      mbar_wait(&full_k[stage], (i / kStages) & 1);
+      mbar_wait(&full_v[prev], ((i - 1) / kStages) & 1);
+      wgmma_fence();
+      issue_scores<D, kKeys>(acc_s, s_q, smem + L::kK + stage * L::kKvTile);
+      wgmma_commit();
+      issue_pv<D, kKeys>(acc_o, a_p, smem + L::kV + prev * L::kKvTile);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(acc_s);
+      release(&empty_k[stage]);
+      softmax(i);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) fence_regs(acc_o[c]);
+#pragma unroll
+      for (int k = 0; k < kKeys / 16; ++k) fence_regs(a_p[k]);
+      release(&empty_v[prev]);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc_o[c][e] *= alpha[(e >> 1) & 1];
+      pack_p();
+    }
+
+    // the last tile's PV
+    const int last = (n_tiles - 1) % kStages;
+    mbar_wait(&full_v[last], ((n_tiles - 1) / kStages) & 1);
+    wgmma_fence();
+    issue_pv<D, kKeys>(acc_o, a_p, smem + L::kV + last * L::kKvTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) fence_regs(acc_o[c]);
+
+    // the row sums across the 4 threads of a row; normalize and store the
+    // rows below S
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+      l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+    }
+    __nv_bfloat16* o_dst = out + batch * out_batch_stride + head * D + 2 * tq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_a + 8 * i;
+      if (row >= seq) continue;
+      if (kWriteLse && tq == 0)
+        lse[(static_cast<long long>(batch) * gridDim.y + head) * seq + row] =
+            m_run[i] + log2f(l_run[i]);
+      const float inv = 1.f / l_run[i];
+      __nv_bfloat16* o_row = o_dst + row * out_row_stride;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(o_row + 64 * c + 8 * j) =
+              pack_bf16(acc_o[c][4 * j + 2 * i] * inv,
+                        acc_o[c][4 * j + 2 * i + 1] * inv);
     }
   }
 }
@@ -240,15 +385,23 @@ int launch(const void* qkv, void* out, float* lse, int batch, int seq,
            long long out_batch_stride, long long out_row_stride,
            float scale_log2, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<D, kCausal, kWriteLse>;
-  constexpr int smem = Tile<D>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = FwdSmem<D>::kBytes;
+  cudaError_t err = prepare_kernel(kernel, smem, kEntryRegs);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // qkv as (columns 3W, rows seq, batch); a batch of one never steps the
+  // batch coordinate
+  CUtensorMap map_qkv;
+  const long long w = static_cast<long long>(heads) * D;
+  const long long row_bytes = in_row_stride * 2;
+  const long long batch_bytes =
+      batch > 1 ? in_batch_stride * 2 : row_bytes * seq;
+  err = make_tile_map(&map_qkv, qkv, 3 * w, seq, batch, row_bytes,
+                      batch_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-      lse, seq, heads * D, in_batch_stride, in_row_stride, out_batch_stride,
-      out_row_stride, scale_log2);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(
+      map_qkv, static_cast<__nv_bfloat16*>(out), lse, seq, heads * D,
+      out_batch_stride, out_row_stride, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -256,11 +409,13 @@ int launch(const void* qkv, void* out, float* lse, int batch, int seq,
 
 extern "C" {
 
-// qkv: [batch, >= seq rows, 3 * heads * head_dim] bf16, rows `in_row_stride`
-// elements apart, q/k/v sections at column 0, W and 2W (W = heads*head_dim).
-// out: [batch, seq, W] bf16.  lse: null (inference) or [batch, heads, seq]
-// f32, the row logsumexp in log2 units.  Launches on `stream`; returns the
-// launch's cudaError_t (0 on success).
+// qkv: [batch, >= seq rows, 3 * heads * head_dim] bf16, rows
+// `in_row_stride` and batches `in_batch_stride` elements apart (multiples
+// of 8, below 2^39), 16-byte aligned; q/k/v sections at column 0, W and 2W
+// (W = heads * head_dim).  out: [batch, seq, W] bf16.  lse: null
+// (inference) or [batch, heads, seq] f32, the row logsumexp in log2 units.
+// Launches on `stream`; returns the cudaError_t (0 on success;
+// cudaErrorInvalidValue when the tensor map cannot describe qkv).
 int avion_flash_fwd_bf16(const void* qkv, void* out, void* lse, int batch,
                          int seq,
                          int heads, int head_dim, long long in_batch_stride,

@@ -1,12 +1,14 @@
-// Hopper (sm_90a) building blocks of the flash-attention backward
-// (flash_bwd.cu): TMA tensor maps and loads, mbarriers, wgmma descriptors
-// and products, warpgroup register reallocation, and the bulk reduce-add.
+// Hopper (sm_90a) building blocks of the flash-attention kernels
+// (flash_fwd.cu, flash_bwd.cu): TMA tensor maps and loads, mbarriers,
+// named barriers, wgmma descriptors and products, warpgroup register
+// reallocation, the bulk reduce-add, and the launchers' register check.
 //
 // Shared-memory tiles are [64 rows][64 bf16 columns], 128 bytes a row, in
 // the 128-byte swizzle that TMA writes (16-byte chunk j of row r lands at
 // chunk j ^ (r % 8)), each aligned to 1024 bytes; a 128-column head is two
-// such tiles side by side in memory.  One tile serves both majors of a
-// wgmma operand:
+// such tiles side by side in memory, and 128 rows are two tiles one after
+// the other (8-row groups stay 1024 bytes apart).  One tile serves both
+// majors of a wgmma operand:
 //   - K-major (the product's depth runs along the 64 columns): 8-row groups
 //     1024 bytes apart; k-step kk of 16 columns starts kk * 32 bytes in;
 //   - MN-major (the depth runs along the rows, read through the transpose
@@ -194,19 +196,25 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
-#define AVION_D32(d)                                                         \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
+#define AVION_D8(d, o)                                                       \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),               \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define AVION_D32(d) \
+  AVION_D8(d, 0), AVION_D8(d, 8), AVION_D8(d, 16), AVION_D8(d, 24)
+#define AVION_D64(d)                                                 \
+  AVION_D32(d), AVION_D8(d, 32), AVION_D8(d, 40), AVION_D8(d, 48), \
+      AVION_D8(d, 56)
 
 #define AVION_D32_REGS                                                     \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
+#define AVION_D64_REGS                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "      \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "      \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "      \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
 // d (+)= A B, m64n64k16, bf16 in, f32 accumulators; A and B in shared
 // memory.  kTransA / kTransB: 1 reads the operand MN-major.
@@ -218,6 +226,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " AVION_D32_REGS
       ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : AVION_D32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA),
+        "n"(kTransB));
+}
+
+// the same at m64n128k16: 128 columns, 64 accumulators
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " AVION_D64_REGS
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : AVION_D64(d)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA),
         "n"(kTransB));
 }
@@ -236,8 +257,11 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
         "r"(accumulate), "n"(kTransB));
 }
 
+#undef AVION_D8
 #undef AVION_D32
+#undef AVION_D64
 #undef AVION_D32_REGS
+#undef AVION_D64_REGS
 
 // register A of k-step k from accumulator columns 16k .. 16k+15
 __device__ __forceinline__ void acc_as_a(uint32_t* a, const float* d, int k) {
@@ -332,6 +356,24 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---- host: launch preparation ---------------------------------------------
+
+// lets `kernel` take `smem` bytes of dynamic shared memory, and refuses it
+// (cudaErrorInvalidConfiguration) unless ptxas gave it `entry_regs`
+// registers a thread: a setmaxnreg hand-over balances only at the count it
+// was built for, and at another one could wait forever
+template <typename Kernel>
+cudaError_t prepare_kernel(Kernel kernel, int smem, int entry_regs) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  return attr.numRegs == entry_regs ? cudaSuccess
+                                    : cudaErrorInvalidConfiguration;
 }
 
 }  // namespace sm90

@@ -136,6 +136,11 @@ def _check_cuda(qkv: torch.Tensor, heads: int, s: int):
         raise ValueError(
             f"qkv needs unit column stride and 16-byte aligned rows, got "
             f"strides {qkv.stride()} at offset {qkv.data_ptr() % 16}")
+    # the kernels read qkv through a TMA tensor map: positive strides
+    # below 2**40 bytes
+    if not (0 < rstride < 2**39
+            and (qkv.shape[0] == 1 or 0 < bstride < 2**39)):
+        raise ValueError(f"qkv strides {qkv.stride()} cannot be read by TMA")
     return w, d, bstride, rstride
 
 
@@ -256,10 +261,6 @@ def _bwd_cuda(do, qkv, out, lse, heads, s, causal, sm_scale,
     leaving the other sections unwritten (to time each kernel)."""
     w, d, bstride, rstride = _check_cuda(qkv, heads, s)
     b, rows = qkv.shape[:2]
-    # the backward reads qkv through a TMA tensor map: positive strides
-    # below 2**40 bytes
-    if not (0 < rstride < 2**39 and (b == 1 or 0 < bstride < 2**39)):
-        raise ValueError(f"qkv strides {qkv.stride()} cannot be read by TMA")
     _check_dense("do", do, (b, s, w), torch.bfloat16)
     _check_dense("out", out, (b, s, w), torch.bfloat16)
     _check_dense("lse", lse, (b, heads, s), torch.float32)

@@ -8,21 +8,22 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. environment: torch / CUDA versions and the card's name and power limit;
 2. build: ``avion_tpu_torch/ops/csrc/flash_{fwd,bwd}.cu``, one ``nvcc``
-   each, started together; every instance of the backward's two kernels
-   must report 0 spill bytes (ptxas) and hold ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA loads) in its SASS (``cuobjdump -sass``), the combined
-   instance ``UBLKRED`` (dq by bulk reduce-add) and no per-element f32
-   atomic;
+   each, started together; every instance of the forward's kernel (8) and
+   of the backward's two kernels (12) must report 0 spill bytes and no
+   serialized wgmma (ptxas) and hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+   loads) in its SASS (``cuobjdump -sass``), the combined instance
+   ``UBLKRED`` (dq by bulk reduce-add) and no per-element f32 atomic;
 3. kernel: every flash-attention kernel (bf16) against its plain f32
-   version: the forward (inference and with lse) at the serving shapes
-   (max abs error 3e-2, the JAX bf16 forward tolerance, RMS error at most
-   0.5% of the RMS output, lse within LSE_TOL), the backward's dq, dk and
-   dv at BWD_SHAPES (3e-2 and 1.5%), each with its time, the plain time,
-   the time of ``scaled_dot_product_attention`` (its backward for the
-   backward; a yardstick only, the port never calls it) and the least
-   time the card could take (``bound_ms``); the backward also with its
-   TFLOP/s and its device time kernel by kernel (torch.profiler), among
-   them ``delta_kernel``'s alone (``delta_ms``);
+   version: the forward (inference and with lse) at KERNEL_SHAPES (max abs
+   error 3e-2, the JAX bf16 forward tolerance, RMS error at most 0.5% of
+   the RMS output, lse within LSE_TOL), the backward's dq, dk and dv at
+   BWD_SHAPES (3e-2 and 1.5%), each with its time through the wrapper
+   (``kernel_ms``), the plain time, the time of
+   ``scaled_dot_product_attention`` (its backward for the backward; a
+   yardstick only, the port never calls it), the least time the card could
+   take (``bound_ms``), its TFLOP/s and its device time kernel by kernel
+   (torch.profiler; the forward's sum is ``device_ms``, the backward's
+   ``delta_kernel`` alone ``delta_ms``);
 4. serve: a seeded random ``CLIP_VITB16`` checkpoint in the reference
    layout, served by ``avion_tpu_torch.serve.server.main`` at 4 frames on
    an ephemeral port; every endpoint is called, the answers checked, the
@@ -173,39 +174,56 @@ def phase_build() -> None:
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.library, sources))
     log(f"built {', '.join(sources)} in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_logs.get(fa.SOURCE, "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  {fa.SOURCE}: {line.strip()}")
-    check_bwd_build()
+    bad = [f for source, instances in ((fa.SOURCE, 8), (fa.BWD_SOURCE, 12))
+           for f in check_build(source, instances)]
+    if bad:
+        raise RuntimeError(f"build check failed: {bad}")
 
 
-# bwd_kv_kernel<D, causal, dq> and bwd_dq_kernel<D, causal>, mangled
-BWD_INSTANCE = re.compile(
-    r"(bwd_kv_kernel|bwd_dq_kernel)ILi(\d+)ELb([01])E(?:Lb([01])E)?")
+# flash_fwd_kernel<D, causal, lse>, bwd_kv_kernel<D, causal, dq> and
+# bwd_dq_kernel<D, causal>, mangled
+INSTANCE = re.compile(r"(flash_fwd_kernel|bwd_kv_kernel|bwd_dq_kernel)"
+                      r"ILi(\d+)ELb([01])E(?:Lb([01])E)?")
 # a per-element f32 atomic on global memory (the bulk reduce is UBLKRED)
 F32_ATOMIC = re.compile(r"\b(?:RED|ATOMG?)\.\S*F32")
 
 
 def _instance(mangled: str):
-    m = BWD_INSTANCE.search(mangled)
+    """(label, whether it is a combined-backward instance) or None."""
+    m = INSTANCE.search(mangled)
     if m is None:
         return None
-    kind, d, causal, dq = m.groups()
+    kind, d, causal, flag = m.groups()
     if kind == "bwd_dq_kernel":
         return f"bwd_dq_kernel<{d}, causal={causal}>", False
-    return f"bwd_kv_kernel<{d}, causal={causal}, dq={dq}>", dq == "1"
+    if kind == "flash_fwd_kernel":
+        return f"flash_fwd_kernel<{d}, causal={causal}, lse={flag}>", False
+    return f"bwd_kv_kernel<{d}, causal={causal}, dq={flag}>", flag == "1"
 
 
-def check_bwd_build() -> None:
-    """Every instance of the two backward kernels: registers and spills
-    from ptxas (0 spill bytes), and in its SASS wgmma (HGMMA) and TMA loads
-    (UTMALDG); the combined instance adds dq by bulk reduce (UBLKRED) with
-    no per-element f32 atomics."""
-    if fa.BWD_SOURCE not in _build.build_logs:  # loaded from an earlier build
-        _build._compile(fa.BWD_SOURCE, _build._lib_path(fa.BWD_SOURCE))
+# ptxas: "(C7520) Potential Performance Loss: wgmma.mma_async instructions
+# are serialized due to ... in the function '<mangled>'"
+SERIALIZED = re.compile(
+    r"wgmma\.mma_async instructions are serialized.*?function '([^']+)'")
+
+
+def serialized_instances(ptxas: str) -> set:
+    """Labels of the instances whose wgmma ptxas serialized."""
+    return {_instance(m)[0] for m in SERIALIZED.findall(ptxas)
+            if _instance(m)}
+
+
+def check_build(source: str, instances: int) -> list:
+    """Every kernel instance of ``source``'s library: registers and spills
+    from ptxas (0 spill bytes, no wgmma serialized), and in its SASS wgmma
+    (HGMMA) and TMA loads (UTMALDG); a combined-backward instance adds dq
+    by bulk reduce (UBLKRED) with no per-element f32 atomics.  Returns the
+    failing instances."""
+    if source not in _build.build_logs:  # loaded from an earlier build
+        _build._compile(source, _build._lib_path(source))
+    ptxas = _build.build_logs[source]
     stats = {}
-    for block in _build.build_logs[fa.BWD_SOURCE].split(
-            "Compiling entry function '")[1:]:
+    for block in ptxas.split("Compiling entry function '")[1:]:
         name = _instance(block.split("'", 1)[0])
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -213,7 +231,8 @@ def check_bwd_build() -> None:
         if name and regs and spill:
             stats[name[0]] = (int(regs.group(1)), int(spill.group(1))
                               + int(spill.group(2)))
-    lib = _build._lib_path(fa.BWD_SOURCE)
+    serialized = serialized_instances(ptxas)
+    lib = _build._lib_path(source)
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -229,14 +248,16 @@ def check_bwd_build() -> None:
         counts["f32 RED/ATOM"] = len(F32_ATOMIC.findall(func))
         regs, spills = stats.get(label, (None, None))
         log(f"  {label}: {regs} registers at launch (setmaxnreg: producer "
-            f"24, consumers 232), {spills} spill bytes; SASS {counts}")
-        if not (counts["HGMMA"] and counts["UTMALDG"]) or spills != 0:
+            f"24, consumers 232), {spills} spill bytes, wgmma serialized "
+            f"{label in serialized}; SASS {counts}")
+        if (not (counts["HGMMA"] and counts["UTMALDG"]) or spills != 0
+                or label in serialized):
             bad.append(label)
         if combined and (not counts["UBLKRED"] or counts["f32 RED/ATOM"]):
             bad.append(label + " (dq)")
-    if seen != 12 or bad:
-        raise RuntimeError(f"backward build check failed: {seen} of 12 "
-                           f"instances seen; failing {bad}")
+    if seen != instances:
+        bad.append(f"{source}: {seen} of {instances} instances seen")
+    return bad
 
 
 def _errors(got: torch.Tensor, ref: torch.Tensor):
@@ -269,6 +290,7 @@ def phase_kernel() -> dict:
                           dtype=torch.bfloat16)
         scale = d ** -0.5
         shape = [b, s, h, d]
+        flops = attn_flops(b, s, h, d, causal, 2)
         q, k, v = _sdpa_inputs(qkv, b, s, h, d)
         sdpa_ms = cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -286,8 +308,8 @@ def phase_kernel() -> dict:
               rel_rms_err=(rel, REL_TOL))
         row = {"shape": shape, "causal": causal, "max_abs_err": err,
                "rel_rms_err": rel, "out_rms": ref.pow(2).mean().sqrt().item(),
-               "kernel_ms": cuda_ms(lambda: fa.flash_attention_fused_qkv(
-                   qkv, h, s, causal=causal)),
+               **_forward_times(lambda: fa.flash_attention_fused_qkv(
+                   qkv, h, s, causal=causal), flops),
                "plain_ms": cuda_ms(lambda: fa.flash_attention_fused_qkv_plain(
                    qkv, h, s, causal=causal), iters=5),
                "library_ms": sdpa_ms}
@@ -306,8 +328,8 @@ def phase_kernel() -> dict:
               rel_rms_err=(rel, REL_TOL), lse_max_abs_err=(lse_err, LSE_TOL))
         row = {"shape": shape, "causal": causal, "max_abs_err": err,
                "rel_rms_err": rel, "lse_max_abs_err": lse_err,
-               "kernel_ms": cuda_ms(lambda: fa.flash_fwd_lse(
-                   qkv, h, s, causal, scale)),
+               **_forward_times(lambda: fa.flash_fwd_lse(
+                   qkv, h, s, causal, scale), flops),
                "plain_ms": cuda_ms(lambda: fa.flash_fwd_lse_plain(
                    qkv, h, s, causal, scale), iters=5),
                "library_ms": sdpa_ms}
@@ -325,6 +347,17 @@ def phase_kernel() -> dict:
         raise RuntimeError("kernels disagree with their plain versions: "
                            + "; ".join(bad))
     return rows
+
+
+def _forward_times(fn, flops: float) -> dict:
+    """A forward's time through the wrapper (CUDA events), its device time
+    (torch.profiler: the host's checks, allocations, tensor map and launch
+    are not in it) and the TFLOP/s of each."""
+    kernel_ms = cuda_ms(fn)
+    device_ms = sum(_device_ms_by_kernel(fn).values())
+    return {"kernel_ms": kernel_ms, "device_ms": device_ms,
+            "tflops": flops / kernel_ms / 1e9,
+            "device_tflops": flops / device_ms / 1e9 if device_ms else None}
 
 
 def _check_backward(gen, rows, check, b, s, h, d, causal):
@@ -416,24 +449,30 @@ def _check_backward(gen, rows, check, b, s, h, d, causal):
         log(f"{name} " + json.dumps(r))
 
 
-def _device_ms_by_kernel(fn) -> dict:
+def _device_ms_by_kernel(fn, calls: int = 3) -> dict:
     """Device time of one call of ``fn`` by kernel name (torch.profiler),
-    after a warm-up call."""
+    after a warm-up call: each name's time summed over its launches within
+    a call, then the median over ``calls`` calls, each profiled alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + \
-                e.time_range.elapsed_us() / 1e3
-    return by_name
+    per_call = []
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + \
+                    e.time_range.elapsed_us() / 1e3
+        per_call.append(by_name)
+    names = {name for by_name in per_call for name in by_name}
+    return {name: float(np.median([c.get(name, 0.0) for c in per_call]))
+            for name in names}
 
 
 def random_checkpoint(path: str, seed: int = 0) -> None:

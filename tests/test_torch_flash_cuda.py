@@ -16,6 +16,8 @@ BF16_TOL = 3e-2  # the JAX bf16 forward tolerance (tests/test_flash_attention.py
 # RMS error over RMS output, as in chip_smoke.py: at S in the hundreds the
 # outputs are themselves ~3e-2, so the absolute bound alone is loose
 REL_TOL = 5e-3
+# lse (log2 units) against the plain f32 forward, as in chip_smoke.py
+LSE_TOL = 3e-2
 
 
 @pytest.fixture()
@@ -52,16 +54,82 @@ def test_kernel_matches_plain(cuda, b, s, h, d, causal):
     assert rel <= REL_TOL, rel
 
 
-def test_kernel_reads_only_the_first_s_rows(cuda):
-    """Rows past ``s`` (the JAX path's padding) never reach the output."""
+def _forward(qkv, h, s, causal, with_lse):
+    """One forward launch of the instance asked for: (out, lse or None)."""
+    d = qkv.shape[-1] // 3 // h
+    fa.reset_launches()
+    if with_lse:
+        out, lse = fa.flash_fwd_lse(qkv, h, s, causal, d ** -0.5)
+    else:
+        out = fa.flash_attention_fused_qkv(qkv, h, s, causal=causal)
+        lse = None
+    torch.cuda.synchronize()
+    name = "flash_fwd_lse" if with_lse else "flash_fwd"
+    assert dict(fa.launches) == {name: 1}
+    return out, lse
+
+
+def _assert_forward_close(qkv, h, s, causal, with_lse):
+    """The instance against the plain f32 forward of ``qkv[:, :s]``: out to
+    BF16_TOL and REL_TOL, lse (log2 units) to LSE_TOL."""
+    out, lse = _forward(qkv, h, s, causal, with_lse)
+    d = qkv.shape[-1] // 3 // h
+    ref, lse_ref = fa.flash_fwd_lse_plain(qkv[:, :s].float(), h, s, causal,
+                                          d ** -0.5)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    diff = out.float() - ref
+    assert diff.abs().max().item() <= BF16_TOL
+    assert (diff.norm() / ref.norm()).item() <= REL_TOL
+    if with_lse:
+        assert lse.shape == lse_ref.shape and lse.dtype == torch.float32
+        assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 200, 785, 3137])
+def test_forward_tile_edges(cuda, s, d, causal, with_lse):
+    """Both instances at the edges of the 64-row boxes, the 128-row blocks
+    and the key tiles, against the plain f32 forward."""
+    h = 2
+    qkv = _qkv(2, s, h, d, seed=s).to(cuda, torch.bfloat16)
+    _assert_forward_close(qkv, h, s, causal, with_lse)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_kernel_reads_only_the_first_s_rows(cuda, with_lse):
+    """Rows past ``s`` (the JAX path's padding) hold NaN and never reach
+    the output or lse (the tensor map ends at row ``s``)."""
     b, s, h, d = 2, 100, 2, 64
     qkv = _qkv(b, s, h, d, rows=128).to(cuda, torch.bfloat16)
     qkv[:, s:] = float("nan")
-    out = fa.flash_attention_fused_qkv(qkv, h, s)
-    ref = fa.flash_attention_fused_qkv_plain(qkv[:, :s].contiguous(), h, s)
-    torch.cuda.synchronize()
+    out, lse = _forward(qkv, h, s, False, with_lse)
     assert torch.isfinite(out).all()
-    assert (out.float() - ref.float()).abs().max().item() <= BF16_TOL
+    assert lse is None or torch.isfinite(lse).all()
+    _assert_forward_close(qkv, h, s, False, with_lse)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_forward_takes_a_batch_strided_view(cuda, with_lse):
+    """qkv a view whose batches lie further apart than ``rows * 3W``: the
+    tensor map's batch stride, not the row count, finds each batch."""
+    b, s, h, d = 3, 130, 2, 128
+    big = _qkv(b, s, h, d, rows=s + 40).to(cuda, torch.bfloat16)
+    qkv = big[:, :s]
+    assert qkv.stride(0) > s * qkv.shape[-1]
+    _assert_forward_close(qkv, h, s, True, with_lse)
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_forward_is_bit_for_bit_repeatable(cuda, with_lse):
+    """No atomics, a fixed order of sums: two calls agree exactly."""
+    b, s, h, d = 2, 785, 4, 64
+    qkv = _qkv(b, s, h, d).to(cuda, torch.bfloat16)
+    first = _forward(qkv, h, s, False, with_lse)
+    second = _forward(qkv, h, s, False, with_lse)
+    assert torch.equal(first[0], second[0])
+    assert not with_lse or torch.equal(first[1], second[1])
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -76,6 +144,9 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention_fused_qkv(wide[..., ::2], 2, 16)  # column stride
     with pytest.raises(ValueError):
         fa.flash_attention_fused_qkv(wide[..., 1:385], 2, 16)  # misaligned
+    row = _qkv(1, 1, 2, 64).to(cuda, torch.bfloat16)
+    with pytest.raises(ValueError):  # stride 0: no tensor map takes it
+        fa.flash_attention_fused_qkv(row.expand(2, 16, 384), 2, 16)
 
 
 @pytest.mark.parametrize("b,s,h,d,causal,combined", [
