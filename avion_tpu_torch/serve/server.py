@@ -41,6 +41,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from avion_tpu_torch.parallel.launch import resolve_device
 from avion_tpu_torch.serve.batcher import MicroBatcher
 
 _DEFERRED_FLAGS = ("--mesh", "--narrator-checkpoint", "--narrator-model")
@@ -234,18 +235,6 @@ def serve_forever_in_thread(server) -> threading.Thread:
                           name="http-serve")
     th.start()
     return th
-
-
-def resolve_device(name: str) -> torch.device:
-    """``cuda`` / ``cuda:N`` / ``cpu``; a CUDA device without CUDA raises
-    (the port never falls back to the CPU on its own)."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass --device cpu to "
-                           "serve on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"--device must be cuda[:N] or cpu, got {name!r}")
-    return device
 
 
 def main(argv=None,

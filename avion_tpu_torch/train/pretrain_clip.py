@@ -1,23 +1,40 @@
-"""CLIP video-text contrastive pretraining (``avion_tpu.train.pretrain_clip``):
-the model, its optional weight import and the optimizer.
+"""CLIP video-text contrastive pretraining entry point
+(``avion_tpu.train.pretrain_clip``): Ego4D video-text contrastive training
+on decoded video, with host or device crop, cosine LR, bf16 compute, the
+hand-written flash-attention kernels, and checkpoint / resume.
 
-The entry's ``main`` and ``build_loaders`` need the datasets and video
-decode, which come with the data slice; until then a caller drives
-:func:`build_model_and_state`, ``train.steps.make_clip_train_step`` and
-``train.loop`` with any iterable of batches in the ``VideoCaptionDataset``
-collate contract (see ``chip_smoke.py``'s train phase).
+Usage::
+
+    python -m avion_tpu_torch.train.pretrain_clip \
+        model.name=CLIP_VITB16 data.clip_length=4 data.batch_size=256 \
+        data.root=$ROOT data.train_metadata=$TRAIN_METADATA [--device cpu]
+
+It runs on CUDA unless ``--device cpu`` is given.  Dataset paths fall back
+to the environment variables the reference reads (ROOT, ROOT_VAL,
+TRAIN_METADATA, VAL_METADATA, RELEVANCY_PATH).  One device; SigLIP,
+gradient accumulation and the zero-shot suites raise until the slices
+that bring them.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 
 import torch
 
-from avion_tpu_torch.core.config import TrainConfig
+from avion_tpu_torch.core.config import TrainConfig, load_dotenv
+from avion_tpu_torch.data.datasets import (AugmentSpec, ConcatDataset,
+                                           VideoCaptionDataset)
+from avion_tpu_torch.data.loader import DataLoader
+from avion_tpu_torch.data.video_reader import default_backend
 from avion_tpu_torch.models.pt_import import import_clip_pt
 from avion_tpu_torch.models.registry import create_model
 from avion_tpu_torch.optim.factory import build_optimizer
+from avion_tpu_torch.parallel.launch import resolve_device, setup_host
+from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
+                                        setup_run, train_one_epoch)
+from avion_tpu_torch.train.steps import make_clip_train_step
 
 
 def env_defaults(cfg: TrainConfig) -> TrainConfig:
@@ -72,3 +89,155 @@ def build_model_and_state(cfg: TrainConfig, niter_per_ep: int,
     model = model.to(device)
     optimizer, schedule = build_optimizer(cfg.optim, model, niter_per_ep)
     return model, optimizer, schedule
+
+
+def build_loaders(cfg: TrainConfig):
+    """(train dataset, train ``DataLoader``): per-file chunked video, or
+    packed shards (``data.shard_dir``), plus ``data.train_metadata_aux``
+    pkls concatenated into the train set."""
+    d = cfg.data
+    augment = AugmentSpec(
+        crop_size=d.crop_size,
+        # fused_decode_crop=False moves crop / resize / flip to the device
+        # (ops/fused_input); the host then only decodes
+        mode="rrc" if d.fused_decode_crop else "device_rrc",
+        decode_size=d.decode_size, scale_min=d.scale_min,
+        scale_max=d.scale_max, hflip_prob=d.hflip_prob,
+        vflip_prob=d.vflip_prob,
+    )
+
+    def make_ds(meta):
+        return VideoCaptionDataset(
+            d.dataset, d.root, meta,
+            is_training=True, clip_length=d.clip_length,
+            chunk_len=d.chunk_len, fps=d.fps, threads=d.decode_threads,
+            decode_fast=d.decode_fast, augment=augment,
+            subsample_stride=d.subsample_stride,
+        )
+
+    if d.shard_dir:
+        from avion_tpu_torch.data.shards import ShardedVideoCaptionDataset
+
+        train_ds = ShardedVideoCaptionDataset(
+            d.shard_dir, is_training=True, clip_length=d.clip_length,
+            threads=d.decode_threads, augment=augment,
+            subsample_stride=d.subsample_stride,
+            decode_fast=bool(d.decode_fast)
+            if d.decode_fast is not None else True,
+        )
+    else:
+        train_ds = make_ds(d.train_metadata)
+    if d.train_metadata_aux:
+        paths = [p.strip() for p in d.train_metadata_aux.split(",")
+                 if p.strip()]
+        aux = [make_ds(p) for p in paths]
+        for i, (p, ds) in enumerate(zip(paths, aux)):
+            print(f"auxiliary dataset [{i}]: source={p} len={len(ds)}")
+        train_ds = ConcatDataset([train_ds] + aux)
+    train_loader = DataLoader(
+        train_ds, d.batch_size, shuffle=True, drop_last=True,
+        num_workers=d.num_workers, prefetch_depth=d.prefetch_depth,
+        seed=cfg.seed,
+    )
+    return train_ds, train_loader
+
+
+def zero_shot_suites(data_cfg, env=None) -> list:
+    """The zero-shot suites whose data paths are configured, by the
+    activation rules of ``avion_tpu.eval.validate.build_suites``."""
+    env = env if env is not None else os.environ
+    d = data_cfg
+    rules = {
+        "ek100_mir": bool(d.val_metadata and d.relevancy_path
+                          and os.path.exists(d.relevancy_path)),
+        "ek100_cls": bool(env.get("EK100_ACTIONS_CSV")
+                          and env.get("EK100_VAL", d.val_metadata)
+                          and env.get("EK100_VIDEO_DIR")
+                          and os.path.exists(env["EK100_ACTIONS_CSV"])),
+        "egtea": bool(env.get("EGTEA_DATA_DIR") and env.get("EGTEA_META_DIR")
+                      and os.path.isdir(env["EGTEA_META_DIR"])),
+        "charades_ego": bool(env.get("CHARADES_DATA_DIR")
+                             and env.get("CHARADES_META_DIR")
+                             and os.path.isdir(env["CHARADES_META_DIR"])),
+        "egomcq": bool(env.get("EGO4D_MCQ_DATA_DIR")
+                       and env.get("EGO4D_MCQ_META_DIR")),
+    }
+    return [name for name, on in rules.items() if on]
+
+
+def _check_ported(cfg: TrainConfig) -> None:
+    """Raise on what the JAX entry does and this one cannot yet."""
+    if cfg.loss == "siglip":
+        raise NotImplementedError(
+            "loss=siglip comes with the contrastive-extras slice")
+    if cfg.optim.update_freq > 1:
+        raise NotImplementedError(
+            "optim.update_freq > 1 comes with the contrastive-extras slice")
+    suites = zero_shot_suites(cfg.data) if cfg.eval_freq else []
+    if suites:
+        raise NotImplementedError(
+            f"zero-shot validation ({', '.join(suites)} configured) comes "
+            f"with the zero-shot eval slice; set eval_freq=0 to train "
+            f"without it")
+
+
+def main(argv=None) -> dict:
+    """Train; returns ``{"steps": steps taken by this call, "step": the
+    train state's step, "epochs": each epoch's metrics, "decode_backend":
+    ..., "transfers": the loader's worker transfers}``."""
+    load_dotenv()  # dataset-path env vars, the reference's .env convention
+    argv = list(argv if argv is not None else sys.argv[1:])
+    name = "cuda"
+    if "--device" in argv:
+        i = argv.index("--device")
+        if i + 1 >= len(argv):
+            raise SystemExit("usage: --device <cuda[:N]|cpu> (missing value)")
+        name = argv[i + 1]
+        del argv[i : i + 2]
+    device = resolve_device(name)
+    cfg = env_defaults(TrainConfig().apply_overrides(argv))
+    _check_ported(cfg)
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    cfg.save(os.path.join(cfg.output_dir, "config.json"))
+    setup_host(cfg.seed)
+
+    train_ds, train_loader = build_loaders(cfg)
+    print(f"[data] {len(train_ds)} clips, decode backend "
+          f"{default_backend()}, {cfg.data.num_workers} workers")
+    # steps per epoch include the echo repeats (the LR schedule spans
+    # the true step count)
+    niter = max(1, len(train_loader)) * max(1, cfg.data.echo_factor)
+    model, optimizer, _ = build_model_and_state(cfg, niter, device=device)
+    step_fn = make_clip_train_step(model, label_smoothing=cfg.label_smoothing,
+                                   crop_size=cfg.data.crop_size)
+    run = setup_run(cfg, model, optimizer, step_fn)
+    start_step = run.state.step
+    # patch dropout's generator, seeded as the JAX entry's step key
+    generator = torch.Generator(device).manual_seed(cfg.seed + 1)
+    best, epochs = -1.0, []
+    try:
+        for epoch in range(run.start_epoch, cfg.optim.epochs):
+            train_loader.set_epoch(epoch)
+            metrics = train_one_epoch(run, train_loader, epoch, generator)
+            epochs.append(metrics)
+            print(f"[epoch {epoch}] " + " ".join(
+                f"{k}={v:.4f}" for k, v in metrics.items()))
+            if finish_if_preempted(run, epoch, metrics):
+                break
+            score = metrics.get("clip_acc", 0)
+            is_best = score > best
+            best = max(best, score)
+            if (epoch + 1) % cfg.save_freq == 0 \
+                    or epoch + 1 == cfg.optim.epochs:
+                save_epoch(run, epoch, metrics, is_best)
+        run.ckpt.wait()
+        run.logger.finish()
+    finally:
+        train_loader.close()
+    return {"steps": run.state.step - start_step, "step": run.state.step,
+            "epochs": epochs, "decode_backend": default_backend(),
+            "transfers": dict(train_loader.transfers)}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch port on one CUDA card: build the kernels, hold
 each against its plain version, serve full-width CLIP ViT-B/16 over HTTP
-through the port's normal entry point, and train it for a few steps.
+through the port's normal entry point, train it for a few steps on seeded
+batches, then through the training entry on decoded video.
 
     python3 chip_smoke.py
 
@@ -40,7 +41,18 @@ Phases (each raises on failure; the script then exits non-zero):
    policies; one batch-4 step against the CPU in f32 (loss within 2%,
    gradient cosine >= 0.99); save and an exact resume;
 6. train at the config's default 16 frames (3137 tokens): 2 steps at
-   batch 8, whose visual backward takes the split dq / dkv kernels.
+   batch 8, whose visual backward takes the split dq / dkv kernels;
+7. data: cv2's video I/O, then a seeded synthetic Ego4D layout (15 s mp4v
+   chunks at 512x288, 30 fps, 2048 narration rows) that
+   ``avion_tpu_torch.train.pretrain_clip.main`` decodes in its
+   ``DataLoader`` workers and trains on at batch 256: 8 steps with host
+   crop (run A; per-step time and data wait from ``log.jsonl``, the idle
+   share of the last two steps with their batch waits, the gap to phase
+   5), 4
+   steps with device crop (run B), 24 + 24 launches a step and finite
+   losses in both; ``crop_resize_flip_normalize`` on the card against the
+   CPU in f32 on one decoded batch (max abs error 1e-3); and a second
+   ``main`` on run A's output that restores and trains no step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -53,6 +65,7 @@ import base64
 import json
 import math
 import os
+import pickle
 import queue
 import re
 import subprocess
@@ -819,8 +832,8 @@ def _reference_grads(model_gpu, cfg, batch: dict) -> None:
 
 
 def phase_train(tmp: str) -> dict:
-    """The training slice's main path at full width; returns the kernel
-    launches of its 8-step epoch."""
+    """The training slice's main path at full width, fed seeded batches;
+    returns the kernel launches of its 8-step epoch and its p50 step ms."""
     from avion_tpu_torch.models.layers import saved_attn_layers
     from avion_tpu_torch.train.loop import (save_epoch, setup_run,
                                             train_one_epoch)
@@ -924,7 +937,7 @@ def phase_train(tmp: str) -> dict:
         f"seed: step, parameters and AdamW moments bit for bit: {same}")
     if not same:
         raise RuntimeError("resume did not restore the train state exactly")
-    return launches
+    return launches, p50
 
 
 def phase_train_long(tmp: str) -> dict:
@@ -964,6 +977,316 @@ def phase_train_long(tmp: str) -> dict:
     return launches
 
 
+# the data slice: a synthetic Ego4D layout in AVION's cut (15 s chunks at a
+# 288 px short side, 30 fps), 8 videos of 2 chunks, and 2048 narration rows
+# of 1-4 s windows; run A trains on it with host crop for one 8-step epoch,
+# run B with device crop for 4 steps over every second row
+DATA_VIDEOS, DATA_CHUNKS, DATA_ROWS = 8, 2, 2048
+DATA_W, DATA_H, DATA_FPS, DATA_CHUNK_S = 512, 288, 30, 15
+DATA_STEPS, DEVICE_CROP_STEPS = 8, 4
+CROP_TOL = 1e-3  # card against CPU, f32, normalized values
+VERBS = ("opens", "closes", "picks up", "puts down", "cuts", "washes",
+         "stirs", "pours", "holds", "moves")
+NOUNS = ("the drawer", "a knife", "the onion", "the cup", "the pan",
+         "a plate", "the tap", "the lid", "a bowl", "the towel")
+
+
+def video_io_check(tmp: str) -> None:
+    """cv2's "Video I/O" build section, and an mp4v write read back."""
+    import cv2
+
+    info = cv2.getBuildInformation()
+    section = info[info.find("Video I/O"):].split("\n\n")[0]
+    log(f"cv2 {cv2.__version__} {section.strip()}")
+    path = os.path.join(tmp, "probe.mp4")
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), DATA_FPS,
+                         (64, 48))
+    if not vw.isOpened():
+        raise RuntimeError("cv2 cannot write mp4v on this machine")
+    for i in range(10):
+        vw.write(np.full((48, 64, 3), 20 * i, np.uint8))
+    vw.release()
+    cap = cv2.VideoCapture(path)
+    n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    ok, frame = cap.read()
+    cap.release()
+    if not (ok and n == 10 and frame.shape == (48, 64, 3)):
+        raise RuntimeError(f"cv2 cannot read mp4v back: {n} frames, {ok}")
+
+
+def _write_chunk(path: str, canvas: np.ndarray, first: int) -> None:
+    """One 15 s chunk: a window sliding one pixel a frame over the video's
+    canvas (seeded, smooth, so the codec sees motion as in real video)."""
+    import cv2
+
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), DATA_FPS,
+                         (DATA_W, DATA_H))
+    for t in range(first, first + DATA_CHUNK_S * DATA_FPS):
+        x = t % (canvas.shape[1] - DATA_W)
+        vw.write(np.ascontiguousarray(canvas[:, x:x + DATA_W]))
+    vw.release()
+
+
+def write_ego4d_fixture(root: str, seed: int = 0) -> str:
+    """``root/vid<k>.mp4/<chunk_start>.mp4`` and an ego4d metadata pickle
+    of DATA_ROWS (vid, start, end, narration) rows; returns its path."""
+    import cv2
+
+    rs = np.random.RandomState(seed)
+    jobs = []
+    for v in range(DATA_VIDEOS):
+        small = rs.randint(0, 256, (9, 48, 3)).astype(np.uint8)
+        canvas = cv2.resize(small, (DATA_W * 3, DATA_H),
+                            interpolation=cv2.INTER_CUBIC)
+        os.makedirs(os.path.join(root, f"vid{v}.mp4"))
+        for c in range(DATA_CHUNKS):
+            start = c * DATA_CHUNK_S
+            jobs.append((os.path.join(root, f"vid{v}.mp4", f"{start}.mp4"),
+                         canvas, start * DATA_FPS))
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(lambda job: _write_chunk(*job), jobs))
+    span = DATA_CHUNKS * DATA_CHUNK_S
+    rows = []
+    for _ in range(DATA_ROWS):
+        dur = rs.uniform(1.0, 4.0)
+        start = rs.uniform(0.0, span - dur)
+        rows.append((f"vid{rs.randint(DATA_VIDEOS)}", start, start + dur,
+                     f"#C C {VERBS[rs.randint(len(VERBS))]} "
+                     f"{NOUNS[rs.randint(len(NOUNS))]}"))
+    meta = os.path.join(root, "train.pkl")
+    with open(meta, "wb") as f:
+        pickle.dump(rows, f)
+    return meta
+
+
+def _device_busy_ms(prof) -> float:
+    """Union of the device's activity intervals (kernels, copies) in a
+    profile: the copy stream's transfers overlap the step's kernels."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+class _ProfileLastSteps:
+    """Wraps the entry's ``make_clip_train_step`` so that the profiler
+    covers the last ``window`` steps of the run together with the waits
+    for their batches: it starts when the step before them returns and
+    stops when the last returns.  Two steps: with ``prefetch_depth=2`` the batches land in
+    pairs, a long wait and then a short one."""
+
+    def __init__(self, make_step, steps: int, window: int = 2):
+        self.make_step, self.steps, self.window = make_step, steps, window
+        self.prof, self.t0, self.wall_ms, self.busy_ms = None, 0.0, 0.0, 0.0
+
+    def __call__(self, model, **kwargs):
+        from torch.profiler import ProfilerActivity, profile
+
+        inner = self.make_step(model, **kwargs)
+        calls = [0]
+
+        def step(state, batch, generator=None):
+            out = inner(state, batch, generator)
+            calls[0] += 1
+            torch.cuda.synchronize()
+            if calls[0] == self.steps - self.window:
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+            elif calls[0] == self.steps:
+                self.wall_ms = (time.perf_counter() - self.t0) * 1e3
+                self.prof.__exit__(None, None, None)
+                self.busy_ms = _device_busy_ms(self.prof)
+            return out
+
+        return step
+
+
+def _data_args(out_dir: str, root: str, meta: str, fused: bool,
+               *overrides: str) -> list:
+    return [*TRAIN_RECIPE, f"output_dir={out_dir}", f"data.root={root}",
+            f"data.train_metadata={meta}", "data.dataset=ego4d",
+            f"data.fused_decode_crop={str(fused).lower()}",
+            f"data.num_workers={min(8, os.cpu_count() or 1)}",
+            "optim.epochs=1", *overrides]
+
+
+def _train_log(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_data_run(name: str, res: dict, launches: dict, steps: int,
+                    out_dir: str):
+    """Finite losses, every step applied, 24 + 24 launches a step; returns
+    the per-step (batch ms, data ms) of the run's log."""
+    recs = [r for r in _train_log(out_dir) if "train/loss" in r]
+    losses = [r["train/loss"] for r in recs]
+    oks = [r["train/step_ok"] for r in recs]
+    log(f"{name}: {res['steps']} steps, losses {losses}, step_ok {oks}, "
+        f"launches {launches}, decode backend {res['decode_backend']}, "
+        f"transfers {res['transfers']}")
+    want = {"flash_fwd_lse": 2 * LAYERS * steps,
+            "flash_bwd_combined": 2 * LAYERS * steps}
+    if (res["steps"] != steps or len(losses) != steps
+            or not np.isfinite(losses).all() or oks != [1.0] * steps):
+        raise RuntimeError(f"{name}: a data-fed train step failed")
+    if launches != want:
+        raise RuntimeError(f"{name}: launches {launches}, expected {want}")
+    return ([r["perf/batch_time_win"] * 1e3 for r in recs],
+            [r["perf/data_time_win"] * 1e3 for r in recs])
+
+
+def _check_device_crop(cfg_args: list) -> dict:
+    """``crop_resize_flip_normalize`` on the card against the CPU, f32, on
+    one decoded device-crop batch with its own flips and with every second
+    clip flipped; and its time on the card (bf16 out, as the step runs
+    it)."""
+    from avion_tpu_torch.core.config import TrainConfig
+    from avion_tpu_torch.ops.fused_input import crop_resize_flip_normalize
+    from avion_tpu_torch.train.pretrain_clip import build_loaders
+
+    cfg = TrainConfig().apply_overrides(cfg_args)
+    _, loader = build_loaders(cfg)
+    try:
+        batch = next(iter(loader))
+    finally:
+        loader.close()
+    args = [torch.from_numpy(np.ascontiguousarray(batch[k]))
+            for k in ("video", "crop", "hflip")]
+    size = (cfg.data.crop_size, cfg.data.crop_size)
+    # the batch's own flips (none under the recipe), then every second
+    # clip flipped
+    err = 0.0
+    for flips in (args[2], torch.arange(len(args[2])) % 2 == 1):
+        ref = crop_resize_flip_normalize(*args[:2], flips, out_size=size,
+                                         dtype=torch.float32)
+        got = crop_resize_flip_normalize(
+            args[0].cuda(), args[1].cuda(), flips.cuda(), out_size=size,
+            dtype=torch.float32).cpu()
+        err = max(err, (got - ref).abs().max().item())
+        del ref, got
+    dev = [a.cuda() for a in args]
+    ms = cuda_ms(lambda: crop_resize_flip_normalize(*dev, out_size=size),
+                 iters=5)
+    row = {"batch": list(batch["video"].shape), "max_abs_err": err,
+           "ms_bf16_out": ms, "flipped": int(batch["hflip"].sum())}
+    log(f"device crop on the card against the CPU (f32): {row} "
+        f"(bound {CROP_TOL})")
+    if not err <= CROP_TOL:
+        raise RuntimeError(f"device crop disagrees with the CPU: {err}")
+    return row
+
+
+def _decode_ms_per_clip(cfg_args: list, clips: int = 16) -> float:
+    """Wall ms of one dataset item (decode, crop, tokenize) in this
+    process: what one loader worker spends a clip."""
+    from avion_tpu_torch.core.config import TrainConfig
+    from avion_tpu_torch.train.pretrain_clip import build_loaders
+
+    ds, _ = build_loaders(TrainConfig().apply_overrides(cfg_args))
+    ds[0]  # open the first reader
+    t0 = time.perf_counter()
+    for i in range(1, clips + 1):
+        ds[i]
+    return (time.perf_counter() - t0) / clips * 1e3
+
+
+def phase_data(tmp: str, echo_p50: float) -> dict:
+    """The data slice's main path: ``pretrain_clip.main`` on decoded video
+    at full width, host crop (run A) then device crop (run B), then a
+    resume; returns run A's launches."""
+    from avion_tpu_torch.data.loader import shm_free_bytes
+    from avion_tpu_torch.data.video_reader import default_backend
+    from avion_tpu_torch.train import pretrain_clip
+
+    log(f"== data: {MODEL} trained by pretrain_clip.main on decoded video")
+    t_phase = time.perf_counter()
+    video_io_check(tmp)
+    root = os.path.join(tmp, "ego4d")
+    t0 = time.perf_counter()
+    meta = write_ego4d_fixture(root)
+    log(f"fixture: {DATA_VIDEOS} videos x {DATA_CHUNKS} chunks of "
+        f"{DATA_CHUNK_S} s, {DATA_W}x{DATA_H} at {DATA_FPS} fps (mp4v), "
+        f"{DATA_ROWS} rows, written in {time.perf_counter() - t0:.2f} s")
+    log(f"decode backend {default_backend()}, os.cpu_count() "
+        f"{os.cpu_count()}, /dev/shm free {shm_free_bytes() / 2**20:.1f} MiB")
+
+    out_a = os.path.join(tmp, "data_host_crop")
+    args_a = _data_args(out_a, root, meta, True)
+    out_b = os.path.join(tmp, "data_device_crop")
+    args_b = _data_args(out_b, root, meta, False, "data.subsample_stride=2")
+    per_clip = {"host crop": _decode_ms_per_clip(args_a),
+                "device crop": _decode_ms_per_clip(args_b)}
+    log("one item (decode, crop, tokenize) in one process, ms a clip: "
+        + ", ".join(f"{k} {v:.3f} ({TRAIN_BATCH * v / 1e3:.2f} s a batch)"
+                    for k, v in per_clip.items()))
+    profiler = _ProfileLastSteps(pretrain_clip.make_clip_train_step,
+                                 DATA_STEPS)
+    pretrain_clip.make_clip_train_step = profiler
+    try:
+        torch.cuda.synchronize()
+        fa.reset_launches()  # run A's main path, counted from here
+        t0 = time.perf_counter()
+        res_a = pretrain_clip.main(args_a)
+        torch.cuda.synchronize()
+        launches_a = dict(fa.launches)
+        wall_a = time.perf_counter() - t0
+    finally:
+        pretrain_clip.make_clip_train_step = profiler.make_step
+    batch_ms, data_ms = _check_data_run("run A (host crop)", res_a,
+                                        launches_a, DATA_STEPS, out_a)
+    steady = np.array(batch_ms[2:])
+    p50 = float(np.median(steady))
+    log(f"run A per-step ms {[round(x, 3) for x in batch_ms]}, data wait ms "
+        f"{[round(x, 3) for x in data_ms]}; main() wall {wall_a:.2f} s")
+    log(f"run A steps 3-{DATA_STEPS}: p50 step {p50:.3f} ms, p50 data_time "
+        f"{float(np.median(data_ms[2:])):.3f} ms, "
+        f"{TRAIN_BATCH * len(steady) / steady.sum() * 1e3:.2f} clips/s; "
+        f"echo-fed train p50 {echo_p50:.3f} ms, gap {p50 - echo_p50:.3f} ms "
+        f"({p50 / echo_p50:.3f}x)")
+    if profiler.busy_ms:
+        log(f"profile of data-fed steps {DATA_STEPS - profiler.window + 1}-"
+            f"{DATA_STEPS} with their batch waits: wall "
+            f"{profiler.wall_ms:.2f} ms, device busy {profiler.busy_ms:.3f} "
+            f"ms, idle share {1 - profiler.busy_ms / profiler.wall_ms:.4f}")
+    else:
+        log("profile: the profiler saw no device time (not measured)")
+
+    torch.cuda.synchronize()
+    fa.reset_launches()  # run B's main path
+    t0 = time.perf_counter()
+    res_b = pretrain_clip.main(args_b)
+    torch.cuda.synchronize()
+    launches_b = dict(fa.launches)
+    wall_b = time.perf_counter() - t0
+    batch_ms_b, data_ms_b = _check_data_run(
+        "run B (device crop)", res_b, launches_b, DEVICE_CROP_STEPS, out_b)
+    log(f"run B per-step ms {[round(x, 3) for x in batch_ms_b]}, data wait "
+        f"ms {[round(x, 3) for x in data_ms_b]}; main() wall {wall_b:.2f} s; "
+        f"steps 3-{DEVICE_CROP_STEPS}: p50 step "
+        f"{float(np.median(batch_ms_b[2:])):.3f} ms")
+    crop = _check_device_crop(args_b)
+
+    fa.reset_launches()
+    again = pretrain_clip.main(args_a)
+    if again["steps"] != 0 or again["step"] != res_a["step"] or fa.launches:
+        raise RuntimeError(f"resume of run A trained again: {again}, "
+                           f"launches {dict(fa.launches)}")
+    log(f"resume of run A: restored step {again['step']}, 0 steps, "
+        f"0 launches")
+    log(f"data phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"host_crop": launches_a, "device_crop": launches_b,
+            "crop": crop}
+
+
 KERNEL_SOURCES = {
     "flash_fwd": ("flash_fwd.cu", 134), "flash_fwd_lse": ("flash_fwd.cu", 91),
     "flash_bwd_combined": ("flash_bwd.cu", 494),
@@ -980,13 +1303,18 @@ def main() -> int:
     rows = phase_kernel()
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)
-        train = phase_train(tmp)
+        train, echo_p50 = phase_train(tmp)
         long = phase_train_long(tmp)
+        data = phase_data(tmp, echo_p50)
     # each kernel's launches from the path that drives it: serving, the
-    # 4-frame main path, and the 16-frame path for the split kernels
-    launches = {"flash_fwd": serve, **train,
+    # data-fed 4-frame main path (run A), and the 16-frame path for the
+    # split kernels; every path's counts beside them
+    launches = {"flash_fwd": serve, **data["host_crop"],
                 "flash_bwd_dq": long["flash_bwd_dq"],
                 "flash_bwd_dkv": long["flash_bwd_dkv"]}
+    by_path = {"serve": {"flash_fwd": serve}, "train_seeded_batches": train,
+               "train_16_frames": long, "data_host_crop": data["host_crop"],
+               "data_device_crop": data["device_crop"]}
     kernels = []
     for name, (source, line) in KERNEL_SOURCES.items():
         head = rows[name][0]
@@ -995,6 +1323,8 @@ def main() -> int:
             "source": f"avion_tpu_torch/ops/csrc/{source}",
             "replaces": f"avion_tpu/ops/flash_attention.py:{line}",
             "launches": launches[name],
+            "launches_by_path": {path: counts[name] for path, counts in
+                                 by_path.items() if name in counts},
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -1,4 +1,5 @@
-"""The port imports nothing of JAX or of the JAX package: every module of
+"""The port imports nothing of JAX or of the JAX package, and no
+``pandas`` (the card's machine has none): every module of
 ``avion_tpu_torch`` and ``chip_smoke.py`` import in a fresh interpreter
 where those names are blocked."""
 
@@ -10,7 +11,7 @@ import sys
 import avion_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "avion_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "avion_tpu", "pandas")
 
 _SCRIPT = r"""
 import importlib, sys
@@ -49,7 +50,9 @@ def test_port_imports_nothing_of_jax():
     for mod in ("train.pretrain_clip", "train.loop", "train.steps",
                 "optim.factory", "optim.schedules", "losses.losses",
                 "core.checkpoint", "core.train_state", "core.meters",
-                "core.logging", "data.loader", "parallel.launch"):
+                "core.logging", "data.loader", "parallel.launch",
+                "data.video_reader", "data.metadata", "data.sampling",
+                "data.datasets", "data.shards", "ops.fused_input"):
         assert f"avion_tpu_torch.{mod}" in modules
     script = _SCRIPT.format(blocked=BLOCKED, modules=modules, root=ROOT)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
