@@ -61,7 +61,7 @@ class StepTimer:
         timer = StepTimer()
         for batch in loader:         # data fetch happens in next()
             timer.mark_data()
-            state, m = step(state, batch, rng)
+            state, m = step(state, batch)
             sync()                    # host fetch of a metric scalar
             timer.mark_step()
     """

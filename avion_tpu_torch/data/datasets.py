@@ -5,8 +5,9 @@ decode or OpenCV) with host-sampled crop parameters and returns plain
 numpy: frames stay uint8 until they reach the device.  The item contract
 and every random draw are the JAX package's.
 
-The classification, EgoMCQ and Kinetics datasets come with the eval,
-finetune and VideoMAE slices.
+The classification dataset's eval views and the EgoMCQ dataset serve the
+zero-shot suites; the classification training path and the Kinetics
+dataset come with the finetune and VideoMAE slices.
 """
 
 from __future__ import annotations
@@ -200,6 +201,159 @@ class VideoCaptionDataset(_PicklableCache):
         return caption_item(frames, caption, rng, self.context_length,
                             self.narration_selection, crop_arr, hflip,
                             relevancy)
+
+
+class VideoClassyDataset(_PicklableCache):
+    """Classification dataset over the caption datasets' video layouts
+    (``VideoClassyDataset``), eval views only: ``num_clips`` temporal
+    views, each a centre square (``num_crops=1``) or left / centre / right
+    squares of a wider decode (``num_crops=3``).  The training path
+    (repeated augmentation, ``num_sample``) comes with the finetune
+    slice."""
+
+    def __init__(
+        self,
+        dataset: str,
+        root: str,
+        metadata_path: str,
+        *,
+        is_training: bool = True,
+        clip_length: int = 16,
+        clip_stride: int = 2,
+        chunk_len: int = -1,
+        threads: int = 1,
+        augment: Optional[AugmentSpec] = None,
+        num_clips: int = 1,
+        num_crops: int = 1,
+        label_mapping: Optional[dict] = None,
+    ):
+        if is_training:
+            raise NotImplementedError(
+                "VideoClassyDataset(is_training=True) comes with the "
+                "finetune slice")
+        if num_crops not in (1, 3):
+            raise ValueError(f"num_crops must be 1 or 3, got {num_crops}")
+        self.dataset = dataset
+        self.root = root
+        self.clip_length = clip_length
+        self.clip_stride = clip_stride
+        self.chunk_len = chunk_len
+        self.threads = threads
+        self.augment = augment or AugmentSpec(mode="center")
+        self.num_clips = num_clips
+        self.num_crops = num_crops
+        self.label_mapping = label_mapping
+
+        if dataset == "ek100_cls":
+            self.samples = md.load_ek100(root, metadata_path)
+        elif dataset == "egtea":
+            self.samples, _ = md.load_egtea(root, metadata_path)
+        elif dataset == "charades_ego":
+            self.samples = md.load_charades_ego(root, metadata_path,
+                                                is_trimmed=False)
+        else:
+            raise ValueError(dataset)
+        self._cache: dict = {}
+
+    def __len__(self):
+        return len(self.samples)
+
+    def _label(self, s: md.Sample):
+        if self.dataset == "ek100_cls":
+            if self.label_mapping is not None:
+                return self.label_mapping[f"{s.verb}:{s.noun}"]
+            return (s.verb, s.noun)
+        if self.label_mapping is not None \
+                and not isinstance(s.label, (int, np.integer)):
+            if isinstance(s.label, list):  # multi-label (charades_ego)
+                out = np.zeros(len(self.label_mapping), np.float32)
+                for a in s.label:
+                    out[self.label_mapping[a]] = 1.0
+                return out
+            return self.label_mapping[s.label]
+        return s.label
+
+    def __getitem__(self, i: int):
+        rng = np.random.RandomState(i)
+        s = self.samples[i]
+        ext = "MP4" if self.dataset == "ek100_cls" else "mp4"
+        cs = self.augment.crop_size
+        # views are sub-windows spread over the annotated span; each covers
+        # span / num_clips when the span is long enough, else they overlap
+        span = s.end - s.start
+        view_len = span if self.num_clips == 1 else max(
+            span / self.num_clips, min(span, self.clip_length
+                                       * self.clip_stride / max(s.fps, 1)))
+        # num_crops=3 decodes a frame 4/3 as wide (an even width) and cuts
+        # left / centre / right squares from it
+        size = (int(cs * 4 / 3) // 2 * 2, cs) if self.num_crops == 3 \
+            else (cs, cs)
+        views = []
+        for k in range(self.num_clips):
+            if self.num_clips == 1:
+                vs, ve = s.start, s.end
+            else:
+                max_start = max(0.0, span - view_len)
+                vs = s.start + k * max_start / max(1, self.num_clips - 1)
+                ve = min(s.end, vs + view_len)
+            frames = load_clip(
+                self.root, s.vid, ext, vs, ve, chunk_len=self.chunk_len,
+                fps=s.fps, clip_length=self.clip_length,
+                threads=self.threads, crop=CropSpec(), out_size=size,
+                jitter=False, rng=rng, reader_cache=self._cache,
+            )
+            if self.num_crops == 3:
+                w = frames.shape[2]
+                for x0 in (0, (w - cs) // 2, w - cs):
+                    views.append(frames[:, :, x0 : x0 + cs])
+            else:
+                views.append(frames)
+        video = np.stack(views) if len(views) > 1 else views[0]
+        return {"video": video, "label": self._label(s)}
+
+
+class VideoCaptionMCQDataset(_PicklableCache):
+    """EgoMCQ 5-way multiple choice (``VideoCaptionDatasetMCQ``): a text
+    query and the clips of its candidates."""
+
+    def __init__(self, root: str, metadata_path: str, *, clip_length: int = 4,
+                 chunk_len: int = 15, fps: float = 30, threads: int = 1,
+                 crop_size: int = 224, context_length: int = 77):
+        self.root = root
+        self.samples = md.load_ego4d_mcq(metadata_path)
+        self.clip_length = clip_length
+        self.chunk_len = chunk_len
+        self.fps = fps
+        self.threads = threads
+        self.crop_size = crop_size
+        self.context_length = context_length
+        self._cache: dict = {}
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i: int):
+        item = self.samples[str(i)]
+        options = item["choices"]
+        frames_options, narration_options = [], []
+        for k in range(len(options)):
+            opt = options[str(k)]
+            frames_options.append(load_clip(
+                self.root, opt["video_uid"], "mp4",
+                float(opt["clip_start"]), float(opt["clip_end"]),
+                chunk_len=self.chunk_len, fps=self.fps,
+                clip_length=self.clip_length, threads=self.threads,
+                crop=CropSpec(), out_size=(self.crop_size, self.crop_size),
+                jitter=False, reader_cache=self._cache,
+            ))
+            narration_options.append(opt["clip_text"])
+        return {
+            "query": tokenize(item["query"]["clip_text"], self.context_length),
+            "videos": np.stack(frames_options),
+            "options": tokenize(narration_options, self.context_length),
+            "answer": np.int32(item["answer"]),
+            "type": np.int32(item["types"]),
+        }
 
 
 def collate(items: Sequence[Any]) -> Dict[str, np.ndarray]:

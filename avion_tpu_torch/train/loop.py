@@ -80,9 +80,7 @@ def setup_run(cfg: TrainConfig, model: torch.nn.Module, optimizer,
                start_batch)
 
 
-def train_one_epoch(run: Run, loader, epoch: int,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Dict[str, float]:
+def train_one_epoch(run: Run, loader, epoch: int) -> Dict[str, float]:
     """Steps over ``loader`` (an iterable of dicts of numpy arrays),
     echoing each batch ``cfg.data.echo_factor`` times.  Metrics reach the
     host every ``print_freq`` steps; the returned epoch summary averages
@@ -126,7 +124,7 @@ def train_one_epoch(run: Run, loader, epoch: int,
             save_epoch(run, epoch - 1, batch_in_epoch=skipped + i)
             run.ckpt.wait()
             break
-        run.state, metrics = run.step(run.state, batch, generator)
+        run.state, metrics = run.step(run.state, batch)
         msum = dict(metrics) if msum is None else {
             k: msum[k] + v for k, v in metrics.items()}
         mcount += 1

@@ -11,9 +11,12 @@ Usage::
 
 It runs on CUDA unless ``--device cpu`` is given.  Dataset paths fall back
 to the environment variables the reference reads (ROOT, ROOT_VAL,
-TRAIN_METADATA, VAL_METADATA, RELEVANCY_PATH).  One device; SigLIP,
-gradient accumulation and the zero-shot suites raise until the slices
-that bring them.
+TRAIN_METADATA, VAL_METADATA, RELEVANCY_PATH).  The configured zero-shot
+suites (``eval.validate``) run before the first epoch and every
+``eval_freq`` epochs, on a bf16 copy of the model, and
+``test_ek100_mir_avg_map`` picks the best checkpoint when that suite runs.
+One device; SigLIP and gradient accumulation raise until the slices that
+bring them.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from avion_tpu_torch.data.datasets import (AugmentSpec, ConcatDataset,
                                            VideoCaptionDataset)
 from avion_tpu_torch.data.loader import DataLoader
 from avion_tpu_torch.data.video_reader import default_backend
+from avion_tpu_torch.eval.validate import run_validation
 from avion_tpu_torch.models.pt_import import import_clip_pt
 from avion_tpu_torch.models.registry import create_model
 from avion_tpu_torch.optim.factory import build_optimizer
@@ -142,29 +146,6 @@ def build_loaders(cfg: TrainConfig):
     return train_ds, train_loader
 
 
-def zero_shot_suites(data_cfg, env=None) -> list:
-    """The zero-shot suites whose data paths are configured, by the
-    activation rules of ``avion_tpu.eval.validate.build_suites``."""
-    env = env if env is not None else os.environ
-    d = data_cfg
-    rules = {
-        "ek100_mir": bool(d.val_metadata and d.relevancy_path
-                          and os.path.exists(d.relevancy_path)),
-        "ek100_cls": bool(env.get("EK100_ACTIONS_CSV")
-                          and env.get("EK100_VAL", d.val_metadata)
-                          and env.get("EK100_VIDEO_DIR")
-                          and os.path.exists(env["EK100_ACTIONS_CSV"])),
-        "egtea": bool(env.get("EGTEA_DATA_DIR") and env.get("EGTEA_META_DIR")
-                      and os.path.isdir(env["EGTEA_META_DIR"])),
-        "charades_ego": bool(env.get("CHARADES_DATA_DIR")
-                             and env.get("CHARADES_META_DIR")
-                             and os.path.isdir(env["CHARADES_META_DIR"])),
-        "egomcq": bool(env.get("EGO4D_MCQ_DATA_DIR")
-                       and env.get("EGO4D_MCQ_META_DIR")),
-    }
-    return [name for name, on in rules.items() if on]
-
-
 def _check_ported(cfg: TrainConfig) -> None:
     """Raise on what the JAX entry does and this one cannot yet."""
     if cfg.loss == "siglip":
@@ -173,17 +154,12 @@ def _check_ported(cfg: TrainConfig) -> None:
     if cfg.optim.update_freq > 1:
         raise NotImplementedError(
             "optim.update_freq > 1 comes with the contrastive-extras slice")
-    suites = zero_shot_suites(cfg.data) if cfg.eval_freq else []
-    if suites:
-        raise NotImplementedError(
-            f"zero-shot validation ({', '.join(suites)} configured) comes "
-            f"with the zero-shot eval slice; set eval_freq=0 to train "
-            f"without it")
 
 
 def main(argv=None) -> dict:
     """Train; returns ``{"steps": steps taken by this call, "step": the
-    train state's step, "epochs": each epoch's metrics, "decode_backend":
+    train state's step, "epochs": each epoch's metrics, "eval": the
+    zero-shot metrics by epoch (-1 before the first), "decode_backend":
     ..., "transfers": the loader's worker transfers}``."""
     load_dotenv()  # dataset-path env vars, the reference's .env convention
     argv = list(argv if argv is not None else sys.argv[1:])
@@ -208,34 +184,49 @@ def main(argv=None) -> dict:
     # the true step count)
     niter = max(1, len(train_loader)) * max(1, cfg.data.echo_factor)
     model, optimizer, _ = build_model_and_state(cfg, niter, device=device)
+    # patch dropout draws from (seed + 1, step), as the JAX entry's step key
     step_fn = make_clip_train_step(model, label_smoothing=cfg.label_smoothing,
-                                   crop_size=cfg.data.crop_size)
+                                   crop_size=cfg.data.crop_size,
+                                   seed=cfg.seed + 1)
     run = setup_run(cfg, model, optimizer, step_fn)
     start_step = run.state.step
-    # patch dropout's generator, seeded as the JAX entry's step key
-    generator = torch.Generator(device).manual_seed(cfg.seed + 1)
-    best, epochs = -1.0, []
+    best, epochs, evals = -1.0, [], {}
     try:
+        if cfg.eval_freq and run.start_epoch == 0:
+            # zero-shot pass before training
+            zs = run_validation(model, cfg.data)
+            if zs:
+                evals[-1] = zs
+                print(f"[epoch -1 zero-shot] {zs}")
+                run.logger.log(zs, step=0)
         for epoch in range(run.start_epoch, cfg.optim.epochs):
             train_loader.set_epoch(epoch)
-            metrics = train_one_epoch(run, train_loader, epoch, generator)
+            metrics = train_one_epoch(run, train_loader, epoch)
             epochs.append(metrics)
             print(f"[epoch {epoch}] " + " ".join(
                 f"{k}={v:.4f}" for k, v in metrics.items()))
             if finish_if_preempted(run, epoch, metrics):
                 break
-            score = metrics.get("clip_acc", 0)
+            eval_metrics = {}
+            if cfg.eval_freq and (epoch + 1) % cfg.eval_freq == 0:
+                eval_metrics = run_validation(model, cfg.data)
+                if eval_metrics:
+                    evals[epoch] = eval_metrics
+                    run.logger.log(eval_metrics, step=run.state.step)
+            score = eval_metrics.get("test_ek100_mir_avg_map",
+                                     metrics.get("clip_acc", 0))
             is_best = score > best
             best = max(best, score)
             if (epoch + 1) % cfg.save_freq == 0 \
                     or epoch + 1 == cfg.optim.epochs:
-                save_epoch(run, epoch, metrics, is_best)
+                save_epoch(run, epoch, {**metrics, **eval_metrics}, is_best)
         run.ckpt.wait()
         run.logger.finish()
     finally:
         train_loader.close()
     return {"steps": run.state.step - start_step, "step": run.state.step,
-            "epochs": epochs, "decode_backend": default_backend(),
+            "epochs": epochs, "eval": evals,
+            "decode_backend": default_backend(),
             "transfers": dict(train_loader.transfers)}
 
 

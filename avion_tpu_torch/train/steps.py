@@ -25,6 +25,13 @@ from avion_tpu_torch.ops.fused_input import crop_resize_flip_normalize
 LOGIT_SCALE_MAX = 4.6052  # ln(100); scripts/main_lavila_pretrain.py:880
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s random draws under base ``seed``: the
+    JAX step folds ``state.step`` into its key, so step k draws the same
+    patch-dropout mask whether or not the run was resumed before it."""
+    return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
+
+
 def prep_video(video: torch.Tensor, dtype: torch.dtype = torch.bfloat16,
                batch=None, model=None, crop_size=None) -> torch.Tensor:
     """Normalize a uint8 batch on its device; float input passes through
@@ -52,20 +59,25 @@ def _clamp_logit_scale(model: torch.nn.Module) -> None:
 
 def make_clip_train_step(model: torch.nn.Module,
                          label_smoothing: float = 0.0,
-                         crop_size: Optional[int] = None) -> Callable:
-    """Returns ``step(state, batch, generator=None) -> (state, metrics)``.
+                         crop_size: Optional[int] = None,
+                         seed: int = 1) -> Callable:
+    """Returns ``step(state, batch) -> (state, metrics)``.
     ``batch``: ``video`` [B, T, H, W, 3] (uint8 or normalized float) and
     ``text`` [B, L] token ids on the model's device (with ``crop`` /
-    ``hflip``, the clip is cropped to ``crop_size`` on the device);
-    ``generator`` feeds patch dropout.  Metrics: ``loss``, ``clip_acc``,
-    ``logit_scale`` and ``grad_norm`` as device tensors, ``step_ok`` as a
-    float.  The update
-    is the state's optimizer's (the JAX package's step takes it as
+    ``hflip``, the clip is cropped to ``crop_size`` on the device).  Patch
+    dropout draws from a generator on the model's device seeded from
+    (``seed``, ``state.step``) (:func:`step_seed`); the entry passes
+    ``cfg.seed + 1``, which the default is for the default seed 0.
+    Metrics: ``loss``, ``clip_acc``, ``logit_scale`` and ``grad_norm`` as
+    device tensors, ``step_ok`` as a float.  The update is the state's
+    optimizer's (the JAX package's step takes it as
     ``tx``).  The loss is ``clip``; SigLIP waits for a later slice."""
     dtype = getattr(model, "dtype", torch.bfloat16)
 
-    def step(state: TrainState, batch, generator=None):
+    def step(state: TrainState, batch):
         model, opt = state.model, state.optimizer
+        generator = torch.Generator(next(model.parameters()).device)
+        generator.manual_seed(step_seed(seed, state.step))
         video = prep_video(batch["video"], dtype=dtype, batch=batch,
                            model=model, crop_size=crop_size)
         out = model(video, batch["text"].long(), deterministic=False,

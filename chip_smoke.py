@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch port on one CUDA card: build the kernels, hold
 each against its plain version, serve full-width CLIP ViT-B/16 over HTTP
 through the port's normal entry point, train it for a few steps on seeded
-batches, then through the training entry on decoded video.
+batches, then through the training entry on decoded video, and evaluate it
+zero-shot on the five suites.
 
     python3 chip_smoke.py
 
@@ -29,8 +30,9 @@ Phases (each raises on failure; the script then exits non-zero):
    layout, served by ``avion_tpu_torch.serve.server.main`` at 4 frames on
    an ephemeral port; every endpoint is called, the answers checked, the
    kernel's launches counted (one per attention layer of every tower
-   forward), and two clips and two texts re-run on the CPU through the
-   plain path (cosine >= 0.99);
+   forward), five requests profiled one by one (device time by kind), and
+   two clips and two texts re-run on the CPU through the plain path
+   (cosine >= 0.99);
 5. train: the recipe of ``scripts/examples/pretrain_vitb_ego4d.sh`` at
    batch 256 and 4 frames, built through ``TrainConfig``,
    ``build_model_and_state``, ``make_clip_train_step`` and ``setup_run``;
@@ -52,7 +54,21 @@ Phases (each raises on failure; the script then exits non-zero):
    steps with device crop (run B), 24 + 24 launches a step and finite
    losses in both; ``crop_resize_flip_normalize`` on the card against the
    CPU in f32 on one decoded batch (max abs error 1e-3); and a second
-   ``main`` on run A's output that restores and trains no step.
+   ``main`` on run A's output that restores and trains no step;
+8. eval: seeded synthetic layouts of the five zero-shot suites (EK100
+   MIR with 512 clips, EK100 CLS, EGTEA, Charades-Ego, EgoMCQ; mp4v at
+   512x288, 30 fps); (a) ``pretrain_clip.main`` with ``eval_freq=1`` and
+   the MIR suite, two one-step epochs on the data phase's layout: metrics
+   before training and after each epoch, ``is_best`` on the MIR mAP, the
+   training model bit-equal across each eval pass; (b)
+   ``avion_tpu_torch.eval.validate.main``, strict, at val batch 128 on the
+   serve phase's checkpoint: every suite's wall time, clips/s, data-wait
+   share and metrics; (c) its ``flash_fwd`` launches equal to 12 per tower
+   forward; (d) ``tools.embed_videos`` on 8 clips and 8 sentences against
+   the CPU plain path in f32 (cosine >= 0.99); (e) the idle share of one
+   profiled MIR sweep and its device time by kind; then the inference
+   forward against its plain f32 version at every shape (a) and (b) gave
+   it (batch 128 and the ragged last chunks; phase 3's tolerances).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -62,6 +78,7 @@ prints no result.
 from __future__ import annotations
 
 import base64
+import csv
 import json
 import math
 import os
@@ -543,29 +560,29 @@ def _unit_rows(name: str, arr, n: int, dim: int = 512) -> np.ndarray:
     return arr
 
 
-def profile_request(url: str, clips: np.ndarray) -> None:
-    """Device time of one /v1/embed/video request by kernel, and the share
-    of the request's wall time the card was idle (torch.profiler)."""
-    from torch.autograd import DeviceType
+def profile_request(url: str, clips: np.ndarray, requests: int = 5) -> None:
+    """Wall time, device time and the card's idle share of ``requests``
+    /v1/embed/video requests, each profiled alone (torch.profiler), and
+    the median request's device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall = _post(url, "/v1/embed/video", _frames(clips))[1]
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    if not busy:
+    runs = []
+    for _ in range(requests):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = _post(url, "/v1/embed/video", _frames(clips))[1] * 1e3
+            torch.cuda.synchronize()
+        by_name = _device_ms_by_name(prof)
+        runs.append((sum(by_name.values()), wall, by_name))
+    if not runs[0][0]:
         log("profile: the profiler saw no device time (not measured)")
         return
-    log(f"profile of one {len(clips)}-clip request: wall {wall * 1e3:.2f} ms,"
-        f" device busy {busy:.3f} ms, idle share {1 - busy / (wall * 1e3):.4f}")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"  {ms:9.3f} ms  {ms / busy:6.1%}  {name[:100]}")
+    for busy, wall, _ in runs:
+        log(f"profile of one {len(clips)}-clip request: wall {wall:.2f} ms, "
+            f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}")
+    busy, wall, by_name = sorted(runs, key=lambda r: r[0])[requests // 2]
+    log(f"median device busy {busy:.3f} ms of {requests} requests; by kernel:")
+    log_device_time(by_name, top=8)
 
 
 def phase_serve(tmp: str) -> int:
@@ -729,42 +746,56 @@ KERNEL_GROUPS = (
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
     ("LayerNorm", ("layer_norm",)),
     ("optimizer (foreach / multi-tensor)", ("multi_tensor", "foreach")),
+    ("host-device copies", ("Memcpy HtoD", "Memcpy DtoH")),
     ("copies and casts", ("copy", "Memcpy", "Memset")),
 )
 
 
-def profile_step(run, batch: dict) -> None:
-    """Device busy time and idle share of one train step, by kernel."""
+def _device_ms_by_name(prof) -> dict:
+    """A profile's device time (ms) by kernel or copy name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run.state, _ = run.step(run.state, batch, None)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    if not busy:
-        log("profile: the profiler saw no device time (not measured)")
-        return
-    log(f"profile of one train step: wall {wall:.2f} ms, device busy "
-        f"{busy:.3f} ms, idle share {1 - busy / wall:.4f}")
+    return by_name
+
+
+def log_device_time(by_name: dict, top: int = 15) -> None:
+    """Logs device time by KERNEL_GROUPS, then the ``top`` names."""
+    total = sum(by_name.values())
     groups: dict = {}
     for name, ms in by_name.items():
         group = next((g for g, keys in KERNEL_GROUPS if any(
             k in name for k in keys)), "other elementwise and reductions")
         groups[group] = groups.get(group, 0.0) + ms
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"  {ms:9.3f} ms  {ms / busy:6.1%}  [{group}]")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        log(f"  {ms:9.3f} ms  {ms / busy:6.1%}  {name[:100]}")
+        log(f"  {ms:9.3f} ms  {ms / total:6.1%}  [{group}]")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"  {ms:9.3f} ms  {ms / total:6.1%}  {name[:100]}")
+
+
+def profile_step(run, batch: dict) -> None:
+    """Device busy time and idle share of one train step, by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.state, _ = run.step(run.state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = _device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    if not busy:
+        log("profile: the profiler saw no device time (not measured)")
+        return
+    log(f"profile of one train step: wall {wall:.2f} ms, device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / wall:.4f}")
+    log_device_time(by_name)
 
 
 def _policy_forwards(tmp: str, policy: str, batch: dict) -> int:
@@ -779,7 +810,7 @@ def _policy_forwards(tmp: str, policy: str, batch: dict) -> int:
     model, opt, _ = build_model_and_state(cfg, TRAIN_STEPS)
     run = setup_run(cfg, model, opt, make_clip_train_step(model))
     fa.reset_launches()
-    run.state, metrics = run.step(run.state, batch, None)
+    run.state, metrics = run.step(run.state, batch)
     torch.cuda.synchronize()
     if metrics["step_ok"] != 1.0:
         raise RuntimeError(f"{policy}: step not applied")
@@ -856,8 +887,8 @@ def phase_train(tmp: str) -> dict:
     ends, losses, oks = [], [], []
     inner = run.step
 
-    def timed(state, batch, gen):
-        state, metrics = inner(state, batch, gen)
+    def timed(state, batch):
+        state, metrics = inner(state, batch)
         losses.append(float(metrics["loss"]))
         oks.append(metrics["step_ok"])
         ends.append(time.perf_counter())
@@ -1014,30 +1045,37 @@ def video_io_check(tmp: str) -> None:
         raise RuntimeError(f"cv2 cannot read mp4v back: {n} frames, {ok}")
 
 
-def _write_chunk(path: str, canvas: np.ndarray, first: int) -> None:
-    """One 15 s chunk: a window sliding one pixel a frame over the video's
-    canvas (seeded, smooth, so the codec sees motion as in real video)."""
+def _write_chunk(path: str, canvas: np.ndarray, first: int,
+                 frames: int = DATA_CHUNK_S * DATA_FPS,
+                 fps: int = DATA_FPS) -> None:
+    """One chunk (15 s by default): a window of the canvas's height and a
+    third of its width, sliding one pixel a frame (seeded, smooth, so the
+    codec sees motion as in real video)."""
     import cv2
 
-    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), DATA_FPS,
-                         (DATA_W, DATA_H))
-    for t in range(first, first + DATA_CHUNK_S * DATA_FPS):
-        x = t % (canvas.shape[1] - DATA_W)
-        vw.write(np.ascontiguousarray(canvas[:, x:x + DATA_W]))
+    h, w = canvas.shape[0], canvas.shape[1] // 3
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    for t in range(first, first + frames):
+        x = t % (canvas.shape[1] - w)
+        vw.write(np.ascontiguousarray(canvas[:, x:x + w]))
     vw.release()
+
+
+def _canvas(rs, w: int, h: int) -> np.ndarray:
+    """A seeded smooth texture three frames wide."""
+    import cv2
+
+    small = rs.randint(0, 256, (9, 48, 3)).astype(np.uint8)
+    return cv2.resize(small, (w * 3, h), interpolation=cv2.INTER_CUBIC)
 
 
 def write_ego4d_fixture(root: str, seed: int = 0) -> str:
     """``root/vid<k>.mp4/<chunk_start>.mp4`` and an ego4d metadata pickle
     of DATA_ROWS (vid, start, end, narration) rows; returns its path."""
-    import cv2
-
     rs = np.random.RandomState(seed)
     jobs = []
     for v in range(DATA_VIDEOS):
-        small = rs.randint(0, 256, (9, 48, 3)).astype(np.uint8)
-        canvas = cv2.resize(small, (DATA_W * 3, DATA_H),
-                            interpolation=cv2.INTER_CUBIC)
+        canvas = _canvas(rs, DATA_W, DATA_H)
         os.makedirs(os.path.join(root, f"vid{v}.mp4"))
         for c in range(DATA_CHUNKS):
             start = c * DATA_CHUNK_S
@@ -1091,8 +1129,8 @@ class _ProfileLastSteps:
         inner = self.make_step(model, **kwargs)
         calls = [0]
 
-        def step(state, batch, generator=None):
-            out = inner(state, batch, generator)
+        def step(state, batch):
+            out = inner(state, batch)
             calls[0] += 1
             torch.cuda.synchronize()
             if calls[0] == self.steps - self.window:
@@ -1284,7 +1322,507 @@ def phase_data(tmp: str, echo_p50: float) -> dict:
         f"0 launches")
     log(f"data phase wall {time.perf_counter() - t_phase:.1f} s")
     return {"host_crop": launches_a, "device_crop": launches_b,
-            "crop": crop}
+            "crop": crop, "fixture": (root, meta)}
+
+
+# the eval slice: seeded synthetic layouts of the five zero-shot suites in
+# their datasets' formats, at the data phase's 512x288 and 30 fps
+EVAL_SIZES = dict(mir_clips=512, egtea_clips=64,
+                  charades_videos=32, charades_classes=24, mcq_items=64)
+EVAL_CLIP_S = 3  # seconds of each EGTEA clip and Charades-Ego video
+
+
+def _ts(sec: float) -> str:
+    """Seconds as EPIC-Kitchens' HH:MM:SS.ss."""
+    return f"{int(sec // 3600):02d}:{int(sec % 3600 // 60):02d}:" \
+        f"{sec % 60:05.2f}"
+
+
+def write_eval_fixtures(root: str, seed: int = 0, *, w: int = DATA_W,
+                        h: int = DATA_H, fps: int = DATA_FPS,
+                        chunk_s: int = DATA_CHUNK_S, clip_s: int = EVAL_CLIP_S,
+                        mir_clips: int = EVAL_SIZES["mir_clips"],
+                        egtea_clips: int = EVAL_SIZES["egtea_clips"],
+                        charades_videos: int = EVAL_SIZES["charades_videos"],
+                        charades_classes: int = EVAL_SIZES["charades_classes"],
+                        mcq_items: int = EVAL_SIZES["mcq_items"]) -> dict:
+    """Write the five suites' layouts under ``root`` with cv2 (mp4v):
+
+    - EK100 MIR: ``ek100/PXX/PXX_YY.MP4/<chunk_start>.MP4`` (4 videos of 2
+      chunks), ``EPIC_100_retrieval_test.csv`` of ``mir_clips`` narrated
+      windows (verb x noun captions, each of the 100 once before any
+      repeats), its ``_sentence.csv`` (each distinct caption once, under
+      the id of its first clip, in a seeded order) and the graded
+      relevancy pkl (1 for the same verb and noun, 0.5 for one of them,
+      else 0), so that every clip and sentence has a relevant match;
+    - EK100 CLS: the same csv and videos, and an ``actions.csv`` of the
+      100 verb-noun actions;
+    - EGTEA: ``egtea/data/<video>/<clip>.mp4``, ``action_idx.txt`` and
+      ``test_split1.txt`` over 20 actions;
+    - Charades-Ego: ``charades/data/<id>.mp4``, the classes txt and the
+      test csv, 1-3 labelled actions a video;
+    - EgoMCQ: ``mcq/<uid>.mp4/0.mp4`` (4 videos of one chunk) and
+      ``egomcq.json``: a query, 5 candidate windows, the answer, intra- or
+      inter-video.
+
+    Returns ``{"data": DataConfig overrides, "env": the suites' variables,
+    "mir_videos": the MIR chunk files}``."""
+    rs = np.random.RandomState(seed)
+    jobs = []
+
+    def video(path, frames):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        jobs.append((path, _canvas(rs, w, h), 0, frames, fps))
+
+    def caption(combo):
+        v, n = divmod(int(combo), len(NOUNS))
+        return v, n, f"{VERBS[v]} {NOUNS[n]}"
+
+    def write_csv(path, header, rows):
+        with open(path, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(header)
+            writer.writerows(rows)
+
+    combos = len(VERBS) * len(NOUNS)
+    # EK100 MIR and CLS
+    ek = os.path.join(root, "ek100")
+    vids = [("P01", "P01_01"), ("P01", "P01_02"), ("P02", "P02_01"),
+            ("P02", "P02_02")]
+    mir_videos = []
+    for pid, vid in vids:
+        for c in range(2):
+            path = os.path.join(ek, pid, f"{vid}.MP4", f"{c * chunk_s}.MP4")
+            video(path, chunk_s * fps)
+            mir_videos.append(path)
+    order = rs.permutation(combos)
+    rows, parts = [], []
+    for k in range(mir_clips):
+        pid, vid = vids[rs.randint(len(vids))]
+        dur = rs.uniform(1.0, min(4.0, chunk_s))
+        start = rs.uniform(0.0, 2 * chunk_s - dur)
+        v, n, text = caption(order[k % combos])
+        parts.append((v, n))
+        rows.append([f"{vid}_{k}", pid, vid, _ts(start), _ts(start),
+                     _ts(start + dur), int(start * fps),
+                     int((start + dur) * fps), text, VERBS[v], v, NOUNS[n], n,
+                     f"['{NOUNS[n]}']", f"[{n}]"])
+    header = ["narration_id", "participant_id", "video_id",
+              "narration_timestamp", "start_timestamp", "stop_timestamp",
+              "start_frame", "stop_frame", "narration", "verb", "verb_class",
+              "noun", "noun_class", "all_nouns", "all_noun_classes"]
+    val = os.path.join(ek, "EPIC_100_retrieval_test.csv")
+    write_csv(val, header, rows)
+    sent = rs.permutation(np.unique([r[8] for r in rows],
+                                    return_index=True)[1])
+    write_csv(os.path.join(ek, "EPIC_100_retrieval_test_sentence.csv"),
+              ["narration_id", "narration"],
+              [[rows[i][0], rows[i][8]] for i in sent])
+    p = np.asarray(parts)
+    rel = ((p[:, None, 0] == p[None, sent, 0]).astype(np.float64)
+           + (p[:, None, 1] == p[None, sent, 1])) / 2
+    os.makedirs(os.path.join(ek, "relevancy"))
+    rel_path = os.path.join(
+        ek, "relevancy", "caption_relevancy_EPIC_100_retrieval_test.pkl")
+    with open(rel_path, "wb") as f:
+        pickle.dump(rel, f)
+    actions = os.path.join(ek, "actions.csv")
+    write_csv(actions, ["id", "verb", "noun", "action"],
+              [[i, *caption(i)[:2], caption(i)[2].replace(" ", "_")]
+               for i in range(combos)])
+
+    # EGTEA: 20 actions, clips of clip_s seconds
+    eg = os.path.join(root, "egtea")
+    os.makedirs(os.path.join(eg, "meta"))
+    with open(os.path.join(eg, "meta", "action_idx.txt"), "w") as f:
+        f.writelines(f"{caption(order[i])[2].replace(' ', '_')} {i + 1}\n"
+                     for i in range(20))
+    with open(os.path.join(eg, "meta", "test_split1.txt"), "w") as f:
+        for k in range(egtea_clips):
+            video_id = f"P{k % 4 + 1:02d}-R01-Kitchen"
+            clip_id = f"{video_id}-{k:04d}"
+            video(os.path.join(eg, "data", video_id, f"{clip_id}.mp4"),
+                  clip_s * fps)
+            f.write(f"{clip_id} {rs.randint(20) + 1} 0\n")
+
+    # Charades-Ego: untrimmed test videos with 1-3 actions each
+    ch = os.path.join(root, "charades")
+    os.makedirs(os.path.join(ch, "meta"))
+    with open(os.path.join(ch, "meta", "Charades_v1_classes.txt"), "w") as f:
+        f.writelines(f"c{i:03d} {caption(order[-1 - i])[2]}\n"
+                     for i in range(charades_classes))
+    rows = []
+    for k in range(charades_videos):
+        vid = f"V{k:04d}EGO"
+        video(os.path.join(ch, "data", f"{vid}.mp4"), clip_s * fps)
+        acts = rs.choice(charades_classes,
+                         rs.randint(1, min(3, charades_classes) + 1),
+                         replace=False)
+        rows.append([vid] + [""] * 8 + [";".join(
+            f"c{a:03d} {rs.uniform(0, clip_s / 2):.2f} "
+            f"{rs.uniform(clip_s / 2, clip_s):.2f}" for a in acts),
+            f"{clip_s:.2f}"])
+    write_csv(os.path.join(ch, "meta", "CharadesEgo_v1_test_only1st.csv"),
+              ["id", "subject", "scene", "quality", "relevance", "verified",
+               "script", "objects", "descriptions", "actions", "length"],
+              rows)
+
+    # EgoMCQ: 4 one-chunk videos; a query and 5 candidate windows
+    mq = os.path.join(root, "mcq")
+    uids = [f"uid{u}" for u in range(4)]
+    for uid in uids:
+        video(os.path.join(mq, f"{uid}.mp4", "0.mp4"), chunk_s * fps)
+    items = {}
+    for k in range(mcq_items):
+        intra = k % 2 == 0
+        choices = {}
+        for c in range(5):
+            dur = rs.uniform(1.0, min(3.0, chunk_s))
+            start = rs.uniform(0.0, chunk_s - dur)
+            choices[str(c)] = {
+                "video_uid": uids[k % 4] if intra else uids[rs.randint(4)],
+                "clip_start": start, "clip_end": start + dur,
+                "clip_text": caption(order[(k * 5 + c) % combos])[2]}
+        query = f"#C C {caption(order[-1 - k % combos])[2]} {k}"
+        items[str(k)] = {"query": {"clip_text": query}, "choices": choices,
+                         "answer": int(rs.randint(5)),
+                         "types": 1 if intra else 2}
+    with open(os.path.join(mq, "egomcq.json"), "w") as f:
+        json.dump(items, f)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(lambda job: _write_chunk(*job), jobs))
+    return {"data": {"val_metadata": val, "relevancy_path": rel_path,
+                     "root_val": ek, "chunk_len": chunk_s},
+            "env": {"EK100_ACTIONS_CSV": actions, "EK100_VAL": val,
+                    "EK100_VIDEO_DIR": ek,
+                    "EGTEA_DATA_DIR": os.path.join(eg, "data"),
+                    "EGTEA_META_DIR": os.path.join(eg, "meta"),
+                    "CHARADES_DATA_DIR": os.path.join(ch, "data"),
+                    "CHARADES_META_DIR": os.path.join(ch, "meta"),
+                    "EGO4D_MCQ_DATA_DIR": mq, "EGO4D_MCQ_META_DIR": mq},
+            "mir_videos": mir_videos}
+
+
+EVAL_BATCH = 128  # data.val_batch_size's default
+EVAL_EPOCHS = 2  # of the in-training drive, one step each
+EMBED_CLIPS = 8
+
+
+class _Captured:
+    """Replaces ``module.CLIPEncoders`` by a subclass that keeps every
+    instance made, until ``restore``."""
+
+    def __init__(self, module):
+        self.module, self.orig, self.made = module, module.CLIPEncoders, []
+        made = self.made
+
+        class Capturing(self.orig):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                made.append(self)
+
+        module.CLIPEncoders = Capturing
+
+    def forwards(self) -> int:
+        return sum(e.image_calls + e.text_calls for e in self.made)
+
+    def restore(self) -> None:
+        self.module.CLIPEncoders = self.orig
+
+
+def _eval_args(fx: dict, ckpt: str) -> list:
+    return [f"model.name={MODEL}", f"data.clip_length={FRAMES}",
+            f"data.crop_size={SIZE}", f"data.val_batch_size={EVAL_BATCH}",
+            f"data.num_workers={min(8, os.cpu_count() or 1)}",
+            *(f"data.{k}={v}" for k, v in fx["data"].items()),
+            f"pretrain_model={ckpt}"]
+
+
+def _eval_in_training(tmp: str, fx: dict, fixture: tuple) -> dict:
+    """(a) ``pretrain_clip.main`` with ``eval_freq=1`` and the MIR suite,
+    EVAL_EPOCHS one-step epochs on the data phase's Ego4D layout (every
+    eighth row): the epoch -1 and per-epoch metrics, ``is_best`` on
+    ``test_ek100_mir_avg_map``, the training model bit-equal (weights,
+    dtypes, modes) across every eval pass, and the launches."""
+    from avion_tpu_torch.eval import validate
+    from avion_tpu_torch.train import pretrain_clip
+
+    out = os.path.join(tmp, "data_with_eval")
+    d = fx["data"]
+    args = _data_args(out, *fixture, True, f"optim.epochs={EVAL_EPOCHS}",
+                      "data.subsample_stride=8", "eval_freq=1",
+                      f"data.val_batch_size={EVAL_BATCH}",
+                      f"data.val_metadata={d['val_metadata']}",
+                      f"data.relevancy_path={d['relevancy_path']}",
+                      f"data.root_val={d['root_val']}")
+    inner, passes = pretrain_clip.run_validation, []
+
+    def checked(model, data_cfg, env=None, strict=False):
+        before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        modes = [m.training for m in model.modules()]
+        res = inner(model, data_cfg, env, strict)
+        after = model.state_dict()
+        passes.append(modes == [m.training for m in model.modules()] and all(
+            after[k].dtype == v.dtype and torch.equal(after[k], v)
+            for k, v in before.items()))
+        return res
+
+    pretrain_clip.run_validation = checked
+    captured = _Captured(validate)
+    try:
+        torch.cuda.synchronize()
+        fa.reset_launches()  # the path, counted from here
+        t0 = time.perf_counter()
+        res = pretrain_clip.main(args)
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+    finally:
+        pretrain_clip.run_validation = inner
+        captured.restore()
+    wall = time.perf_counter() - t0
+    steps = res["steps"]
+    log(f"(a) main with eval_freq=1: {steps} steps in {EVAL_EPOCHS} epochs, "
+        f"{len(passes)} eval passes, main() wall {wall:.2f} s; the training "
+        f"model bit-equal and in its modes after each pass: {passes}")
+    for epoch, metrics in sorted(res["eval"].items()):
+        log(f"  epoch {epoch}: {metrics}")
+    want = {"flash_fwd": LAYERS * captured.forwards(),
+            "flash_fwd_lse": 2 * LAYERS * steps,
+            "flash_bwd_combined": 2 * LAYERS * steps}
+    log(f"  launches {launches} for {captured.forwards()} eval tower "
+        f"forwards and {steps} steps (expected {want})")
+    if len(passes) != EVAL_EPOCHS + 1 or not all(passes):
+        raise RuntimeError("an eval pass changed the training model")
+    if sorted(res["eval"]) != list(range(-1, EVAL_EPOCHS)) or not all(
+            len(m) == 6 and all(k.startswith("test_ek100_mir_")
+                                and np.isfinite(v) for k, v in m.items())
+            for m in res["eval"].values()):
+        raise RuntimeError(f"bad in-training eval metrics {res['eval']}")
+    if steps != EVAL_EPOCHS or launches != want:
+        raise RuntimeError(f"(a): {steps} steps, launches {launches}")
+    logged = [r["step"] for r in _train_log(out)
+              if "test_ek100_mir_avg_map" in r]
+    maps = [res["eval"][e]["test_ek100_mir_avg_map"]
+            for e in range(EVAL_EPOCHS)]
+    best, bests = -1.0, []
+    for m in maps:
+        bests.append(m > best)
+        best = max(best, m)
+    got = []
+    for step in range(1, EVAL_EPOCHS + 1):
+        with open(os.path.join(out, "ckpt", str(step), "extra.json")) as f:
+            extra = json.load(f)
+        got.append((extra["is_best"],
+                    extra["metrics"]["test_ek100_mir_avg_map"]))
+    log(f"  eval logged at steps {logged}; checkpoints (is_best, avg_map) "
+        f"{got}")
+    if logged != list(range(EVAL_EPOCHS + 1)) or got != list(zip(bests,
+                                                                  maps)):
+        raise RuntimeError("eval logging or is_best does not follow "
+                           "test_ek100_mir_avg_map")
+    return launches
+
+
+def _embed_check(tmp: str, fx: dict, ckpt: str) -> None:
+    """(d) ``tools.embed_videos`` on the card (bf16 weights) for
+    EMBED_CLIPS MIR chunk files and as many sentences, against the same
+    clips and sentences through the plain path on the CPU in f32."""
+    from avion_tpu_torch.data.sampling import get_frame_ids
+    from avion_tpu_torch.data.tokenizer import tokenize
+    from avion_tpu_torch.data.transforms import (center_crop_spec,
+                                                 normalize_video)
+    from avion_tpu_torch.data.video_reader import VideoReader
+    from avion_tpu_torch.models.pt_import import load_clip_checkpoint
+    from avion_tpu_torch.models.registry import create_model
+    from avion_tpu_torch.tools import embed_videos
+
+    paths = fx["mir_videos"][:EMBED_CLIPS]
+    with open(os.path.join(tmp, "embed_videos.txt"), "w") as f:
+        f.write("\n".join(paths))
+    with open(fx["data"]["val_metadata"].replace("test", "test_sentence"),
+              newline="") as f:
+        texts = [row[1] for row in list(csv.reader(f))[1:EMBED_CLIPS + 1]]
+    with open(os.path.join(tmp, "embed_texts.txt"), "w") as f:
+        f.write("\n".join(texts))
+    t0 = time.perf_counter()
+    out = embed_videos.main(["--ckpt", ckpt, "--model", MODEL,
+                             "--videos", os.path.join(tmp, "embed_videos.txt"),
+                             "--texts", os.path.join(tmp, "embed_texts.txt"),
+                             "--out", os.path.join(tmp, "embeds.npz"),
+                             "--clip-length", str(FRAMES),
+                             "--crop-size", str(SIZE)])
+    wall = time.perf_counter() - t0
+    v_emb = _unit_rows("embed video", out["video_embeds"], len(paths))
+    t_emb = _unit_rows("embed text", out["text_embeds"], len(texts))
+
+    model = create_model(MODEL, num_frames=FRAMES, dtype=torch.float32)
+    load_clip_checkpoint(model, ckpt)
+    clips = []
+    for path in paths:
+        vr = VideoReader(path)
+        clips.append(vr.get_batch(
+            get_frame_ids(0, len(vr), FRAMES, jitter=False),
+            center_crop_spec(vr.width, vr.height), (SIZE, SIZE)))
+    with torch.inference_mode():
+        ref_v = model.encode_image(normalize_video(
+            torch.from_numpy(np.stack(clips)), dtype=torch.float32)).numpy()
+        ref_t = model.encode_text(torch.from_numpy(tokenize(texts)).long()
+                                  ).numpy()
+    cos_v, cos_t = (ref_v * v_emb).sum(-1), (ref_t * t_emb).sum(-1)
+    log(f"(d) embed_videos on the card ({wall:.2f} s, {len(paths)} clips, "
+        f"{len(texts)} texts) against the CPU plain path in f32: cosine "
+        f"video min {cos_v.min():.6f}, text min {cos_t.min():.6f} (bound "
+        f"0.99)")
+    if min(cos_v.min(), cos_t.min()) < 0.99:
+        raise RuntimeError("embed_videos disagrees with the CPU reference")
+
+
+def _profile_sweep(enc, cfg, suite: str = "ek100_mir") -> None:
+    """(e) One suite's sweep under torch.profiler: wall, device busy (the
+    union of the device's intervals), idle share, and the device time by
+    kind of kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from avion_tpu_torch.eval.validate import build_suites, validate_all
+
+    suites = build_suites(cfg.data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        validate_all(enc, {suite: suites[suite]}, strict=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = _device_busy_ms(prof)
+    st = enc.suite_stats[suite]
+    if not busy:
+        log("(e) profile: the profiler saw no device time (not measured)")
+        return
+    log(f"(e) profile of one {suite} sweep ({st['image_rows']} clips, "
+        f"{st['text_rows']} texts, {st['image_calls']} + {st['text_calls']} "
+        f"tower forwards): wall {wall:.2f} ms, device busy {busy:.3f} ms, "
+        f"idle share {1 - busy / wall:.4f}, data wait "
+        f"{st['data_wait_s'] * 1e3:.2f} ms; device time by kind:")
+    log_device_time(_device_ms_by_name(prof))
+
+
+def _check_eval_shapes(shapes: list) -> list:
+    """The inference forward (bf16) against its plain f32 version on seeded
+    randn inputs at every shape the eval paths gave it, with the tolerances
+    of phase_kernel; returns the rows."""
+    rows, bad = [], []
+    for i, (b, s, h, d, causal) in enumerate(shapes):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+        fa.reset_launches()
+        with torch.inference_mode():
+            out = fa.flash_attention_fused_qkv(qkv, h, s, causal=causal)
+        torch.cuda.synchronize()
+        if dict(fa.launches) != {"flash_fwd": 1}:
+            raise RuntimeError(f"flash_fwd launches {dict(fa.launches)}")
+        ref = fa.flash_attention_fused_qkv_plain(qkv.float(), h, s,
+                                                 causal=causal)
+        err, rel = _errors(out, ref)
+        del ref
+        row = {"shape": [b, s, h, d], "causal": causal, "path": "eval",
+               "max_abs_err": err, "rel_rms_err": rel,
+               "kernel_ms": cuda_ms(lambda: fa.flash_attention_fused_qkv(
+                   qkv, h, s, causal=causal))}
+        row["bound_ms"], row["bound_by"] = bound(b, s, h, d, causal)
+        rows.append(row)
+        log("flash_fwd at an eval shape " + json.dumps(row))
+        if not (err <= TOL and rel <= REL_TOL):  # NaN fails too
+            bad.append(f"{[b, s, h, d]} causal={causal}: max abs err {err}, "
+                       f"rms err / rms out {rel}")
+    if bad:
+        raise RuntimeError("flash_fwd disagrees with its plain version at "
+                           "eval shapes: " + "; ".join(bad))
+    return rows
+
+
+def phase_eval(tmp: str, fixture: tuple, ckpt: str) -> dict:
+    """The eval slice's main paths at full width: (a) evals inside
+    ``pretrain_clip.main``; (b) ``eval.validate.main``, strict, on the
+    serve phase's seeded checkpoint over the five suites, each with its
+    wall time, clips/s, data-wait share and metrics; (c) its launches
+    against its tower forwards; (d) ``tools.embed_videos`` against the
+    CPU; (e) the idle share of a profiled sweep; then the inference
+    forward against its plain version at every shape (a) and (b) gave it.
+    Returns the launches of (a) and (b) and those checks' rows."""
+    from avion_tpu_torch.core.config import TrainConfig
+    from avion_tpu_torch.eval import validate
+
+    log(f"== eval: the five zero-shot suites on {MODEL} at {FRAMES} frames, "
+        f"val batch {EVAL_BATCH}")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fx = write_eval_fixtures(os.path.join(tmp, "eval"))
+    log(f"fixtures ({EVAL_SIZES}) written in {time.perf_counter() - t0:.2f} s")
+    # the inference forward's shapes on (a) and (b), ragged chunks included
+    fwd_shapes, fwd = set(), fa._fwd_cuda
+
+    def recording(qkv, heads, s, causal, sm_scale, with_lse):
+        if not with_lse:
+            fwd_shapes.add((qkv.shape[0], s, heads,
+                            qkv.shape[-1] // (3 * heads), bool(causal)))
+        return fwd(qkv, heads, s, causal, sm_scale, with_lse)
+
+    args = _eval_args(fx, ckpt)
+    saved_env = {k: os.environ.get(k) for k in fx["env"]}
+    captured = None
+    fa._fwd_cuda = recording
+    try:
+        with_eval = _eval_in_training(tmp, fx, fixture)
+        os.environ.update(fx["env"])
+        captured = _Captured(validate)
+        torch.cuda.synchronize()
+        fa.reset_launches()  # (b)'s main path, counted from here
+        t0 = time.perf_counter()
+        res = validate.main(args)
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        wall = time.perf_counter() - t0
+        (enc,) = captured.made
+        forwards = captured.forwards()
+        log(f"(b) validate.main wall {wall:.2f} s (model build and load "
+            f"included)")
+        for name, st in enc.suite_stats.items():
+            log(f"  {name}: wall {st['wall_s']:.3f} s, {st['image_rows']} "
+                f"clips ({st['image_rows'] / st['wall_s']:.2f} clips/s), "
+                f"{st['text_rows']} texts, data-wait share "
+                f"{st['data_wait_s'] / st['wall_s']:.4f}, tower forwards "
+                f"{st['image_calls']} + {st['text_calls']}; " + ", ".join(
+                    f"{k[len(name) + 6:]}={v:.4f}" for k, v in res.items()
+                    if k.startswith(f"test_{name}_")))
+        log(f"(c) launches {launches} for {forwards} tower forwards "
+            f"(expected {LAYERS} per forward)")
+        if set(enc.suite_stats) != {"ek100_mir", "ek100_cls", "egtea",
+                                    "charades_ego", "egomcq"}:
+            raise RuntimeError(f"suites run: {sorted(enc.suite_stats)}")
+        if not res or not all(np.isfinite(v) for v in res.values()):
+            raise RuntimeError(f"bad eval metrics {res}")
+        if launches != {"flash_fwd": LAYERS * forwards}:
+            raise RuntimeError(f"eval launched {launches} for {forwards} "
+                               f"tower forwards")
+        _profile_sweep(enc, TrainConfig().apply_overrides(args))
+        del enc
+        captured.made.clear()
+    finally:
+        fa._fwd_cuda = fwd
+        if captured is not None:
+            captured.restore()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    checks = _check_eval_shapes(sorted(fwd_shapes))
+    _embed_check(tmp, fx, ckpt)
+    log(f"eval phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"with_eval": with_eval, "eval": launches, "checks": checks}
 
 
 KERNEL_SOURCES = {
@@ -1306,6 +1844,8 @@ def main() -> int:
         train, echo_p50 = phase_train(tmp)
         long = phase_train_long(tmp)
         data = phase_data(tmp, echo_p50)
+        evals = phase_eval(tmp, data["fixture"],
+                           os.path.join(tmp, "clip_vitb16_random.pt"))
     # each kernel's launches from the path that drives it: serving, the
     # data-fed 4-frame main path (run A), and the 16-frame path for the
     # split kernels; every path's counts beside them
@@ -1314,7 +1854,9 @@ def main() -> int:
                 "flash_bwd_dkv": long["flash_bwd_dkv"]}
     by_path = {"serve": {"flash_fwd": serve}, "train_seeded_batches": train,
                "train_16_frames": long, "data_host_crop": data["host_crop"],
-               "data_device_crop": data["device_crop"]}
+               "data_device_crop": data["device_crop"],
+               "eval": evals["eval"], "data_with_eval": evals["with_eval"]}
+    rows["flash_fwd"] += evals["checks"]
     kernels = []
     for name, (source, line) in KERNEL_SOURCES.items():
         head = rows[name][0]

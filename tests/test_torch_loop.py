@@ -59,7 +59,7 @@ def _state(run):
 
 def test_train_save_resume_restores_everything(tmp_path):
     run = _run(tmp_path)
-    metrics = train_one_epoch(run, Loader(), 0, torch.Generator())
+    metrics = train_one_epoch(run, Loader(), 0)
     assert run.state.step == 4 and run.state.optimizer.count == 4
     assert np.isfinite(metrics["loss"]) and metrics["step_ok"] == 1.0
     save_epoch(run, 0, metrics)
@@ -79,7 +79,7 @@ def test_train_save_resume_restores_everything(tmp_path):
             assert torch.equal(got_opt["adamw"]["state"][i][k], v), (i, k)
     # the restored run trains on identically
     for r in (run, again):
-        train_one_epoch(r, Loader(1, seed=5), 1, torch.Generator())
+        train_one_epoch(r, Loader(1, seed=5), 1)
     assert all(torch.equal(a, b) for a, b in zip(
         run.state.model.parameters(), again.state.model.parameters()))
 
@@ -100,15 +100,15 @@ def test_preemption_saves_at_an_echo_group_boundary(tmp_path):
     run = _run(tmp_path, "data.echo_factor=2")
     inner = run.step
 
-    def step(state, batch, gen):
-        state, metrics = inner(state, batch, gen)
+    def step(state, batch):
+        state, metrics = inner(state, batch)
         if state.step == 3:  # the signal arrives inside an echo group
             launch._PREEMPTED["flag"] = True
         return state, metrics
 
     run.step = step
     try:
-        train_one_epoch(run, Loader(), 0, torch.Generator())
+        train_one_epoch(run, Loader(), 0)
         assert run.state.step == 4  # the group finished, then the save
         assert finish_if_preempted(run, 0)
     finally:
@@ -121,7 +121,7 @@ def test_preemption_saves_at_an_echo_group_boundary(tmp_path):
     again = _run(tmp_path, "data.echo_factor=2")
     assert again.start_epoch == 0 and again.start_batch == 4
     loader = Loader()
-    train_one_epoch(again, loader, 0, torch.Generator())
+    train_one_epoch(again, loader, 0)
     assert loader.served == [2, 3]  # batches 0 and 1 were consumed
     assert again.state.step == 8 and again.state.optimizer.count == 8
 

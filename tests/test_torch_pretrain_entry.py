@@ -102,20 +102,19 @@ def test_main_needs_cuda_unless_told_the_cpu(tiny_ego4d, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["loss=siglip"], ["optim.update_freq=2"],
-    ["data.val_metadata=val.csv", "data.relevancy_path={meta}"]],
-    ids=["siglip", "update_freq", "zero_shot"])
+    ["loss=siglip"], ["optim.update_freq=2"], ["mesh.fsdp=2"]],
+    ids=["siglip", "update_freq", "mesh"])
 def test_main_raises_on_later_slices(tiny_ego4d, tmp_path, extra):
     root, meta = tiny_ego4d
-    extra = [e.format(meta=meta) for e in extra]
     with pytest.raises(NotImplementedError, match="slice"):
         pretrain_clip.main(_args(root, meta, str(tmp_path / "run"), "true",
                                  *extra, "--device", "cpu"))
 
 
 def test_zero_shot_suites_follow_the_jax_activation_rules(tmp_path):
-    from avion_tpu.eval.validate import build_suites
+    from avion_tpu.eval.validate import build_suites as jax_build_suites
     from avion_tpu_torch.core.config import DataConfig
+    from avion_tpu_torch.eval.validate import build_suites
 
     meta_dir = tmp_path / "meta"
     meta_dir.mkdir()
@@ -136,8 +135,145 @@ def test_zero_shot_suites_follow_the_jax_activation_rules(tmp_path):
     ]
     for data, env in cases:
         cfg = DataConfig(**data)
-        assert pretrain_clip.zero_shot_suites(cfg, env) == \
-            list(build_suites(None, cfg, env)), (data, env)
+        assert list(build_suites(cfg, env)) == \
+            list(jax_build_suites(None, cfg, env)), (data, env)
+
+
+@pytest.fixture(scope="module")
+def mir_layout(tmp_path_factory):
+    """An EK100 MIR test layout (and the other suites', unused here) of
+    ``chip_smoke.write_eval_fixtures``, in 2 s chunks at 10 fps."""
+    import sys
+
+    root = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke.write_eval_fixtures(
+        str(tmp_path_factory.mktemp("eval")), seed=0, w=64, h=48, fps=FPS,
+        chunk_s=CHUNK, clip_s=2, mir_clips=6, egtea_clips=1,
+        charades_videos=1, charades_classes=1, mcq_items=1)["data"]
+
+
+def _mir_args(mir):
+    return ["eval_freq=1", f"data.val_metadata={mir['val_metadata']}",
+            f"data.relevancy_path={mir['relevancy_path']}",
+            f"data.root_val={mir['root_val']}", "data.val_batch_size=4"]
+
+
+def _extras(out):
+    """Each checkpoint's extra.json, by step."""
+    ckpt = osp.join(out, "ckpt")
+    return {int(n): json.load(open(osp.join(ckpt, n, "extra.json")))
+            for n in os.listdir(ckpt) if n.isdigit()}
+
+
+MIR_KEYS = {f"test_ek100_mir_{k}" for k in (
+    "vis_map", "txt_map", "avg_map", "vis_ndcg", "txt_ndcg", "avg_ndcg")}
+
+
+def test_main_evaluates_before_training_and_after_each_epoch(
+        tiny_ego4d, mir_layout, tmp_path):
+    root, meta = tiny_ego4d
+    out = str(tmp_path / "run")
+    res = pretrain_clip.main(_args(root, meta, out, "true", "optim.epochs=2",
+                                   *_mir_args(mir_layout), "--device", "cpu"))
+    assert res["step"] == 4 and sorted(res["eval"]) == [-1, 0, 1]
+    for metrics in res["eval"].values():
+        assert set(metrics) == MIR_KEYS
+        assert all(np.isfinite(v) for v in metrics.values())
+    logs = [json.loads(line) for line in open(osp.join(out, "log.jsonl"))]
+    assert [r["step"] for r in logs if MIR_KEYS <= set(r)] == [0, 2, 4]
+    extras = _extras(out)
+    assert sorted(extras) == [2, 4]
+    maps = [res["eval"][e]["test_ek100_mir_avg_map"] for e in (0, 1)]
+    assert [extras[s]["is_best"] for s in (2, 4)] == [True, maps[1] > maps[0]]
+    for s, e in ((2, 0), (4, 1)):
+        assert extras[s]["metrics"]["test_ek100_mir_avg_map"] == maps[e]
+        assert "clip_acc" in extras[s]["metrics"]
+
+
+def test_eval_leaves_the_trained_parameters_bit_equal(
+        tiny_ego4d, mir_layout, tmp_path, same_items):
+    """2 steps with the epoch -1 and epoch 0 evals against 2 steps with
+    eval_freq=0: the same parameters, bit for bit."""
+    root, meta = tiny_ego4d
+    runs = {}
+    for name, extra in (("eval", _mir_args(mir_layout)),
+                        ("none", ["eval_freq=0"])):
+        out = str(tmp_path / name)
+        res = pretrain_clip.main(_args(root, meta, out, "true", *extra,
+                                       "model.patch_dropout=0.5",
+                                       "--device", "cpu"))
+        assert res["step"] == 2
+        runs[name] = (res, _params(out))
+    assert sorted(runs["eval"][0]["eval"]) == [-1, 0]
+    assert runs["none"][0]["eval"] == {}
+    a, b = runs["eval"][1], runs["none"][1]
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_main_survives_a_failing_suite(tiny_ego4d, mir_layout, tmp_path):
+    """Inside training a suite that fails gives ``test_<suite>_error`` (and
+    its traceback); the best checkpoint then follows clip_acc."""
+    root, meta = tiny_ego4d
+    broken = dict(mir_layout, val_metadata=str(tmp_path / "no_test.csv"))
+    out = str(tmp_path / "run")
+    res = pretrain_clip.main(_args(root, meta, out, "true",
+                                   *_mir_args(broken), "--device", "cpu"))
+    assert res["eval"] == {-1: {"test_ek100_mir_error": 1.0},
+                           0: {"test_ek100_mir_error": 1.0}}
+    extra = _extras(out)[2]
+    assert extra["is_best"] and extra["metrics"]["test_ek100_mir_error"] == 1
+
+
+def _params(out):
+    """The model parameters of the newest checkpoint under ``out``."""
+    ckpt = osp.join(out, "ckpt")
+    step = max(int(n) for n in os.listdir(ckpt) if n.isdigit())
+    return torch.load(osp.join(ckpt, str(step), "state.pt"),
+                      weights_only=True)["model"]
+
+
+@pytest.fixture
+def same_items(monkeypatch):
+    """Every training item draws its crop and frame jitter from seed 0
+    (the datasets seed each item's draws from the OS otherwise), so that
+    two runs see the same batches."""
+    orig = np.random.RandomState
+    monkeypatch.setattr(np.random, "RandomState",
+                        lambda seed=None: orig(0 if seed is None else seed))
+
+
+def test_patch_dropout_draws_follow_the_step_across_a_resume(
+        tiny_ego4d, tmp_path, monkeypatch, same_items):
+    """2 steps in one call against 1 step, a preemption checkpoint, a
+    resume and 1 step: step k draws the same patch-dropout mask either
+    way, as the JAX step folds the step into its key."""
+    from avion_tpu_torch.train import loop
+
+    root, meta = tiny_ego4d
+    extra = ("model.patch_dropout=0.5", "--device", "cpu")
+    whole = str(tmp_path / "whole")
+    assert pretrain_clip.main(_args(root, meta, whole, "true", *extra))[
+        "step"] == 2
+
+    calls = []  # preempted() is asked once before each step
+    monkeypatch.setattr(loop, "preempted",
+                        lambda: calls.append(1) or len(calls) >= 2)
+    split = str(tmp_path / "split")
+    assert pretrain_clip.main(_args(root, meta, split, "true", *extra))[
+        "step"] == 1
+    monkeypatch.setattr(loop, "preempted", lambda: False)
+    res = pretrain_clip.main(_args(root, meta, split, "true", *extra))
+    assert res["steps"] == 1 and res["step"] == 2
+    a, b = _params(whole), _params(split)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
 
 
 SERVED = dict(embed_dim=32, image_size=32, patch_size=16, num_frames=2,
