@@ -1,12 +1,15 @@
 """Train state (``avion_tpu.core.train_state.TrainState``): the step count,
 the model (its parameters) and the optimizer (its moments and its own
-update count).  The step advances on every step, the optimizer's count
-only on updates it applied; a skipped step (non-finite loss) advances the
-first alone, as in the JAX package."""
+update count), and with ``use_ema`` an exponential moving average of the
+parameters (``ema``, by parameter name, f32).  The step advances on every
+step, the optimizer's count and the average only on updates applied; a
+skipped step (non-finite loss) advances the first alone, as in the JAX
+package."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, Optional
 
 import torch
 
@@ -18,17 +21,36 @@ class TrainState:
     step: int
     model: torch.nn.Module
     optimizer: Optimizer
+    ema: Optional[Dict[str, torch.Tensor]] = None
 
     @classmethod
-    def create(cls, model: torch.nn.Module, optimizer: Optimizer
-               ) -> "TrainState":
-        return cls(0, model, optimizer)
+    def create(cls, model: torch.nn.Module, optimizer: Optimizer,
+               use_ema: bool = False) -> "TrainState":
+        ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
+               if use_ema else None)
+        return cls(0, model, optimizer, ema)
+
+    @torch.no_grad()
+    def update_ema(self, decay: float) -> None:
+        """``e * decay + (1 - decay) * p`` for every parameter."""
+        names = list(self.ema)
+        params = dict(self.model.named_parameters())
+        ema = [self.ema[n] for n in names]
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, torch._foreach_mul(
+            [params[n].detach() for n in names], 1.0 - decay))
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+        out = {"step": self.step, "model": self.model.state_dict(),
+               "optimizer": self.optimizer.state_dict()}
+        if self.ema is not None:
+            out["ema"] = self.ema
+        return out
 
     def load_state_dict(self, state: dict) -> None:
         self.step = int(state["step"])
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
+        if self.ema is not None:
+            for n, v in state["ema"].items():
+                self.ema[n].copy_(v)

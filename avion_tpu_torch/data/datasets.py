@@ -5,27 +5,31 @@ decode or OpenCV) with host-sampled crop parameters and returns plain
 numpy: frames stay uint8 until they reach the device.  The item contract
 and every random draw are the JAX package's.
 
-The classification dataset's eval views and the EgoMCQ dataset serve the
-zero-shot suites; the classification training path and the Kinetics
-dataset come with the finetune and VideoMAE slices.
+The classification dataset (eval views for the zero-shot suites and the
+finetune's validation, repeated-augmentation training views for the
+finetune), the EgoMCQ dataset, and VideoMAE's Kinetics dataset (strided
+clips with tube masks).
 """
 
 from __future__ import annotations
 
+import os.path as osp
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
 from avion_tpu_torch.data import metadata as md
-from avion_tpu_torch.data.sampling import load_clip
+from avion_tpu_torch.data.sampling import load_clip, strided_frame_ids
 from avion_tpu_torch.data.tokenizer import tokenize
 from avion_tpu_torch.data.transforms import (
     center_crop_spec,
     sample_msc,
     sample_rrc,
+    tube_mask,
 )
-from avion_tpu_torch.data.video_reader import CropSpec
+from avion_tpu_torch.data.video_reader import (CropSpec, DecodeError,
+                                               VideoReader)
 
 
 class _PicklableCache:
@@ -204,12 +208,12 @@ class VideoCaptionDataset(_PicklableCache):
 
 
 class VideoClassyDataset(_PicklableCache):
-    """Classification dataset over the caption datasets' video layouts
-    (``VideoClassyDataset``), eval views only: ``num_clips`` temporal
-    views, each a centre square (``num_crops=1``) or left / centre / right
-    squares of a wider decode (``num_crops=3``).  The training path
-    (repeated augmentation, ``num_sample``) comes with the finetune
-    slice."""
+    """Classification dataset over the caption datasets' and Kinetics'
+    video layouts (``VideoClassyDataset``).  Training items are
+    ``num_sample`` independently augmented views of a clip (a list that
+    ``collate`` flattens when ``num_sample > 1``); eval items stack
+    ``num_clips`` temporal views, each a centre square (``num_crops=1``)
+    or left / centre / right squares of a wider decode (``num_crops=3``)."""
 
     def __init__(
         self,
@@ -226,23 +230,25 @@ class VideoClassyDataset(_PicklableCache):
         num_clips: int = 1,
         num_crops: int = 1,
         label_mapping: Optional[dict] = None,
+        num_sample: int = 1,
+        decode_fast: Optional[bool] = None,
     ):
-        if is_training:
-            raise NotImplementedError(
-                "VideoClassyDataset(is_training=True) comes with the "
-                "finetune slice")
         if num_crops not in (1, 3):
             raise ValueError(f"num_crops must be 1 or 3, got {num_crops}")
         self.dataset = dataset
         self.root = root
+        self.is_training = is_training
         self.clip_length = clip_length
         self.clip_stride = clip_stride
         self.chunk_len = chunk_len
         self.threads = threads
-        self.augment = augment or AugmentSpec(mode="center")
+        self.augment = augment or AugmentSpec(
+            mode="rrc" if is_training else "center")
         self.num_clips = num_clips
         self.num_crops = num_crops
         self.label_mapping = label_mapping
+        self.num_sample = num_sample
+        self.decode_fast = is_training if decode_fast is None else decode_fast
 
         if dataset == "ek100_cls":
             self.samples = md.load_ek100(root, metadata_path)
@@ -250,7 +256,9 @@ class VideoClassyDataset(_PicklableCache):
             self.samples, _ = md.load_egtea(root, metadata_path)
         elif dataset == "charades_ego":
             self.samples = md.load_charades_ego(root, metadata_path,
-                                                is_trimmed=False)
+                                                is_trimmed=is_training)
+        elif dataset in ("kinetics", "k400"):
+            self.samples = md.load_video_list(metadata_path)
         else:
             raise ValueError(dataset)
         self._cache: dict = {}
@@ -274,10 +282,23 @@ class VideoClassyDataset(_PicklableCache):
         return s.label
 
     def __getitem__(self, i: int):
-        rng = np.random.RandomState(i)
+        rng = np.random.RandomState() if self.is_training \
+            else np.random.RandomState(i)
         s = self.samples[i]
         ext = "MP4" if self.dataset == "ek100_cls" else "mp4"
         cs = self.augment.crop_size
+        if self.is_training:
+            views = []
+            for _ in range(max(1, self.num_sample)):
+                frames = load_clip(
+                    self.root, s.vid, ext, s.start, s.end,
+                    chunk_len=self.chunk_len, fps=s.fps,
+                    clip_length=self.clip_length, threads=self.threads,
+                    crop=self.augment.sample(rng), out_size=(cs, cs),
+                    jitter=True, rng=rng, reader_cache=self._cache,
+                    fast=self.decode_fast)
+                views.append({"video": frames, "label": self._label(s)})
+            return views if self.num_sample > 1 else views[0]
         # views are sub-windows spread over the annotated span; each covers
         # span / num_clips when the span is long enough, else they overlap
         span = s.end - s.start
@@ -354,6 +375,66 @@ class VideoCaptionMCQDataset(_PicklableCache):
             "answer": np.int32(item["answer"]),
             "type": np.int32(item["types"]),
         }
+
+
+class KineticsDataset(_PicklableCache):
+    """VideoMAE pretraining dataset: a strided clip of each listed video
+    with a multi-scale crop and a tube mask (``KineticsDataset``).  An
+    undecodable video is replaced by another index."""
+
+    def __init__(
+        self,
+        root: str,
+        metadata_path: str,
+        *,
+        clip_length: int = 16,
+        clip_stride: int = 4,
+        threads: int = 1,
+        crop_size: int = 224,
+        patch_size: int = 16,
+        tubelet_size: int = 2,
+        mask_ratio: float = 0.9,
+        augment: Optional[AugmentSpec] = None,
+        is_training: bool = True,
+        decode_fast: Optional[bool] = None,
+    ):
+        self.root = root
+        self.samples = md.load_video_list(metadata_path)
+        self.clip_length = clip_length
+        self.clip_stride = clip_stride
+        self.threads = threads
+        self.crop_size = crop_size
+        self.patch_size = patch_size
+        self.tubelet_size = tubelet_size
+        self.mask_ratio = mask_ratio
+        self.is_training = is_training
+        self.augment = augment or AugmentSpec(mode="msc", hflip_prob=0.5)
+        self.decode_fast = is_training if decode_fast is None else decode_fast
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i: int):
+        rng = np.random.RandomState() if self.is_training \
+            else np.random.RandomState(i)
+        s = self.samples[i]
+        path = s.vid if osp.isabs(s.vid) else osp.join(self.root, s.vid)
+        try:
+            vr = VideoReader(path, num_threads=self.threads,
+                             fast=self.decode_fast)
+            ids = strided_frame_ids(len(vr), self.clip_length,
+                                    self.clip_stride, self.is_training, rng)
+            crop = self.augment.sample(rng, vr.width, vr.height)
+            frames = vr.get_batch(ids, crop,
+                                  (self.crop_size, self.crop_size))
+            vr.close()
+        except DecodeError:
+            return self[int(rng.randint(len(self)))]
+        g = self.crop_size // self.patch_size
+        mask = tube_mask(rng, self.clip_length // self.tubelet_size, g, g,
+                         self.mask_ratio)
+        return {"video": frames, "mask": mask,
+                "label": np.int32(s.label if s.label is not None else -1)}
 
 
 def collate(items: Sequence[Any]) -> Dict[str, np.ndarray]:

@@ -5,8 +5,8 @@ The samplers produce a normalized ``CropSpec`` per clip on the host
 (cheap scalar RNG, the same draws as the JAX package's); the decoder does
 the pixel work, or, on the device-crop path, ``ops/fused_input``.
 ``normalize_video`` runs on the batch's device.  Tube masks for VideoMAE
-are drawn on the host here; their on-device variant comes with the
-VideoMAE slice.  ``torch`` is imported where a tensor is made, so loader
+are drawn on the host (``tube_mask``), or on the device from a generator
+(``tube_mask_device``).  ``torch`` is imported where a tensor is made, so loader
 workers, which import this module, do not load it.
 """
 
@@ -169,6 +169,21 @@ def tube_mask_batch(rng, batch, frames, height, width, mask_ratio):
     m = np.zeros((batch, per_frame), bool)
     np.put_along_axis(m, idx, True, axis=-1)
     return np.tile(m, (1, frames))
+
+
+def tube_mask_device(generator, batch: int, frames: int, height: int,
+                     width: int, mask_ratio: float, device=None):
+    """Tube masks [B, frames*height*width] bool drawn on ``device`` from
+    ``generator`` (``avion_tpu.data.transforms.tube_mask_device``): each
+    sample hides ``int(mask_ratio * height * width)`` positions of a frame,
+    the same ones in every frame."""
+    import torch
+
+    per_frame = height * width
+    n_mask = int(mask_ratio * per_frame)
+    noise = torch.rand(batch, per_frame, generator=generator, device=device)
+    ranks = noise.argsort(dim=-1).argsort(dim=-1)
+    return (ranks < n_mask).repeat(1, frames)
 
 
 # ---------------------------------------------------------------------------

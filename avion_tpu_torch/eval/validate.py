@@ -189,20 +189,13 @@ def main(argv=None) -> Dict[str, float]:
     path): every configured suite, strict (a failing suite raises); prints
     and returns the metrics."""
     from avion_tpu_torch.core.config import TrainConfig, load_dotenv
-    from avion_tpu_torch.parallel.launch import resolve_device, setup_host
+    from avion_tpu_torch.parallel.launch import device_from_argv, setup_host
     from avion_tpu_torch.train.common import load_pretrained_params
     from avion_tpu_torch.train.pretrain_clip import build_model
 
     load_dotenv()
-    argv = list(argv if argv is not None else sys.argv[1:])
-    name = "cuda"
-    if "--device" in argv:
-        i = argv.index("--device")
-        if i + 1 >= len(argv):
-            raise SystemExit("usage: --device <cuda[:N]|cpu> (missing value)")
-        name = argv[i + 1]
-        del argv[i : i + 2]
-    device = resolve_device(name)
+    argv, device = device_from_argv(
+        argv if argv is not None else sys.argv[1:])
     cfg = TrainConfig().apply_overrides(argv)
     if not cfg.pretrain_model:
         raise SystemExit("pretrain_model=<ckpt.pt|checkpoint dir> is "

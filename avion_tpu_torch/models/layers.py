@@ -13,8 +13,11 @@ casts its weight and bias to the compute dtype at use, as flax's
 Training: :func:`patch_dropout` draws from an explicit generator, and
 :class:`Transformer` rematerializes its blocks under the JAX package's
 policies (``full``, ``save_attn``, ``save_attn_kN``) with PyTorch's
-selective activation checkpointing.  DropPath and LayerScale (no CLIP
-configuration uses them), MoE and sequence parallelism are not ported yet.
+selective activation checkpointing.  DropPath's per-sample keep masks
+are drawn for every layer before the blocks run (:meth:`Transformer.
+draw_drop_path`) and passed in as tensors, so a rematerialized block sees
+the same mask in its recompute.  LayerScale (no registry configuration
+sets it), MoE and sequence parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -122,20 +125,37 @@ class SelfAttention(nn.Module):
         return dense(o, self.out_proj)
 
 
+def drop_path(y: torch.Tensor, keep: Optional[torch.Tensor],
+              rate: float) -> torch.Tensor:
+    """Stochastic depth of one residual branch (``avion_tpu.models.layers.
+    DropPath``): ``y / (1 - rate)`` where the per-sample ``keep`` [B] bool
+    holds, else 0, in ``y``'s dtype.  ``keep=None`` is the identity."""
+    if keep is None or rate == 0.0:
+        return y
+    return torch.where(keep[:, None, None], y / (1.0 - rate), 0.0).to(y.dtype)
+
+
 class Block(nn.Module):
-    """Pre-LN residual attention block."""
+    """Pre-LN residual attention block; ``drop_path`` is the rate of both
+    residual branches."""
 
     def __init__(self, width: int, heads: int, act=gelu,
-                 dtype: torch.dtype = torch.bfloat16, causal: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, causal: bool = False,
+                 drop_path: float = 0.0):
         super().__init__()
         self.ln_1 = LayerNorm(width, dtype)
         self.attn = SelfAttention(width, heads, causal)
         self.ln_2 = LayerNorm(width, dtype)
         self.mlp = Mlp(width, act)
+        self.drop_path = drop_path
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+    def forward(self, x: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep``: None, or [2, B] bool, the keep masks of the attention
+        and MLP branches."""
+        k1, k2 = (None, None) if keep is None else keep
+        x = x + drop_path(self.attn(self.ln_1(x)), k1, self.drop_path)
+        return x + drop_path(self.mlp(self.ln_2(x)), k2, self.drop_path)
 
 
 def saved_attn_layers(remat_policy: str, layers: int) -> int:
@@ -168,22 +188,42 @@ class Transformer(nn.Module):
 
     def __init__(self, width: int, layers: int, heads: int, act=gelu,
                  dtype: torch.dtype = torch.bfloat16, causal: bool = False,
-                 remat: bool = False, remat_policy: str = "save_attn"):
+                 remat: bool = False, remat_policy: str = "save_attn",
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        # layer i drops at rate * i / (layers - 1), as the JAX stack
+        self.drop_rates = [drop_path_rate * i / max(1, layers - 1)
+                           for i in range(layers)]
         self.resblocks = nn.ModuleList(
-            Block(width, heads, act, dtype, causal)
-            for _ in range(layers))
+            Block(width, heads, act, dtype, causal, rate)
+            for rate in self.drop_rates)
         self.remat = remat
         self.save_k = saved_attn_layers(remat_policy, layers) if remat else 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def draw_drop_path(self, batch: int, generator: Optional[torch.Generator],
+                       device) -> Optional[torch.Tensor]:
+        """Every layer's DropPath keep masks, [layers, 2, batch] bool, drawn
+        from ``generator`` (on ``device``); None when no layer drops."""
+        if not any(self.drop_rates):
+            return None
+        keep = torch.tensor([1.0 - r for r in self.drop_rates], device=device)
+        u = torch.rand(len(self.drop_rates), 2, batch, generator=generator,
+                       device=device)
+        return u < keep[:, None, None]
+
+    def forward(self, x: torch.Tensor,
+                drop_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``drop_keep``: :meth:`draw_drop_path`'s masks, or None (no
+        DropPath)."""
         remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.resblocks):
+            keep = None if drop_keep is None else drop_keep[i]
             if not remat:
-                x = blk(x)
+                x = blk(x, keep)
                 continue
             context_fn = (functools.partial(
                 create_selective_checkpoint_contexts, _save_attn)
                 if i < self.save_k else noop_context_fn)
-            x = checkpoint(blk, x, use_reentrant=False, context_fn=context_fn)
+            x = checkpoint(blk, x, keep, use_reentrant=False,
+                           context_fn=context_fn)
         return x

@@ -16,6 +16,10 @@ The port's state-dict keys ARE the reference layout that
 - a flattened ``[width, C*p*p]`` conv1 (C, p, p order);
 - temporal positional-embedding inflation to another clip length, and
   context-length / vocab padding or truncation.
+
+:func:`import_videomae_pt` reads the VideoMAE finetune layout
+(``blocks.N.*``) into the port's ``FinetuneVideoMAE`` names, and
+:func:`params_from_jax` also carries the two flax VideoMAE trees across.
 """
 
 from __future__ import annotations
@@ -143,57 +147,175 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
+_VIDEOMAE_TOP = ("patch_embed", "encoder", "encoder_norm",
+                 "encoder_to_decoder", "mask_token", "decoder", "decoder_norm",
+                 "decoder_head", "fc_norm", "head")
+_BLOCK_LAYERS = {"qkv": "attn.Wqkv", "out_proj": "attn.out_proj",
+                 "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def _raw(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(np.asarray(x), np.float32))
+
+
+def _block_param(pre: str, tail, val, sd: Dict[str, torch.Tensor]) -> None:
+    """One flax block leaf (``tail`` below ``resblocks_i``) into ``sd``."""
+    if tail[0] in ("ln_1", "ln_2"):
+        which = "weight" if tail[-1] == "scale" else "bias"
+        sd[f"{pre}.{tail[0]}.{which}"] = _raw(val)
+        return
+    layer = _BLOCK_LAYERS[tail[1]]
+    if tail[2] == "kernel":
+        sd[f"{pre}.{layer}.weight"] = _raw(val).T.contiguous()
+    else:
+        sd[f"{pre}.{layer}.bias"] = _raw(val)
+
+
+def _videomae_param(parts, val, sd: Dict[str, torch.Tensor]) -> None:
+    """A leaf of a flax ``PretrainVideoMAE`` / ``FinetuneVideoMAE`` tree."""
+    top = parts[0]
+    if top == "mask_token":
+        sd["mask_token"] = _raw(val)
+    elif top in ("encoder", "decoder"):
+        _block_param(f"{top}.{parts[1].replace('_', '.')}", parts[2:], val,
+                     sd)
+    elif top in ("encoder_norm", "decoder_norm", "fc_norm"):
+        which = "weight" if parts[-1] == "scale" else "bias"
+        sd[f"{top}.{which}"] = _raw(val)
+    elif parts[-1] == "kernel":  # patch_embed, encoder_to_decoder, heads
+        sd[f"{top}.weight"] = _raw(val).T.contiguous()
+    else:
+        sd[f"{top}.bias"] = _raw(val)
+
+
 def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A flax CLIP parameter tree (nested dicts of arrays) -> the port's
-    state dict, with the names and layouts ``export_clip_to_pt`` writes:
-    dense kernels [in, out] become weights [out, in], the patchify kernel
-    [(p p C), width] becomes conv1 [width, C, p, p]."""
+    """A flax CLIP or VideoMAE parameter tree (nested dicts of arrays) ->
+    the port's state dict, with the names and layouts
+    ``export_clip_to_pt`` writes: dense kernels [in, out] become weights
+    [out, in], the patchify kernel [(p p C), width] becomes conv1
+    [width, C, p, p] (VideoMAE's tube embed stays a dense weight)."""
     sd: Dict[str, torch.Tensor] = {}
-
-    def raw(x):
-        return torch.from_numpy(np.array(np.asarray(x), np.float32))
-
     for key, val in _flatten(flax_params).items():
         parts = key.split("/")
+        if parts[0] in _VIDEOMAE_TOP:
+            _videomae_param(parts, val, sd)
+            continue
         if parts[0] not in ("visual", "textual"):
             if key == "logit_scale":
-                sd["logit_scale"] = raw(val).reshape(())
+                sd["logit_scale"] = _raw(val).reshape(())
             continue
         base, rest = parts[0], parts[1:]
         if rest[0] == "conv1":
-            w = raw(val).T  # [width, (p p C)]
+            w = _raw(val).T  # [width, (p p C)]
             p = int(round((w.shape[1] // 3) ** 0.5))
             sd["visual.conv1.weight"] = (
                 w.reshape(w.shape[0], p, p, 3).permute(0, 3, 1, 2)
                 .contiguous())
         elif rest[0] in ("class_embedding", "positional_embedding",
                          "temporal_embedding"):
-            sd[f"{base}.{rest[0]}"] = raw(val)
+            sd[f"{base}.{rest[0]}"] = _raw(val)
         elif rest[0] == "proj":
-            sd["image_projection"] = raw(val)
+            sd["image_projection"] = _raw(val)
         elif rest[0] == "text_projection":
-            sd["text_projection"] = raw(val)
+            sd["text_projection"] = _raw(val)
         elif rest[0] == "token_embedding":
-            sd["textual.token_embedding.weight"] = raw(val)
+            sd["textual.token_embedding.weight"] = _raw(val)
         elif rest[0] in ("ln_pre", "ln_post", "ln_final"):
             which = "weight" if rest[-1] == "scale" else "bias"
-            sd[f"{base}.{rest[0]}.{which}"] = raw(val)
+            sd[f"{base}.{rest[0]}.{which}"] = _raw(val)
         elif rest[0] == "transformer":
-            pre = f"{base}.transformer.{rest[1].replace('_', '.')}"
-            tail = rest[2:]
-            if tail[0] in ("ln_1", "ln_2"):
-                which = "weight" if tail[-1] == "scale" else "bias"
-                sd[f"{pre}.{tail[0]}.{which}"] = raw(val)
-                continue
-            layer = {"qkv": "attn.Wqkv", "out_proj": "attn.out_proj",
-                     "fc1": "mlp.fc1", "fc2": "mlp.fc2"}[tail[1]]
-            if tail[2] == "kernel":
-                sd[f"{pre}.{layer}.weight"] = raw(val).T.contiguous()
-            else:
-                sd[f"{pre}.{layer}.bias"] = raw(val)
+            _block_param(f"{base}.transformer.{rest[1].replace('_', '.')}",
+                         rest[2:], val, sd)
         else:
             raise KeyError(f"unknown CLIP parameter {key!r}")
     return sd
+
+
+def _tube_embed_weight(w: torch.Tensor) -> torch.Tensor:
+    """VideoMAE patch embed [width, C, ts, p, p] or flattened in (C, ts, p,
+    p) order -> the dense weight [width, (ts p p C)] of ``tube_patchify``'s
+    ordering."""
+    if w.dim() == 2:
+        width, flat = w.shape
+        c, ts = 3, 2
+        p = int(round((flat // (c * ts)) ** 0.5))
+        w = w.reshape(width, c, ts, p, p)
+    return w.permute(0, 2, 3, 4, 1).reshape(w.shape[0], -1).contiguous()
+
+
+_VIDEOMAE_BLOCK_RE = re.compile(r"^blocks\.(\d+)\.")
+
+
+def _layout(state: Mapping[str, Any]) -> str:
+    """A few words on which layout a state dict without ``blocks.N.*``
+    holds, for the error."""
+    keys = sorted(state)
+    if any(k.startswith("encoder.blocks.") for k in keys):
+        return ("the VideoMAE pretraining layout (encoder.blocks.N.*, "
+                "decoder.blocks.N.*)")
+    if any(k.startswith("visual.transformer.resblocks.") for k in keys):
+        return "a CLIP layout (visual.transformer.resblocks.N.*)"
+    return f"keys such as {keys[:4]}"
+
+
+def import_videomae_pt(path_or_state) -> Dict[str, torch.Tensor]:
+    """A VideoMAE finetune-layout ``.pt`` (or its state dict) -> the port's
+    ``FinetuneVideoMAE`` state dict: ``patch_embed.proj``, ``blocks.N``
+    (``norm1`` / ``norm2``, a fused ``attn.Wqkv`` or the reference's
+    ``attn.qkv.weight`` with split ``q_bias`` / ``v_bias`` and a zero key
+    bias, which no softmax sees; ``attn.proj``, ``mlp.fc1`` / ``fc2``),
+    ``fc_norm`` (or ``norm``) and ``head``.  The sincos positions are not
+    read.  A file that yields no encoder block raises and names the layout
+    it holds (the JAX importer returns nothing for it, so the finetune
+    would start from random weights)."""
+    state = (load_pt_state_dict(path_or_state)
+             if isinstance(path_or_state, str) else dict(path_or_state))
+    blocks = sorted({int(m.group(1)) for k in state
+                     for m in [_VIDEOMAE_BLOCK_RE.match(k)] if m})
+    if not blocks:
+        where = path_or_state if isinstance(path_or_state, str) else \
+            "the state dict"
+        raise ValueError(f"no VideoMAE encoder block (blocks.N.*) in "
+                         f"{where}: it holds {_layout(state)}")
+    out: Dict[str, torch.Tensor] = {}
+    if "patch_embed.proj.weight" in state:
+        out["patch_embed.weight"] = _tube_embed_weight(
+            state["patch_embed.proj.weight"])
+        out["patch_embed.bias"] = state["patch_embed.proj.bias"]
+    for i in range(blocks[-1] + 1):
+        src, dst = f"blocks.{i}.", f"encoder.resblocks.{i}."
+
+        def get(k):
+            return state[src + k]
+
+        for ln, norm in (("ln_1", "norm1"), ("ln_2", "norm2")):
+            out[f"{dst}{ln}.weight"] = get(f"{norm}.weight")
+            out[f"{dst}{ln}.bias"] = get(f"{norm}.bias")
+        if src + "attn.Wqkv.weight" in state:
+            w, b = get("attn.Wqkv.weight"), get("attn.Wqkv.bias")
+        else:
+            w = get("attn.qkv.weight")
+            dim = w.shape[0] // 3
+            if src + "attn.qkv.bias" in state:
+                b = get("attn.qkv.bias")
+            else:
+                zero = torch.zeros(dim)
+                b = torch.cat([state.get(src + "attn.q_bias", zero), zero,
+                               state.get(src + "attn.v_bias", zero)])
+        out[dst + "attn.Wqkv.weight"], out[dst + "attn.Wqkv.bias"] = w, b
+        for layer, name in (("attn.out_proj", "attn.proj"),
+                            ("mlp.fc1", "mlp.fc1"), ("mlp.fc2", "mlp.fc2")):
+            out[f"{dst}{layer}.weight"] = get(f"{name}.weight")
+            out[f"{dst}{layer}.bias"] = get(f"{name}.bias")
+    for src in ("fc_norm", "norm"):
+        if f"{src}.weight" in state:
+            out["fc_norm.weight"] = state[f"{src}.weight"]
+            out["fc_norm.bias"] = state[f"{src}.bias"]
+            break
+    if "head.weight" in state:
+        out["head.weight"] = state["head.weight"]
+        out["head.bias"] = state["head.bias"]
+    return out
 
 
 def load_clip_checkpoint(model: torch.nn.Module, path: str) -> None:

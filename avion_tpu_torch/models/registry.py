@@ -1,7 +1,8 @@
 """Model registry: name -> factory (``avion_tpu.models.registry``).
 
-The CLIP entries of the JAX registry, with the same names and factory
-keyword arguments.  ``use_flash_attn`` is accepted and ignored: attention
+The CLIP and VideoMAE entries of the JAX registry, with the same names and
+factory keyword arguments.  The VideoMAE factories, as the JAX ones, take
+and ignore keywords they have no use for.  ``use_flash_attn`` is accepted and ignored: attention
 always goes through ``ops.flash_attention``, which runs the CUDA kernels
 for CUDA tensors.  Machinery of later slices (sequence parallelism, MoE,
 pipelining, the SigLIP logit bias, pooling other than CLS) raises when it
@@ -16,6 +17,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from avion_tpu_torch.models.clip import CLIP
+from avion_tpu_torch.models.videomae import FinetuneVideoMAE, PretrainVideoMAE
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -105,3 +107,64 @@ def _clip_tiny(num_frames: int = 2, project_embed_dim: int = 32,
         temperature_init=temperature_init,
         dtype=dtype if dtype is not None else torch.float32,
         **_training_kwargs(**kwargs))
+
+
+@register_model("VIDEOMAE_TINY")
+def _videomae_tiny(num_frames: int = 4, use_flash_attn: bool = False,
+                   mask_ratio: float = 0.5, dtype=None, **_unused):
+    """Miniature VideoMAE for smoke tests (not in the reference)."""
+    return PretrainVideoMAE(
+        image_size=32, patch_size=16, num_frames=num_frames, tubelet_size=2,
+        encoder_width=48, encoder_layers=1, encoder_heads=2,
+        decoder_width=32, decoder_layers=1, decoder_heads=2,
+        mask_ratio=mask_ratio,
+        dtype=dtype if dtype is not None else torch.float32)
+
+
+@register_model("VIDEOMAE_TINY_FT")
+def _videomae_tiny_ft(num_frames: int = 4, num_classes: int = 10,
+                      use_flash_attn: bool = False, dtype=None, **_unused):
+    return FinetuneVideoMAE(
+        image_size=32, patch_size=16, num_frames=num_frames, tubelet_size=2,
+        width=48, layers=1, heads=2, num_classes=num_classes,
+        dtype=dtype if dtype is not None else torch.float32)
+
+
+def _videomae_factory(encoder_heads: int, decoder_heads: int):
+    def build(num_frames: int = 16, use_flash_attn: bool = True,
+              use_grad_checkpointing: bool = False,
+              remat_policy: str = "save_attn", decoder_depth: int = 4,
+              drop_path_rate: float = 0.0, mask_ratio: float = 0.9,
+              dtype=None, **_unused):
+        return PretrainVideoMAE(
+            image_size=224, patch_size=16, num_frames=num_frames,
+            encoder_width=768, encoder_layers=12,
+            encoder_heads=encoder_heads, decoder_width=384,
+            decoder_layers=decoder_depth, decoder_heads=decoder_heads,
+            tubelet_size=2, mask_ratio=mask_ratio,
+            remat=use_grad_checkpointing, remat_policy=remat_policy,
+            drop_path_rate=drop_path_rate,
+            dtype=dtype if dtype is not None else torch.bfloat16)
+
+    return build
+
+
+register_model("VIDEOMAE_VITB16")(_videomae_factory(12, 6))
+# the same widths, parameters and FLOPs with head_dim 128: encoder 6 x 128,
+# decoder 3 x 128 (not for importing 12-head reference checkpoints)
+register_model("VIDEOMAE_VITB16_H128")(_videomae_factory(6, 3))
+
+
+@register_model("VIDEOMAE_VITB16_FT")
+def _videomae_vitb16_ft(num_frames: int = 16, num_classes: int = 400,
+                        use_flash_attn: bool = True,
+                        use_grad_checkpointing: bool = False,
+                        remat_policy: str = "save_attn",
+                        drop_path_rate: float = 0.1,
+                        fc_drop_rate: float = 0.0, dtype=None, **_unused):
+    return FinetuneVideoMAE(
+        image_size=224, patch_size=16, num_frames=num_frames, width=768,
+        layers=12, heads=12, num_classes=num_classes, tubelet_size=2,
+        remat=use_grad_checkpointing, remat_policy=remat_policy,
+        drop_path_rate=drop_path_rate, fc_drop_rate=fc_drop_rate,
+        dtype=dtype if dtype is not None else torch.bfloat16)

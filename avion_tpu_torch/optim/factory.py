@@ -12,14 +12,19 @@
 - The learning rate is the schedule at the optimizer's own update count,
   which starts at 0 on the first update and advances only when an update
   is applied (optax's schedule count); it is part of the state dict.
+- Layer decay (``layer_decay`` with the model's ``num_layers``): the JAX
+  chain scales AdamW's whole update of a parameter by ``decay ** (layers
+  + 1 - depth)``; here that is one parameter group per (depth, weight
+  decay or not) whose learning rate is the schedule times that scale.
 
-SGD, Lion, layer decay, ``wd_end``, bf16 state and ``update_freq`` wait
-for later slices and raise when asked for.
+SGD, Lion, ``wd_end``, bf16 state and ``update_freq`` wait for later
+slices and raise when asked for.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Tuple
+import re
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -39,6 +44,34 @@ def wd_mask(name: str, param: torch.Tensor) -> bool:
     return param.dim() >= 2 and not any(t in name for t in _NO_WD_TOKENS)
 
 
+def block_depth(name: str, num_layers: int) -> int:
+    """Layer-decay depth: the embeddings 0, ``resblocks.i`` i + 1, the rest
+    (norms, heads) ``num_layers + 1``."""
+    m = re.search(r"resblocks\.(\d+)", name)
+    if m:
+        return int(m.group(1)) + 1
+    if any(t in name for t in ("patch_embed", "conv1", "class_embedding",
+                               "positional_embedding", "temporal_embedding",
+                               "token_embedding")):
+        return 0
+    return num_layers + 1
+
+
+def layer_decay_scale(name: str, num_layers: int, decay: float) -> float:
+    return decay ** (num_layers + 1 - block_depth(name.lower(), num_layers))
+
+
+def apply_batch_lr_scale(cfg, global_batch: int, default_base: int = 0):
+    """Linear scaling for the finetunes: ``lr *= global_batch / base``
+    (base ``lr_scale_by_batch``, else ``default_base``); clears the knob so
+    a second call cannot compound."""
+    base = cfg.lr_scale_by_batch or default_base
+    if base:
+        cfg.lr = cfg.lr * global_batch / base
+        cfg.lr_scale_by_batch = None
+    return cfg.lr
+
+
 def build_schedule(cfg, niter_per_ep: int) -> Callable[[int], float]:
     if cfg.fix_lr:
         return lambda step: cfg.lr
@@ -50,8 +83,6 @@ def _unported(cfg) -> List[str]:
     asked = []
     if cfg.optimizer.lower() != "adamw":
         asked.append(f"optimizer={cfg.optimizer!r}")
-    if cfg.layer_decay:
-        asked.append(f"layer_decay={cfg.layer_decay}")
     if cfg.wd_end is not None and cfg.wd_end != cfg.wd:
         asked.append(f"wd_end={cfg.wd_end}")
     if cfg.state_dtype not in ("", "float32"):
@@ -62,25 +93,36 @@ def _unported(cfg) -> List[str]:
 
 
 class Optimizer:
-    """Clip, schedule and AdamW over named parameters."""
+    """Clip, schedule and AdamW over named parameters; with
+    ``cfg.layer_decay`` and ``num_layers``, layer-wise learning rates."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg,
-                 schedule: Callable[[int], float]):
+                 schedule: Callable[[int], float],
+                 num_layers: Optional[int] = None):
         asked = _unported(cfg)
         if asked:
             raise NotImplementedError(
                 "not in the PyTorch port yet: " + ", ".join(asked))
-        decay, no_decay = [], []
+        groups: Dict[Tuple[float, bool], List[torch.Tensor]] = {}
         for name, p in named_params:
             if p.requires_grad:
-                (decay if wd_mask(name, p) else no_decay).append(p)
-        self.params = decay + no_decay
+                scale = (layer_decay_scale(name, num_layers, cfg.layer_decay)
+                         if cfg.layer_decay and num_layers else 1.0)
+                groups.setdefault((scale, wd_mask(name, p)), []).append(p)
+        # by depth scale, the decayed group first (the layout of
+        # checkpoints written before layer decay)
+        groups = dict(sorted(groups.items(), key=lambda kv: (kv[0][0],
+                                                             not kv[0][1])))
+        if not groups:
+            groups[(1.0, True)] = []
+        self.params = [p for ps in groups.values() for p in ps]
         self.schedule = schedule
         self.grad_clip_norm = cfg.grad_clip_norm
         self.count = 0  # updates applied
         self.adamw = torch.optim.AdamW(
-            [{"params": decay, "weight_decay": cfg.wd},
-             {"params": no_decay, "weight_decay": 0.0}],
+            [{"params": ps, "weight_decay": cfg.wd if decays else 0.0,
+              "lr_scale": scale}
+             for (scale, decays), ps in groups.items()],
             lr=schedule(0), betas=tuple(cfg.betas), eps=cfg.eps)
 
     def zero_grad(self) -> None:
@@ -105,7 +147,7 @@ class Optimizer:
             torch._foreach_mul_(self._grads(), scale)
         lr = self.schedule(self.count)
         for group in self.adamw.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group["lr_scale"]
         self.adamw.step()
         self.count += 1
 
@@ -117,8 +159,12 @@ class Optimizer:
         self.count = int(state["count"])
 
 
-def build_optimizer(cfg, model: torch.nn.Module, niter_per_ep: int
+def build_optimizer(cfg, model: torch.nn.Module, niter_per_ep: int,
+                    num_layers: Optional[int] = None
                     ) -> Tuple[Optimizer, Callable[[int], float]]:
-    """From an ``OptimConfig``; returns (optimizer, lr schedule)."""
+    """From an ``OptimConfig``; returns (optimizer, lr schedule).  Layer
+    decay applies when ``cfg.layer_decay`` and ``num_layers`` are set, as
+    in the JAX factory."""
     schedule = build_schedule(cfg, niter_per_ep)
-    return Optimizer(model.named_parameters(), cfg, schedule), schedule
+    return (Optimizer(model.named_parameters(), cfg, schedule, num_layers),
+            schedule)

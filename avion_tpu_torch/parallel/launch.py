@@ -26,6 +26,19 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def device_from_argv(argv) -> tuple:
+    """(the arguments less ``--device <name>``, the resolved device):
+    the entries' ``--device`` flag, CUDA by default."""
+    argv, name = list(argv), "cuda"
+    if "--device" in argv:
+        i = argv.index("--device")
+        if i + 1 >= len(argv):
+            raise SystemExit("usage: --device <cuda[:N]|cpu> (missing value)")
+        name = argv[i + 1]
+        del argv[i : i + 2]
+    return argv, resolve_device(name)
+
+
 def preempted() -> bool:
     return _PREEMPTED["flag"]
 

@@ -1,7 +1,7 @@
 """Pretrained-weight loading for the entries (``avion_tpu.train.common``).
 
 ``extract_visual_params`` (the classifier heads' visual tower) comes with
-the finetune slice.
+the CLIP finetune entries.
 """
 
 from __future__ import annotations
@@ -35,6 +35,14 @@ def load_pretrained_params(path: str, model: torch.nn.Module, *,
                                   vocab_size=vocab_size)
         model.load_state_dict(imported, strict=strict)
         return model
+    model.load_state_dict(latest_model_state(path), strict=strict)
+    return model
+
+
+def latest_model_state(path: str) -> dict:
+    """The model part of the newest checkpoint of this port under ``path``
+    (``<path>/<step>/state.pt``, or a run's ``output_dir`` whose ``ckpt``
+    holds them)."""
     if not os.path.isdir(path):
         raise FileNotFoundError(f"no checkpoint file or directory {path!r}")
     if os.path.isdir(os.path.join(path, "ckpt")):
@@ -46,7 +54,5 @@ def load_pretrained_params(path: str, model: torch.nn.Module, *,
             f"orbax checkpoint of the JAX package must first be exported to "
             f".pt by avion_tpu/tools/convert_checkpoint.py "
             f"(export_clip_to_pt)")
-    state = torch.load(os.path.join(path, str(step), "state.pt"),
-                       map_location="cpu", weights_only=True)
-    model.load_state_dict(state["model"], strict=strict)
-    return model
+    return torch.load(os.path.join(path, str(step), "state.pt"),
+                      map_location="cpu", weights_only=True)["model"]

@@ -56,14 +56,15 @@ def _one_device(cfg: TrainConfig) -> None:
 
 
 def setup_run(cfg: TrainConfig, model: torch.nn.Module, optimizer,
-              step_fn: Callable) -> Run:
+              step_fn: Callable, use_ema: bool = False) -> Run:
     """``model`` on its device and ``optimizer`` over its parameters
-    (``pretrain_clip.build_model_and_state``); restores the newest
-    checkpoint under ``<output_dir>/ckpt`` when ``resume`` or
-    ``auto_resume`` is set."""
+    (``pretrain_clip.build_model_and_state``); with ``use_ema`` the state
+    carries an average of the parameters.  Restores the newest checkpoint
+    under ``<output_dir>/ckpt`` when ``resume`` or ``auto_resume`` is
+    set."""
     _one_device(cfg)
     device = next(model.parameters()).device
-    state = TrainState.create(model, optimizer)
+    state = TrainState.create(model, optimizer, use_ema)
     ckpt = Checkpointer(os.path.join(cfg.output_dir, "ckpt"))
     logger = MetricLogger(cfg.output_dir, cfg.wandb, cfg.wandb_project,
                           cfg.run_name, cfg.to_dict())

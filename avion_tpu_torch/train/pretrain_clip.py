@@ -35,7 +35,7 @@ from avion_tpu_torch.eval.validate import run_validation
 from avion_tpu_torch.models.pt_import import import_clip_pt
 from avion_tpu_torch.models.registry import create_model
 from avion_tpu_torch.optim.factory import build_optimizer
-from avion_tpu_torch.parallel.launch import resolve_device, setup_host
+from avion_tpu_torch.parallel.launch import device_from_argv, setup_host
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import make_clip_train_step
@@ -162,15 +162,8 @@ def main(argv=None) -> dict:
     zero-shot metrics by epoch (-1 before the first), "decode_backend":
     ..., "transfers": the loader's worker transfers}``."""
     load_dotenv()  # dataset-path env vars, the reference's .env convention
-    argv = list(argv if argv is not None else sys.argv[1:])
-    name = "cuda"
-    if "--device" in argv:
-        i = argv.index("--device")
-        if i + 1 >= len(argv):
-            raise SystemExit("usage: --device <cuda[:N]|cpu> (missing value)")
-        name = argv[i + 1]
-        del argv[i : i + 2]
-    device = resolve_device(name)
+    argv, device = device_from_argv(
+        argv if argv is not None else sys.argv[1:])
     cfg = env_defaults(TrainConfig().apply_overrides(argv))
     _check_ported(cfg)
     os.makedirs(cfg.output_dir, exist_ok=True)

@@ -1,13 +1,17 @@
-"""The CLIP train step (``avion_tpu.train.steps.make_clip_train_step``,
-loss ``"clip"``): forward, loss, backward, gradient clip, AdamW update,
-logit-scale clamp, and the skip of a step whose loss is not finite.
+"""The train steps (``avion_tpu.train.steps``): CLIP's (loss ``"clip"``),
+VideoMAE's pretraining step and the classification finetune step: forward,
+loss, backward, gradient clip, AdamW update (CLIP's logit-scale clamp, the
+finetune's EMA), and the skip of a step whose loss is not finite.
 
 The JAX step is one jitted function that selects the old or the new state
 on device.  Here the update happens in place, so the step reads
 ``isfinite(loss)`` on the host once per step (one device synchronization)
 and, when it is false, leaves the parameters, the Adam moments and the
 optimizer's update count as they were; ``state.step`` advances either way,
-as in the JAX package.
+as in the JAX package.  Each step's random draws (patch dropout,
+DropPath, tube masks, mixup) come from a generator on the model's device
+seeded from (``seed``, ``state.step``), as the JAX steps fold the step
+into their key.
 """
 
 from __future__ import annotations
@@ -17,9 +21,13 @@ from typing import Callable, Optional
 import torch
 
 from avion_tpu_torch.core.train_state import TrainState
-from avion_tpu_torch.data.transforms import (OPENAI_MEAN, OPENAI_STD,
-                                             normalize_video)
-from avion_tpu_torch.losses.losses import clip_loss
+from avion_tpu_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD,
+                                             OPENAI_MEAN, OPENAI_STD,
+                                             normalize_video, tube_mask_device)
+from avion_tpu_torch.losses.losses import (clip_loss,
+                                           soft_target_cross_entropy,
+                                           softmax_cross_entropy,
+                                           videomae_loss)
 from avion_tpu_torch.ops.fused_input import crop_resize_flip_normalize
 
 LOGIT_SCALE_MAX = 4.6052  # ln(100); scripts/main_lavila_pretrain.py:880
@@ -33,28 +41,54 @@ def step_seed(seed: int, step: int) -> int:
 
 
 def prep_video(video: torch.Tensor, dtype: torch.dtype = torch.bfloat16,
-               batch=None, model=None, crop_size=None) -> torch.Tensor:
-    """Normalize a uint8 batch on its device; float input passes through
-    (already normalized).  A model built with ``input_norm`` takes the
-    uint8 batch itself and normalizes inside its stem.  When the batch
-    carries host-sampled crop parameters (``crop``/``hflip``) and
-    ``crop_size`` is given, crop + resize + flip + normalize run on the
-    device (``ops/fused_input``)."""
+               batch=None, model=None, crop_size=None, *, mean=None,
+               std=None) -> torch.Tensor:
+    """Normalize a uint8 batch on its device with ``mean`` / ``std``
+    (default OpenAI's); float input passes through (already normalized).
+    A model built with ``input_norm`` takes the uint8 batch itself and
+    normalizes inside its stem.  When the batch carries host-sampled crop
+    parameters (``crop``/``hflip``) and ``crop_size`` is given, crop +
+    resize + flip + normalize run on the device (``ops/fused_input``)."""
+    mean = mean if mean is not None else OPENAI_MEAN
+    std = std if std is not None else OPENAI_STD
     if batch is not None and "crop" in batch and crop_size is not None:
         return crop_resize_flip_normalize(
             video, batch["crop"], batch.get("hflip"),
-            out_size=(crop_size, crop_size), dtype=dtype)
+            out_size=(crop_size, crop_size), mean=mean, std=std, dtype=dtype)
     if video.dtype == torch.uint8:
         if model is not None and getattr(model, "input_norm", "none") != "none":
             return video
-        return normalize_video(video, OPENAI_MEAN, OPENAI_STD, dtype)
+        return normalize_video(video, mean, std, dtype)
     return video
+
+
+def _step_generator(model: torch.nn.Module, seed: int,
+                    step: int) -> torch.Generator:
+    generator = torch.Generator(next(model.parameters()).device)
+    generator.manual_seed(step_seed(seed, step))
+    return generator
 
 
 @torch.no_grad()
 def _clamp_logit_scale(model: torch.nn.Module) -> None:
     if hasattr(model, "logit_scale"):
         model.logit_scale.clamp_(0.0, LOGIT_SCALE_MAX)
+
+
+def _apply_or_skip(state: TrainState, loss: torch.Tensor,
+                   ema_decay: Optional[float] = None,
+                   grad_norm: Optional[torch.Tensor] = None) -> bool:
+    """The update after ``loss.backward()``: when the loss is finite (the
+    step's one host read), clip (by ``grad_norm`` when given), step AdamW
+    and average the parameters into the EMA; else leave all of it.
+    ``state.step`` advances either way."""
+    ok = bool(torch.isfinite(loss))
+    if ok:
+        state.optimizer.update(grad_norm)
+        if state.ema is not None and ema_decay is not None:
+            state.update_ema(ema_decay)
+    state.step += 1
+    return ok
 
 
 def make_clip_train_step(model: torch.nn.Module,
@@ -76,8 +110,7 @@ def make_clip_train_step(model: torch.nn.Module,
 
     def step(state: TrainState, batch):
         model, opt = state.model, state.optimizer
-        generator = torch.Generator(next(model.parameters()).device)
-        generator.manual_seed(step_seed(seed, state.step))
+        generator = _step_generator(model, seed, state.step)
         video = prep_video(batch["video"], dtype=dtype, batch=batch,
                            model=model, crop_size=crop_size)
         out = model(video, batch["text"].long(), deterministic=False,
@@ -89,13 +122,87 @@ def make_clip_train_step(model: torch.nn.Module,
         opt.zero_grad()
         loss.backward()
         metrics["grad_norm"] = opt.global_norm()
-        ok = bool(torch.isfinite(loss))  # the step's one host read
+        ok = _apply_or_skip(state, loss, grad_norm=metrics["grad_norm"])
         if ok:
-            opt.update(metrics["grad_norm"])
             _clamp_logit_scale(model)
-        state.step += 1
         metrics["loss"] = loss.detach()
         metrics["step_ok"] = float(ok)
         return state, metrics
+
+    return step
+
+
+def make_videomae_train_step(model: torch.nn.Module, patch_size: int = 16,
+                             tubelet_size: int = 2,
+                             normalize_target: bool = True,
+                             regen_mask: bool = False,
+                             seed: int = 1) -> Callable:
+    """VideoMAE pretraining: ``step(state, batch) -> (state, metrics)``.
+    ``batch``: ``video`` [B, T, H, W, 3] (uint8, normalized here with the
+    ImageNet statistics, or normalized float) and ``mask`` [B, N] bool.
+    ``regen_mask`` draws the tube masks on the device instead (under data
+    echoing the repeats of a batch would otherwise reconstruct the same
+    tokens).  The masks and DropPath draw from (``seed``, ``state.step``).
+    Metrics: ``loss`` (device tensor) and ``step_ok``."""
+    dtype = getattr(model, "dtype", torch.bfloat16)
+
+    def step(state: TrainState, batch):
+        model, opt = state.model, state.optimizer
+        generator = _step_generator(model, seed, state.step)
+        video = prep_video(batch["video"], dtype, mean=IMAGENET_MEAN,
+                           std=IMAGENET_STD)
+        mask = batch["mask"]
+        if regen_mask:
+            b, t, h, w, _ = video.shape
+            mask = tube_mask_device(generator, b, t // tubelet_size,
+                                    h // patch_size, w // patch_size,
+                                    model.mask_ratio, video.device)
+        pred, masked_idx = model(video, mask, deterministic=False,
+                                 generator=generator)
+        loss = videomae_loss(pred, video, masked_idx, patch_size,
+                             tubelet_size, normalize_target)["loss"]
+        opt.zero_grad()
+        loss.backward()
+        ok = _apply_or_skip(state, loss)
+        return state, {"loss": loss.detach(), "step_ok": float(ok)}
+
+    return step
+
+
+def make_cls_train_step(model: torch.nn.Module, label_smoothing: float = 0.0,
+                        ema_decay: Optional[float] = None,
+                        mixup_fn: Optional[Callable] = None,
+                        seed: int = 1) -> Callable:
+    """Classification finetune: ``step(state, batch) -> (state, metrics)``.
+    ``batch["label"]`` holds int labels [B] or soft targets [B, classes];
+    ``video`` is normalized with OpenAI's statistics, as the JAX step does.
+    ``mixup_fn(generator, video, labels) -> (video, soft targets)`` mixes
+    int-labelled batches on the device.  With ``ema_decay`` and a state
+    that carries an EMA, the average follows each applied update.  Mixup
+    and DropPath draw from (``seed``, ``state.step``).  Metrics: ``loss``
+    and ``acc1`` (device tensors) and ``step_ok``."""
+    dtype = getattr(model, "dtype", torch.bfloat16)
+
+    def step(state: TrainState, batch):
+        model, opt = state.model, state.optimizer
+        generator = _step_generator(model, seed, state.step)
+        video = prep_video(batch["video"], dtype=dtype)
+        label = batch["label"]
+        if mixup_fn is not None and label.dim() == 1:
+            video, label = mixup_fn(generator, video, label)
+        logits = model(video, deterministic=False, generator=generator)
+        if label.dim() == logits.dim():
+            loss = soft_target_cross_entropy(logits, label)
+            hard = label.argmax(dim=-1)
+        else:
+            loss = softmax_cross_entropy(logits, label.long(),
+                                         label_smoothing)
+            hard = label
+        acc = 100.0 * (logits.detach().argmax(dim=-1) == hard).float().mean()
+        opt.zero_grad()
+        loss.backward()
+        ok = _apply_or_skip(state, loss, ema_decay)
+        return state, {"loss": loss.detach(), "acc1": acc,
+                       "step_ok": float(ok)}
 
     return step

@@ -1,8 +1,8 @@
 """Smoke test of the PyTorch port on one CUDA card: build the kernels, hold
 each against its plain version, serve full-width CLIP ViT-B/16 over HTTP
 through the port's normal entry point, train it for a few steps on seeded
-batches, then through the training entry on decoded video, and evaluate it
-zero-shot on the five suites.
+batches, then through the training entry on decoded video, evaluate it
+zero-shot on the five suites, and pretrain and finetune VideoMAE ViT-B/16.
 
     python3 chip_smoke.py
 
@@ -68,7 +68,26 @@ Phases (each raises on failure; the script then exits non-zero):
    the CPU plain path in f32 (cosine >= 0.99); (e) the idle share of one
    profiled MIR sweep and its device time by kind; then the inference
    forward against its plain f32 version at every shape (a) and (b) gave
-   it (batch 128 and the ragged last chunks; phase 3's tolerances).
+   it (batch 128 and the ragged last chunks; phase 3's tolerances);
+9. videomae: (a) every kernel at VideoMAE's shapes (the encoder's 160
+   visible tokens, the decoder's 1568 at width 384, the finetune ViT's
+   1568, and the head_dim-128 twins) against its plain f32 version at
+   batch 8 (phase 3's tolerances), timed at batch 128 beside its bound and
+   SDPA; (b) seeded ``VIDEOMAE_VITB16`` pretraining at 16 frames, batch
+   128, with the recipe of ``scripts/examples/videomae_pretrain_k400.sh``
+   through ``videomae_pretrain.build_model_and_state`` and ``train.loop``:
+   8 steps (16 forward-with-lse, 12 combined, 4 dq and 4 dkv launches a
+   step), a profiled step, a batch-2 step against the CPU in f32, an exact
+   resume, two ``VIDEOMAE_VITB16_H128`` steps (head_dim 128 launched) and
+   an echoed batch whose repeats draw their own tube masks; (c)
+   ``videomae_pretrain.main`` on a synthetic Kinetics layout (256 mp4v
+   videos at 340x256) at batch 64 for 4 steps: p50 step and data wait,
+   the idle share of the last two steps, decode ms a clip, a resume; (d)
+   ``videomae_finetune.main`` with the finetune recipe's augmentation on a
+   random reference-layout checkpoint (split q / v bias), 2 steps and the
+   5 x 3-view test (acc1, acc5; 12 ``flash_fwd`` a forward), then seeded
+   finetune steps at batch 128 (12 + 12 + 12 launches a step) and the EMA
+   against its formula on the card's parameters, bit for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -692,11 +711,13 @@ def phase_serve(tmp: str) -> int:
     return launches
 
 
-def _train_config(out_dir: str, *overrides: str):
+def _train_config(out_dir: str, *overrides: str, recipe=None):
+    """``recipe`` (default TRAIN_RECIPE), then ``output_dir``, then the
+    overrides."""
     from avion_tpu_torch.core.config import TrainConfig
 
     return TrainConfig().apply_overrides(
-        [*TRAIN_RECIPE, f"output_dir={out_dir}", *overrides])
+        [*(recipe or TRAIN_RECIPE), f"output_dir={out_dir}", *overrides])
 
 
 def _train_batches(n: int, batch: int, frames: int) -> list:
@@ -840,7 +861,15 @@ def _reference_grads(model_gpu, cfg, batch: dict) -> None:
         grads = {n: p.grad.detach().float().cpu()
                  for n, p in model.named_parameters() if p.grad is not None}
         results.append((loss.item(), grads))
+    check_against_cpu(results, f"reference step at batch {REF_BATCH}")
+
+
+def check_against_cpu(results, label: str) -> None:
+    """``results``: (loss, gradients by name) on the card, then on the CPU
+    in f32.  Relative loss difference at most 2e-2, cosine of the whole
+    gradient at least 0.99."""
     (l_gpu, g_gpu), (l_cpu, g_cpu) = results
+
     def dots(a, b):  # f64: f32 sums over 1.5e8 terms drift past 1e-2
         a, b = a.double().reshape(-1), b.double().reshape(-1)
         return torch.stack([a @ b, a @ a, b @ b])
@@ -853,21 +882,61 @@ def _reference_grads(model_gpu, cfg, batch: dict) -> None:
            for n, d in per_dots.items()}
     worst = min(per, key=per.get)
     rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    log(f"reference step at batch {REF_BATCH}: loss card {l_gpu:.6f}, CPU f32 "
-        f"{l_cpu:.6f}, relative difference {rel:.3e} (bound 2e-2); gradient "
-        f"cosine {cos:.6f} (bound 0.99); smallest per-tensor cosine "
-        f"{per[worst]:.6f} ({worst})")
+    log(f"{label}: loss card {l_gpu:.6f}, CPU f32 {l_cpu:.6f}, relative "
+        f"difference {rel:.3e} (bound 2e-2); gradient cosine {cos:.6f} "
+        f"(bound 0.99); smallest per-tensor cosine {per[worst]:.6f} "
+        f"({worst})")
     if not (rel <= 2e-2 and cos >= 0.99):
-        raise RuntimeError("the card's train step disagrees with the CPU "
-                           "reference")
+        raise RuntimeError(f"{label}: the card disagrees with the CPU "
+                           f"reference")
+
+
+def _timed_epoch(run, loader) -> dict:
+    """``train_one_epoch`` over ``loader``: each step's time and metrics,
+    the epoch's summary, the kernel launches (counted from the epoch's
+    start) and the peak memory."""
+    from avion_tpu_torch.train.loop import train_one_epoch
+
+    ends, seen, inner = [], [], run.step
+
+    def timed(state, batch):
+        state, metrics = inner(state, batch)
+        seen.append({k: float(v) for k, v in metrics.items()})
+        ends.append(time.perf_counter())
+        return state, metrics
+
+    run.step = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()  # the path's launches, counted from here
+    start = time.perf_counter()
+    try:
+        summary = train_one_epoch(run, loader, 0)
+        torch.cuda.synchronize()
+    finally:
+        run.step = inner
+    return {"launches": dict(fa.launches), "metrics": seen,
+            "summary": summary, "peak": torch.cuda.max_memory_allocated(),
+            "step_ms": np.diff([start] + ends) * 1e3}
+
+
+def _same_state(state, saved: dict, saved_opt: dict) -> bool:
+    """The model's state dict, the optimizer's count and its AdamW moments
+    equal ``saved`` / ``saved_opt``, bit for bit."""
+    got = state.optimizer.state_dict()
+    return (all(torch.equal(v, saved[k])
+                for k, v in state.model.state_dict().items())
+            and got["count"] == saved_opt["count"]
+            and all(torch.equal(v, saved_opt["adamw"]["state"][i][k])
+                    for i, s in got["adamw"]["state"].items()
+                    for k, v in s.items()))
 
 
 def phase_train(tmp: str) -> dict:
     """The training slice's main path at full width, fed seeded batches;
     returns the kernel launches of its 8-step epoch and its p50 step ms."""
     from avion_tpu_torch.models.layers import saved_attn_layers
-    from avion_tpu_torch.train.loop import (save_epoch, setup_run,
-                                            train_one_epoch)
+    from avion_tpu_torch.train.loop import save_epoch, setup_run
     from avion_tpu_torch.train.pretrain_clip import build_model_and_state
     from avion_tpu_torch.train.steps import make_clip_train_step
 
@@ -884,28 +953,13 @@ def phase_train(tmp: str) -> dict:
         f"{schedule(TRAIN_STEPS - 1):.3e} (warmup to {cfg.optim.lr:.1e} "
         f"over {TRAIN_STEPS} steps)")
 
-    ends, losses, oks = [], [], []
-    inner = run.step
-
-    def timed(state, batch):
-        state, metrics = inner(state, batch)
-        losses.append(float(metrics["loss"]))
-        oks.append(metrics["step_ok"])
-        ends.append(time.perf_counter())
-        return state, metrics
-
-    run.step = timed
-    loader = [batches[i % len(batches)] for i in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()  # the main path, counted from here
-    start = time.perf_counter()
-    metrics = train_one_epoch(run, loader, 0)
-    torch.cuda.synchronize()
-    launches = dict(fa.launches)
-    peak = torch.cuda.max_memory_allocated()
-    run.step = inner
-    per_step = np.diff([start] + ends) * 1e3
+    # the main path's launches, counted from the epoch's start
+    res = _timed_epoch(run, [batches[i % len(batches)]
+                             for i in range(TRAIN_STEPS)])
+    launches, peak, per_step = res["launches"], res["peak"], res["step_ms"]
+    losses = [m["loss"] for m in res["metrics"]]
+    oks = [m["step_ok"] for m in res["metrics"]]
+    metrics = res["summary"]
     log(f"losses {losses}; step_ok {oks}")
     log(f"step ms {[round(float(x), 3) for x in per_step]}")
     if (len(losses) != TRAIN_STEPS or not np.isfinite(losses).all()
@@ -956,14 +1010,8 @@ def phase_train(tmp: str) -> dict:
     model2, opt2, _ = build_model_and_state(_train_config(out_dir, "seed=1"),
                                             TRAIN_STEPS)
     run2 = setup_run(cfg, model2, opt2, make_clip_train_step(model2))
-    got_opt = run2.state.optimizer.state_dict()
-    same = (run2.state.step == step
-            and all(torch.equal(v, saved[k]) for k, v in
-                    run2.state.model.state_dict().items())
-            and got_opt["count"] == saved_opt["count"]
-            and all(torch.equal(v, saved_opt["adamw"]["state"][i][k])
-                    for i, s in got_opt["adamw"]["state"].items()
-                    for k, v in s.items()))
+    same = run2.state.step == step and _same_state(run2.state, saved,
+                                                   saved_opt)
     log(f"checkpoint at step {step} restored into a model built from another "
         f"seed: step, parameters and AdamW moments bit for bit: {same}")
     if not same:
@@ -1095,6 +1143,23 @@ def write_ego4d_fixture(root: str, seed: int = 0) -> str:
     with open(meta, "wb") as f:
         pickle.dump(rows, f)
     return meta
+
+
+def write_k400_fixture(root: str, seed: int = 0, *, videos: int = 64,
+                       frames: int = 96, w: int = 340, h: int = 256,
+                       fps: int = 30, classes: int = 8) -> str:
+    """``root/vid<k>.mp4`` (mp4v, a seeded texture sliding one pixel a
+    frame) and a Kinetics ``path label`` list; returns the list's path."""
+    rs = np.random.RandomState(seed)
+    jobs = [(os.path.join(root, f"vid{k}.mp4"), _canvas(rs, w, h), 0,
+             frames, fps) for k in range(videos)]
+    os.makedirs(root, exist_ok=True)
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(lambda job: _write_chunk(*job), jobs))
+    path = os.path.join(root, "list.txt")
+    with open(path, "w") as f:
+        f.write("".join(f"vid{k}.mp4 {k % classes}\n" for k in range(videos)))
+    return path
 
 
 def _device_busy_ms(prof) -> float:
@@ -1825,6 +1890,661 @@ def phase_eval(tmp: str, fixture: tuple, ckpt: str) -> dict:
     return {"with_eval": with_eval, "eval": launches, "checks": checks}
 
 
+# the VideoMAE slice: ViT-B/16 at 16 frames and 224 px, batch 128 (the JAX
+# package's bench_videomae batch; the recipe's 512 is four cards' share),
+# trained with the recipes of scripts/examples/videomae_{pretrain,
+# finetune}_k400.sh
+VMAE_MODEL, VMAE_FT_MODEL, VMAE_H128 = ("VIDEOMAE_VITB16", "VIDEOMAE_VITB16_FT",
+                                        "VIDEOMAE_VITB16_H128")
+VMAE_FRAMES, VMAE_BATCH, VMAE_STEPS, VMAE_FT_STEPS = 16, 128, 8, 5
+VMAE_CHECK_BATCH, VMAE_REF_BATCH, VMAE_SHORT_STEPS = 8, 2, 2
+VMAE_PRETRAIN_RECIPE = [
+    f"model.name={VMAE_MODEL}", "model.use_grad_checkpointing=true",
+    f"data.clip_length={VMAE_FRAMES}", "data.clip_stride=4",
+    "data.mask_ratio=0.9", "optim.optimizer=adamw", "optim.lr=1.5e-4",
+    "optim.wd=0.05", "optim.betas=0.9,0.95", "optim.warmup_epochs=40",
+    "optim.epochs=800", "print_freq=1"]
+VMAE_FINETUNE_RECIPE = [
+    f"model.name={VMAE_FT_MODEL}", "model.use_grad_checkpointing=true",
+    f"data.clip_length={VMAE_FRAMES}", "optim.optimizer=adamw",
+    "optim.lr=1e-3", "optim.wd=0.05", "optim.layer_decay=0.75",
+    "optim.warmup_epochs=5", "optim.epochs=75", "mixup=0.8", "cutmix=1.0",
+    "smoothing=0.1", "use_ema=true", "data.rand_aug=true",
+    "data.erase_prob=0.25", "data.repeated_aug=2", "print_freq=1"]
+# (tower, S, heads, head_dim): the encoder on the 160 visible tokens, the
+# decoder and the finetune ViT on all 1568, and VIDEOMAE_VITB16_H128's
+VMAE_SHAPES = [("encoder", 160, 12, 64), ("decoder", 1568, 6, 64),
+               ("finetune", 1568, 12, 64), ("encoder_h128", 160, 6, 128),
+               ("decoder_h128", 1568, 3, 128)]
+# a synthetic Kinetics layout: 340x256 at 30 fps (the short side Kinetics
+# is usually resized to), 96 frames (the 16-frame stride-4 span is 64)
+K400_VIDEOS, K400_FRAMES, K400_W, K400_H, K400_FPS = 256, 96, 340, 256, 30
+VMAE_DATA_BATCH, VMAE_DATA_STEPS = 64, 4
+VMAE_FT_BATCH, VMAE_FT_VAL_VIDEOS, VMAE_FT_VIEWS = 8, 8, (5, 3)
+
+
+def _vmae_kernel_rows() -> dict:
+    """Every kernel at the VideoMAE shapes: errors against the plain f32
+    version at batch VMAE_CHECK_BATCH (phase 3's tolerances; the plain f32
+    scores at batch 128 and S 1568 alone are 7.5 GB), the plain version's
+    time there, and the kernel's, its bound's and SDPA's at batch
+    VMAE_BATCH.  Returns rows by kernel."""
+    rows = {name: [] for name in fa.KERNELS}
+    bad = []
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def check(name, tower, **errs):
+        for key, (err, limit) in errs.items():
+            if not err <= limit:  # NaN fails too
+                bad.append(f"{name} {tower}: {key} {err} > {limit}")
+
+    def launched(fn, want):
+        fa.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        if dict(fa.launches) != want:
+            raise RuntimeError(f"launches {dict(fa.launches)}, want {want}")
+        return out
+
+    for tower, s, h, d in VMAE_SHAPES:
+        w, scale, b = h * d, d ** -0.5, VMAE_CHECK_BATCH
+        qkv = torch.randn(b, s, 3 * w, generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+        do = torch.randn(b, s, w, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        ref, lse_ref = fa.flash_fwd_lse_plain(qkv.float(), h, s, False, scale)
+        out_i = launched(lambda: fa.flash_attention_fused_qkv(qkv, h, s),
+                         {"flash_fwd": 1})
+        err_i = _errors(out_i, ref)
+        out, lse = launched(lambda: fa.flash_fwd_lse(qkv, h, s, False, scale),
+                            {"flash_fwd_lse": 1})
+        err_l = _errors(out, ref)
+        lse_err = (lse - lse_ref).abs().max().item()
+        combined = fa.use_combined_bwd(s)
+        names = (["flash_bwd_combined"] if combined
+                 else ["flash_bwd_dq", "flash_bwd_dkv"])
+        got = launched(lambda: fa.flash_bwd(do, qkv, out, lse, h, s, False,
+                                            scale), {n: 1 for n in names})
+        gref = fa.flash_bwd_plain(do.float(), qkv.float(), ref, lse_ref, h, s,
+                                  False, scale)
+        errs = {sec: _errors(got[..., i * w:(i + 1) * w],
+                             gref[..., i * w:(i + 1) * w])
+                for i, sec in enumerate(("dq", "dk", "dv"))}
+        del ref, lse_ref, gref
+        check("flash_fwd", tower, max_abs_err=(err_i[0], TOL),
+              rel_rms_err=(err_i[1], REL_TOL))
+        check("flash_fwd_lse", tower, max_abs_err=(err_l[0], TOL),
+              rel_rms_err=(err_l[1], REL_TOL), lse_max_abs_err=(lse_err,
+                                                                LSE_TOL))
+        for sec, (err, rel) in errs.items():
+            check("backward", tower, **{
+                f"{sec}_max_abs_err": (err, TOL),
+                f"{sec}_rel_rms_err": (rel, BWD_REL_TOL)})
+        plain = {"fwd": cuda_ms(lambda: fa.flash_fwd_lse_plain(
+            qkv, h, s, False, scale), iters=3),
+            "bwd": cuda_ms(lambda: fa.flash_bwd_plain(
+                do, qkv, out, lse, h, s, False, scale), iters=3)}
+        del qkv, do, out, lse, got
+        # the full batch: times only
+        bb = VMAE_BATCH
+        qkv = torch.randn(bb, s, 3 * w, generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+        do = torch.randn(bb, s, w, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        out, lse = fa.flash_fwd_lse(qkv, h, s, False, scale)
+        q, k, v = (t.detach().requires_grad_() for t in
+                   _sdpa_inputs(qkv, bb, s, h, d))
+        do_h = do.view(bb, s, h, d).transpose(1, 2)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+        with torch.no_grad():
+            sdpa_fwd = cuda_ms(sdpa)
+        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+            sdpa(), (q, k, v), do_h)) - sdpa_fwd
+        base = {"tower": tower, "shape": [bb, s, h, d], "causal": False,
+                "check_batch": b}
+        for name, err, fn, nrows in (
+                ("flash_fwd", err_i,
+                 lambda: fa.flash_attention_fused_qkv(qkv, h, s), 0),
+                ("flash_fwd_lse", err_l,
+                 lambda: fa.flash_fwd_lse(qkv, h, s, False, scale), 1)):
+            row = dict(base, max_abs_err=err[0], rel_rms_err=err[1],
+                       kernel_ms=cuda_ms(fn), plain_ms=plain["fwd"],
+                       library_ms=sdpa_fwd)
+            if name == "flash_fwd_lse":
+                row["lse_max_abs_err"] = lse_err
+            row["bound_ms"], row["bound_by"] = bound(bb, s, h, d, False,
+                                                     rows=nrows)
+            rows[name].append(row)
+            log(f"{name} " + json.dumps(row))
+        bwd = dict(base, max_abs_err=max(e[0] for e in errs.values()),
+                   **{f"{sec}_max_abs_err": e[0] for sec, e in errs.items()},
+                   **{f"{sec}_rel_rms_err": e[1] for sec, e in errs.items()},
+                   plain_ms=plain["bwd"], library_ms=sdpa_bwd,
+                   route_ms=cuda_ms(lambda: fa.flash_bwd(
+                       do, qkv, out, lse, h, s, False, scale)))
+        parts = ([("flash_bwd_combined", None, 5, 8, 2)] if combined else
+                 [("flash_bwd_dq", "dq", 3, 6, 1),
+                  ("flash_bwd_dkv", "dkv", 4, 6, 2)])
+        for name, part, products, tensors, nrows in parts:
+            row = dict(bwd, kernel_ms=bwd["route_ms"] if part is None else
+                       cuda_ms(lambda: fa._bwd_cuda(do, qkv, out, lse, h, s,
+                                                    False, scale, route=part)))
+            row["bound_ms"], row["bound_by"] = bound(
+                bb, s, h, d, False, products, tensors, nrows)
+            rows[name].append(row)
+            log(f"{name} " + json.dumps(row))
+        del qkv, do, out, lse, q, k, v
+        torch.cuda.empty_cache()
+    if bad:
+        raise RuntimeError("kernels disagree with their plain versions at "
+                           "the VideoMAE shapes: " + "; ".join(bad))
+    return rows
+
+
+def _vmae_batches(model, n: int, batch: int, mask_ratio: float) -> list:
+    """Seeded batches in the Kinetics datasets' collate contract: uint8
+    clips at the model's size, tube masks and labels."""
+    from avion_tpu_torch.data.transforms import tube_mask_batch
+
+    size, g = model.image_size, model.image_size // model.patch_size
+    out = []
+    for seed in range(n):
+        rng = np.random.default_rng(100 + seed)
+        out.append({
+            "video": rng.integers(0, 256, (batch, model.num_frames, size,
+                                           size, 3), dtype=np.uint8),
+            "mask": tube_mask_batch(np.random.RandomState(seed), batch,
+                                    model.num_frames // model.tubelet_size,
+                                    g, g, mask_ratio),
+            "label": rng.integers(0, 400, batch)})
+    return out
+
+
+def _vmae_flops(model, batch: int) -> float:
+    """6 x parameters x tokens for each tower on its own tokens (the
+    encoder with patch_embed, its norm and encoder_to_decoder on the
+    visible tokens; the decoder with its norm and head on all of them; the
+    finetune ViT's head on the pooled vector is left out) plus 12 B H S^2 D
+    per attention layer."""
+    params = dict(model.named_parameters())
+    prefixes = ([("patch_embed", "encoder.", "encoder_norm",
+                  "encoder_to_decoder"),
+                 ("decoder.", "decoder_norm", "decoder_head")]
+                if hasattr(model, "decoder") else [("patch_embed", "encoder.")])
+    towers = [(p, s, tower) for p, (tower, s) in
+              zip(prefixes, _vmae_towers(model))]
+    flops = 0
+    for prefixes, s, tower in towers:
+        n = sum(p.numel() for k, p in params.items() if k.startswith(prefixes))
+        width = tower.resblocks[0].attn.Wqkv.in_features
+        flops += 6 * n * batch * s \
+            + 12 * batch * s * s * width * len(tower.resblocks)
+    return flops
+
+
+def _vmae_towers(model) -> list:
+    """(tower, its sequence length): the encoder on the visible tokens and
+    the decoder on all of them, or the finetune ViT on all."""
+    if hasattr(model, "decoder"):
+        return [(model.encoder, model.n_visible),
+                (model.decoder, model.num_patches)]
+    return [(model.encoder, model.pos_embed.shape[0])]
+
+
+def _vmae_launches(model) -> dict:
+    """Per train step with save_attn: a forward with lse per attention
+    layer, and its backward, combined while S <= 1024, else split."""
+    want: dict = {}
+    for tower, s in _vmae_towers(model):
+        for name in (["flash_fwd_lse", "flash_bwd_combined"]
+                     if fa.use_combined_bwd(s) else
+                     ["flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"]):
+            want[name] = want.get(name, 0) + len(tower.resblocks)
+    return want
+
+
+def _report_run(label: str, res: dict, model, batch: int, steps: int) -> dict:
+    """Finite losses, every step applied, the launches of ``steps`` steps;
+    logs and returns p50 (from the third step), clips/s, share of 989
+    TFLOP/s and peak memory."""
+    losses = [m["loss"] for m in res["metrics"]]
+    oks = [m["step_ok"] for m in res["metrics"]]
+    want = {k: v * steps for k, v in _vmae_launches(model).items()}
+    log(f"{label}: losses {losses}; step_ok {oks}; step ms "
+        f"{[round(float(x), 3) for x in res['step_ms']]}; launches "
+        f"{res['launches']} (expected {want})")
+    if (len(losses) != steps or not np.isfinite(losses).all()
+            or oks != [1.0] * steps):
+        raise RuntimeError(f"{label}: a train step failed")
+    if res["launches"] != want:
+        raise RuntimeError(f"{label}: launches {res['launches']}, "
+                           f"expected {want}")
+    # from the third step; a two-step run, its second
+    steady = res["step_ms"][2:] if steps > 2 else res["step_ms"][1:]
+    p50 = float(np.median(steady))
+    flops = _vmae_flops(model, batch)
+    out = {"p50_ms": p50, "clips_per_s": batch * len(steady) / steady.sum()
+           * 1e3, "share_of_989": flops / (p50 * 1e-3) / H100_BF16_FLOPS,
+           "peak_gib": res["peak"] / 2 ** 30, "model_flops": flops}
+    log(f"{label}: p50 of steps {steps - len(steady) + 1}-{steps} "
+        f"{p50:.3f} ms, {out['clips_per_s']:.2f} clips/s, "
+        f"model flops a step {flops:.4e} ({flops / (p50 * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s, {out['share_of_989']:.4f} of 989; remat's extra forward "
+        f"not counted), peak memory allocated {out['peak_gib']:.3f} GiB")
+    return out
+
+
+def _vmae_reference(model_gpu, cfg, batch: dict) -> None:
+    """One pretraining loss and gradient on the card (bf16, kernels) and on
+    the CPU through the plain path in f32, from the same weights and mask
+    (DropPath off)."""
+    from avion_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+    from avion_tpu_torch.losses.losses import videomae_loss
+    from avion_tpu_torch.train.steps import prep_video
+    from avion_tpu_torch.train.videomae_pretrain import build_model
+
+    cpu = build_model(cfg, torch.float32).to_empty(device="cpu")
+    cpu.init_weights()  # the sincos tables
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         model_gpu.state_dict().items()})
+    results = []
+    for model in (model_gpu, cpu):
+        device = next(model.parameters()).device
+        model.zero_grad(set_to_none=True)
+        video = prep_video(torch.from_numpy(batch["video"]).to(device),
+                           model.dtype, mean=IMAGENET_MEAN, std=IMAGENET_STD)
+        pred, idx = model(video, torch.from_numpy(batch["mask"]).to(device))
+        loss = videomae_loss(pred, video, idx, model.patch_size,
+                             model.tubelet_size)["loss"]
+        loss.backward()
+        results.append((loss.item(), {
+            n: p.grad.detach().float().cpu()
+            for n, p in model.named_parameters() if p.grad is not None}))
+    model_gpu.zero_grad(set_to_none=True)
+    check_against_cpu(results, f"VideoMAE reference step at batch "
+                               f"{VMAE_REF_BATCH}")
+
+
+def _vmae_seeded_pretrain(tmp: str) -> dict:
+    """(b): seeded pretraining through ``build_model_and_state`` and
+    ``train.loop``: 8 steps, a profiled step, a step against the CPU, an
+    exact resume; two H128 steps; an echoed batch with regen_mask."""
+    from avion_tpu_torch.train.loop import save_epoch, setup_run
+    from avion_tpu_torch.train.steps import make_videomae_train_step
+    from avion_tpu_torch.train.videomae_pretrain import build_model_and_state
+
+    out_dir = os.path.join(tmp, "vmae_seeded")
+    cfg = _train_config(out_dir, f"data.batch_size={VMAE_BATCH}",
+                        recipe=VMAE_PRETRAIN_RECIPE)
+    cfg.optim.lr *= VMAE_BATCH / 256  # as videomae_pretrain.main does
+    log(f"== (b) {VMAE_MODEL} pretraining, {VMAE_FRAMES} frames, batch "
+        f"{VMAE_BATCH}, {VMAE_STEPS} steps (lr {cfg.optim.lr:.3e}, betas "
+        f"{cfg.optim.betas}, wd {cfg.optim.wd}, save_attn)")
+    t0 = time.perf_counter()
+    model, opt, _ = build_model_and_state(cfg, VMAE_STEPS)
+    step_fn = make_videomae_train_step(model, model.patch_size,
+                                       model.tubelet_size, seed=cfg.seed + 1)
+    run = setup_run(cfg, model, opt, step_fn)
+    batches = _vmae_batches(model, 3, VMAE_BATCH, cfg.data.mask_ratio)
+    log(f"model and batches ready in {time.perf_counter() - t0:.1f} s; "
+        f"{model.n_visible} visible of {model.num_patches} tokens")
+    res = _timed_epoch(run, [batches[i % 3] for i in range(VMAE_STEPS)])
+    report = _report_run("(b) seeded pretraining", res, model, VMAE_BATCH,
+                         VMAE_STEPS)
+    report["launches"] = res["launches"]
+    profile_step(run, _to_device(batches[0]))
+    _vmae_reference(model, cfg, {k: v[:VMAE_REF_BATCH]
+                                 for k, v in batches[1].items()})
+    save_epoch(run, 0, {})
+    saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    saved_opt = opt.state_dict()
+    del run, model, opt, step_fn
+    torch.cuda.empty_cache()
+    model2, opt2, _ = build_model_and_state(_train_config(
+        out_dir, "seed=1", recipe=VMAE_PRETRAIN_RECIPE), VMAE_STEPS)
+    run2 = setup_run(cfg, model2, opt2, make_videomae_train_step(model2))
+    same = run2.state.step == VMAE_STEPS + 1 and _same_state(
+        run2.state, saved, saved_opt)
+    log(f"resume into a model built from another seed: step, parameters "
+        f"and AdamW moments bit for bit: {same}")
+    if not same:
+        raise RuntimeError("VideoMAE resume did not restore the state")
+    del run2, model2, opt2, saved, saved_opt
+    torch.cuda.empty_cache()
+
+    # VIDEOMAE_VITB16_H128: both towers at head_dim 128
+    cfg_h = _train_config(os.path.join(tmp, "vmae_h128"),
+                          f"model.name={VMAE_H128}",
+                          f"data.batch_size={VMAE_BATCH}",
+                          recipe=VMAE_PRETRAIN_RECIPE)
+    model, opt, _ = build_model_and_state(cfg_h, VMAE_SHORT_STEPS)
+    run = setup_run(cfg_h, model, opt, make_videomae_train_step(model))
+    dims, fwd, bwd = set(), fa._fwd_cuda, fa._bwd_cuda
+
+    def fwd_rec(qkv, heads, *a, **k):
+        dims.add(qkv.shape[-1] // (3 * heads))
+        return fwd(qkv, heads, *a, **k)
+
+    def bwd_rec(do, qkv, out, lse, heads, *a, **k):
+        dims.add(qkv.shape[-1] // (3 * heads))
+        return bwd(do, qkv, out, lse, heads, *a, **k)
+
+    fa._fwd_cuda, fa._bwd_cuda = fwd_rec, bwd_rec
+    try:
+        res_h = _timed_epoch(run, batches[:VMAE_SHORT_STEPS])
+    finally:
+        fa._fwd_cuda, fa._bwd_cuda = fwd, bwd
+    report["h128"] = _report_run(f"(b) {VMAE_H128}", res_h, model,
+                                 VMAE_BATCH, VMAE_SHORT_STEPS)
+    report["h128"]["launches"] = res_h["launches"]
+    want_dims = {blk.attn.Wqkv.in_features // blk.attn.heads
+                 for tower, _ in _vmae_towers(model)
+                 for blk in tower.resblocks}
+    log(f"(b) {VMAE_H128} head dims launched: {sorted(dims)} (the model's "
+        f"{sorted(want_dims)})")
+    if dims != want_dims:
+        raise RuntimeError(f"H128 launched head dims {sorted(dims)}")
+
+    # an echoed batch: each repeat draws its own tube masks on the device
+    cfg_e = _train_config(os.path.join(tmp, "vmae_echo"),
+                          f"model.name={VMAE_H128}", "data.echo_factor=2",
+                          recipe=VMAE_PRETRAIN_RECIPE)
+    masks = []
+    hook = model.register_forward_pre_hook(
+        lambda m, args: masks.append(args[1].detach().cpu()))
+    run = setup_run(cfg_e, model, opt, make_videomae_train_step(
+        model, regen_mask=True, seed=cfg_e.seed + 1))
+    try:
+        res_e = _timed_epoch(run, batches[:1])
+    finally:
+        hook.remove()
+    per_frame = (model.image_size // model.patch_size) ** 2
+    frames = model.num_frames // model.tubelet_size
+    counts = {int(c) for m in masks
+              for c in m.view(len(m), frames, per_frame).sum(-1).unique()}
+    differ = len(masks) == 2 and not torch.equal(masks[0], masks[1])
+    log(f"(b) echo_factor=2: {len(masks)} steps on one batch, masks differ "
+        f"{differ}, masked a frame {sorted(counts)}, losses "
+        f"{[m['loss'] for m in res_e['metrics']]}")
+    if not differ or counts != {int(per_frame * cfg_e.data.mask_ratio)} \
+            or torch.equal(masks[0], torch.from_numpy(batches[0]["mask"])):
+        raise RuntimeError("the echoed repeats did not draw new masks")
+    report["echo_launches"] = res_e["launches"]
+    del run, model, opt
+    torch.cuda.empty_cache()
+    return report, batches
+
+
+def _vmae_data_pretrain(tmp: str, root: str, meta: str) -> dict:
+    """(c): ``videomae_pretrain.main`` on the decoded Kinetics layout, with
+    the idle share of its last two steps and their batch waits; a resume."""
+    from avion_tpu_torch.core.config import TrainConfig
+    from avion_tpu_torch.data.datasets import AugmentSpec, KineticsDataset
+    from avion_tpu_torch.train import videomae_pretrain
+
+    out = os.path.join(tmp, "vmae_data")
+    args = [*VMAE_PRETRAIN_RECIPE, f"output_dir={out}", f"data.root={root}",
+            f"data.train_metadata={meta}",
+            f"data.batch_size={VMAE_DATA_BATCH}",
+            f"data.num_workers={min(8, os.cpu_count() or 1)}",
+            "optim.epochs=1"]
+    cfg = TrainConfig().apply_overrides(args)
+    d = cfg.data
+    ds = KineticsDataset(root, meta, clip_length=d.clip_length,
+                         clip_stride=d.clip_stride, crop_size=224,
+                         mask_ratio=d.mask_ratio,
+                         augment=AugmentSpec(crop_size=224, mode="msc",
+                                             hflip_prob=0.5))
+    t0 = time.perf_counter()
+    for i in range(16):
+        ds[i % len(ds)]
+    decode_ms = (time.perf_counter() - t0) / 16 * 1e3
+    log(f"(c) one KineticsDataset item ({d.clip_length} frames at stride "
+        f"{d.clip_stride}, msc crop, tube mask) in one process: "
+        f"{decode_ms:.3f} ms ({VMAE_DATA_BATCH * decode_ms / 1e3:.2f} s a "
+        f"batch)")
+    profiler = _ProfileLastSteps(videomae_pretrain.make_videomae_train_step,
+                                 VMAE_DATA_STEPS)
+    videomae_pretrain.make_videomae_train_step = profiler
+    try:
+        torch.cuda.synchronize()
+        fa.reset_launches()  # (c)'s main path, counted from here
+        t0 = time.perf_counter()
+        res = videomae_pretrain.main(args)
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        wall = time.perf_counter() - t0
+    finally:
+        videomae_pretrain.make_videomae_train_step = profiler.make_step
+    recs = [r for r in _train_log(out) if "train/loss" in r]
+    losses = [r["train/loss"] for r in recs]
+    with torch.device("meta"):
+        model = videomae_pretrain.build_model(cfg)
+    want = {k: v * VMAE_DATA_STEPS for k, v in _vmae_launches(model).items()}
+    batch_ms = [r["perf/batch_time_win"] * 1e3 for r in recs]
+    data_ms = [r["perf/data_time_win"] * 1e3 for r in recs]
+    log(f"(c) {res['steps']} steps, losses {losses}, launches {launches}, "
+        f"decode backend {res['decode_backend']}, transfers "
+        f"{res['transfers']}; main() wall {wall:.2f} s; step ms "
+        f"{[round(x, 3) for x in batch_ms]}, data wait ms "
+        f"{[round(x, 3) for x in data_ms]}")
+    if (res["steps"] != VMAE_DATA_STEPS or len(losses) != VMAE_DATA_STEPS
+            or not np.isfinite(losses).all()):
+        raise RuntimeError("(c) a data-fed VideoMAE step failed")
+    if launches != want:
+        raise RuntimeError(f"(c) launches {launches}, expected {want}")
+    report = {"p50_ms": float(np.median(batch_ms[2:])),
+              "p50_data_ms": float(np.median(data_ms[2:])),
+              "decode_ms_a_clip": decode_ms, "launches": launches}
+    if profiler.busy_ms:
+        report["idle_share"] = 1 - profiler.busy_ms / profiler.wall_ms
+        log(f"(c) profile of steps {VMAE_DATA_STEPS - 1}-{VMAE_DATA_STEPS} "
+            f"with their batch waits: wall {profiler.wall_ms:.2f} ms, device "
+            f"busy {profiler.busy_ms:.3f} ms, idle share "
+            f"{report['idle_share']:.4f}")
+    log(f"(c) steps 3-{VMAE_DATA_STEPS}: p50 step {report['p50_ms']:.3f} ms, "
+        f"p50 data_time {report['p50_data_ms']:.3f} ms")
+    fa.reset_launches()
+    again = videomae_pretrain.main(args)
+    if again["steps"] != 0 or again["step"] != res["step"] or fa.launches:
+        raise RuntimeError(f"(c) the resume trained again: {again}")
+    return report
+
+
+def random_videomae_checkpoint(path: str, seed: int = 0) -> None:
+    """A seeded random finetune checkpoint in the reference layout: fused
+    ``attn.qkv.weight`` with split ``q_bias`` / ``v_bias`` (no key bias),
+    ``patch_embed.proj`` as a [width, C, ts, p, p] Conv3d, ``blocks.N``,
+    ``fc_norm`` and ``head``."""
+    from avion_tpu_torch.models.registry import create_model
+
+    with torch.device("meta"):
+        m = create_model(VMAE_FT_MODEL, num_frames=VMAE_FRAMES)
+    gen = torch.Generator().manual_seed(seed)
+    width = m.head.in_features
+
+    def r(*shape, scale=None):
+        noise = torch.randn(*shape, generator=gen)
+        return noise * (scale if scale is not None else
+                        (math.prod(shape[1:]) ** -0.5 if len(shape) > 1
+                         else 0.02))
+
+    sd = {"patch_embed.proj.weight": r(width, 3, m.tubelet_size,
+                                       m.patch_size, m.patch_size),
+          "patch_embed.proj.bias": r(width), "fc_norm.weight": 1 + r(width),
+          "fc_norm.bias": r(width), "head.weight": r(m.head.out_features,
+                                                     width),
+          "head.bias": r(m.head.out_features)}
+    for i in range(len(m.encoder.resblocks)):
+        p = f"blocks.{i}."
+        sd.update({p + "norm1.weight": 1 + r(width), p + "norm1.bias": r(width),
+                   p + "norm2.weight": 1 + r(width), p + "norm2.bias": r(width),
+                   p + "attn.qkv.weight": r(3 * width, width),
+                   p + "attn.q_bias": r(width), p + "attn.v_bias": r(width),
+                   p + "attn.proj.weight": r(width, width),
+                   p + "attn.proj.bias": r(width),
+                   p + "mlp.fc1.weight": r(4 * width, width),
+                   p + "mlp.fc1.bias": r(4 * width),
+                   p + "mlp.fc2.weight": r(width, 4 * width),
+                   p + "mlp.fc2.bias": r(width)})
+    torch.save({"model": sd}, path)
+
+
+def _vmae_data_finetune(tmp: str, root: str, meta: str) -> dict:
+    """(d), data-fed: ``videomae_finetune.main`` with the recipe's
+    augmentation on a random reference-layout checkpoint, 2 steps, and the
+    multi-view test on the EMA weights."""
+    from avion_tpu_torch.train import videomae_finetune
+
+    lines = open(meta).read().splitlines()
+    n_train = 2 * VMAE_FT_BATCH
+    lists = {}
+    for name, part in (("train", lines[:n_train]),
+                       ("val", lines[n_train:n_train + VMAE_FT_VAL_VIDEOS])):
+        lists[name] = os.path.join(tmp, f"k400_{name}.txt")
+        with open(lists[name], "w") as f:
+            f.write("\n".join(part) + "\n")
+    ckpt = os.path.join(tmp, "videomae_ft_random.pt")
+    random_videomae_checkpoint(ckpt)
+    out = os.path.join(tmp, "vmae_ft_data")
+    clips, crops = VMAE_FT_VIEWS
+    args = [*VMAE_FINETUNE_RECIPE, f"output_dir={out}", f"data.root={root}",
+            f"data.train_metadata={lists['train']}",
+            f"data.val_metadata={lists['val']}",
+            f"data.batch_size={VMAE_FT_BATCH}",
+            f"data.val_batch_size={VMAE_FT_VAL_VIDEOS}",
+            f"data.num_clips={clips}", f"data.num_crops={crops}",
+            f"data.num_workers={min(8, os.cpu_count() or 1)}",
+            "optim.epochs=1", "eval_freq=1", f"pretrain_model={ckpt}"]
+    torch.cuda.synchronize()
+    fa.reset_launches()  # (d)'s data-fed path, training and test
+    t0 = time.perf_counter()
+    res = videomae_finetune.main(args)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    wall = time.perf_counter() - t0
+    with torch.device("meta"):
+        model = videomae_finetune.build_model(
+            videomae_finetune.TrainConfig().apply_overrides(args))
+    layers = len(model.encoder.resblocks)
+    steps = len(lines[:n_train]) // VMAE_FT_BATCH
+    forwards = -(-VMAE_FT_VAL_VIDEOS // VMAE_FT_VAL_VIDEOS)
+    want = {k: v * steps for k, v in _vmae_launches(model).items()}
+    want["flash_fwd"] = layers * forwards
+    test = [r for r in _train_log(out) if "acc1" in r and "acc5" in r]
+    log(f"(d) finetune main: {res['steps']} steps of {VMAE_FT_BATCH} videos "
+        f"x 2 views (repeated_aug), epochs {res['epochs']}, test {res['eval']}, logged "
+        f"{test}, launches {launches} (expected {want}), wall {wall:.2f} s")
+    if res["steps"] != steps or not test or not all(
+            np.isfinite(m["loss"]) for m in res["epochs"]):
+        raise RuntimeError("(d) the data-fed finetune failed")
+    if launches != want:
+        raise RuntimeError(f"(d) launches {launches}, expected {want}")
+    return {"launches": launches, "test": res["eval"], "wall_s": wall}
+
+
+def _vmae_seeded_finetune(tmp: str, batches: list) -> dict:
+    """(d), seeded: the finetune step (mixup, DropPath, layer decay, EMA) at
+    batch 128 through ``build_model_and_state`` and ``train.loop``; then
+    the EMA against its formula on the parameters the card produced."""
+    from avion_tpu_torch.optim.factory import apply_batch_lr_scale
+    from avion_tpu_torch.train.loop import setup_run
+    from avion_tpu_torch.train.steps import make_cls_train_step
+    from avion_tpu_torch.train.videomae_finetune import (build_model_and_state,
+                                                         make_mixup)
+
+    cfg = _train_config(os.path.join(tmp, "vmae_ft_seeded"),
+                        f"data.batch_size={VMAE_BATCH}",
+                        recipe=VMAE_FINETUNE_RECIPE)
+    apply_batch_lr_scale(cfg.optim, VMAE_BATCH, default_base=256)
+    model, opt, _ = build_model_and_state(cfg, VMAE_FT_STEPS)
+    step_fn = make_cls_train_step(model, label_smoothing=cfg.smoothing,
+                                  ema_decay=cfg.ema_decay,
+                                  mixup_fn=make_mixup(cfg, 400),
+                                  seed=cfg.seed + 1)
+    run = setup_run(cfg, model, opt, step_fn, use_ema=True)
+    log(f"== (d) {VMAE_FT_MODEL} finetune steps, batch {VMAE_BATCH}, "
+        f"{VMAE_FRAMES} frames, remat, lr {cfg.optim.lr:.3e}, layer decay "
+        f"{cfg.optim.layer_decay}, mixup {cfg.mixup} / cutmix {cfg.cutmix}, "
+        f"EMA {cfg.ema_decay}")
+    loader = [{k: b[k] for k in ("video", "label")}
+              for b in (batches * 2)[:VMAE_FT_STEPS]]
+    res = _timed_epoch(run, loader)
+    report = _report_run("(d) seeded finetune", res, model, VMAE_BATCH,
+                         VMAE_FT_STEPS)
+    report["launches"] = res["launches"]
+    # two more steps, keeping what the EMA is made from
+    names = list(run.state.ema)
+    params = dict(model.named_parameters())
+    ema0 = [run.state.ema[n].clone() for n in names]
+    after = []
+    for b in loader[:2]:
+        run.state, metrics = run.step(run.state, _to_device(b))
+        if metrics["step_ok"] != 1.0:
+            raise RuntimeError("(d) a finetune step was skipped")
+        after.append([params[n].detach().clone() for n in names])
+    want = ema0
+    d = cfg.ema_decay
+    for ps in after:
+        want = [e * d + p * (1.0 - d) for e, p in zip(want, ps)]
+    same = all(torch.equal(run.state.ema[n], w) for n, w in zip(names, want))
+    moved = not all(torch.equal(run.state.ema[n], e)
+                    for n, e in zip(names, ema0))
+    log(f"(d) EMA after 2 more steps equals e * {d} + (1 - {d}) * p on the "
+        f"card's parameters, bit for bit: {same}; it moved: {moved}")
+    if not (same and moved):
+        raise RuntimeError("(d) the EMA does not follow its formula")
+    del run, model, opt, after, ema0, want
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_videomae(tmp: str) -> dict:
+    """The VideoMAE slice's paths at full width: (a) the kernels at its
+    shapes; (b) seeded pretraining; (c) data-fed pretraining through
+    ``videomae_pretrain.main``; (d) data-fed finetuning through
+    ``videomae_finetune.main`` with its test, and seeded finetune steps.
+    Returns the kernel rows and every path's launches."""
+    t_phase = time.perf_counter()
+    log(f"== videomae (a): kernels at the VideoMAE shapes, errors at batch "
+        f"{VMAE_CHECK_BATCH}, times at batch {VMAE_BATCH}")
+    rows = _vmae_kernel_rows()
+    pre, batches = _vmae_seeded_pretrain(tmp)
+    root = os.path.join(tmp, "k400")
+    t0 = time.perf_counter()
+    meta = write_k400_fixture(root, videos=K400_VIDEOS, frames=K400_FRAMES,
+                              w=K400_W, h=K400_H, fps=K400_FPS)
+    log(f"== (c) Kinetics layout: {K400_VIDEOS} videos of {K400_FRAMES} "
+        f"frames at {K400_W}x{K400_H}, {K400_FPS} fps (mp4v), written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    data = _vmae_data_pretrain(tmp, root, meta)
+    ft_data = _vmae_data_finetune(tmp, root, meta)
+    ft = _vmae_seeded_finetune(tmp, batches)
+    del batches
+    summary = {"pretrain_seeded": {k: v for k, v in pre.items()
+                                   if k not in ("launches", "h128",
+                                                "echo_launches")},
+               "pretrain_h128": {k: v for k, v in pre["h128"].items()
+                                 if k != "launches"},
+               "pretrain_data": {k: v for k, v in data.items()
+                                 if k != "launches"},
+               "finetune_seeded": {k: v for k, v in ft.items()
+                                   if k != "launches"},
+               "finetune_test": ft_data["test"]}
+    log(f"videomae summary {json.dumps(summary)}")
+    log(f"videomae phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "paths": {
+        "videomae_pretrain_seeded": pre["launches"],
+        "videomae_pretrain_h128": pre["h128"]["launches"],
+        "videomae_pretrain_echo": pre["echo_launches"],
+        "videomae_pretrain_data": data["launches"],
+        "videomae_finetune_data_with_test": ft_data["launches"],
+        "videomae_finetune_seeded": ft["launches"]}}
+
+
 KERNEL_SOURCES = {
     "flash_fwd": ("flash_fwd.cu", 134), "flash_fwd_lse": ("flash_fwd.cu", 91),
     "flash_bwd_combined": ("flash_bwd.cu", 494),
@@ -1846,6 +2566,7 @@ def main() -> int:
         data = phase_data(tmp, echo_p50)
         evals = phase_eval(tmp, data["fixture"],
                            os.path.join(tmp, "clip_vitb16_random.pt"))
+        vmae = phase_videomae(tmp)
     # each kernel's launches from the path that drives it: serving, the
     # data-fed 4-frame main path (run A), and the 16-frame path for the
     # split kernels; every path's counts beside them
@@ -1855,8 +2576,11 @@ def main() -> int:
     by_path = {"serve": {"flash_fwd": serve}, "train_seeded_batches": train,
                "train_16_frames": long, "data_host_crop": data["host_crop"],
                "data_device_crop": data["device_crop"],
-               "eval": evals["eval"], "data_with_eval": evals["with_eval"]}
+               "eval": evals["eval"], "data_with_eval": evals["with_eval"],
+               **vmae["paths"]}
     rows["flash_fwd"] += evals["checks"]
+    for name, extra in vmae["rows"].items():
+        rows[name] += extra
     kernels = []
     for name, (source, line) in KERNEL_SOURCES.items():
         head = rows[name][0]

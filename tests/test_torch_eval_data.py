@@ -136,7 +136,24 @@ def test_load_actions_matches_jax(layout):
     assert load_actions(path) == jax_load_actions(path)
 
 
-def test_classy_training_path_is_a_later_slice(layout):
+def test_classy_training_path_is_a_later_slice(layout, backend,
+                                               monkeypatch):
+    """The training path came with the VideoMAE slice: its repeated
+    augmentation views (random crop, flip, frame jitter) equal JAX's when
+    every item draws from seed 0."""
+    orig = np.random.RandomState
+    monkeypatch.setattr(np.random, "RandomState",
+                        lambda seed=None: orig(0 if seed is None else seed))
     root, meta, kw = _classy_args(layout, "egtea")
-    with pytest.raises(NotImplementedError, match="finetune slice"):
-        pds.VideoClassyDataset("egtea", root, meta, is_training=True, **kw)
+    aug = dict(crop_size=CROP, mode="rrc", hflip_prob=0.5)
+    p = pds.VideoClassyDataset("egtea", root, meta, is_training=True,
+                               num_sample=2, clip_length=2,
+                               augment=pds.AugmentSpec(**aug), **kw)
+    j = jds.VideoClassyDataset("egtea", root, meta, is_training=True,
+                               num_sample=2, clip_length=2,
+                               augment=jds.AugmentSpec(**aug), **kw)
+    for i in range(len(p)):
+        got, want = p[i], j[i]
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            _assert_items_equal(a, b)

@@ -55,7 +55,10 @@ def test_port_imports_nothing_of_jax():
                 "data.datasets", "data.shards", "ops.fused_input",
                 "eval.validate", "eval.retrieval_metrics",
                 "eval.classification_metrics", "train.common",
-                "train.finetune_cls", "tools.embed_videos"):
+                "train.finetune_cls", "tools.embed_videos",
+                "models.videomae", "data.rand_augment",
+                "train.augment_device", "train.videomae_pretrain",
+                "train.videomae_finetune"):
         assert f"avion_tpu_torch.{mod}" in modules
     script = _SCRIPT.format(blocked=BLOCKED, modules=modules, root=ROOT)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -111,8 +111,7 @@ def test_five_adamw_steps_match_optax():
 
 
 def test_unported_options_raise():
-    for bad in (dict(optimizer="lion"), dict(layer_decay=0.75),
-                dict(update_freq=2), dict(state_dtype="bfloat16"),
+    for bad in (dict(optimizer="lion"), dict(update_freq=2), dict(state_dtype="bfloat16"),
                 dict(wd_end=0.2)):
         with pytest.raises(NotImplementedError):
             Optimizer([], OptimConfig(**bad), lambda step: 0.0)
