@@ -121,7 +121,7 @@ class ModelConfig:
     use_quick_gelu: bool = True  # reference silently drops this; we honor it
     patch_dropout: float = 0.0
     drop_path_rate: float = 0.0
-    pooling: str = "cls"  # cls | gap
+    pooling: str = "cls"  # cls | gap | none
     project_embed_dim: int = 512
     freeze_temperature: bool = False
     temperature_init: float = 0.07

@@ -1,8 +1,9 @@
 """Training losses (``avion_tpu.losses.losses``): softmax cross-entropy
 with label smoothing, cross-entropy against soft targets (mixup / cutmix),
-the symmetric InfoNCE ``clip_loss`` over one device's batch (logits in f32)
-and VideoMAE's normalized-pixel MSE.  SigLIP and the gathered global batch
-of several devices wait for later slices."""
+the symmetric InfoNCE ``clip_loss`` over one device's batch (logits in f32),
+EK100-MIR's max-margin ranking loss and VideoMAE's normalized-pixel MSE.
+SigLIP and the gathered global batch of several devices wait for later
+slices."""
 
 from __future__ import annotations
 
@@ -33,6 +34,31 @@ def clip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
     pred = logits.detach().argmax(dim=-1)
     acc = 100.0 * (pred == labels).float().mean()
     return {"loss": loss, "clip_acc": acc}
+
+
+def max_margin_ranking_loss(image_embed: torch.Tensor,
+                            text_embed: torch.Tensor, margin: float = 0.2,
+                            fix_norm: bool = True, eps: float = 1e-8) -> dict:
+    """Bidirectional hinge ``relu(margin - sim(i, i) + sim(i, j))`` over the
+    row and the column negatives of ``sim(text, image)``, on L2-normalized
+    f32 embeddings (norms clamped at ``eps``).  With ``fix_norm`` the
+    diagonal is left out and the sum divided by ``2 n (n - 1)``, else
+    ``2 n n``.  Returns ``{"loss", "max_margin_loss"}``."""
+    a = text_embed.float()
+    b = image_embed.float()
+    a = a / a.norm(dim=-1, keepdim=True).clamp_min(eps)
+    b = b / b.norm(dim=-1, keepdim=True).clamp_min(eps)
+    x = a @ b.T
+    n = x.shape[0]
+    diag = x.diagonal()[:, None]
+    row = torch.relu(margin - diag + x)
+    col = torch.relu(margin - diag + x.T)
+    if fix_norm:
+        off = 1.0 - torch.eye(n, device=x.device)
+        loss = ((row * off).sum() + (col * off).sum()) / (2.0 * n * (n - 1))
+    else:
+        loss = (row.sum() + col.sum()) / (2.0 * n * n)
+    return {"loss": loss, "max_margin_loss": loss}
 
 
 def soft_target_cross_entropy(logits: torch.Tensor,

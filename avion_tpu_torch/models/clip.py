@@ -1,9 +1,15 @@
-"""CLIP dual encoder (``avion_tpu.models.clip``): the two towers, the
-projections to the joint space, L2-normalized embeddings (in f32) and the
-learnable ``logit_scale``.  The training forward returns
-``{"image_embed", "text_embed", "logit_scale"}`` with ``exp(logit_scale)``,
-whose gradient is blocked under ``freeze_temperature``; the clamp of the
-scale lives in the train step."""
+"""CLIP dual encoder and the classifier head (``avion_tpu.models.clip``).
+
+:class:`CLIP`: the two towers, the projections to the joint space,
+L2-normalized embeddings (in f32) and the learnable ``logit_scale``.  The
+training forward returns ``{"image_embed", "text_embed", "logit_scale"}``
+with ``exp(logit_scale)``, whose gradient is blocked under
+``freeze_temperature``; the clamp of the scale lives in the train step.
+With pooling ``none`` the visual tower's tokens are normalized without the
+projection, as the JAX tower returns them before its ``proj``.
+
+:class:`VideoClassifier`: dropout and a linear f32 ``fc_cls`` on the
+visual tower's width features (the reference's ``model_clip.py:15-38``)."""
 
 from __future__ import annotations
 
@@ -11,6 +17,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from avion_tpu_torch.models.layers import (LayerNorm, gelu, lecun_normal_,
@@ -30,7 +37,7 @@ class CLIP(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  patch_dropout: float = 0.0, remat: bool = False,
                  remat_policy: str = "save_attn", input_norm: str = "none",
-                 freeze_temperature: bool = False):
+                 freeze_temperature: bool = False, pooling: str = "cls"):
         super().__init__()
         act = quick_gelu if use_quick_gelu else gelu
         self.dtype = dtype
@@ -44,7 +51,7 @@ class CLIP(nn.Module):
         self.visual = VisionTransformer(
             image_size, patch_size, num_frames, vision_width, vision_layers,
             vision_heads, act, dtype, patch_dropout, remat, remat_policy,
-            input_norm)
+            input_norm, pooling)
         self.textual = TextTransformer(context_length, vocab_size, text_width,
                                        text_heads, text_layers, act, dtype,
                                        remat, remat_policy)
@@ -65,37 +72,25 @@ class CLIP(nn.Module):
         normal(text_width ** -0.5), the text positions normal(0.01), the
         temporal table zeros and ``logit_scale`` log(1 / temperature_init).
         The parameters must be on ``generator``'s device."""
-        def normal(p, std):
-            p.normal_(0.0, std, generator=generator)
-
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                lecun_normal_(m.weight, m.in_features, generator)
-                m.bias.zero_()
-            elif isinstance(m, PatchEmbed):
-                lecun_normal_(m.weight, m.weight[0].numel(), generator)
-            elif isinstance(m, LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, nn.Embedding):
-                normal(m.weight, m.embedding_dim ** -0.5)
-        v, t = self.visual, self.textual
-        vw = v.class_embedding.shape[0]
-        normal(v.class_embedding, vw ** -0.5)
-        normal(v.positional_embedding, vw ** -0.5)
-        if v.temporal_embedding is not None:
-            v.temporal_embedding.zero_()
-        normal(t.positional_embedding, 0.01)
-        normal(self.image_projection, vw ** -0.5)
-        normal(self.text_projection, self.text_projection.shape[0] ** -0.5)
+        _init_modules_(self, generator)
+        _init_visual_tables_(self.visual, generator)
+        vw = self.visual.class_embedding.shape[0]
+        self.textual.positional_embedding.normal_(0.0, 0.01,
+                                                  generator=generator)
+        self.image_projection.normal_(0.0, vw ** -0.5, generator=generator)
+        self.text_projection.normal_(
+            0.0, self.text_projection.shape[0] ** -0.5, generator=generator)
         self.logit_scale.fill_(math.log(1.0 / self.temperature_init))
         return self
 
     def encode_image(self, image: torch.Tensor, deterministic: bool = True,
                      generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
-        """[B, T, H, W, C] video -> [B, embed_dim] unit f32."""
+        """[B, T, H, W, C] video -> [B, embed_dim] unit f32 (pooling
+        ``none``: [B, S, width], unprojected)."""
         pooled = self.visual(image, deterministic, generator)
+        if self.visual.pooling == "none":
+            return _l2norm(pooled)
         return _l2norm(pooled @ self.image_projection.to(pooled.dtype))
 
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
@@ -114,6 +109,74 @@ class CLIP(nn.Module):
                                                  generator),
                 "text_embed": self.encode_text(text),
                 "logit_scale": scale}
+
+
+def _init_modules_(module: nn.Module,
+                   generator: Optional[torch.Generator]) -> None:
+    """Dense and patchify kernels lecun-normal (truncated) with zero
+    biases, LayerNorm ones and zeros, token embeddings normal(width **
+    -0.5), in module order."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            lecun_normal_(m.weight, m.in_features, generator)
+            m.bias.zero_()
+        elif isinstance(m, PatchEmbed):
+            lecun_normal_(m.weight, m.weight[0].numel(), generator)
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, m.embedding_dim ** -0.5,
+                             generator=generator)
+
+
+def _init_visual_tables_(visual: VisionTransformer,
+                         generator: Optional[torch.Generator]) -> None:
+    """The class and positional embeddings normal(width ** -0.5), the
+    temporal table zeros."""
+    vw = visual.class_embedding.shape[0]
+    visual.class_embedding.normal_(0.0, vw ** -0.5, generator=generator)
+    visual.positional_embedding.normal_(0.0, vw ** -0.5, generator=generator)
+    if visual.temporal_embedding is not None:
+        visual.temporal_embedding.zero_()
+
+
+class VideoClassifier(nn.Module):
+    """``visual``'s width features, dropout (``dropout``, drawn from the
+    forward's generator when training), and ``fc_cls`` applied in f32 to
+    the features cast to f32: logits [B, num_classes] f32."""
+
+    def __init__(self, visual: VisionTransformer, num_classes: int,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.visual = visual
+        self.dtype = visual.dtype
+        self.dropout = dropout
+        self.fc_cls = nn.Linear(visual.class_embedding.shape[0], num_classes)
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None
+                     ) -> "VideoClassifier":
+        """The tower as :meth:`CLIP.init_weights` draws it, then
+        ``fc_cls``'s kernel truncated-normal(0.02) (cut at two standard
+        deviations) and its bias zeros, from ``generator``."""
+        _init_modules_(self.visual, generator)
+        _init_visual_tables_(self.visual, generator)
+        nn.init.trunc_normal_(self.fc_cls.weight, std=0.02, a=-0.04, b=0.04,
+                              generator=generator)
+        self.fc_cls.bias.zero_()
+        return self
+
+    def forward(self, image: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.visual(image, deterministic, generator)
+        if self.dropout > 0.0 and not deterministic:
+            keep = 1.0 - self.dropout
+            mask = torch.rand(x.shape, generator=generator,
+                              device=x.device) < keep
+            x = torch.where(mask, x / keep, 0.0).to(x.dtype)
+        return F.linear(x.float(), self.fc_cls.weight.float(),
+                        self.fc_cls.bias.float())
 
 
 def _l2norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

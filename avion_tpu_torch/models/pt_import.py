@@ -17,9 +17,12 @@ The port's state-dict keys ARE the reference layout that
 - temporal positional-embedding inflation to another clip length, and
   context-length / vocab padding or truncation.
 
-:func:`import_videomae_pt` reads the VideoMAE finetune layout
-(``blocks.N.*``) into the port's ``FinetuneVideoMAE`` names, and
-:func:`params_from_jax` also carries the two flax VideoMAE trees across.
+:func:`import_clip_pt` raises where a file holds no visual block (the
+JAX finetune merges with ``strict=False`` and would start the classifier
+from random weights).  :func:`import_videomae_pt` reads the VideoMAE
+finetune layout (``blocks.N.*``) into the port's ``FinetuneVideoMAE``
+names, and :func:`params_from_jax` also carries the flax VideoMAE and
+``VideoClassifier`` trees across.
 """
 
 from __future__ import annotations
@@ -90,9 +93,17 @@ _BLOCK_RE = re.compile(r"^(visual\.|textual\.|)transformer\.resblocks\.\d+\.")
 def import_clip_pt(path_or_state, num_frames: int = 16,
                    context_length: int = 77,
                    vocab_size: int = 49408) -> Dict[str, torch.Tensor]:
-    """A ``.pt`` file (or its state dict) -> the port's CLIP state dict."""
+    """A ``.pt`` file (or its state dict) -> the port's CLIP state dict.
+    Raises, naming what the file holds, when it has no visual block
+    (``visual.transformer.resblocks.N.*``)."""
     state = (load_pt_state_dict(path_or_state)
              if isinstance(path_or_state, str) else dict(path_or_state))
+    if not any(k.startswith("visual.transformer.resblocks.") for k in state):
+        where = path_or_state if isinstance(path_or_state, str) else \
+            "the state dict"
+        raise ValueError(f"no CLIP visual block (visual.transformer."
+                         f"resblocks.N.*) in {where}: it holds "
+                         f"{_layout(state)}")
     openai_text = "transformer.resblocks.0.ln_1.weight" in state
     tp = "" if openai_text else "textual."
     out: Dict[str, torch.Tensor] = {}
@@ -149,7 +160,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 _VIDEOMAE_TOP = ("patch_embed", "encoder", "encoder_norm",
                  "encoder_to_decoder", "mask_token", "decoder", "decoder_norm",
-                 "decoder_head", "fc_norm", "head")
+                 "decoder_head", "fc_norm", "head", "fc_cls")
 _BLOCK_LAYERS = {"qkv": "attn.Wqkv", "out_proj": "attn.out_proj",
                  "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
 
@@ -189,22 +200,24 @@ def _videomae_param(parts, val, sd: Dict[str, torch.Tensor]) -> None:
 
 
 def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A flax CLIP or VideoMAE parameter tree (nested dicts of arrays) ->
-    the port's state dict, with the names and layouts
+    """A flax CLIP, VideoMAE or ``VideoClassifier`` parameter tree (nested
+    dicts of arrays) -> the port's state dict, with the names and layouts
     ``export_clip_to_pt`` writes: dense kernels [in, out] become weights
     [out, in], the patchify kernel [(p p C), width] becomes conv1
-    [width, C, p, p] (VideoMAE's tube embed stays a dense weight)."""
+    [width, C, p, p] (VideoMAE's tube embed stays a dense weight); the
+    classifier's ``vision`` tower becomes ``visual``."""
     sd: Dict[str, torch.Tensor] = {}
     for key, val in _flatten(flax_params).items():
         parts = key.split("/")
         if parts[0] in _VIDEOMAE_TOP:
             _videomae_param(parts, val, sd)
             continue
-        if parts[0] not in ("visual", "textual"):
+        if parts[0] not in ("visual", "textual", "vision"):
             if key == "logit_scale":
                 sd["logit_scale"] = _raw(val).reshape(())
             continue
-        base, rest = parts[0], parts[1:]
+        base = "visual" if parts[0] == "vision" else parts[0]
+        rest = parts[1:]
         if rest[0] == "conv1":
             w = _raw(val).T  # [width, (p p C)]
             p = int(round((w.shape[1] // 3) ** 0.5))
@@ -247,14 +260,16 @@ _VIDEOMAE_BLOCK_RE = re.compile(r"^blocks\.(\d+)\.")
 
 
 def _layout(state: Mapping[str, Any]) -> str:
-    """A few words on which layout a state dict without ``blocks.N.*``
-    holds, for the error."""
+    """A few words on which layout a state dict holds, for the errors of
+    the importers."""
     keys = sorted(state)
     if any(k.startswith("encoder.blocks.") for k in keys):
         return ("the VideoMAE pretraining layout (encoder.blocks.N.*, "
                 "decoder.blocks.N.*)")
     if any(k.startswith("visual.transformer.resblocks.") for k in keys):
         return "a CLIP layout (visual.transformer.resblocks.N.*)"
+    if any(_VIDEOMAE_BLOCK_RE.match(k) for k in keys):
+        return "the VideoMAE finetune layout (blocks.N.*)"
     return f"keys such as {keys[:4]}"
 
 

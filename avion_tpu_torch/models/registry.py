@@ -5,9 +5,9 @@ factory keyword arguments.  The VideoMAE factories, as the JAX ones, take
 and ignore keywords they have no use for.  ``use_flash_attn`` is accepted and ignored: attention
 always goes through ``ops.flash_attention``, which runs the CUDA kernels
 for CUDA tensors.  Machinery of later slices (sequence parallelism, MoE,
-pipelining, the SigLIP logit bias, pooling other than CLS) raises when it
-is asked for.  ``CLIP.init_weights`` draws the flax initializers'
-distributions; the constructors' own draws are placeholders.
+pipelining, the SigLIP logit bias) raises when it is asked for.
+``CLIP.init_weights`` draws the flax initializers' distributions; the
+constructors' own draws are placeholders.
 """
 
 from __future__ import annotations
@@ -50,11 +50,9 @@ def _training_kwargs(pooling: str = "cls", use_grad_checkpointing=False,
                      freeze_temperature: bool = False,
                      use_flash_attn: bool = True,
                      pipeline_microbatches: int = 8, **later) -> dict:
-    """The CLIP keywords the train entry passes, checked."""
+    """The CLIP keywords the train entry passes, checked (the visual
+    tower refuses a pooling other than cls, gap or none)."""
     del use_flash_attn, pipeline_microbatches
-    if pooling != "cls":
-        raise ValueError(f"the PyTorch port pools the CLS token only, "
-                         f"got pooling={pooling!r}")
     for key, value in later.items():
         if key not in _LATER:
             raise TypeError(f"unexpected model keyword {key!r}")
@@ -63,7 +61,7 @@ def _training_kwargs(pooling: str = "cls", use_grad_checkpointing=False,
                 f"{key}={value!r} is not in the PyTorch port yet")
     return dict(remat=bool(use_grad_checkpointing), remat_policy=remat_policy,
                 patch_dropout=patch_dropout, input_norm=input_norm,
-                freeze_temperature=freeze_temperature)
+                freeze_temperature=freeze_temperature, pooling=pooling)
 
 
 def _clip_factory(*, patch_size, vision_width, vision_layers, vision_heads,

@@ -12,10 +12,13 @@
 - Factorized positional embeddings: spatial (per patch, shared across
   frames) + temporal (per frame, shared across patches).
 - A CLS token (``class_embedding + positional_embedding[0]``, added in
-  f32), patch dropout when training, ``ln_pre``, the transformer,
-  ``ln_post`` on the pooled token.  The projection to the joint space
-  lives in ``clip.CLIP`` as ``image_projection``, as in the reference
-  state dict.
+  f32), patch dropout when training, ``ln_pre``, the transformer (with
+  DropPath when training), and pooling: ``cls`` the CLS token, ``gap``
+  the mean over all tokens (the CLS token too, accumulated in f32), each
+  then ``ln_post``; ``none`` returns ``ln_post`` of every token.
+- The tower returns width features, the JAX tower's ``output_dim=None``:
+  the projection to the joint space lives in ``clip.CLIP`` as
+  ``image_projection``, as in the reference state dict.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from avion_tpu_torch.models.layers import (LayerNorm, Transformer, gelu,
 
 INPUT_NORMS = {"none": None, "openai": (OPENAI_MEAN, OPENAI_STD),
                "imagenet": (IMAGENET_MEAN, IMAGENET_STD)}
+POOLINGS = ("cls", "gap", "none")
 
 
 class PatchEmbed(nn.Module):
@@ -63,11 +67,15 @@ class VisionTransformer(nn.Module):
                  heads: int = 12, act=gelu,
                  dtype: torch.dtype = torch.bfloat16,
                  patch_dropout: float = 0.0, remat: bool = False,
-                 remat_policy: str = "save_attn", input_norm: str = "none"):
+                 remat_policy: str = "save_attn", input_norm: str = "none",
+                 pooling: str = "cls", drop_path_rate: float = 0.0):
         super().__init__()
         if input_norm not in INPUT_NORMS:
             raise ValueError(f"input_norm must be none|openai|imagenet, "
                              f"got {input_norm!r}")
+        if pooling not in POOLINGS:
+            raise ValueError(f"pooling must be cls|gap|none, got {pooling!r}")
+        self.pooling = pooling
         n = (image_size // patch_size) ** 2
         self.dtype = dtype
         self.patch_dropout_rate = patch_dropout
@@ -83,7 +91,8 @@ class VisionTransformer(nn.Module):
         self.ln_pre = LayerNorm(width, dtype)
         self.transformer = Transformer(width, layers, heads, act, dtype,
                                        causal=False, remat=remat,
-                                       remat_policy=remat_policy)
+                                       remat_policy=remat_policy,
+                                       drop_path_rate=drop_path_rate)
         self.ln_post = LayerNorm(width, dtype)
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
@@ -95,9 +104,10 @@ class VisionTransformer(nn.Module):
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, T, H, W, C], float (already normalized) or, with
-        ``input_norm``, uint8.  Returns the ``ln_post``-normalized CLS
-        features [B, width].  With ``deterministic=False`` patch dropout
-        draws from ``generator``."""
+        ``input_norm``, uint8.  Returns the ``ln_post``-normalized pooled
+        features [B, width] (pooling ``none``: [B, S, width]).  With
+        ``deterministic=False`` patch dropout and DropPath draw from
+        ``generator``."""
         b, t = x.shape[:2]
         if self.remat and torch.is_grad_enabled():
             x = checkpoint(self._stem, x, use_reentrant=False)
@@ -112,5 +122,11 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls_tok.expand(b, 1, -1), x], dim=1)
         if self.patch_dropout_rate > 0.0 and not deterministic:
             x = patch_dropout(x, self.patch_dropout_rate, generator)
-        x = self.transformer(self.ln_pre(x))
+        keep = (None if deterministic else
+                self.transformer.draw_drop_path(b, generator, x.device))
+        x = self.transformer(self.ln_pre(x), keep)
+        if self.pooling == "none":
+            return self.ln_post(x)
+        if self.pooling == "gap":
+            return self.ln_post(x.float().mean(dim=1).to(x.dtype))
         return self.ln_post(x[:, 0])

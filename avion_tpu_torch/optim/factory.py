@@ -1,11 +1,21 @@
 """Optimizer (``avion_tpu.optim.factory``): the optax chain
-``clip_by_global_norm -> adamw(schedule, mask=wd_mask)`` as one object.
+``clip_by_global_norm -> core -> layer-decay scale`` as one object, whose
+core is AdamW, SGD with momentum or Lion.
 
 - Weight decay follows ``wd_mask``: parameters with two or more dimensions
   whose name holds none of ``_NO_WD_TOKENS`` decay, the rest do not; they
-  become AdamW's two parameter groups.  ``torch.optim.AdamW`` and
-  ``optax.adamw`` both decay as ``lr * wd * p``, decoupled from the moments,
-  and add eps outside the square root.
+  become the core's parameter groups.
+  - AdamW: ``torch.optim.AdamW`` and ``optax.adamw`` both decay as
+    ``lr * wd * p``, decoupled from the moments, and add eps outside the
+    square root.
+  - SGD: optax adds ``wd * p`` to the gradient before ``sgd``'s momentum
+    trace (no dampening, no Nesterov), which is ``torch.optim.SGD``'s
+    coupled ``weight_decay``.
+  - Lion (``optax.lion``; PyTorch has none): ``u = sign(b1 m + (1 - b1)
+    g)``, ``m <- b2 m + (1 - b2) g``, ``p <- p - lr (u + wd p)``.
+  - ``wd_end``: the decay follows a cosine from ``wd`` to ``wd_end`` over
+    the whole run, no warmup, at the optimizer's update count; it is set on
+    each decayed group before every update, for all three cores.
 - Clipping scales every gradient by ``max / ||g||`` when ``||g|| >= max``,
   as ``optax.clip_by_global_norm`` does (``clip_grad_norm_`` divides by
   ``||g|| + 1e-6``), without a host read.
@@ -13,12 +23,13 @@
   which starts at 0 on the first update and advances only when an update
   is applied (optax's schedule count); it is part of the state dict.
 - Layer decay (``layer_decay`` with the model's ``num_layers``): the JAX
-  chain scales AdamW's whole update of a parameter by ``decay ** (layers
-  + 1 - depth)``; here that is one parameter group per (depth, weight
-  decay or not) whose learning rate is the schedule times that scale.
+  chain scales the core's whole update of a parameter by ``decay **
+  (layers + 1 - depth)``; here that is one parameter group per (depth,
+  weight decay or not) whose learning rate is the schedule times that
+  scale.
 
-SGD, Lion, ``wd_end``, bf16 state and ``update_freq`` wait for later
-slices and raise when asked for.
+bf16 state and ``update_freq`` wait for the contrastive-extras slice
+(``ROADMAP.md`` Queue 1, item 6) and raise when asked for.
 """
 
 from __future__ import annotations
@@ -79,12 +90,59 @@ def build_schedule(cfg, niter_per_ep: int) -> Callable[[int], float]:
                            cfg.warmup_epochs, cfg.lr_start)
 
 
+def build_wd_schedule(cfg, niter_per_ep: int
+                      ) -> Optional[Callable[[int], float]]:
+    """The cosine ``wd -> wd_end`` over the run (no warmup), or None for a
+    constant ``wd``."""
+    if cfg.wd_end is None or cfg.wd_end == cfg.wd:
+        return None
+    return cosine_schedule(cfg.wd, cfg.wd_end, cfg.epochs, niter_per_ep)
+
+
+class Lion(torch.optim.Optimizer):
+    """``optax.lion``'s update, with the decay inside the learning rate's
+    scale: ``u = sign(b1 m + (1 - b1) g)`` (0 where that is 0), ``m <- b2 m
+    + (1 - b2) g``, ``p <- p - lr (u + weight_decay p)``.  The moment
+    ``exp_avg`` starts at 0."""
+
+    def __init__(self, params, lr: float = 1e-4,
+                 betas: Tuple[float, float] = (0.9, 0.99),
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas),
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state["exp_avg"] = torch.zeros_like(p)
+                m = state["exp_avg"]
+                u = torch.sign((1.0 - b1) * g + b1 * m)
+                m.copy_((1.0 - b2) * g + b2 * m)
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                p.sub_(group["lr"] * u)
+
+
+def _core(name: str, groups: list, cfg, lr: float) -> torch.optim.Optimizer:
+    if name == "adamw":
+        return torch.optim.AdamW(groups, lr=lr, betas=tuple(cfg.betas),
+                                 eps=cfg.eps)
+    if name == "sgd":
+        return torch.optim.SGD(groups, lr=lr, momentum=cfg.momentum)
+    if name == "lion":
+        return Lion(groups, lr=lr, betas=tuple(cfg.betas))
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+
+
 def _unported(cfg) -> List[str]:
     asked = []
-    if cfg.optimizer.lower() != "adamw":
-        asked.append(f"optimizer={cfg.optimizer!r}")
-    if cfg.wd_end is not None and cfg.wd_end != cfg.wd:
-        asked.append(f"wd_end={cfg.wd_end}")
     if cfg.state_dtype not in ("", "float32"):
         asked.append(f"state_dtype={cfg.state_dtype!r}")
     if cfg.update_freq > 1:
@@ -93,16 +151,21 @@ def _unported(cfg) -> List[str]:
 
 
 class Optimizer:
-    """Clip, schedule and AdamW over named parameters; with
-    ``cfg.layer_decay`` and ``num_layers``, layer-wise learning rates."""
+    """Clip, schedule and the core (``cfg.optimizer``: AdamW, SGD or Lion)
+    over named parameters; with ``wd_schedule`` the decay of the decayed
+    groups follows it; with ``cfg.layer_decay`` and ``num_layers``,
+    layer-wise learning rates."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg,
                  schedule: Callable[[int], float],
-                 num_layers: Optional[int] = None):
+                 num_layers: Optional[int] = None,
+                 wd_schedule: Optional[Callable[[int], float]] = None):
         asked = _unported(cfg)
         if asked:
             raise NotImplementedError(
-                "not in the PyTorch port yet: " + ", ".join(asked))
+                "not in the PyTorch port yet: " + ", ".join(asked)
+                + " (the contrastive-extras slice, ROADMAP.md Queue 1, "
+                  "item 6)")
         groups: Dict[Tuple[float, bool], List[torch.Tensor]] = {}
         for name, p in named_params:
             if p.requires_grad:
@@ -117,16 +180,19 @@ class Optimizer:
             groups[(1.0, True)] = []
         self.params = [p for ps in groups.values() for p in ps]
         self.schedule = schedule
+        self.wd_schedule = wd_schedule
         self.grad_clip_norm = cfg.grad_clip_norm
         self.count = 0  # updates applied
-        self.adamw = torch.optim.AdamW(
+        self.name = cfg.optimizer.lower()
+        self.inner = _core(
+            self.name,
             [{"params": ps, "weight_decay": cfg.wd if decays else 0.0,
-              "lr_scale": scale}
+              "decays": decays, "lr_scale": scale}
              for (scale, decays), ps in groups.items()],
-            lr=schedule(0), betas=tuple(cfg.betas), eps=cfg.eps)
+            cfg, schedule(0))
 
     def zero_grad(self) -> None:
-        self.adamw.zero_grad(set_to_none=True)
+        self.inner.zero_grad(set_to_none=True)
 
     def _grads(self) -> List[torch.Tensor]:
         return [p.grad for p in self.params if p.grad is not None]
@@ -139,23 +205,29 @@ class Optimizer:
 
     def update(self, grad_norm: Optional[torch.Tensor] = None) -> None:
         """Clip (given the gradients' ``global_norm``), set the scheduled
-        learning rate, step AdamW, advance the count."""
+        learning rate (and weight decay), step the core, advance the
+        count."""
         if self.grad_clip_norm:
             if grad_norm is None:
                 grad_norm = self.global_norm()
             scale = (self.grad_clip_norm / grad_norm).clamp(max=1.0)
             torch._foreach_mul_(self._grads(), scale)
         lr = self.schedule(self.count)
-        for group in self.adamw.param_groups:
+        wd = (self.wd_schedule(self.count) if self.wd_schedule is not None
+              else None)
+        for group in self.inner.param_groups:
             group["lr"] = lr * group["lr_scale"]
-        self.adamw.step()
+            if wd is not None and group["decays"]:
+                group["weight_decay"] = wd
+        self.inner.step()
         self.count += 1
 
     def state_dict(self) -> dict:
-        return {"adamw": self.adamw.state_dict(), "count": self.count}
+        """``{<optimizer name>: the core's state dict, "count": ...}``."""
+        return {self.name: self.inner.state_dict(), "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
-        self.adamw.load_state_dict(state["adamw"])
+        self.inner.load_state_dict(state[self.name])
         self.count = int(state["count"])
 
 
@@ -166,5 +238,6 @@ def build_optimizer(cfg, model: torch.nn.Module, niter_per_ep: int,
     decay applies when ``cfg.layer_decay`` and ``num_layers`` are set, as
     in the JAX factory."""
     schedule = build_schedule(cfg, niter_per_ep)
-    return (Optimizer(model.named_parameters(), cfg, schedule, num_layers),
+    return (Optimizer(model.named_parameters(), cfg, schedule, num_layers,
+                      build_wd_schedule(cfg, niter_per_ep)),
             schedule)

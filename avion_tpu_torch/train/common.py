@@ -1,8 +1,6 @@
-"""Pretrained-weight loading for the entries (``avion_tpu.train.common``).
-
-``extract_visual_params`` (the classifier heads' visual tower) comes with
-the CLIP finetune entries.
-"""
+"""Pretrained-weight loading for the entries (``avion_tpu.train.common``):
+a CLIP's weights from a ``.pt`` or a checkpoint directory, and the visual
+tower alone for the classifier heads."""
 
 from __future__ import annotations
 
@@ -56,3 +54,11 @@ def latest_model_state(path: str) -> dict:
             f"(export_clip_to_pt)")
     return torch.load(os.path.join(path, str(step), "state.pt"),
                       map_location="cpu", weights_only=True)["model"]
+
+
+def extract_visual_params(state: dict) -> dict:
+    """The visual tower of a CLIP (or classifier) state dict, keyed below
+    ``visual.``, without the CLIP's ``image_projection``: the classifier
+    heads' tower (the JAX function drops ``proj`` from the flax tree)."""
+    return {k[len("visual."):]: v for k, v in state.items()
+            if k.startswith("visual.")}

@@ -1,7 +1,8 @@
 """The train steps (``avion_tpu.train.steps``): CLIP's (loss ``"clip"``),
-VideoMAE's pretraining step and the classification finetune step: forward,
-loss, backward, gradient clip, AdamW update (CLIP's logit-scale clamp, the
-finetune's EMA), and the skip of a step whose loss is not finite.
+EK100-MIR's finetune step (max-margin ranking loss), VideoMAE's
+pretraining step and the classification finetune step: forward, loss,
+backward, gradient clip, the optimizer's update (CLIP's logit-scale clamp,
+the finetune's EMA), and the skip of a step whose loss is not finite.
 
 The JAX step is one jitted function that selects the old or the new state
 on device.  Here the update happens in place, so the step reads
@@ -25,6 +26,7 @@ from avion_tpu_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD,
                                              OPENAI_MEAN, OPENAI_STD,
                                              normalize_video, tube_mask_device)
 from avion_tpu_torch.losses.losses import (clip_loss,
+                                           max_margin_ranking_loss,
                                            soft_target_cross_entropy,
                                            softmax_cross_entropy,
                                            videomae_loss)
@@ -36,8 +38,13 @@ LOGIT_SCALE_MAX = 4.6052  # ln(100); scripts/main_lavila_pretrain.py:880
 def step_seed(seed: int, step: int) -> int:
     """The seed of step ``step``'s random draws under base ``seed``: the
     JAX step folds ``state.step`` into its key, so step k draws the same
-    patch-dropout mask whether or not the run was resumed before it."""
-    return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
+    patch-dropout mask whether or not the run was resumed before it.  The
+    CPU generator keeps only the low 32 bits of a seed, so those mix the
+    base seed (times an odd constant, one to one modulo 2**32) with the
+    step; the high 32 bits, which the CUDA generator also reads, hold the
+    base seed."""
+    seed &= 0xFFFFFFFF
+    return (seed << 32) | ((seed * 0x9E3779B1 + step) & 0xFFFFFFFF)
 
 
 def prep_video(video: torch.Tensor, dtype: torch.dtype = torch.bfloat16,
@@ -79,8 +86,8 @@ def _apply_or_skip(state: TrainState, loss: torch.Tensor,
                    ema_decay: Optional[float] = None,
                    grad_norm: Optional[torch.Tensor] = None) -> bool:
     """The update after ``loss.backward()``: when the loss is finite (the
-    step's one host read), clip (by ``grad_norm`` when given), step AdamW
-    and average the parameters into the EMA; else leave all of it.
+    step's one host read), clip (by ``grad_norm`` when given), step the
+    optimizer and average the parameters into the EMA; else leave all of it.
     ``state.step`` advances either way."""
     ok = bool(torch.isfinite(loss))
     if ok:
@@ -128,6 +135,36 @@ def make_clip_train_step(model: torch.nn.Module,
         metrics["loss"] = loss.detach()
         metrics["step_ok"] = float(ok)
         return state, metrics
+
+    return step
+
+
+def make_mir_finetune_step(model: torch.nn.Module, margin: float = 0.2,
+                           seed: int = 1) -> Callable:
+    """EK100-MIR finetune: ``step(state, batch) -> (state, metrics)``.
+    ``batch``: ``video`` and ``text`` as for :func:`make_clip_train_step`;
+    the model runs in train mode, its patch dropout and DropPath drawing
+    from (``seed``, ``state.step``), and the loss is
+    :func:`max_margin_ranking_loss` of its embeddings.  Unlike the CLIP
+    step there is no logit-scale clamp (the JAX step has none).  Metrics:
+    ``loss``, ``max_margin_loss`` (device tensors) and ``step_ok``."""
+    dtype = getattr(model, "dtype", torch.bfloat16)
+
+    def step(state: TrainState, batch):
+        model, opt = state.model, state.optimizer
+        generator = _step_generator(model, seed, state.step)
+        video = prep_video(batch["video"], dtype=dtype, model=model)
+        out = model(video, batch["text"].long(), deterministic=False,
+                    generator=generator)
+        metrics = max_margin_ranking_loss(out["image_embed"],
+                                          out["text_embed"], margin=margin)
+        loss = metrics["loss"]
+        opt.zero_grad()
+        loss.backward()
+        ok = _apply_or_skip(state, loss)
+        return state, {"loss": loss.detach(),
+                       "max_margin_loss": loss.detach(),
+                       "step_ok": float(ok)}
 
     return step
 

@@ -2,7 +2,9 @@
 each against its plain version, serve full-width CLIP ViT-B/16 over HTTP
 through the port's normal entry point, train it for a few steps on seeded
 batches, then through the training entry on decoded video, evaluate it
-zero-shot on the five suites, and pretrain and finetune VideoMAE ViT-B/16.
+zero-shot on the five suites, pretrain and finetune VideoMAE ViT-B/16, and
+finetune CLIP ViT-B/16 at 16 frames for EK100 retrieval and action
+classification.
 
     python3 chip_smoke.py
 
@@ -87,7 +89,25 @@ Phases (each raises on failure; the script then exits non-zero):
    random reference-layout checkpoint (split q / v bias), 2 steps and the
    5 x 3-view test (acc1, acc5; 12 ``flash_fwd`` a forward), then seeded
    finetune steps at batch 128 (12 + 12 + 12 launches a step) and the EMA
-   against its formula on the card's parameters, bit for bit.
+   against its formula on the card's parameters, bit for bit;
+10. finetune, CLIP ViT-B/16 at 16 frames (3137 visual tokens): (a) every
+   kernel at the visual (3137, 12 x 64) and causal text (77, 8 x 64)
+   shapes against its plain f32 version at batch 4 (phase 3's
+   tolerances), timed at batch 64 beside its bound and SDPA; (b) the
+   recipe of ``scripts/examples/finetune_mir_ek100.sh`` at batch 64
+   (AdamW, remat) through ``finetune_mir.build_model_and_state`` and
+   ``train.loop``: 8 steps on 3 seeded batches (24 forward-with-lse, 12
+   combined, 12 dq and 12 dkv launches a step), a profiled step, a batch-2
+   step against the CPU in f32 and an exact resume; (c) the same for
+   ``scripts/examples/finetune_cls_ek100.sh`` (SGD, lr x 64 / 128, mixup
+   0.8, 3806 classes; 12 + 12 + 12 launches a step); (d) a synthetic EK100
+   layout (train and test csvs, sentence csvs, relevancy pkls,
+   ``actions.csv``; mp4v at 512x288) on which ``finetune_mir.main`` and
+   ``finetune_cls.main`` start from the serve phase's checkpoint, take 2
+   steps and validate (MIR mAP and ``is_best``; the 2-view test's top-1 and
+   verb / noun top-1, 12 ``flash_fwd`` a tower forward), with p50 step,
+   data wait and decode ms a clip; (e) 2 seeded steps each of Lion and of
+   AdamW with a cosine weight decay to ``wd_end``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -742,17 +762,23 @@ def _to_device(batch: dict) -> dict:
 def _model_flops(model, batch: int) -> float:
     """6 x parameters x tokens for each tower (the token-embedding table is
     a lookup and counts no flops) plus 12 B H S^2 D per attention layer
-    (its forward's two products and the backward's four)."""
-    v, t = model.visual, model.textual
-    s_v = v.positional_embedding.shape[0] - 1
-    s_v = s_v * FRAMES + 1
-    s_t = t.positional_embedding.shape[0]
-    p_v = sum(p.numel() for p in v.parameters()) + model.image_projection.numel()
-    p_t = (sum(p.numel() for n, p in t.named_parameters()
-               if not n.startswith("token_embedding"))
-           + model.text_projection.numel())
-    flops = 6 * (p_v * batch * s_v + p_t * batch * s_t)
-    for tower, s in ((v, s_v), (t, s_t)):
+    (its forward's two products and the backward's four).  A classifier
+    counts its visual tower (``fc_cls`` on the pooled vector left out)."""
+    v = model.visual
+    frames = 1 if v.temporal_embedding is None else \
+        v.temporal_embedding.shape[0]
+    s_v = (v.positional_embedding.shape[0] - 1) * frames + 1
+    towers = [(v, s_v, sum(p.numel() for p in v.parameters()))]
+    if hasattr(model, "textual"):
+        t = model.textual
+        towers[0] = (v, s_v, towers[0][2] + model.image_projection.numel())
+        towers.append((t, t.positional_embedding.shape[0],
+                       sum(p.numel() for n, p in t.named_parameters()
+                           if not n.startswith("token_embedding"))
+                       + model.text_projection.numel()))
+    flops = 0
+    for tower, s, params in towers:
+        flops += 6 * params * batch * s
         for blk in tower.transformer.resblocks:
             width = blk.attn.Wqkv.in_features
             flops += 12 * batch * s * s * width
@@ -798,8 +824,10 @@ def log_device_time(by_name: dict, top: int = 15) -> None:
         log(f"  {ms:9.3f} ms  {ms / total:6.1%}  {name[:100]}")
 
 
-def profile_step(run, batch: dict) -> None:
-    """Device busy time and idle share of one train step, by kernel."""
+def profile_step(run, batch: dict) -> dict:
+    """Device busy time and idle share of one train step, by kernel;
+    returns ``{"wall_ms", "busy_ms", "idle_share"}`` (empty when the
+    profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -813,10 +841,11 @@ def profile_step(run, batch: dict) -> None:
     busy = sum(by_name.values())
     if not busy:
         log("profile: the profiler saw no device time (not measured)")
-        return
+        return {}
     log(f"profile of one train step: wall {wall:.2f} ms, device busy "
         f"{busy:.3f} ms, idle share {1 - busy / wall:.4f}")
     log_device_time(by_name)
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall}
 
 
 def _policy_forwards(tmp: str, policy: str, batch: dict) -> int:
@@ -838,30 +867,36 @@ def _policy_forwards(tmp: str, policy: str, batch: dict) -> int:
     return fa.launches["flash_fwd_lse"]
 
 
-def _reference_grads(model_gpu, cfg, batch: dict) -> None:
+def _reference_grads(model_gpu, cpu, batch: dict, loss_fn,
+                     label: str) -> None:
     """Loss and gradient of one batch on the card (bf16 compute, kernels)
-    and on the CPU through the plain path in f32, from the same weights."""
-    from avion_tpu_torch.losses.losses import clip_loss
-    from avion_tpu_torch.train.pretrain_clip import build_model
-    from avion_tpu_torch.train.steps import prep_video
-
-    cpu = build_model(cfg, torch.float32).to_empty(device="cpu")
+    and on the CPU through the plain path in f32 (``cpu``: the same model
+    built in f32 on the CPU), from the same weights; ``loss_fn(model,
+    batch on the model's device)`` gives the loss."""
     cpu.load_state_dict({k: v.cpu() for k, v in
                          model_gpu.state_dict().items()})
     results = []
     card = next(model_gpu.parameters()).device
     for model, device in ((model_gpu, card), (cpu, "cpu")):
         model.zero_grad(set_to_none=True)
-        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-        out = model(prep_video(b["video"], dtype=model.dtype),
-                    b["text"].long(), deterministic=False)
-        loss = clip_loss(out["image_embed"], out["text_embed"],
-                         out["logit_scale"])["loss"]
+        loss = loss_fn(model, {k: torch.from_numpy(v).to(device)
+                               for k, v in batch.items()})
         loss.backward()
         grads = {n: p.grad.detach().float().cpu()
                  for n, p in model.named_parameters() if p.grad is not None}
         results.append((loss.item(), grads))
-    check_against_cpu(results, f"reference step at batch {REF_BATCH}")
+    model_gpu.zero_grad(set_to_none=True)
+    check_against_cpu(results, label)
+
+
+def _clip_loss(model, b: dict) -> torch.Tensor:
+    from avion_tpu_torch.losses.losses import clip_loss
+    from avion_tpu_torch.train.steps import prep_video
+
+    out = model(prep_video(b["video"], dtype=model.dtype), b["text"].long(),
+                deterministic=False)
+    return clip_loss(out["image_embed"], out["text_embed"],
+                     out["logit_scale"])["loss"]
 
 
 def check_against_cpu(results, label: str) -> None:
@@ -921,14 +956,17 @@ def _timed_epoch(run, loader) -> dict:
 
 
 def _same_state(state, saved: dict, saved_opt: dict) -> bool:
-    """The model's state dict, the optimizer's count and its AdamW moments
-    equal ``saved`` / ``saved_opt``, bit for bit."""
+    """The model's state dict, the optimizer's count and its state (AdamW's
+    moments, SGD's momentum) equal ``saved`` / ``saved_opt``, bit for
+    bit."""
+    name = state.optimizer.name
     got = state.optimizer.state_dict()
     return (all(torch.equal(v, saved[k])
                 for k, v in state.model.state_dict().items())
             and got["count"] == saved_opt["count"]
-            and all(torch.equal(v, saved_opt["adamw"]["state"][i][k])
-                    for i, s in got["adamw"]["state"].items()
+            and len(got[name]["state"]) == len(saved_opt[name]["state"]) > 0
+            and all(torch.equal(v, saved_opt[name]["state"][i][k])
+                    for i, s in got[name]["state"].items()
                     for k, v in s.items()))
 
 
@@ -937,7 +975,8 @@ def phase_train(tmp: str) -> dict:
     returns the kernel launches of its 8-step epoch and its p50 step ms."""
     from avion_tpu_torch.models.layers import saved_attn_layers
     from avion_tpu_torch.train.loop import save_epoch, setup_run
-    from avion_tpu_torch.train.pretrain_clip import build_model_and_state
+    from avion_tpu_torch.train.pretrain_clip import (build_model,
+                                                     build_model_and_state)
     from avion_tpu_torch.train.steps import make_clip_train_step
 
     log(f"== train {MODEL} at {FRAMES} frames, batch {TRAIN_BATCH}, "
@@ -997,8 +1036,9 @@ def phase_train(tmp: str) -> dict:
     log(f"forward-with-lse launches of one batch-{POLICY_BATCH} step: "
         f"save_attn {2 * LAYERS} (above), {counts}")
 
-    _reference_grads(model, cfg, {k: v[:REF_BATCH]
-                                  for k, v in batches[1].items()})
+    _reference_grads(model, build_model(cfg, torch.float32).to_empty(
+        device="cpu"), {k: v[:REF_BATCH] for k, v in batches[1].items()},
+        _clip_loss, f"reference step at batch {REF_BATCH}")
 
     save_epoch(run, 0, metrics)
     saved = {k: v.detach().clone() for k, v in
@@ -1403,6 +1443,79 @@ def _ts(sec: float) -> str:
         f"{sec % 60:05.2f}"
 
 
+def _caption(combo) -> tuple:
+    """(verb class, noun class, caption) of one of the 100 actions."""
+    v, n = divmod(int(combo), len(NOUNS))
+    return v, n, f"{VERBS[v]} {NOUNS[n]}"
+
+
+def _write_csv(path: str, header: list, rows: list) -> None:
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(header)
+        writer.writerows(rows)
+
+
+def _write_ek100(ek: str, rs, video, clips: dict, chunk_s: int, fps: int):
+    """EPIC-Kitchens' layout under ``ek``: ``PXX/PXX_YY.MP4/<chunk_start>.
+    MP4`` (4 videos of 2 chunks, queued through ``video(path, frames)``);
+    for each split of ``clips`` (name: rows) ``EPIC_100_retrieval_<split>
+    .csv`` of narrated windows (verb x noun captions, each of the 100 once
+    before any repeats), its ``_sentence.csv`` (each distinct caption once,
+    under the id of its first clip, in a seeded order) and the graded
+    relevancy pkl (1 for the same verb and noun, 0.5 for one of them, else
+    0), so that every clip and sentence has a relevant match; and an
+    ``actions.csv`` of the 100 verb-noun actions.  Returns (the captions'
+    seeded order, the chunk files)."""
+    combos = len(VERBS) * len(NOUNS)
+    vids = [("P01", "P01_01"), ("P01", "P01_02"), ("P02", "P02_01"),
+            ("P02", "P02_02")]
+    chunks = []
+    for pid, vid in vids:
+        for c in range(2):
+            path = os.path.join(ek, pid, f"{vid}.MP4", f"{c * chunk_s}.MP4")
+            video(path, chunk_s * fps)
+            chunks.append(path)
+    order = rs.permutation(combos)
+    header = ["narration_id", "participant_id", "video_id",
+              "narration_timestamp", "start_timestamp", "stop_timestamp",
+              "start_frame", "stop_frame", "narration", "verb", "verb_class",
+              "noun", "noun_class", "all_nouns", "all_noun_classes"]
+    os.makedirs(os.path.join(ek, "relevancy"))
+    for split, n_clips in clips.items():
+        rows, parts = [], []
+        for k in range(n_clips):
+            pid, vid = vids[rs.randint(len(vids))]
+            dur = rs.uniform(1.0, min(4.0, chunk_s))
+            start = rs.uniform(0.0, 2 * chunk_s - dur)
+            v, n, text = _caption(order[k % combos])
+            parts.append((v, n))
+            rows.append([f"{vid}_{k}", pid, vid, _ts(start), _ts(start),
+                         _ts(start + dur), int(start * fps),
+                         int((start + dur) * fps), text, VERBS[v], v,
+                         NOUNS[n], n, f"['{NOUNS[n]}']", f"[{n}]"])
+        _write_csv(os.path.join(ek, f"EPIC_100_retrieval_{split}.csv"),
+                   header, rows)
+        sent = rs.permutation(np.unique([r[8] for r in rows],
+                                        return_index=True)[1])
+        _write_csv(os.path.join(ek, f"EPIC_100_retrieval_{split}_sentence"
+                                    f".csv"),
+                   ["narration_id", "narration"],
+                   [[rows[i][0], rows[i][8]] for i in sent])
+        p = np.asarray(parts)
+        rel = ((p[:, None, 0] == p[None, sent, 0]).astype(np.float64)
+               + (p[:, None, 1] == p[None, sent, 1])) / 2
+        with open(os.path.join(ek, "relevancy", f"caption_relevancy_EPIC_"
+                                                f"100_retrieval_{split}.pkl"),
+                  "wb") as f:
+            pickle.dump(rel, f)
+    _write_csv(os.path.join(ek, "actions.csv"),
+               ["id", "verb", "noun", "action"],
+               [[i, *_caption(i)[:2], _caption(i)[2].replace(" ", "_")]
+                for i in range(combos)])
+    return order, chunks
+
+
 def write_eval_fixtures(root: str, seed: int = 0, *, w: int = DATA_W,
                         h: int = DATA_H, fps: int = DATA_FPS,
                         chunk_s: int = DATA_CHUNK_S, clip_s: int = EVAL_CLIP_S,
@@ -1413,15 +1526,8 @@ def write_eval_fixtures(root: str, seed: int = 0, *, w: int = DATA_W,
                         mcq_items: int = EVAL_SIZES["mcq_items"]) -> dict:
     """Write the five suites' layouts under ``root`` with cv2 (mp4v):
 
-    - EK100 MIR: ``ek100/PXX/PXX_YY.MP4/<chunk_start>.MP4`` (4 videos of 2
-      chunks), ``EPIC_100_retrieval_test.csv`` of ``mir_clips`` narrated
-      windows (verb x noun captions, each of the 100 once before any
-      repeats), its ``_sentence.csv`` (each distinct caption once, under
-      the id of its first clip, in a seeded order) and the graded
-      relevancy pkl (1 for the same verb and noun, 0.5 for one of them,
-      else 0), so that every clip and sentence has a relevant match;
-    - EK100 CLS: the same csv and videos, and an ``actions.csv`` of the
-      100 verb-noun actions;
+    - EK100 MIR and CLS: :func:`_write_ek100`'s layout under ``ek100``
+      with the test split of ``mir_clips`` narrated windows;
     - EGTEA: ``egtea/data/<video>/<clip>.mp4``, ``action_idx.txt`` and
       ``test_split1.txt`` over 20 actions;
     - Charades-Ego: ``charades/data/<id>.mp4``, the classes txt and the
@@ -1439,68 +1545,20 @@ def write_eval_fixtures(root: str, seed: int = 0, *, w: int = DATA_W,
         os.makedirs(os.path.dirname(path), exist_ok=True)
         jobs.append((path, _canvas(rs, w, h), 0, frames, fps))
 
-    def caption(combo):
-        v, n = divmod(int(combo), len(NOUNS))
-        return v, n, f"{VERBS[v]} {NOUNS[n]}"
-
-    def write_csv(path, header, rows):
-        with open(path, "w", newline="") as f:
-            writer = csv.writer(f)
-            writer.writerow(header)
-            writer.writerows(rows)
-
     combos = len(VERBS) * len(NOUNS)
-    # EK100 MIR and CLS
     ek = os.path.join(root, "ek100")
-    vids = [("P01", "P01_01"), ("P01", "P01_02"), ("P02", "P02_01"),
-            ("P02", "P02_02")]
-    mir_videos = []
-    for pid, vid in vids:
-        for c in range(2):
-            path = os.path.join(ek, pid, f"{vid}.MP4", f"{c * chunk_s}.MP4")
-            video(path, chunk_s * fps)
-            mir_videos.append(path)
-    order = rs.permutation(combos)
-    rows, parts = [], []
-    for k in range(mir_clips):
-        pid, vid = vids[rs.randint(len(vids))]
-        dur = rs.uniform(1.0, min(4.0, chunk_s))
-        start = rs.uniform(0.0, 2 * chunk_s - dur)
-        v, n, text = caption(order[k % combos])
-        parts.append((v, n))
-        rows.append([f"{vid}_{k}", pid, vid, _ts(start), _ts(start),
-                     _ts(start + dur), int(start * fps),
-                     int((start + dur) * fps), text, VERBS[v], v, NOUNS[n], n,
-                     f"['{NOUNS[n]}']", f"[{n}]"])
-    header = ["narration_id", "participant_id", "video_id",
-              "narration_timestamp", "start_timestamp", "stop_timestamp",
-              "start_frame", "stop_frame", "narration", "verb", "verb_class",
-              "noun", "noun_class", "all_nouns", "all_noun_classes"]
+    order, mir_videos = _write_ek100(ek, rs, video, {"test": mir_clips},
+                                     chunk_s, fps)
     val = os.path.join(ek, "EPIC_100_retrieval_test.csv")
-    write_csv(val, header, rows)
-    sent = rs.permutation(np.unique([r[8] for r in rows],
-                                    return_index=True)[1])
-    write_csv(os.path.join(ek, "EPIC_100_retrieval_test_sentence.csv"),
-              ["narration_id", "narration"],
-              [[rows[i][0], rows[i][8]] for i in sent])
-    p = np.asarray(parts)
-    rel = ((p[:, None, 0] == p[None, sent, 0]).astype(np.float64)
-           + (p[:, None, 1] == p[None, sent, 1])) / 2
-    os.makedirs(os.path.join(ek, "relevancy"))
     rel_path = os.path.join(
         ek, "relevancy", "caption_relevancy_EPIC_100_retrieval_test.pkl")
-    with open(rel_path, "wb") as f:
-        pickle.dump(rel, f)
     actions = os.path.join(ek, "actions.csv")
-    write_csv(actions, ["id", "verb", "noun", "action"],
-              [[i, *caption(i)[:2], caption(i)[2].replace(" ", "_")]
-               for i in range(combos)])
 
     # EGTEA: 20 actions, clips of clip_s seconds
     eg = os.path.join(root, "egtea")
     os.makedirs(os.path.join(eg, "meta"))
     with open(os.path.join(eg, "meta", "action_idx.txt"), "w") as f:
-        f.writelines(f"{caption(order[i])[2].replace(' ', '_')} {i + 1}\n"
+        f.writelines(f"{_caption(order[i])[2].replace(' ', '_')} {i + 1}\n"
                      for i in range(20))
     with open(os.path.join(eg, "meta", "test_split1.txt"), "w") as f:
         for k in range(egtea_clips):
@@ -1514,7 +1572,7 @@ def write_eval_fixtures(root: str, seed: int = 0, *, w: int = DATA_W,
     ch = os.path.join(root, "charades")
     os.makedirs(os.path.join(ch, "meta"))
     with open(os.path.join(ch, "meta", "Charades_v1_classes.txt"), "w") as f:
-        f.writelines(f"c{i:03d} {caption(order[-1 - i])[2]}\n"
+        f.writelines(f"c{i:03d} {_caption(order[-1 - i])[2]}\n"
                      for i in range(charades_classes))
     rows = []
     for k in range(charades_videos):
@@ -1527,7 +1585,7 @@ def write_eval_fixtures(root: str, seed: int = 0, *, w: int = DATA_W,
             f"c{a:03d} {rs.uniform(0, clip_s / 2):.2f} "
             f"{rs.uniform(clip_s / 2, clip_s):.2f}" for a in acts),
             f"{clip_s:.2f}"])
-    write_csv(os.path.join(ch, "meta", "CharadesEgo_v1_test_only1st.csv"),
+    _write_csv(os.path.join(ch, "meta", "CharadesEgo_v1_test_only1st.csv"),
               ["id", "subject", "scene", "quality", "relevance", "verified",
                "script", "objects", "descriptions", "actions", "length"],
               rows)
@@ -1547,8 +1605,8 @@ def write_eval_fixtures(root: str, seed: int = 0, *, w: int = DATA_W,
             choices[str(c)] = {
                 "video_uid": uids[k % 4] if intra else uids[rs.randint(4)],
                 "clip_start": start, "clip_end": start + dur,
-                "clip_text": caption(order[(k * 5 + c) % combos])[2]}
-        query = f"#C C {caption(order[-1 - k % combos])[2]} {k}"
+                "clip_text": _caption(order[(k * 5 + c) % combos])[2]}
+        query = f"#C C {_caption(order[-1 - k % combos])[2]} {k}"
         items[str(k)] = {"query": {"clip_text": query}, "choices": choices,
                          "answer": int(rs.randint(5)),
                          "types": 1 if intra else 2}
@@ -1567,6 +1625,34 @@ def write_eval_fixtures(root: str, seed: int = 0, *, w: int = DATA_W,
                     "CHARADES_META_DIR": os.path.join(ch, "meta"),
                     "EGO4D_MCQ_DATA_DIR": mq, "EGO4D_MCQ_META_DIR": mq},
             "mir_videos": mir_videos}
+
+
+def write_ek100_fixture(root: str, seed: int = 0, *, w: int = DATA_W,
+                        h: int = DATA_H, fps: int = DATA_FPS,
+                        chunk_s: int = DATA_CHUNK_S, train_clips: int = 128,
+                        test_clips: int = 64) -> dict:
+    """The finetunes' EPIC-Kitchens layout under ``root`` with cv2 (mp4v):
+    :func:`_write_ek100`'s videos, train and test splits (csvs, sentence
+    csvs, relevancy pkls) and ``actions.csv``.  Returns the paths: ``root``,
+    ``train``, ``test`` (csvs), ``relevancy`` (the test split's) and
+    ``actions``."""
+    rs = np.random.RandomState(seed)
+    jobs = []
+
+    def video(path, frames):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        jobs.append((path, _canvas(rs, w, h), 0, frames, fps))
+
+    _write_ek100(root, rs, video, {"train": train_clips, "test": test_clips},
+                 chunk_s, fps)
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(lambda job: _write_chunk(*job), jobs))
+    csv_path = os.path.join(root, "EPIC_100_retrieval_{}.csv").format
+    return {"root": root, "train": csv_path("train"), "test": csv_path("test"),
+            "relevancy": os.path.join(
+                root, "relevancy",
+                "caption_relevancy_EPIC_100_retrieval_test.pkl"),
+            "actions": os.path.join(root, "actions.csv")}
 
 
 EVAL_BATCH = 128  # data.val_batch_size's default
@@ -1913,9 +1999,11 @@ VMAE_FINETUNE_RECIPE = [
     "data.erase_prob=0.25", "data.repeated_aug=2", "print_freq=1"]
 # (tower, S, heads, head_dim): the encoder on the 160 visible tokens, the
 # decoder and the finetune ViT on all 1568, and VIDEOMAE_VITB16_H128's
-VMAE_SHAPES = [("encoder", 160, 12, 64), ("decoder", 1568, 6, 64),
-               ("finetune", 1568, 12, 64), ("encoder_h128", 160, 6, 128),
-               ("decoder_h128", 1568, 3, 128)]
+VMAE_SHAPES = [("encoder", 160, 12, 64, False),
+               ("decoder", 1568, 6, 64, False),
+               ("finetune", 1568, 12, 64, False),
+               ("encoder_h128", 160, 6, 128, False),
+               ("decoder_h128", 1568, 3, 128, False)]
 # a synthetic Kinetics layout: 340x256 at 30 fps (the short side Kinetics
 # is usually resized to), 96 frames (the 16-frame stride-4 span is 64)
 K400_VIDEOS, K400_FRAMES, K400_W, K400_H, K400_FPS = 256, 96, 340, 256, 30
@@ -1923,15 +2011,16 @@ VMAE_DATA_BATCH, VMAE_DATA_STEPS = 64, 4
 VMAE_FT_BATCH, VMAE_FT_VAL_VIDEOS, VMAE_FT_VIEWS = 8, 8, (5, 3)
 
 
-def _vmae_kernel_rows() -> dict:
-    """Every kernel at the VideoMAE shapes: errors against the plain f32
-    version at batch VMAE_CHECK_BATCH (phase 3's tolerances; the plain f32
-    scores at batch 128 and S 1568 alone are 7.5 GB), the plain version's
-    time there, and the kernel's, its bound's and SDPA's at batch
-    VMAE_BATCH.  Returns rows by kernel."""
+def _slice_kernel_rows(shapes, check_batch: int, time_batch: int,
+                       seed: int, what: str) -> dict:
+    """Every kernel at a slice's ``shapes`` ((tower, S, heads, head_dim,
+    causal)): errors against the plain f32 version at ``check_batch``
+    (phase 3's tolerances; the plain f32 scores at batch 128 and S 1568
+    alone are 7.5 GB), the plain version's time there, and the kernel's,
+    its bound's and SDPA's at ``time_batch``.  Returns rows by kernel."""
     rows = {name: [] for name in fa.KERNELS}
     bad = []
-    gen = torch.Generator(device="cuda").manual_seed(7)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def check(name, tower, **errs):
         for key, (err, limit) in errs.items():
@@ -1946,27 +2035,29 @@ def _vmae_kernel_rows() -> dict:
             raise RuntimeError(f"launches {dict(fa.launches)}, want {want}")
         return out
 
-    for tower, s, h, d in VMAE_SHAPES:
-        w, scale, b = h * d, d ** -0.5, VMAE_CHECK_BATCH
+    for tower, s, h, d, causal in shapes:
+        w, scale, b = h * d, d ** -0.5, check_batch
         qkv = torch.randn(b, s, 3 * w, generator=gen, device="cuda",
                           dtype=torch.bfloat16)
         do = torch.randn(b, s, w, generator=gen, device="cuda",
                          dtype=torch.bfloat16)
-        ref, lse_ref = fa.flash_fwd_lse_plain(qkv.float(), h, s, False, scale)
-        out_i = launched(lambda: fa.flash_attention_fused_qkv(qkv, h, s),
-                         {"flash_fwd": 1})
+        ref, lse_ref = fa.flash_fwd_lse_plain(qkv.float(), h, s, causal,
+                                              scale)
+        out_i = launched(lambda: fa.flash_attention_fused_qkv(
+            qkv, h, s, causal=causal), {"flash_fwd": 1})
         err_i = _errors(out_i, ref)
-        out, lse = launched(lambda: fa.flash_fwd_lse(qkv, h, s, False, scale),
+        out, lse = launched(lambda: fa.flash_fwd_lse(qkv, h, s, causal,
+                                                     scale),
                             {"flash_fwd_lse": 1})
         err_l = _errors(out, ref)
         lse_err = (lse - lse_ref).abs().max().item()
         combined = fa.use_combined_bwd(s)
         names = (["flash_bwd_combined"] if combined
                  else ["flash_bwd_dq", "flash_bwd_dkv"])
-        got = launched(lambda: fa.flash_bwd(do, qkv, out, lse, h, s, False,
+        got = launched(lambda: fa.flash_bwd(do, qkv, out, lse, h, s, causal,
                                             scale), {n: 1 for n in names})
         gref = fa.flash_bwd_plain(do.float(), qkv.float(), ref, lse_ref, h, s,
-                                  False, scale)
+                                  causal, scale)
         errs = {sec: _errors(got[..., i * w:(i + 1) * w],
                              gref[..., i * w:(i + 1) * w])
                 for i, sec in enumerate(("dq", "dk", "dv"))}
@@ -1981,41 +2072,42 @@ def _vmae_kernel_rows() -> dict:
                 f"{sec}_max_abs_err": (err, TOL),
                 f"{sec}_rel_rms_err": (rel, BWD_REL_TOL)})
         plain = {"fwd": cuda_ms(lambda: fa.flash_fwd_lse_plain(
-            qkv, h, s, False, scale), iters=3),
+            qkv, h, s, causal, scale), iters=3),
             "bwd": cuda_ms(lambda: fa.flash_bwd_plain(
-                do, qkv, out, lse, h, s, False, scale), iters=3)}
+                do, qkv, out, lse, h, s, causal, scale), iters=3)}
         del qkv, do, out, lse, got
         # the full batch: times only
-        bb = VMAE_BATCH
+        bb = time_batch
         qkv = torch.randn(bb, s, 3 * w, generator=gen, device="cuda",
                           dtype=torch.bfloat16)
         do = torch.randn(bb, s, w, generator=gen, device="cuda",
                          dtype=torch.bfloat16)
-        out, lse = fa.flash_fwd_lse(qkv, h, s, False, scale)
+        out, lse = fa.flash_fwd_lse(qkv, h, s, causal, scale)
         q, k, v = (t.detach().requires_grad_() for t in
                    _sdpa_inputs(qkv, bb, s, h, d))
         do_h = do.view(bb, s, h, d).transpose(1, 2)
 
         def sdpa():
-            return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal)
 
         with torch.no_grad():
             sdpa_fwd = cuda_ms(sdpa)
         sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
             sdpa(), (q, k, v), do_h)) - sdpa_fwd
-        base = {"tower": tower, "shape": [bb, s, h, d], "causal": False,
+        base = {"tower": tower, "shape": [bb, s, h, d], "causal": causal,
                 "check_batch": b}
         for name, err, fn, nrows in (
-                ("flash_fwd", err_i,
-                 lambda: fa.flash_attention_fused_qkv(qkv, h, s), 0),
+                ("flash_fwd", err_i, lambda: fa.flash_attention_fused_qkv(
+                    qkv, h, s, causal=causal), 0),
                 ("flash_fwd_lse", err_l,
-                 lambda: fa.flash_fwd_lse(qkv, h, s, False, scale), 1)):
+                 lambda: fa.flash_fwd_lse(qkv, h, s, causal, scale), 1)):
             row = dict(base, max_abs_err=err[0], rel_rms_err=err[1],
                        kernel_ms=cuda_ms(fn), plain_ms=plain["fwd"],
                        library_ms=sdpa_fwd)
             if name == "flash_fwd_lse":
                 row["lse_max_abs_err"] = lse_err
-            row["bound_ms"], row["bound_by"] = bound(bb, s, h, d, False,
+            row["bound_ms"], row["bound_by"] = bound(bb, s, h, d, causal,
                                                      rows=nrows)
             rows[name].append(row)
             log(f"{name} " + json.dumps(row))
@@ -2024,23 +2116,24 @@ def _vmae_kernel_rows() -> dict:
                    **{f"{sec}_rel_rms_err": e[1] for sec, e in errs.items()},
                    plain_ms=plain["bwd"], library_ms=sdpa_bwd,
                    route_ms=cuda_ms(lambda: fa.flash_bwd(
-                       do, qkv, out, lse, h, s, False, scale)))
+                       do, qkv, out, lse, h, s, causal, scale)))
         parts = ([("flash_bwd_combined", None, 5, 8, 2)] if combined else
                  [("flash_bwd_dq", "dq", 3, 6, 1),
                   ("flash_bwd_dkv", "dkv", 4, 6, 2)])
         for name, part, products, tensors, nrows in parts:
             row = dict(bwd, kernel_ms=bwd["route_ms"] if part is None else
                        cuda_ms(lambda: fa._bwd_cuda(do, qkv, out, lse, h, s,
-                                                    False, scale, route=part)))
+                                                    causal, scale,
+                                                    route=part)))
             row["bound_ms"], row["bound_by"] = bound(
-                bb, s, h, d, False, products, tensors, nrows)
+                bb, s, h, d, causal, products, tensors, nrows)
             rows[name].append(row)
             log(f"{name} " + json.dumps(row))
         del qkv, do, out, lse, q, k, v
         torch.cuda.empty_cache()
     if bad:
-        raise RuntimeError("kernels disagree with their plain versions at "
-                           "the VideoMAE shapes: " + "; ".join(bad))
+        raise RuntimeError(f"kernels disagree with their plain versions at "
+                           f"{what}: " + "; ".join(bad))
     return rows
 
 
@@ -2094,11 +2187,12 @@ def _vmae_towers(model) -> list:
     return [(model.encoder, model.pos_embed.shape[0])]
 
 
-def _vmae_launches(model) -> dict:
-    """Per train step with save_attn: a forward with lse per attention
-    layer, and its backward, combined while S <= 1024, else split."""
+def _step_launches(towers) -> dict:
+    """Per train step with save_attn, for ``towers`` ((transformer, S)): a
+    forward with lse per attention layer, and its backward, combined while
+    S <= 1024, else split."""
     want: dict = {}
-    for tower, s in _vmae_towers(model):
+    for tower, s in towers:
         for name in (["flash_fwd_lse", "flash_bwd_combined"]
                      if fa.use_combined_bwd(s) else
                      ["flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"]):
@@ -2106,13 +2200,18 @@ def _vmae_launches(model) -> dict:
     return want
 
 
-def _report_run(label: str, res: dict, model, batch: int, steps: int) -> dict:
-    """Finite losses, every step applied, the launches of ``steps`` steps;
-    logs and returns p50 (from the third step), clips/s, share of 989
-    TFLOP/s and peak memory."""
+def _vmae_launches(model) -> dict:
+    return _step_launches(_vmae_towers(model))
+
+
+def _report_run(label: str, res: dict, batch: int, steps: int,
+                per_step: dict, flops: float) -> dict:
+    """Finite losses, every step applied, the launches of ``steps`` steps
+    (``per_step`` each); logs and returns p50 (from the third step),
+    clips/s, share of 989 TFLOP/s (``flops`` a step) and peak memory."""
     losses = [m["loss"] for m in res["metrics"]]
     oks = [m["step_ok"] for m in res["metrics"]]
-    want = {k: v * steps for k, v in _vmae_launches(model).items()}
+    want = {k: v * steps for k, v in per_step.items()}
     log(f"{label}: losses {losses}; step_ok {oks}; step ms "
         f"{[round(float(x), 3) for x in res['step_ms']]}; launches "
         f"{res['launches']} (expected {want})")
@@ -2125,7 +2224,6 @@ def _report_run(label: str, res: dict, model, batch: int, steps: int) -> dict:
     # from the third step; a two-step run, its second
     steady = res["step_ms"][2:] if steps > 2 else res["step_ms"][1:]
     p50 = float(np.median(steady))
-    flops = _vmae_flops(model, batch)
     out = {"p50_ms": p50, "clips_per_s": batch * len(steady) / steady.sum()
            * 1e3, "share_of_989": flops / (p50 * 1e-3) / H100_BF16_FLOPS,
            "peak_gib": res["peak"] / 2 ** 30, "model_flops": flops}
@@ -2146,26 +2244,17 @@ def _vmae_reference(model_gpu, cfg, batch: dict) -> None:
     from avion_tpu_torch.train.steps import prep_video
     from avion_tpu_torch.train.videomae_pretrain import build_model
 
+    def loss(model, b):
+        video = prep_video(b["video"], model.dtype, mean=IMAGENET_MEAN,
+                           std=IMAGENET_STD)
+        pred, idx = model(video, b["mask"])
+        return videomae_loss(pred, video, idx, model.patch_size,
+                             model.tubelet_size)["loss"]
+
     cpu = build_model(cfg, torch.float32).to_empty(device="cpu")
     cpu.init_weights()  # the sincos tables
-    cpu.load_state_dict({k: v.cpu() for k, v in
-                         model_gpu.state_dict().items()})
-    results = []
-    for model in (model_gpu, cpu):
-        device = next(model.parameters()).device
-        model.zero_grad(set_to_none=True)
-        video = prep_video(torch.from_numpy(batch["video"]).to(device),
-                           model.dtype, mean=IMAGENET_MEAN, std=IMAGENET_STD)
-        pred, idx = model(video, torch.from_numpy(batch["mask"]).to(device))
-        loss = videomae_loss(pred, video, idx, model.patch_size,
-                             model.tubelet_size)["loss"]
-        loss.backward()
-        results.append((loss.item(), {
-            n: p.grad.detach().float().cpu()
-            for n, p in model.named_parameters() if p.grad is not None}))
-    model_gpu.zero_grad(set_to_none=True)
-    check_against_cpu(results, f"VideoMAE reference step at batch "
-                               f"{VMAE_REF_BATCH}")
+    _reference_grads(model_gpu, cpu, batch, loss,
+                     f"VideoMAE reference step at batch {VMAE_REF_BATCH}")
 
 
 def _vmae_seeded_pretrain(tmp: str) -> dict:
@@ -2192,8 +2281,9 @@ def _vmae_seeded_pretrain(tmp: str) -> dict:
     log(f"model and batches ready in {time.perf_counter() - t0:.1f} s; "
         f"{model.n_visible} visible of {model.num_patches} tokens")
     res = _timed_epoch(run, [batches[i % 3] for i in range(VMAE_STEPS)])
-    report = _report_run("(b) seeded pretraining", res, model, VMAE_BATCH,
-                         VMAE_STEPS)
+    report = _report_run("(b) seeded pretraining", res, VMAE_BATCH,
+                         VMAE_STEPS, _vmae_launches(model),
+                         _vmae_flops(model, VMAE_BATCH))
     report["launches"] = res["launches"]
     profile_step(run, _to_device(batches[0]))
     _vmae_reference(model, cfg, {k: v[:VMAE_REF_BATCH]
@@ -2237,8 +2327,9 @@ def _vmae_seeded_pretrain(tmp: str) -> dict:
         res_h = _timed_epoch(run, batches[:VMAE_SHORT_STEPS])
     finally:
         fa._fwd_cuda, fa._bwd_cuda = fwd, bwd
-    report["h128"] = _report_run(f"(b) {VMAE_H128}", res_h, model,
-                                 VMAE_BATCH, VMAE_SHORT_STEPS)
+    report["h128"] = _report_run(f"(b) {VMAE_H128}", res_h, VMAE_BATCH,
+                                 VMAE_SHORT_STEPS, _vmae_launches(model),
+                                 _vmae_flops(model, VMAE_BATCH))
     report["h128"]["launches"] = res_h["launches"]
     want_dims = {blk.attn.Wqkv.in_features // blk.attn.heads
                  for tower, _ in _vmae_towers(model)
@@ -2473,8 +2564,9 @@ def _vmae_seeded_finetune(tmp: str, batches: list) -> dict:
     loader = [{k: b[k] for k in ("video", "label")}
               for b in (batches * 2)[:VMAE_FT_STEPS]]
     res = _timed_epoch(run, loader)
-    report = _report_run("(d) seeded finetune", res, model, VMAE_BATCH,
-                         VMAE_FT_STEPS)
+    report = _report_run("(d) seeded finetune", res, VMAE_BATCH,
+                         VMAE_FT_STEPS, _vmae_launches(model),
+                         _vmae_flops(model, VMAE_BATCH))
     report["launches"] = res["launches"]
     # two more steps, keeping what the EMA is made from
     names = list(run.state.ema)
@@ -2511,7 +2603,8 @@ def phase_videomae(tmp: str) -> dict:
     t_phase = time.perf_counter()
     log(f"== videomae (a): kernels at the VideoMAE shapes, errors at batch "
         f"{VMAE_CHECK_BATCH}, times at batch {VMAE_BATCH}")
-    rows = _vmae_kernel_rows()
+    rows = _slice_kernel_rows(VMAE_SHAPES, VMAE_CHECK_BATCH, VMAE_BATCH, 7,
+                              "the VideoMAE shapes")
     pre, batches = _vmae_seeded_pretrain(tmp)
     root = os.path.join(tmp, "k400")
     t0 = time.perf_counter()
@@ -2545,6 +2638,316 @@ def phase_videomae(tmp: str) -> dict:
         "videomae_finetune_seeded": ft["launches"]}}
 
 
+# the CLIP finetune slice: the recipes of scripts/examples/finetune_{mir,
+# cls}_ek100.sh at one card's share (64) of their batch 512 over 8 cards, at
+# 16 frames (3137 visual tokens), from a CLIP_VITB16 reference-layout .pt
+FT_FRAMES, FT_BATCH, FT_STEPS, FT_SHORT_STEPS = 16, 64, 8, 2
+FT_CHECK_BATCH, FT_REF_BATCH, FT_OPT_BATCH = 4, 2, 16
+FT_CLASSES = 3806  # EPIC-Kitchens-100's actions
+FT_MIR_RECIPE = [
+    f"model.name={MODEL}", "model.use_grad_checkpointing=true",
+    f"data.clip_length={FT_FRAMES}", f"data.batch_size={FT_BATCH}",
+    f"data.crop_size={SIZE}", "optim.optimizer=adamw", "optim.lr=1e-5",
+    "optim.wd=0.05", "optim.warmup_epochs=1", "optim.epochs=100",
+    "print_freq=1"]
+FT_CLS_RECIPE = [
+    f"model.name={MODEL}", "model.use_grad_checkpointing=true",
+    "data.dataset=ek100_cls", f"data.clip_length={FT_FRAMES}",
+    f"data.batch_size={FT_BATCH}", f"data.crop_size={SIZE}",
+    "optim.optimizer=sgd", "optim.lr=0.012", "optim.wd=4e-5",
+    "optim.warmup_epochs=2", "optim.epochs=100", "mixup=0.8",
+    "print_freq=1"]
+# (tower, S, heads, head_dim, causal): the visual tower at 16 frames, the
+# text tower
+FT_SHAPES = [("visual", 3137, 12, 64, False), ("text", 77, 8, 64, True)]
+# the data-fed runs: 2 steps of the train split, the test split in one
+# validation batch (MIR) or one batch of 2 views a clip (CLS)
+EK_TRAIN_CLIPS, EK_TEST_CLIPS, FT_VIEWS = 2 * FT_BATCH, FT_BATCH, 2
+
+
+def _ft_launches(model) -> dict:
+    """A CLIP's or a classifier's launches a train step: the visual tower
+    at its tokens, and the text tower."""
+    v = model.visual
+    towers = [(v.transformer, 1 + (v.positional_embedding.shape[0] - 1)
+               * v.temporal_embedding.shape[0])]
+    if hasattr(model, "textual"):
+        towers.append((model.textual.transformer,
+                       model.textual.positional_embedding.shape[0]))
+    return _step_launches(towers)
+
+
+def _cls_batches(n: int, batch: int) -> list:
+    """Seeded uint8 clips and action labels."""
+    out = []
+    for seed in range(n):
+        rng = np.random.default_rng(200 + seed)
+        out.append({"video": rng.integers(0, 256, (batch, FT_FRAMES, SIZE,
+                                                   SIZE, 3), dtype=np.uint8),
+                    "label": rng.integers(0, FT_CLASSES, batch)})
+    return out
+
+
+def _mir_loss(model, b: dict) -> torch.Tensor:
+    from avion_tpu_torch.losses.losses import max_margin_ranking_loss
+    from avion_tpu_torch.train.steps import prep_video
+
+    out = model(prep_video(b["video"], dtype=model.dtype), b["text"].long())
+    return max_margin_ranking_loss(out["image_embed"],
+                                   out["text_embed"])["loss"]
+
+
+def _cls_loss(model, b: dict) -> torch.Tensor:
+    from avion_tpu_torch.losses.losses import softmax_cross_entropy
+    from avion_tpu_torch.train.steps import prep_video
+
+    return softmax_cross_entropy(
+        model(prep_video(b["video"], dtype=model.dtype)), b["label"].long(),
+        0.1)
+
+
+def _ft_seeded(tmp: str, name: str, label: str) -> dict:
+    """(b) MIR / (c) CLS: the recipe at batch FT_BATCH through the entry's
+    ``build_model_and_state`` and ``train.loop``: FT_STEPS steps over 3
+    seeded batches, a profiled step, a batch-FT_REF_BATCH step against the
+    CPU in f32, and an exact resume into a model built from another
+    seed."""
+    from avion_tpu_torch.optim.factory import apply_batch_lr_scale
+    from avion_tpu_torch.train import finetune_cls, finetune_mir
+    from avion_tpu_torch.train.loop import save_epoch, setup_run
+    from avion_tpu_torch.train.steps import (make_cls_train_step,
+                                             make_mir_finetune_step)
+    from avion_tpu_torch.train.videomae_finetune import make_mixup
+
+    out_dir = os.path.join(tmp, f"ft_{name}")
+    mir = name == "mir"
+    recipe = FT_MIR_RECIPE if mir else FT_CLS_RECIPE
+
+    def build(cfg):
+        if mir:
+            model, opt, _ = finetune_mir.build_model_and_state(cfg, FT_STEPS)
+            return model, opt, make_mir_finetune_step(model,
+                                                      seed=cfg.seed + 1)
+        apply_batch_lr_scale(cfg.optim, FT_BATCH, default_base=128)
+        model, opt, _ = finetune_cls.build_model_and_state(cfg, FT_CLASSES,
+                                                           FT_STEPS)
+        return model, opt, make_cls_train_step(
+            model, label_smoothing=cfg.smoothing,
+            mixup_fn=make_mixup(cfg, FT_CLASSES), seed=cfg.seed + 1)
+
+    cfg = _train_config(out_dir, recipe=recipe)
+    t0 = time.perf_counter()
+    model, opt, step_fn = build(cfg)
+    run = setup_run(cfg, model, opt, step_fn)
+    batches = (_train_batches(3, FT_BATCH, FT_FRAMES) if mir
+               else _cls_batches(3, FT_BATCH))
+    log(f"== {label}: {MODEL}, {FT_FRAMES} frames, batch {FT_BATCH}, "
+        f"{FT_STEPS} steps, {cfg.optim.optimizer} lr {cfg.optim.lr:.3e} wd "
+        f"{cfg.optim.wd}" + ("" if mir else f", mixup {cfg.mixup}, "
+                                            f"{FT_CLASSES} classes")
+        + f"; ready in {time.perf_counter() - t0:.1f} s")
+    res = _timed_epoch(run, [batches[i % 3] for i in range(FT_STEPS)])
+    report = _report_run(label, res, FT_BATCH, FT_STEPS, _ft_launches(model),
+                         _model_flops(model, FT_BATCH))
+    report["launches"] = res["launches"]
+    report["profile"] = profile_step(run, _to_device(batches[0]))
+    cpu = (finetune_mir.build_model(cfg, torch.float32) if mir else
+           finetune_cls.build_classifier(cfg, FT_CLASSES, torch.float32))
+    t0 = time.perf_counter()
+    _reference_grads(model, cpu.to_empty(device="cpu"),
+                     {k: v[:FT_REF_BATCH] for k, v in batches[1].items()},
+                     _mir_loss if mir else _cls_loss,
+                     f"{label}: reference step at batch {FT_REF_BATCH}")
+    log(f"{label}: the CPU reference took {time.perf_counter() - t0:.1f} s")
+    del cpu
+    save_epoch(run, 0, {})
+    saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    saved_opt = opt.state_dict()
+    step = run.state.step
+    del run, model, opt, step_fn
+    torch.cuda.empty_cache()
+    cfg2 = _train_config(out_dir, "seed=1", recipe=recipe)
+    model2, opt2, step2 = build(cfg2)
+    run2 = setup_run(cfg2, model2, opt2, step2)
+    same = run2.state.step == step and _same_state(run2.state, saved,
+                                                   saved_opt)
+    log(f"{label}: resume at step {step} into a model built from another "
+        f"seed: step, parameters and {opt2.name} state bit for bit: {same}")
+    if not same:
+        raise RuntimeError(f"{label}: resume did not restore the state")
+    del run2, model2, opt2, saved, saved_opt
+    torch.cuda.empty_cache()
+    return report
+
+
+def _ft_optimizers(tmp: str) -> dict:
+    """(e) Lion, and AdamW with a cosine weight decay to ``wd_end``: the CLS
+    recipe's classifier, FT_SHORT_STEPS seeded steps each at batch
+    FT_OPT_BATCH, every step applied, finite, the parameters moved; the
+    decayed groups hold the scheduled decay of the last update."""
+    from avion_tpu_torch.optim.factory import build_wd_schedule
+    from avion_tpu_torch.train import finetune_cls
+    from avion_tpu_torch.train.loop import setup_run
+    from avion_tpu_torch.train.steps import make_cls_train_step
+
+    batches = [{k: v[:FT_OPT_BATCH] for k, v in b.items()}
+               for b in _cls_batches(FT_SHORT_STEPS, FT_OPT_BATCH)]
+    paths = {}
+    for name, extra in (("lion", ["optim.optimizer=lion", "optim.lr=1e-5",
+                                  "optim.wd=0.5", "optim.betas=0.9,0.99"]),
+                        ("adamw_wd_end", ["optim.optimizer=adamw",
+                                          "optim.lr=1e-4", "optim.wd=0.05",
+                                          "optim.wd_end=0.2"])):
+        cfg = _train_config(os.path.join(tmp, f"ft_{name}"), *extra,
+                            "optim.warmup_epochs=0", "optim.epochs=1",
+                            "mixup=0", recipe=FT_CLS_RECIPE)
+        model, opt, _ = finetune_cls.build_model_and_state(
+            cfg, FT_CLASSES, FT_SHORT_STEPS)
+        before = [p.detach().clone() for p in model.parameters()]
+        run = setup_run(cfg, model, opt, make_cls_train_step(model))
+        res = _timed_epoch(run, batches)
+        losses = [m["loss"] for m in res["metrics"]]
+        oks = [m["step_ok"] for m in res["metrics"]]
+        moved = sum(not torch.equal(a, p)
+                    for a, p in zip(before, model.parameters()))
+        wds = sorted({g["weight_decay"] for g in opt.inner.param_groups
+                      if g["decays"]})
+        wd_schedule = build_wd_schedule(cfg.optim, FT_SHORT_STEPS)
+        want_wd = [wd_schedule(FT_SHORT_STEPS - 1) if wd_schedule
+                   else cfg.optim.wd]
+        log(f"(e) {name}: losses {losses}, step_ok {oks}, {moved} of "
+            f"{len(before)} parameters moved, decayed groups' wd {wds} "
+            f"(want {want_wd}), launches {res['launches']}")
+        if (not np.isfinite(losses).all() or oks != [1.0] * FT_SHORT_STEPS
+                or moved != len(before) or wds != want_wd):
+            raise RuntimeError(f"(e) {name}: the optimizer did not apply")
+        paths[f"finetune_{name}"] = res["launches"]
+        del run, model, opt, before
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _ft_data(tmp: str, ckpt: str) -> dict:
+    """(d) ``finetune_mir.main`` and ``finetune_cls.main`` (SGD, mixup) on a
+    synthetic EK100 layout from the serve phase's random reference-layout
+    checkpoint: FT_SHORT_STEPS steps each, then the MIR validation
+    (``avg_map``, ``is_best``) or the CLS multi-view test (``acc1``, verb
+    and noun top-1), with their launches; p50 step and data wait, decode
+    ms a clip."""
+    from avion_tpu_torch.core.config import TrainConfig
+    from avion_tpu_torch.train import finetune_cls, finetune_mir
+
+    t0 = time.perf_counter()
+    fx = write_ek100_fixture(os.path.join(tmp, "ek100_ft"),
+                             train_clips=EK_TRAIN_CLIPS,
+                             test_clips=EK_TEST_CLIPS)
+    log(f"== (d) EK100 layout: {EK_TRAIN_CLIPS} train and {EK_TEST_CLIPS} "
+        f"test windows over 4 videos of 2 chunks at {DATA_W}x{DATA_H}, "
+        f"{DATA_FPS} fps (mp4v), written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    common = [f"data.root={fx['root']}", f"data.train_metadata={fx['train']}",
+              f"data.val_metadata={fx['test']}",
+              f"data.chunk_len={DATA_CHUNK_S}",
+              f"data.val_batch_size={FT_BATCH}",
+              f"data.num_workers={min(8, os.cpu_count() or 1)}",
+              "optim.epochs=1", "eval_freq=1", f"pretrain_model={ckpt}"]
+    runs = {
+        "mir": (finetune_mir, [*FT_MIR_RECIPE, *common,
+                               f"data.relevancy_path={fx['relevancy']}"]),
+        "cls": (finetune_cls, [*FT_CLS_RECIPE, *common,
+                               f"data.label_map={fx['actions']}",
+                               f"data.num_clips={FT_VIEWS}"])}
+    ds, _ = finetune_mir.build_loader(finetune_mir.env_defaults(
+        TrainConfig().apply_overrides(runs["mir"][1])))
+    ds[0]
+    t0 = time.perf_counter()
+    for i in range(1, 9):
+        ds[i % len(ds)]
+    decode_ms = (time.perf_counter() - t0) / 8 * 1e3
+    log(f"(d) one EK100 MIR training item ({FT_FRAMES} frames, rrc crop, "
+        f"relevancy-sampled caption) in one process: {decode_ms:.3f} ms")
+    report = {"decode_ms_a_clip": decode_ms}
+    for name, (entry, args) in runs.items():
+        out = os.path.join(tmp, f"ft_{name}_data")
+        args = [*args, f"output_dir={out}"]
+        torch.cuda.synchronize()
+        fa.reset_launches()  # this entry's path, training and validation
+        t0 = time.perf_counter()
+        res = entry.main(args)
+        torch.cuda.synchronize()
+        launches, wall = dict(fa.launches), time.perf_counter() - t0
+        cfg = entry.env_defaults(TrainConfig().apply_overrides(args))
+        if name == "mir":
+            model = finetune_mir.build_model(cfg)
+            forwards = 2 * -(-EK_TEST_CLIPS // FT_BATCH)  # video and text
+            keys = ("avg_map", "avg_ndcg")
+        else:
+            model = finetune_cls.build_classifier(cfg, 100)
+            forwards = -(-EK_TEST_CLIPS // FT_BATCH)
+            keys = ("acc1", "verb_acc1", "noun_acc1")
+        want = {k: v * FT_SHORT_STEPS for k, v in _ft_launches(model).items()}
+        want["flash_fwd"] = LAYERS * forwards
+        recs = [r for r in _train_log(out) if "train/loss" in r]
+        step_ms = [r["perf/batch_time_win"] * 1e3 for r in recs]
+        data_ms = [r["perf/data_time_win"] * 1e3 for r in recs]
+        metrics = res["eval"].get(0, {})
+        with open(os.path.join(out, "ckpt", str(res["step"]),
+                               "extra.json")) as f:
+            extra = json.load(f)
+        log(f"(d) {name} main: {res['steps']} steps, losses "
+            f"{[r['train/loss'] for r in recs]}, step ms "
+            f"{[round(x, 3) for x in step_ms]}, data wait ms "
+            f"{[round(x, 3) for x in data_ms]}, validation {metrics}, "
+            f"is_best {extra['is_best']}, launches {launches} (expected "
+            f"{want}), wall {wall:.2f} s")
+        if (res["steps"] != FT_SHORT_STEPS
+                or not all(np.isfinite(r["train/loss"]) for r in recs)
+                or not all(np.isfinite(metrics.get(k, np.nan))
+                           for k in keys) or not extra["is_best"]):
+            raise RuntimeError(f"(d) the data-fed {name} finetune failed")
+        if launches != want:
+            raise RuntimeError(f"(d) {name}: launches {launches}, expected "
+                               f"{want}")
+        report[name] = {"p50_ms": float(np.median(step_ms)),
+                        "p50_data_ms": float(np.median(data_ms)),
+                        "wall_s": wall, "launches": launches,
+                        "validation": {k: metrics[k] for k in keys}}
+    return report
+
+
+def phase_finetune(tmp: str, ckpt: str) -> dict:
+    """The CLIP finetune slice's paths at full width, 16 frames: (a) the
+    kernels at its shapes; (b) seeded MIR finetuning and (c) seeded CLS
+    finetuning through the entries' builders and ``train.loop``; (d) both
+    entries' ``main`` on decoded EK100 video with their validation; (e)
+    Lion and AdamW with ``wd_end``.  Returns the kernel rows and every
+    path's launches."""
+    t_phase = time.perf_counter()
+    log(f"== finetune (a): kernels at the finetune shapes, errors at batch "
+        f"{FT_CHECK_BATCH}, times at batch {FT_BATCH}")
+    rows = _slice_kernel_rows(FT_SHAPES, FT_CHECK_BATCH, FT_BATCH, 11,
+                              "the finetune shapes")
+    mir = _ft_seeded(tmp, "mir", "(b) seeded MIR finetune")
+    cls = _ft_seeded(tmp, "cls", "(c) seeded CLS finetune")
+    data = _ft_data(tmp, ckpt)
+    paths = _ft_optimizers(tmp)
+    summary = {"mir_seeded": {k: v for k, v in mir.items()
+                              if k != "launches"},
+               "cls_seeded": {k: v for k, v in cls.items()
+                              if k != "launches"},
+               "data": {k: ({kk: vv for kk, vv in v.items()
+                             if kk != "launches"}
+                            if isinstance(v, dict) else v)
+                        for k, v in data.items()}}
+    log(f"finetune summary {json.dumps(summary)}")
+    log(f"finetune phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "paths": {
+        "finetune_mir_seeded": mir["launches"],
+        "finetune_cls_seeded": cls["launches"],
+        "finetune_mir_data_with_validation": data["mir"]["launches"],
+        "finetune_cls_data_with_test": data["cls"]["launches"], **paths}}
+
+
 KERNEL_SOURCES = {
     "flash_fwd": ("flash_fwd.cu", 134), "flash_fwd_lse": ("flash_fwd.cu", 91),
     "flash_bwd_combined": ("flash_bwd.cu", 494),
@@ -2567,20 +2970,22 @@ def main() -> int:
         evals = phase_eval(tmp, data["fixture"],
                            os.path.join(tmp, "clip_vitb16_random.pt"))
         vmae = phase_videomae(tmp)
+        ft = phase_finetune(tmp, os.path.join(tmp, "clip_vitb16_random.pt"))
     # each kernel's launches from the path that drives it: serving, the
-    # data-fed 4-frame main path (run A), and the 16-frame path for the
-    # split kernels; every path's counts beside them
+    # data-fed 4-frame main path (run A), and the data-fed MIR finetune at
+    # 16 frames for the split kernels; every path's counts beside them
+    mir = ft["paths"]["finetune_mir_data_with_validation"]
     launches = {"flash_fwd": serve, **data["host_crop"],
-                "flash_bwd_dq": long["flash_bwd_dq"],
-                "flash_bwd_dkv": long["flash_bwd_dkv"]}
+                "flash_bwd_dq": mir["flash_bwd_dq"],
+                "flash_bwd_dkv": mir["flash_bwd_dkv"]}
     by_path = {"serve": {"flash_fwd": serve}, "train_seeded_batches": train,
                "train_16_frames": long, "data_host_crop": data["host_crop"],
                "data_device_crop": data["device_crop"],
                "eval": evals["eval"], "data_with_eval": evals["with_eval"],
-               **vmae["paths"]}
+               **vmae["paths"], **ft["paths"]}
     rows["flash_fwd"] += evals["checks"]
-    for name, extra in vmae["rows"].items():
-        rows[name] += extra
+    for name in rows:
+        rows[name] += vmae["rows"][name] + ft["rows"][name]
     kernels = []
     for name, (source, line) in KERNEL_SOURCES.items():
         head = rows[name][0]

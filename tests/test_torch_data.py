@@ -29,6 +29,7 @@ from avion_tpu_torch.data import sampling as psampling
 from avion_tpu_torch.data import shards as pshards
 from avion_tpu_torch.data import transforms as ptf
 from avion_tpu_torch.data import video_reader as pvr
+from torch_native_decode import native_decode_lib, use_native  # noqa: F401
 
 FPS = 10
 CHUNK = 2  # seconds per chunk file
@@ -77,25 +78,14 @@ def _force_cv2(mp):
 
 @pytest.fixture(params=["native", "cv2"])
 def backend(request, monkeypatch):
-    """The same decode backend on both sides: ``native`` where the native
-    library is built and both packages load it, else ``cv2``.  These tests
-    never build the library (the JAX package's tests do, and a load that
-    meets another process's build half-written raises ``OSError``), and
-    the JAX reader's cached load state is put back afterwards."""
+    """The same decode backend on both sides: ``native`` loads the
+    session's own build of the library in both packages
+    (``torch_native_decode``), ``cv2`` disables it in both; each reader's
+    state is put back afterwards."""
     if request.param == "cv2":
         _force_cv2(monkeypatch)
         return "cv2"
-    monkeypatch.setattr(jvr, "_lib", jvr._lib)
-    monkeypatch.setattr(jvr, "_lib_tried", jvr._lib_tried)
-    pvr._native_lib.cache_clear()
-    if not os.path.exists(pvr.LIB_PATH):
-        pytest.skip("the native decode library is not built")
-    try:
-        both = jvr.native_available() and pvr.native_available()
-    except OSError as e:  # half-written by a concurrent build
-        pytest.skip(f"the native decode library did not load: {e}")
-    if not both:
-        pytest.skip("the native decode library is not available")
+    use_native(monkeypatch, request, jvr, pvr)
     return "native"
 
 

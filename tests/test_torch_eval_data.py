@@ -4,7 +4,6 @@
 temporal views, 1 or 3 crops) and every ``VideoCaptionMCQDataset`` item is
 pixel-equal to JAX's, with the same decode backend on both sides."""
 
-import os
 import os.path as osp
 import sys
 
@@ -19,6 +18,7 @@ from avion_tpu.train.finetune_cls import load_actions as jax_load_actions
 from avion_tpu_torch.data import datasets as pds
 from avion_tpu_torch.data import video_reader as pvr
 from avion_tpu_torch.train.finetune_cls import load_actions
+from torch_native_decode import native_decode_lib, use_native  # noqa: F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 if ROOT not in sys.path:
@@ -41,24 +41,16 @@ def layout(tmp_path_factory):
 
 @pytest.fixture(params=["native", "cv2"])
 def backend(request, monkeypatch):
-    """The same decode backend on both sides (``native`` only where the
-    library is built and both packages load it)."""
+    """The same decode backend on both sides: ``native`` loads the
+    session's own build of the library in both packages
+    (``torch_native_decode``), ``cv2`` disables it in both; each reader's
+    state is put back afterwards."""
     if request.param == "cv2":
         monkeypatch.setattr(jvr, "_lib", None)
         monkeypatch.setattr(jvr, "_lib_tried", True)
         monkeypatch.setattr(pvr, "_native_lib", lambda: None)
         return "cv2"
-    monkeypatch.setattr(jvr, "_lib", jvr._lib)
-    monkeypatch.setattr(jvr, "_lib_tried", jvr._lib_tried)
-    pvr._native_lib.cache_clear()
-    if not os.path.exists(pvr.LIB_PATH):
-        pytest.skip("the native decode library is not built")
-    try:
-        both = jvr.native_available() and pvr.native_available()
-    except OSError as e:  # half-written by a concurrent build
-        pytest.skip(f"the native decode library did not load: {e}")
-    if not both:
-        pytest.skip("the native decode library is not available")
+    use_native(monkeypatch, request, jvr, pvr)
     return "native"
 
 

@@ -58,7 +58,8 @@ def test_port_imports_nothing_of_jax():
                 "train.finetune_cls", "tools.embed_videos",
                 "models.videomae", "data.rand_augment",
                 "train.augment_device", "train.videomae_pretrain",
-                "train.videomae_finetune"):
+                "train.videomae_finetune", "train.finetune_mir",
+                "models.clip", "models.vit"):
         assert f"avion_tpu_torch.{mod}" in modules
     script = _SCRIPT.format(blocked=BLOCKED, modules=modules, root=ROOT)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

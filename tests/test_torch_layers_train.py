@@ -107,7 +107,7 @@ def test_registry_refuses_later_slices():
     with pytest.raises(NotImplementedError):
         create_model("CLIP_TINY", moe_experts=4)
     with pytest.raises(ValueError):
-        create_model("CLIP_TINY", pooling="gap")
+        create_model("CLIP_TINY", pooling="bogus")
     with pytest.raises(ValueError):
         create_model("CLIP_TINY", input_norm="bogus")
 

@@ -95,7 +95,7 @@ def test_non_finite_loss_skips_the_update(jax_setup):
     state, _ = step(state, _torch_batch(_batch()))  # moments exist
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
     moments = {id(p): {k: v.clone() for k, v in s.items()}
-               for p, s in state.optimizer.adamw.state.items()}
+               for p, s in state.optimizer.inner.state.items()}
     bad = _batch()
     bad["video"][:] = np.nan
     state, metrics = step(state, _torch_batch(bad))
@@ -104,7 +104,7 @@ def test_non_finite_loss_skips_the_update(jax_setup):
     assert state.step == 2 and state.optimizer.count == 1
     for k, v in state.model.state_dict().items():
         assert torch.equal(v, before[k]), k
-    for p, s in state.optimizer.adamw.state.items():
+    for p, s in state.optimizer.inner.state.items():
         for k, v in s.items():
             assert torch.equal(v, moments[id(p)][k]), k
     state, metrics = step(state, _torch_batch(_batch(seed=2)))

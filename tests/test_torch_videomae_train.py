@@ -164,7 +164,7 @@ def test_non_finite_step_keeps_params_moments_count_and_ema():
                             "label": label})
     before = {k: v.clone() for k, v in state.state_dict()["model"].items()}
     ema = {k: v.clone() for k, v in state.ema.items()}
-    moments = [s["exp_avg"].clone() for s in opt.adamw.state.values()]
+    moments = [s["exp_avg"].clone() for s in opt.inner.state.values()]
     bad = torch.full((4, 4, 32, 32, 3), float("nan"))
     state, metrics = step(state, {"video": bad, "label": label})
     assert metrics["step_ok"] == 0.0 and state.step == 2 and opt.count == 1
@@ -172,7 +172,7 @@ def test_non_finite_step_keeps_params_moments_count_and_ema():
         assert torch.equal(v, before[k]), k
     for k, v in state.ema.items():
         assert torch.equal(v, ema[k]), k
-    for m, s in zip(moments, opt.adamw.state.values()):
+    for m, s in zip(moments, opt.inner.state.values()):
         assert torch.equal(m, s["exp_avg"])
 
 
