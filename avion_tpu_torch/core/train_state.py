@@ -2,9 +2,14 @@
 the model (its parameters) and the optimizer (its moments and its own
 update count), and with ``use_ema`` an exponential moving average of the
 parameters (``ema``, by parameter name, f32).  The step advances on every
-step, the optimizer's count and the average only on updates applied; a
-skipped step (non-finite loss) advances the first alone, as in the JAX
-package."""
+step, the optimizer's count only on updates applied and the average on
+every step with a finite loss (under ``update_freq`` also on the calls
+that only accumulate, as the JAX classification step averages after every
+call); a skipped step (non-finite loss) advances the first alone, as in
+the JAX package.  The optimizer's state dict holds its moments in their
+stored dtype (bf16 under ``state_dtype=bfloat16``) and, under
+``update_freq``, the accumulated mean gradient and its call count, so a
+resume is exact."""
 
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Training losses (``avion_tpu.losses.losses``): softmax cross-entropy
 with label smoothing, cross-entropy against soft targets (mixup / cutmix),
 the symmetric InfoNCE ``clip_loss`` over one device's batch (logits in f32),
-EK100-MIR's max-margin ranking loss and VideoMAE's normalized-pixel MSE.
-SigLIP and the gathered global batch of several devices wait for later
-slices."""
+SigLIP's sigmoid loss, EK100-MIR's max-margin ranking loss and VideoMAE's
+normalized-pixel MSE.  The gathered global batch of several devices and
+SigLIP's ring over them wait for the parallel slice."""
 
 from __future__ import annotations
 
@@ -34,6 +34,41 @@ def clip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
     pred = logits.detach().argmax(dim=-1)
     acc = 100.0 * (pred == labels).float().mean()
     return {"loss": loss, "clip_acc": acc}
+
+
+def siglip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
+                logit_scale: torch.Tensor, logit_bias: torch.Tensor) -> dict:
+    """Sigmoid contrastive loss (SigLIP, arXiv:2303.15343) in f32: every
+    (image, text) pair is a binary classification, ``-sum(logsigmoid(z *
+    (s i t^T + b))) / B`` with ``z`` +1 on the diagonal and -1 off it;
+    embeddings L2-normalized.  Returns ``{"loss", "clip_acc"}`` (argmax
+    accuracy in percent, no gradient)."""
+    img, txt = image_embed.float(), text_embed.float()
+    b = img.shape[0]
+    logits = logit_scale * img @ txt.T + logit_bias
+    z = 2.0 * torch.eye(b, device=logits.device) - 1.0
+    loss = -F.logsigmoid(z * logits).sum() / b
+    pred = logits.detach().argmax(dim=-1)
+    acc = 100.0 * (pred == torch.arange(b, device=logits.device)).float(
+    ).mean()
+    return {"loss": loss, "clip_acc": acc}
+
+
+def siglip_loss_chunked(image_embed: torch.Tensor, text_embed: torch.Tensor,
+                        logit_scale: torch.Tensor,
+                        logit_bias: torch.Tensor) -> dict:
+    """SigLIP blockwise around the ring of processes that share the batch
+    (``avion_tpu.losses.siglip_loss_chunked``).  With one process it is
+    :func:`siglip_loss`, as the JAX wrapper falls back when no batch axis
+    is sharded; the ring comes with the parallel slice, and a process group
+    of more than one raises until then."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "SigLIP's ring over several processes comes with the parallel "
+            "slice (ROADMAP.md Queue 1, item 7)")
+    return siglip_loss(image_embed, text_embed, logit_scale, logit_bias)
 
 
 def max_margin_ranking_loss(image_embed: torch.Tensor,

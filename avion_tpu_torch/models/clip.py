@@ -5,6 +5,8 @@ L2-normalized embeddings (in f32) and the learnable ``logit_scale``.  The
 training forward returns ``{"image_embed", "text_embed", "logit_scale"}``
 with ``exp(logit_scale)``, whose gradient is blocked under
 ``freeze_temperature``; the clamp of the scale lives in the train step.
+With ``use_logit_bias`` (SigLIP's head) it also returns the learnable f32
+scalar ``logit_bias``, initialised to ``logit_bias_init``.
 With pooling ``none`` the visual tower's tokens are normalized without the
 projection, as the JAX tower returns them before its ``proj``.
 
@@ -20,8 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from avion_tpu_torch.models.layers import (LayerNorm, gelu, lecun_normal_,
-                                           quick_gelu)
+from avion_tpu_torch.models.layers import (LayerNorm, LayerScale, gelu,
+                                           lecun_normal_, quick_gelu)
 from avion_tpu_torch.models.text import TextTransformer
 from avion_tpu_torch.models.vit import PatchEmbed, VisionTransformer
 
@@ -37,7 +39,9 @@ class CLIP(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  patch_dropout: float = 0.0, remat: bool = False,
                  remat_policy: str = "save_attn", input_norm: str = "none",
-                 freeze_temperature: bool = False, pooling: str = "cls"):
+                 freeze_temperature: bool = False, pooling: str = "cls",
+                 use_logit_bias: bool = False,
+                 logit_bias_init: float = -10.0):
         super().__init__()
         act = quick_gelu if use_quick_gelu else gelu
         self.dtype = dtype
@@ -61,6 +65,9 @@ class CLIP(nn.Module):
             torch.randn(text_width, embed_dim) * text_width ** -0.5)
         self.logit_scale = nn.Parameter(
             torch.tensor(math.log(1.0 / temperature_init)))
+        self.logit_bias_init = logit_bias_init
+        self.logit_bias = (nn.Parameter(torch.tensor(float(logit_bias_init)))
+                           if use_logit_bias else None)
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None
@@ -70,8 +77,10 @@ class CLIP(nn.Module):
         with zero biases, LayerNorm ones and zeros, the visual embeddings
         and both projections normal(width ** -0.5), the token embedding
         normal(text_width ** -0.5), the text positions normal(0.01), the
-        temporal table zeros and ``logit_scale`` log(1 / temperature_init).
-        The parameters must be on ``generator``'s device."""
+        temporal table zeros, LayerScale's ``gamma`` its initial value,
+        ``logit_scale`` log(1 / temperature_init) and ``logit_bias``
+        ``logit_bias_init``.  The parameters must be on ``generator``'s
+        device."""
         _init_modules_(self, generator)
         _init_visual_tables_(self.visual, generator)
         vw = self.visual.class_embedding.shape[0]
@@ -81,6 +90,8 @@ class CLIP(nn.Module):
         self.text_projection.normal_(
             0.0, self.text_projection.shape[0] ** -0.5, generator=generator)
         self.logit_scale.fill_(math.log(1.0 / self.temperature_init))
+        if self.logit_bias is not None:
+            self.logit_bias.fill_(self.logit_bias_init)
         return self
 
     def encode_image(self, image: torch.Tensor, deterministic: bool = True,
@@ -105,17 +116,19 @@ class CLIP(nn.Module):
         if self.freeze_temperature:
             # keep the (possibly loaded) value, block its gradient
             scale = scale.detach()
-        return {"image_embed": self.encode_image(image, deterministic,
-                                                 generator),
-                "text_embed": self.encode_text(text),
-                "logit_scale": scale}
+        out = {"image_embed": self.encode_image(image, deterministic,
+                                                generator),
+               "text_embed": self.encode_text(text), "logit_scale": scale}
+        if self.logit_bias is not None:
+            out["logit_bias"] = self.logit_bias
+        return out
 
 
 def _init_modules_(module: nn.Module,
                    generator: Optional[torch.Generator]) -> None:
     """Dense and patchify kernels lecun-normal (truncated) with zero
-    biases, LayerNorm ones and zeros, token embeddings normal(width **
-    -0.5), in module order."""
+    biases, LayerNorm ones and zeros, LayerScale its initial value, token
+    embeddings normal(width ** -0.5), in module order."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             lecun_normal_(m.weight, m.in_features, generator)
@@ -125,6 +138,8 @@ def _init_modules_(module: nn.Module,
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, LayerScale):
+            m.gamma.fill_(m.init_value)
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, m.embedding_dim ** -0.5,
                              generator=generator)

@@ -16,8 +16,10 @@ policies (``full``, ``save_attn``, ``save_attn_kN``) with PyTorch's
 selective activation checkpointing.  DropPath's per-sample keep masks
 are drawn for every layer before the blocks run (:meth:`Transformer.
 draw_drop_path`) and passed in as tensors, so a rematerialized block sees
-the same mask in its recompute.  LayerScale (no registry configuration
-sets it), MoE and sequence parallelism are not ported yet.
+the same mask in its recompute.  LayerScale (``ls_init_value``; no registry
+configuration sets it) scales each residual branch before its DropPath and
+is recomputed with the rest of the block.  MoE and sequence parallelism are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -135,27 +137,48 @@ def drop_path(y: torch.Tensor, keep: Optional[torch.Tensor],
     return torch.where(keep[:, None, None], y / (1.0 - rate), 0.0).to(y.dtype)
 
 
+class LayerScale(nn.Module):
+    """``x * gamma`` (``avion_tpu.models.layers.LayerScale``): an f32
+    ``gamma`` [width] initialised to ``init_value``, cast to ``x``'s dtype
+    at use."""
+
+    def __init__(self, width: int, init_value: float):
+        super().__init__()
+        self.init_value = float(init_value)
+        self.gamma = nn.Parameter(torch.full((width,), self.init_value))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma.to(x.dtype)
+
+
 class Block(nn.Module):
     """Pre-LN residual attention block; ``drop_path`` is the rate of both
-    residual branches."""
+    residual branches; with ``ls_init_value`` each branch is scaled by a
+    :class:`LayerScale` (``ls_1``, ``ls_2``) before its DropPath."""
 
     def __init__(self, width: int, heads: int, act=gelu,
                  dtype: torch.dtype = torch.bfloat16, causal: bool = False,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0,
+                 ls_init_value: Optional[float] = None):
         super().__init__()
         self.ln_1 = LayerNorm(width, dtype)
         self.attn = SelfAttention(width, heads, causal)
         self.ln_2 = LayerNorm(width, dtype)
         self.mlp = Mlp(width, act)
         self.drop_path = drop_path
+        self.ls_1, self.ls_2 = (
+            (LayerScale(width, ls_init_value), LayerScale(width, ls_init_value))
+            if ls_init_value is not None else (nn.Identity(), nn.Identity()))
 
     def forward(self, x: torch.Tensor,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``keep``: None, or [2, B] bool, the keep masks of the attention
         and MLP branches."""
         k1, k2 = (None, None) if keep is None else keep
-        x = x + drop_path(self.attn(self.ln_1(x)), k1, self.drop_path)
-        return x + drop_path(self.mlp(self.ln_2(x)), k2, self.drop_path)
+        x = x + drop_path(self.ls_1(self.attn(self.ln_1(x))), k1,
+                          self.drop_path)
+        return x + drop_path(self.ls_2(self.mlp(self.ln_2(x))), k2,
+                             self.drop_path)
 
 
 def saved_attn_layers(remat_policy: str, layers: int) -> int:
@@ -189,13 +212,14 @@ class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, act=gelu,
                  dtype: torch.dtype = torch.bfloat16, causal: bool = False,
                  remat: bool = False, remat_policy: str = "save_attn",
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0,
+                 ls_init_value: Optional[float] = None):
         super().__init__()
         # layer i drops at rate * i / (layers - 1), as the JAX stack
         self.drop_rates = [drop_path_rate * i / max(1, layers - 1)
                            for i in range(layers)]
         self.resblocks = nn.ModuleList(
-            Block(width, heads, act, dtype, causal, rate)
+            Block(width, heads, act, dtype, causal, rate, ls_init_value)
             for rate in self.drop_rates)
         self.remat = remat
         self.save_k = saved_attn_layers(remat_policy, layers) if remat else 0

@@ -4,8 +4,9 @@
 The port's state-dict keys ARE the reference layout that
 ``avion_tpu.tools.convert_checkpoint.export_clip_to_pt`` writes
 (``visual.conv1.weight`` as ``[width, C, p, p]``, ``attn.Wqkv``,
-``attn.out_proj``, ``mlp.fc1`` / ``mlp.fc2``, top-level
-``image_projection`` / ``text_projection`` / ``logit_scale``), so
+``attn.out_proj``, ``mlp.fc1`` / ``mlp.fc2``, LayerScale's
+``ls_1.gamma`` / ``ls_2.gamma``, top-level ``image_projection`` /
+``text_projection`` / ``logit_scale`` and SigLIP's ``logit_bias``), so
 :func:`import_clip_pt` only has to normalize the other layouts onto it:
 
 - AVION checkpoints ``{state_dict: {'module.'...}}`` with flash-attn
@@ -93,8 +94,10 @@ _BLOCK_RE = re.compile(r"^(visual\.|textual\.|)transformer\.resblocks\.\d+\.")
 def import_clip_pt(path_or_state, num_frames: int = 16,
                    context_length: int = 77,
                    vocab_size: int = 49408) -> Dict[str, torch.Tensor]:
-    """A ``.pt`` file (or its state dict) -> the port's CLIP state dict.
-    Raises, naming what the file holds, when it has no visual block
+    """A ``.pt`` file (or its state dict) -> the port's CLIP state dict,
+    every block the file holds, at its widths and patch size (the model's
+    registry entry sets the heads), with ``logit_bias`` where the file has
+    one.  Raises, naming what the file holds, when it has no visual block
     (``visual.transformer.resblocks.N.*``)."""
     state = (load_pt_state_dict(path_or_state)
              if isinstance(path_or_state, str) else dict(path_or_state))
@@ -144,6 +147,8 @@ def import_clip_pt(path_or_state, num_frames: int = 16,
             out["text_projection"] = state[k]
             break
     out["logit_scale"] = state["logit_scale"].reshape(())
+    if "logit_bias" in state:
+        out["logit_bias"] = state["logit_bias"].reshape(())
     return out
 
 
@@ -171,6 +176,9 @@ def _raw(x) -> torch.Tensor:
 
 def _block_param(pre: str, tail, val, sd: Dict[str, torch.Tensor]) -> None:
     """One flax block leaf (``tail`` below ``resblocks_i``) into ``sd``."""
+    if tail[0] in ("ls_1", "ls_2"):
+        sd[f"{pre}.{tail[0]}.gamma"] = _raw(val)
+        return
     if tail[0] in ("ln_1", "ln_2"):
         which = "weight" if tail[-1] == "scale" else "bias"
         sd[f"{pre}.{tail[0]}.{which}"] = _raw(val)
@@ -205,17 +213,20 @@ def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     ``export_clip_to_pt`` writes: dense kernels [in, out] become weights
     [out, in], the patchify kernel [(p p C), width] becomes conv1
     [width, C, p, p] (VideoMAE's tube embed stays a dense weight); the
-    classifier's ``vision`` tower becomes ``visual``."""
+    classifier's ``vision`` tower becomes ``visual``.  Every leaf is
+    carried (``logit_scale``, ``logit_bias``, LayerScale's ``gamma``); one
+    it does not know raises ``KeyError``."""
     sd: Dict[str, torch.Tensor] = {}
     for key, val in _flatten(flax_params).items():
         parts = key.split("/")
         if parts[0] in _VIDEOMAE_TOP:
             _videomae_param(parts, val, sd)
             continue
-        if parts[0] not in ("visual", "textual", "vision"):
-            if key == "logit_scale":
-                sd["logit_scale"] = _raw(val).reshape(())
+        if key in ("logit_scale", "logit_bias"):
+            sd[key] = _raw(val).reshape(())
             continue
+        if parts[0] not in ("visual", "textual", "vision"):
+            raise KeyError(f"unknown parameter {key!r}")
         base = "visual" if parts[0] == "vision" else parts[0]
         rest = parts[1:]
         if rest[0] == "conv1":

@@ -5,7 +5,7 @@ factory keyword arguments.  The VideoMAE factories, as the JAX ones, take
 and ignore keywords they have no use for.  ``use_flash_attn`` is accepted and ignored: attention
 always goes through ``ops.flash_attention``, which runs the CUDA kernels
 for CUDA tensors.  Machinery of later slices (sequence parallelism, MoE,
-pipelining, the SigLIP logit bias) raises when it is asked for.
+pipelining) raises when it is asked for.
 ``CLIP.init_weights`` draws the flax initializers' distributions; the
 constructors' own draws are placeholders.
 """
@@ -40,14 +40,14 @@ def create_model(name: str, **kwargs):
     return _REGISTRY[name](**kwargs)
 
 
-_LATER = {"sequence_parallel": False, "moe_experts": 0, "pipeline": False,
-          "use_logit_bias": False}
+_LATER = {"sequence_parallel": False, "moe_experts": 0, "pipeline": False}
 
 
 def _training_kwargs(pooling: str = "cls", use_grad_checkpointing=False,
                      remat_policy: str = "save_attn",
                      patch_dropout: float = 0.0, input_norm: str = "none",
                      freeze_temperature: bool = False,
+                     use_logit_bias: bool = False,
                      use_flash_attn: bool = True,
                      pipeline_microbatches: int = 8, **later) -> dict:
     """The CLIP keywords the train entry passes, checked (the visual
@@ -61,7 +61,8 @@ def _training_kwargs(pooling: str = "cls", use_grad_checkpointing=False,
                 f"{key}={value!r} is not in the PyTorch port yet")
     return dict(remat=bool(use_grad_checkpointing), remat_policy=remat_policy,
                 patch_dropout=patch_dropout, input_norm=input_norm,
-                freeze_temperature=freeze_temperature, pooling=pooling)
+                freeze_temperature=freeze_temperature, pooling=pooling,
+                use_logit_bias=use_logit_bias)
 
 
 def _clip_factory(*, patch_size, vision_width, vision_layers, vision_heads,
@@ -90,6 +91,19 @@ register_model("CLIP_VITB16")(
 register_model("CLIP_VITB16_H128")(
     _clip_factory(patch_size=16, vision_width=768, vision_layers=12,
                   vision_heads=6))
+register_model("CLIP_VITL14")(
+    _clip_factory(patch_size=14, vision_width=1024, vision_layers=24,
+                  vision_heads=16, text_width=768, text_heads=12,
+                  text_layers=12))
+# same widths and parameters as CLIP_VITL14, 8 heads of dim 128
+register_model("CLIP_VITL14_H128")(
+    _clip_factory(patch_size=14, vision_width=1024, vision_layers=24,
+                  vision_heads=8, text_width=768, text_heads=12,
+                  text_layers=12))
+register_model("CLIP_VITL14_336PX")(
+    _clip_factory(patch_size=14, vision_width=1024, vision_layers=24,
+                  vision_heads=16, image_size=336, text_width=768,
+                  text_heads=12, text_layers=12))
 
 
 @register_model("CLIP_TINY")

@@ -9,6 +9,8 @@
 - ``input_norm`` (``openai`` / ``imagenet``): a uint8 clip is normalized
   inside the stem, which under ``remat`` is recomputed in the backward, so
   the only copy of the video kept for it is the uint8 batch itself.
+- ``ls_init_value`` gives every block LayerScale (``layers.LayerScale``);
+  it defaults to None, and CLIP does not pass it, as in the JAX package.
 - Factorized positional embeddings: spatial (per patch, shared across
   frames) + temporal (per frame, shared across patches).
 - A CLS token (``class_embedding + positional_embedding[0]``, added in
@@ -68,7 +70,8 @@ class VisionTransformer(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  patch_dropout: float = 0.0, remat: bool = False,
                  remat_policy: str = "save_attn", input_norm: str = "none",
-                 pooling: str = "cls", drop_path_rate: float = 0.0):
+                 pooling: str = "cls", drop_path_rate: float = 0.0,
+                 ls_init_value: Optional[float] = None):
         super().__init__()
         if input_norm not in INPUT_NORMS:
             raise ValueError(f"input_norm must be none|openai|imagenet, "
@@ -92,7 +95,8 @@ class VisionTransformer(nn.Module):
         self.transformer = Transformer(width, layers, heads, act, dtype,
                                        causal=False, remat=remat,
                                        remat_policy=remat_policy,
-                                       drop_path_rate=drop_path_rate)
+                                       drop_path_rate=drop_path_rate,
+                                       ls_init_value=ls_init_value)
         self.ln_post = LayerNorm(width, dtype)
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:

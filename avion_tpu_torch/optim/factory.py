@@ -5,14 +5,12 @@ core is AdamW, SGD with momentum or Lion.
 - Weight decay follows ``wd_mask``: parameters with two or more dimensions
   whose name holds none of ``_NO_WD_TOKENS`` decay, the rest do not; they
   become the core's parameter groups.
-  - AdamW: ``torch.optim.AdamW`` and ``optax.adamw`` both decay as
-    ``lr * wd * p``, decoupled from the moments, and add eps outside the
-    square root.
+  - AdamW (``optax.adamw``): decays as ``lr * wd * p``, decoupled from
+    the moments, and adds eps outside the square root.
   - SGD: optax adds ``wd * p`` to the gradient before ``sgd``'s momentum
-    trace (no dampening, no Nesterov), which is ``torch.optim.SGD``'s
-    coupled ``weight_decay``.
-  - Lion (``optax.lion``; PyTorch has none): ``u = sign(b1 m + (1 - b1)
-    g)``, ``m <- b2 m + (1 - b2) g``, ``p <- p - lr (u + wd p)``.
+    trace (no dampening, no Nesterov).
+  - Lion (``optax.lion``): ``u = sign(b1 m + (1 - b1) g)``, ``m <- b2 m +
+    (1 - b2) g``, ``p <- p - lr (u + wd p)``.
   - ``wd_end``: the decay follows a cosine from ``wd`` to ``wd_end`` over
     the whole run, no warmup, at the optimizer's update count; it is set on
     each decayed group before every update, for all three cores.
@@ -28,8 +26,14 @@ core is AdamW, SGD with momentum or Lion.
   weight decay or not) whose learning rate is the schedule times that
   scale.
 
-bf16 state and ``update_freq`` wait for the contrastive-extras slice
-(``ROADMAP.md`` Queue 1, item 6) and raise when asked for.
+- ``state_dtype=bfloat16`` stores the float moments in bf16 between
+  updates and computes each update in f32 (``cast_opt_state``); the
+  cores are written out (``torch.optim.AdamW`` with bf16 state would
+  compute in bf16).
+- ``update_freq`` > 1 with ``accum=multistep`` (``optax.MultiSteps``):
+  gradients are averaged over ``update_freq`` calls and the clip, the
+  schedule and the core act once, on the mean; the running mean and the
+  calls since the last update are part of the state dict.
 """
 
 from __future__ import annotations
@@ -99,73 +103,148 @@ def build_wd_schedule(cfg, niter_per_ep: int
     return cosine_schedule(cfg.wd, cfg.wd_end, cfg.epochs, niter_per_ep)
 
 
-class Lion(torch.optim.Optimizer):
-    """``optax.lion``'s update, with the decay inside the learning rate's
-    scale: ``u = sign(b1 m + (1 - b1) g)`` (0 where that is 0), ``m <- b2 m
-    + (1 - b2) g``, ``p <- p - lr (u + weight_decay p)``.  The moment
-    ``exp_avg`` starts at 0."""
+class _Core(torch.optim.Optimizer):
+    """An optax core written out with ``torch._foreach_*`` over each group,
+    in f32.  Its float moments (``MOMENTS``) are stored in ``state_dtype``
+    between updates, as ``cast_opt_state`` holds them: an update up-casts
+    them, takes the parameter update from the new f32 moments, and only
+    then stores those rounded back (with f32 state the moments are updated
+    in place).  A group's ``lr``, ``weight_decay`` and ``count`` (the core's
+    update count, from 1) are set by :class:`Optimizer`."""
 
-    def __init__(self, params, lr: float = 1e-4,
-                 betas: Tuple[float, float] = (0.9, 0.99),
-                 weight_decay: float = 0.0):
-        super().__init__(params, dict(lr=lr, betas=tuple(betas),
-                                      weight_decay=weight_decay))
+    MOMENTS: Tuple[str, ...] = ()
+
+    def __init__(self, groups, state_dtype: torch.dtype, **defaults):
+        super().__init__(groups, defaults)
+        self.state_dtype = state_dtype
+
+    def _update(self, group, params, grads, *moments) -> None:
+        raise NotImplementedError
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        # torch casts loaded float state to each parameter's dtype; the
+        # moments go back to state_dtype (exact for saved bf16 values)
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            for name in self.MOMENTS:
+                if name in state:
+                    state[name] = state[name].to(self.state_dtype)
 
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
-            b1, b2 = group["betas"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                g = p.grad
-                state = self.state[p]
-                if not state:
-                    state["exp_avg"] = torch.zeros_like(p)
-                m = state["exp_avg"]
-                u = torch.sign((1.0 - b1) * g + b1 * m)
-                m.copy_((1.0 - b2) * g + b2 * m)
-                if group["weight_decay"]:
-                    u = u + group["weight_decay"] * p
-                p.sub_(group["lr"] * u)
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            stored = []
+            for name in self.MOMENTS:
+                for p in params:
+                    if name not in self.state[p]:
+                        self.state[p][name] = torch.zeros_like(
+                            p, dtype=self.state_dtype)
+                stored.append([self.state[p][name] for p in params])
+            work = [[m.float() for m in ms] for ms in stored]
+            self._update(group, params, [p.grad for p in params], *work)
+            if self.state_dtype != torch.float32:
+                for ms, new in zip(stored, work):
+                    torch._foreach_copy_(ms, new)
+
+
+class AdamW(_Core):
+    """``optax.adamw``: ``m <- b1 m + (1 - b1) g``, ``v <- b2 v + (1 - b2)
+    g^2``, ``u = (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps)``, ``p <- p
+    - lr (u + weight_decay p)``."""
+
+    MOMENTS = ("exp_avg", "exp_avg_sq")
+
+    def _update(self, group, params, grads, m, v):
+        b1, b2 = group["betas"]
+        t = group["count"]
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
+        denom = torch._foreach_div(v, 1.0 - b2 ** t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, group["eps"])
+        u = torch._foreach_div(m, 1.0 - b1 ** t)
+        torch._foreach_div_(u, denom)
+        del denom
+        if group["weight_decay"]:
+            torch._foreach_add_(u, params, alpha=group["weight_decay"])
+        torch._foreach_add_(params, u, alpha=-group["lr"])
+
+
+class SGD(_Core):
+    """optax's ``add_decayed_weights`` then ``sgd`` with momentum:
+    ``b <- momentum b + (g + weight_decay p)``, ``p <- p - lr b`` (no
+    dampening, no Nesterov)."""
+
+    MOMENTS = ("momentum_buffer",)
+
+    def _update(self, group, params, grads, buf):
+        if group["weight_decay"]:
+            grads = torch._foreach_add(grads, params,
+                                       alpha=group["weight_decay"])
+        torch._foreach_mul_(buf, group["momentum"])
+        torch._foreach_add_(buf, grads)
+        torch._foreach_add_(params, buf, alpha=-group["lr"])
+
+
+class Lion(_Core):
+    """``optax.lion``'s update, with the decay inside the learning rate's
+    scale: ``u = sign(b1 m + (1 - b1) g)`` (0 where that is 0), ``m <- b2 m
+    + (1 - b2) g``, ``p <- p - lr (u + weight_decay p)``."""
+
+    MOMENTS = ("exp_avg",)
+
+    def _update(self, group, params, grads, m):
+        b1, b2 = group["betas"]
+        u = torch._foreach_mul(grads, 1.0 - b1)
+        torch._foreach_add_(u, m, alpha=b1)
+        torch._foreach_sign_(u)
+        torch._foreach_mul_(m, b2)
+        torch._foreach_add_(m, grads, alpha=1.0 - b2)
+        if group["weight_decay"]:
+            torch._foreach_add_(u, params, alpha=group["weight_decay"])
+        torch._foreach_add_(params, u, alpha=-group["lr"])
+
+
+STATE_DTYPES = {"": torch.float32, "float32": torch.float32,
+                "bfloat16": torch.bfloat16}
+ACCUM_MODES = ("multistep", "cached")
 
 
 def _core(name: str, groups: list, cfg, lr: float) -> torch.optim.Optimizer:
+    if cfg.state_dtype not in STATE_DTYPES:
+        raise ValueError(f"state_dtype must be one of "
+                         f"{sorted(STATE_DTYPES)}, got {cfg.state_dtype!r}")
+    dtype = STATE_DTYPES[cfg.state_dtype]
     if name == "adamw":
-        return torch.optim.AdamW(groups, lr=lr, betas=tuple(cfg.betas),
-                                 eps=cfg.eps)
+        return AdamW(groups, dtype, lr=lr, betas=tuple(cfg.betas),
+                     eps=cfg.eps)
     if name == "sgd":
-        return torch.optim.SGD(groups, lr=lr, momentum=cfg.momentum)
+        return SGD(groups, dtype, lr=lr, momentum=cfg.momentum)
     if name == "lion":
-        return Lion(groups, lr=lr, betas=tuple(cfg.betas))
+        return Lion(groups, dtype, lr=lr, betas=tuple(cfg.betas))
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-
-
-def _unported(cfg) -> List[str]:
-    asked = []
-    if cfg.state_dtype not in ("", "float32"):
-        asked.append(f"state_dtype={cfg.state_dtype!r}")
-    if cfg.update_freq > 1:
-        asked.append(f"update_freq={cfg.update_freq}")
-    return asked
 
 
 class Optimizer:
     """Clip, schedule and the core (``cfg.optimizer``: AdamW, SGD or Lion)
     over named parameters; with ``wd_schedule`` the decay of the decayed
     groups follows it; with ``cfg.layer_decay`` and ``num_layers``,
-    layer-wise learning rates."""
+    layer-wise learning rates; with ``cfg.update_freq`` > 1 and
+    ``cfg.accum`` ``multistep``, one update every ``update_freq`` calls
+    (``optax.MultiSteps``)."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg,
                  schedule: Callable[[int], float],
                  num_layers: Optional[int] = None,
                  wd_schedule: Optional[Callable[[int], float]] = None):
-        asked = _unported(cfg)
-        if asked:
-            raise NotImplementedError(
-                "not in the PyTorch port yet: " + ", ".join(asked)
-                + " (the contrastive-extras slice, ROADMAP.md Queue 1, "
-                  "item 6)")
+        if cfg.accum not in ACCUM_MODES:
+            raise ValueError(f"accum must be one of {ACCUM_MODES}, got "
+                             f"{cfg.accum!r}")
         groups: Dict[Tuple[float, bool], List[torch.Tensor]] = {}
         for name, p in named_params:
             if p.requires_grad:
@@ -190,6 +269,14 @@ class Optimizer:
               "decays": decays, "lr_scale": scale}
              for (scale, decays), ps in groups.items()],
             cfg, schedule(0))
+        # optax.MultiSteps: the running mean of the gradients of the calls
+        # since the last update; the cached accumulation of the CLIP step
+        # accumulates inside the step instead
+        self.every = (cfg.update_freq if cfg.update_freq > 1
+                      and cfg.accum == "multistep" else 1)
+        self.mini_step = 0
+        self.acc = ([torch.zeros_like(p) for p in self.params]
+                    if self.every > 1 else None)
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
@@ -203,10 +290,36 @@ class Optimizer:
         return torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
 
+    def _accumulate(self) -> bool:
+        """Fold this call's gradients into the running mean (``acc + (g -
+        acc) / (n + 1)``, optax's, a missing gradient counting as zero).
+        On the ``every``-th call the mean becomes every parameter's
+        gradient, and True says to apply it (:meth:`update` then resets
+        the mean)."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        diff = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(diff, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc, diff)
+        del diff, grads
+        if self.mini_step < self.every - 1:
+            self.mini_step += 1
+            return False
+        for p, a in zip(self.params, self.acc):
+            p.grad = a
+        return True
+
     def update(self, grad_norm: Optional[torch.Tensor] = None) -> None:
         """Clip (given the gradients' ``global_norm``), set the scheduled
-        learning rate (and weight decay), step the core, advance the
-        count."""
+        learning rate (and weight decay) and the core's count, step the
+        core, advance the count.  Under ``update_freq`` the gradients are
+        accumulated first, and all of that happens only on every
+        ``update_freq``-th call, to their mean (the clip acts on the mean,
+        so ``grad_norm`` is not used)."""
+        if self.every > 1:
+            if not self._accumulate():
+                return
+            grad_norm = None
         if self.grad_clip_norm:
             if grad_norm is None:
                 grad_norm = self.global_norm()
@@ -217,18 +330,32 @@ class Optimizer:
               else None)
         for group in self.inner.param_groups:
             group["lr"] = lr * group["lr_scale"]
+            group["count"] = self.count + 1
             if wd is not None and group["decays"]:
                 group["weight_decay"] = wd
         self.inner.step()
         self.count += 1
+        if self.every > 1:
+            self.zero_grad()  # the gradients are the mean's storage
+            torch._foreach_zero_(self.acc)
+            self.mini_step = 0
 
     def state_dict(self) -> dict:
-        """``{<optimizer name>: the core's state dict, "count": ...}``."""
-        return {self.name: self.inner.state_dict(), "count": self.count}
+        """``{<optimizer name>: the core's state dict, "count": ...}``, and
+        under ``update_freq`` the calls since the last update
+        (``mini_step``) and their mean gradient (``acc``)."""
+        out = {self.name: self.inner.state_dict(), "count": self.count}
+        if self.acc is not None:
+            out.update(mini_step=self.mini_step, acc=self.acc)
+        return out
 
     def load_state_dict(self, state: dict) -> None:
         self.inner.load_state_dict(state[self.name])
         self.count = int(state["count"])
+        if self.acc is not None:
+            self.mini_step = int(state["mini_step"])
+            for a, saved in zip(self.acc, state["acc"]):
+                a.copy_(saved)
 
 
 def build_optimizer(cfg, model: torch.nn.Module, niter_per_ep: int,

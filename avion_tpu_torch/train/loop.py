@@ -7,7 +7,10 @@ raises until the parallel slice.  The JAX package's resume semantics are
 kept: a mid-epoch preemption checkpoint records the batches consumed, a
 resumed epoch skips them (rounded down to a whole echo group under data
 echoing), and the preemption save waits for an echo-group boundary so
-the optimizer's update count matches the resume point exactly.
+the optimizer's update count matches the resume point exactly.  With
+``optim.update_freq`` > 1 and ``optim.accum=cached`` every batch reaches
+the step microbatch-major (:func:`microbatch_major`), as the cached
+accumulation step takes it.
 """
 
 from __future__ import annotations
@@ -53,6 +56,19 @@ def _one_device(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             f"mesh {wide}: the PyTorch port trains on one device until the "
             f"parallel slice")
+
+
+def microbatch_major(batch: Dict[str, torch.Tensor],
+                     micro: int) -> Dict[str, torch.Tensor]:
+    """Every entry [B, ...] viewed as [micro, B / micro, ...]; a batch
+    that does not divide by ``micro`` raises."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % micro:
+            raise ValueError(f"batch {v.shape[0]} ({k!r}) does not divide "
+                             f"by update_freq {micro}")
+        out[k] = v.view(micro, v.shape[0] // micro, *v.shape[1:])
+    return out
 
 
 def setup_run(cfg: TrainConfig, model: torch.nn.Module, optimizer,
@@ -107,8 +123,10 @@ def train_one_epoch(run: Run, loader, epoch: int) -> Dict[str, float]:
         print(f"[resume] skipping {skipped} consumed steps "
               f"({loader.skip_batches} batches)")
 
-    it = echo_batches(iter(device_prefetch(loader, run.device, depth=2)),
-                      echo)
+    it = iter(device_prefetch(loader, run.device, depth=2))
+    if cfg.optim.update_freq > 1 and cfg.optim.accum == "cached":
+        it = (microbatch_major(b, cfg.optim.update_freq) for b in it)
+    it = echo_batches(it, echo)
     msum, mcount = None, 0
     i = -1
     while True:

@@ -9,14 +9,29 @@ Usage::
         model.name=CLIP_VITB16 data.clip_length=4 data.batch_size=256 \
         data.root=$ROOT data.train_metadata=$TRAIN_METADATA [--device cpu]
 
+ViT-L/14 at the reference's global batch of 896 on one card, through
+cached gradient accumulation (8 microbatches of 112) and bf16 optimizer
+state::
+
+    python -m avion_tpu_torch.train.pretrain_clip \
+        model.name=CLIP_VITL14 data.clip_length=4 data.batch_size=896 \
+        optim.update_freq=8 optim.accum=cached optim.state_dtype=bfloat16 \
+        model.use_grad_checkpointing=true data.root=$ROOT \
+        data.train_metadata=$TRAIN_METADATA
+
 It runs on CUDA unless ``--device cpu`` is given.  Dataset paths fall back
 to the environment variables the reference reads (ROOT, ROOT_VAL,
 TRAIN_METADATA, VAL_METADATA, RELEVANCY_PATH).  The configured zero-shot
 suites (``eval.validate``) run before the first epoch and every
 ``eval_freq`` epochs, on a bf16 copy of the model, and
 ``test_ek100_mir_avg_map`` picks the best checkpoint when that suite runs.
-One device; SigLIP and gradient accumulation raise until the slices that
-bring them.
+``loss=siglip`` trains the sigmoid loss and switches on the model's
+``use_logit_bias``.  ``optim.update_freq`` > 1 accumulates: with
+``optim.accum=cached`` ``data.batch_size`` is the whole contrastive batch,
+cut into ``update_freq`` microbatches (``steps.
+make_clip_accum_train_step``); with ``multistep`` each batch is its own
+contrastive batch and the optimizer averages ``update_freq`` of them.
+One device.
 """
 
 from __future__ import annotations
@@ -38,7 +53,8 @@ from avion_tpu_torch.optim.factory import build_optimizer
 from avion_tpu_torch.parallel.launch import device_from_argv, setup_host
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
-from avion_tpu_torch.train.steps import make_clip_train_step
+from avion_tpu_torch.train.steps import (make_clip_accum_train_step,
+                                         make_clip_train_step)
 
 
 def env_defaults(cfg: TrainConfig) -> TrainConfig:
@@ -146,14 +162,23 @@ def build_loaders(cfg: TrainConfig):
     return train_ds, train_loader
 
 
-def _check_ported(cfg: TrainConfig) -> None:
-    """Raise on what the JAX entry does and this one cannot yet."""
-    if cfg.loss == "siglip":
-        raise NotImplementedError(
-            "loss=siglip comes with the contrastive-extras slice")
-    if cfg.optim.update_freq > 1:
-        raise NotImplementedError(
-            "optim.update_freq > 1 comes with the contrastive-extras slice")
+def make_step(cfg: TrainConfig, model: torch.nn.Module):
+    """The entry's train step, chosen as the JAX entry chooses it: the
+    cached accumulation step when ``optim.update_freq`` > 1 and
+    ``optim.accum=cached``, else the one-shot step.  Patch dropout draws
+    from (``seed + 1``, step), as the JAX entry's step key."""
+    common = dict(label_smoothing=cfg.label_smoothing,
+                  crop_size=cfg.data.crop_size, seed=cfg.seed + 1,
+                  loss_type=cfg.loss, siglip_chunked=cfg.siglip_chunked)
+    if cfg.optim.update_freq > 1 and cfg.optim.accum == "cached":
+        if cfg.data.batch_size % cfg.optim.update_freq:
+            raise ValueError(
+                f"cached accumulation needs data.batch_size "
+                f"({cfg.data.batch_size}) to divide by optim.update_freq "
+                f"({cfg.optim.update_freq})")
+        return make_clip_accum_train_step(model, cfg.optim.update_freq,
+                                          **common)
+    return make_clip_train_step(model, **common)
 
 
 def main(argv=None) -> dict:
@@ -165,7 +190,9 @@ def main(argv=None) -> dict:
     argv, device = device_from_argv(
         argv if argv is not None else sys.argv[1:])
     cfg = env_defaults(TrainConfig().apply_overrides(argv))
-    _check_ported(cfg)
+    if cfg.loss == "siglip":
+        # the sigmoid loss learns the pairwise bias (arXiv:2303.15343)
+        cfg.model.use_logit_bias = True
     os.makedirs(cfg.output_dir, exist_ok=True)
     cfg.save(os.path.join(cfg.output_dir, "config.json"))
     setup_host(cfg.seed)
@@ -177,11 +204,7 @@ def main(argv=None) -> dict:
     # the true step count)
     niter = max(1, len(train_loader)) * max(1, cfg.data.echo_factor)
     model, optimizer, _ = build_model_and_state(cfg, niter, device=device)
-    # patch dropout draws from (seed + 1, step), as the JAX entry's step key
-    step_fn = make_clip_train_step(model, label_smoothing=cfg.label_smoothing,
-                                   crop_size=cfg.data.crop_size,
-                                   seed=cfg.seed + 1)
-    run = setup_run(cfg, model, optimizer, step_fn)
+    run = setup_run(cfg, model, optimizer, make_step(cfg, model))
     start_step = run.state.step
     best, epochs, evals = -1.0, [], {}
     try:

@@ -1,4 +1,5 @@
-"""The train steps (``avion_tpu.train.steps``): CLIP's (loss ``"clip"``),
+"""The train steps (``avion_tpu.train.steps``): CLIP's (loss ``"clip"`` or
+``"siglip"``), CLIP's cached gradient accumulation over microbatches,
 EK100-MIR's finetune step (max-margin ranking loss), VideoMAE's
 pretraining step and the classification finetune step: forward, loss,
 backward, gradient clip, the optimizer's update (CLIP's logit-scale clamp,
@@ -27,6 +28,7 @@ from avion_tpu_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD,
                                              normalize_video, tube_mask_device)
 from avion_tpu_torch.losses.losses import (clip_loss,
                                            max_margin_ranking_loss,
+                                           siglip_loss, siglip_loss_chunked,
                                            soft_target_cross_entropy,
                                            softmax_cross_entropy,
                                            videomae_loss)
@@ -86,9 +88,10 @@ def _apply_or_skip(state: TrainState, loss: torch.Tensor,
                    ema_decay: Optional[float] = None,
                    grad_norm: Optional[torch.Tensor] = None) -> bool:
     """The update after ``loss.backward()``: when the loss is finite (the
-    step's one host read), clip (by ``grad_norm`` when given), step the
-    optimizer and average the parameters into the EMA; else leave all of it.
-    ``state.step`` advances either way."""
+    step's one host read), hand the gradients to the optimizer (which
+    clips by ``grad_norm`` when given and updates, or under ``update_freq``
+    accumulates) and average the parameters into the EMA; else leave all
+    of it.  ``state.step`` advances either way."""
     ok = bool(torch.isfinite(loss))
     if ok:
         state.optimizer.update(grad_norm)
@@ -98,10 +101,42 @@ def _apply_or_skip(state: TrainState, loss: torch.Tensor,
     return ok
 
 
+def _contrastive_loss(model: torch.nn.Module, loss_type: str,
+                      label_smoothing: float, siglip_chunked: bool
+                      ) -> Callable:
+    """``loss(image_embed, text_embed, scale, bias) -> {"loss",
+    "clip_acc"}`` for ``loss_type`` ``clip`` or ``siglip`` (which needs a
+    model built with ``use_logit_bias``)."""
+    if loss_type == "clip":
+        return lambda zi, zt, scale, bias: clip_loss(zi, zt, scale,
+                                                     label_smoothing)
+    if loss_type != "siglip":
+        raise ValueError(f"unknown loss_type {loss_type!r}")
+    if getattr(model, "logit_bias", None) is None:
+        raise ValueError("loss_type 'siglip' needs a model built with "
+                         "use_logit_bias=True")
+    return siglip_loss_chunked if siglip_chunked else siglip_loss
+
+
+def _finish_clip_step(state: TrainState, metrics: dict) -> dict:
+    """After the backward: ``grad_norm``, the update or its skip, the
+    logit-scale clamp; ``metrics`` detached, with ``step_ok``."""
+    model, opt = state.model, state.optimizer
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["grad_norm"] = opt.global_norm()
+    ok = _apply_or_skip(state, metrics["loss"],
+                        grad_norm=metrics["grad_norm"])
+    if ok:
+        _clamp_logit_scale(model)
+    metrics["step_ok"] = float(ok)
+    return metrics
+
+
 def make_clip_train_step(model: torch.nn.Module,
                          label_smoothing: float = 0.0,
                          crop_size: Optional[int] = None,
-                         seed: int = 1) -> Callable:
+                         seed: int = 1, loss_type: str = "clip",
+                         siglip_chunked: bool = True) -> Callable:
     """Returns ``step(state, batch) -> (state, metrics)``.
     ``batch``: ``video`` [B, T, H, W, 3] (uint8 or normalized float) and
     ``text`` [B, L] token ids on the model's device (with ``crop`` /
@@ -109,11 +144,15 @@ def make_clip_train_step(model: torch.nn.Module,
     dropout draws from a generator on the model's device seeded from
     (``seed``, ``state.step``) (:func:`step_seed`); the entry passes
     ``cfg.seed + 1``, which the default is for the default seed 0.
-    Metrics: ``loss``, ``clip_acc``, ``logit_scale`` and ``grad_norm`` as
-    device tensors, ``step_ok`` as a float.  The update is the state's
-    optimizer's (the JAX package's step takes it as
-    ``tx``).  The loss is ``clip``; SigLIP waits for a later slice."""
+    ``loss_type``: ``clip`` (InfoNCE) or ``siglip`` (the model's
+    ``logit_bias`` learned; ``siglip_chunked`` takes the ring form, which
+    on one process is the dense loss).  Metrics: ``loss``, ``clip_acc``,
+    ``logit_scale`` and ``grad_norm`` as device tensors, ``step_ok`` as a
+    float.  The update is the state's optimizer's (the JAX package's step
+    takes it as ``tx``)."""
     dtype = getattr(model, "dtype", torch.bfloat16)
+    loss_fn = _contrastive_loss(model, loss_type, label_smoothing,
+                                siglip_chunked)
 
     def step(state: TrainState, batch):
         model, opt = state.model, state.optimizer
@@ -122,19 +161,88 @@ def make_clip_train_step(model: torch.nn.Module,
                            model=model, crop_size=crop_size)
         out = model(video, batch["text"].long(), deterministic=False,
                     generator=generator)
-        metrics = clip_loss(out["image_embed"], out["text_embed"],
-                            out["logit_scale"], label_smoothing)
-        metrics["logit_scale"] = out["logit_scale"].detach()
-        loss = metrics["loss"]
+        metrics = loss_fn(out["image_embed"], out["text_embed"],
+                          out["logit_scale"], out.get("logit_bias"))
+        metrics["logit_scale"] = out["logit_scale"]
         opt.zero_grad()
-        loss.backward()
-        metrics["grad_norm"] = opt.global_norm()
-        ok = _apply_or_skip(state, loss, grad_norm=metrics["grad_norm"])
-        if ok:
-            _clamp_logit_scale(model)
-        metrics["loss"] = loss.detach()
-        metrics["step_ok"] = float(ok)
-        return state, metrics
+        metrics["loss"].backward()
+        return state, _finish_clip_step(state, metrics)
+
+    return step
+
+
+def make_clip_accum_train_step(model: torch.nn.Module, update_freq: int,
+                               label_smoothing: float = 0.0,
+                               crop_size: Optional[int] = None,
+                               seed: int = 1, loss_type: str = "clip",
+                               siglip_chunked: bool = True) -> Callable:
+    """Cached gradient accumulation (``avion_tpu.train.steps.
+    make_clip_accum_train_step``): the contrastive loss of the whole batch
+    at one microbatch's activation memory, for one extra forward.
+    ``step(state, batch) -> (state, metrics)``; ``batch`` arrives
+    microbatch-major, each entry [M, B / M, ...] with M = ``update_freq``
+    (``train.loop`` reshapes it).
+
+    - Pass 1, without gradients (the inference attention kernel), caches
+      every microbatch's image and text embeddings, [B, E] each.
+    - Pass 2 re-encodes microbatch m with gradients (the forward with lse
+      and the backward), splices its rows into the cached matrices out of
+      place, takes the loss of the whole batch and calls ``backward()``;
+      each row is live in exactly one pass, so the gradient accumulated
+      over the M passes is the whole batch's.  The logit scale (and bias)
+      are live only at m = 0, else their gradient would be M times too
+      large.
+    - Microbatch m draws its patch dropout from a generator seeded from
+      (``seed``, ``state.step * M + m``) in both passes, so the live rows
+      reproduce the cached ones.
+    - Metrics (``loss``, ``clip_acc``, ``logit_scale``) are the mean over
+      the passes, ``grad_norm`` the norm of the accumulated gradient; one
+      update (or its skip) and one host read a call, as
+      :func:`make_clip_train_step`."""
+    micro = int(update_freq)
+    dtype = getattr(model, "dtype", torch.bfloat16)
+    loss_fn = _contrastive_loss(model, loss_type, label_smoothing,
+                                siglip_chunked)
+
+    def step(state: TrainState, batch):
+        model, opt = state.model, state.optimizer
+
+        def encode(m: int) -> dict:
+            mb = {k: v[m] for k, v in batch.items()}
+            video = prep_video(mb["video"], dtype=dtype, batch=mb,
+                               model=model, crop_size=crop_size)
+            return model(video, mb["text"].long(), deterministic=False,
+                         generator=_step_generator(
+                             model, seed, state.step * micro + m))
+
+        with torch.no_grad():
+            cached = [encode(m) for m in range(micro)]
+        zi = torch.cat([c["image_embed"] for c in cached])
+        zt = torch.cat([c["text_embed"] for c in cached])
+        del cached
+        rows = zi.shape[0] // micro
+        opt.zero_grad()
+        total = None
+        for m in range(micro):
+            out = encode(m)
+            live = slice(m * rows, (m + 1) * rows)
+            zi_m = torch.slice_scatter(zi, out["image_embed"].to(zi.dtype),
+                                       start=live.start, end=live.stop)
+            zt_m = torch.slice_scatter(zt, out["text_embed"].to(zt.dtype),
+                                       start=live.start, end=live.stop)
+            scale, bias = out["logit_scale"], out.get("logit_bias")
+            if m:
+                scale = scale.detach()
+                bias = None if bias is None else bias.detach()
+            metrics = loss_fn(zi_m, zt_m, scale, bias)
+            metrics["loss"].backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["logit_scale"] = out["logit_scale"].detach()
+            total = metrics if total is None else {
+                k: total[k] + v for k, v in metrics.items()}
+            del out, zi_m, zt_m
+        return state, _finish_clip_step(
+            state, {k: v / micro for k, v in total.items()})
 
     return step
 

@@ -2,9 +2,10 @@
 each against its plain version, serve full-width CLIP ViT-B/16 over HTTP
 through the port's normal entry point, train it for a few steps on seeded
 batches, then through the training entry on decoded video, evaluate it
-zero-shot on the five suites, pretrain and finetune VideoMAE ViT-B/16, and
+zero-shot on the five suites, pretrain and finetune VideoMAE ViT-B/16,
 finetune CLIP ViT-B/16 at 16 frames for EK100 retrieval and action
-classification.
+classification, and train CLIP ViT-L/14 at the global batch 896 through
+cached gradient accumulation, SigLIP and bf16 optimizer state.
 
     python3 chip_smoke.py
 
@@ -107,7 +108,28 @@ Phases (each raises on failure; the script then exits non-zero):
    steps and validate (MIR mAP and ``is_best``; the 2-view test's top-1 and
    verb / noun top-1, 12 ``flash_fwd`` a tower forward), with p50 step,
    data wait and decode ms a clip; (e) 2 seeded steps each of Lion and of
-   AdamW with a cosine weight decay to ``wd_end``.
+   AdamW with a cosine weight decay to ``wd_end``;
+11. contrastive, CLIP ViT-L/14 at 4 frames (1025 visual tokens): (a) every
+   kernel at the visual (1025, 16 x 64; split backward, a last tile of one
+   row), head_dim-128 (1025, 8 x 128) and causal text (77, 12 x 64)
+   shapes, and the forward at 336 px (2305 tokens), against its plain f32
+   version at batch 4 (phase 3's tolerances), timed at batch 112 beside
+   its bound and SDPA; (b) the recipe of
+   ``scripts/examples/pretrain_vitb_ego4d.sh`` with ``CLIP_VITL14`` at the
+   global batch 896 (``docs/TRAINING.md``) as 8 cached microbatches of
+   112 with bf16 AdamW state, through ``pretrain_clip.
+   build_model_and_state``, ``make_step`` and ``train.loop``: 3 seeded
+   steps (288 ``flash_fwd``, 288 forward-with-lse, 96 combined, 192 dq and
+   192 dkv launches a step), a profiled step, p50, clips/s, share of 989
+   TFLOP/s, peak memory; (c) 4 cached microbatches against one step at
+   batch 32 on the same weights (loss within 1e-3, gradient cosine >=
+   0.99) and pass 1's cached embeddings against pass 2's live ones; (d)
+   peak memory with f32 optimizer state; (e) 2 steps each of
+   ``CLIP_VITL14_H128`` (head_dim 128 launched), ``loss=siglip``
+   (``logit_bias`` learned) and ``accum=multistep`` with ``update_freq=2``
+   (one update); (f) ``pretrain_clip.main`` on the data phase's layout at
+   batch 224 as 2 cached microbatches with bf16 state, 2 steps, and its
+   checkpoint restored bit for bit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -2012,12 +2034,14 @@ VMAE_FT_BATCH, VMAE_FT_VAL_VIDEOS, VMAE_FT_VIEWS = 8, 8, (5, 3)
 
 
 def _slice_kernel_rows(shapes, check_batch: int, time_batch: int,
-                       seed: int, what: str) -> dict:
+                       seed: int, what: str,
+                       forward_only: bool = False) -> dict:
     """Every kernel at a slice's ``shapes`` ((tower, S, heads, head_dim,
     causal)): errors against the plain f32 version at ``check_batch``
     (phase 3's tolerances; the plain f32 scores at batch 128 and S 1568
     alone are 7.5 GB), the plain version's time there, and the kernel's,
-    its bound's and SDPA's at ``time_batch``.  Returns rows by kernel."""
+    its bound's and SDPA's at ``time_batch``; the forward kernels alone
+    with ``forward_only``.  Returns rows by kernel."""
     rows = {name: [] for name in fa.KERNELS}
     bad = []
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2054,14 +2078,18 @@ def _slice_kernel_rows(shapes, check_batch: int, time_batch: int,
         combined = fa.use_combined_bwd(s)
         names = (["flash_bwd_combined"] if combined
                  else ["flash_bwd_dq", "flash_bwd_dkv"])
-        got = launched(lambda: fa.flash_bwd(do, qkv, out, lse, h, s, causal,
-                                            scale), {n: 1 for n in names})
-        gref = fa.flash_bwd_plain(do.float(), qkv.float(), ref, lse_ref, h, s,
-                                  causal, scale)
-        errs = {sec: _errors(got[..., i * w:(i + 1) * w],
-                             gref[..., i * w:(i + 1) * w])
-                for i, sec in enumerate(("dq", "dk", "dv"))}
-        del ref, lse_ref, gref
+        errs = {}
+        if not forward_only:
+            got = launched(lambda: fa.flash_bwd(do, qkv, out, lse, h, s,
+                                                causal, scale),
+                           {n: 1 for n in names})
+            gref = fa.flash_bwd_plain(do.float(), qkv.float(), ref, lse_ref,
+                                      h, s, causal, scale)
+            errs = {sec: _errors(got[..., i * w:(i + 1) * w],
+                                 gref[..., i * w:(i + 1) * w])
+                    for i, sec in enumerate(("dq", "dk", "dv"))}
+            del got, gref
+        del ref, lse_ref
         check("flash_fwd", tower, max_abs_err=(err_i[0], TOL),
               rel_rms_err=(err_i[1], REL_TOL))
         check("flash_fwd_lse", tower, max_abs_err=(err_l[0], TOL),
@@ -2072,10 +2100,11 @@ def _slice_kernel_rows(shapes, check_batch: int, time_batch: int,
                 f"{sec}_max_abs_err": (err, TOL),
                 f"{sec}_rel_rms_err": (rel, BWD_REL_TOL)})
         plain = {"fwd": cuda_ms(lambda: fa.flash_fwd_lse_plain(
-            qkv, h, s, causal, scale), iters=3),
-            "bwd": cuda_ms(lambda: fa.flash_bwd_plain(
-                do, qkv, out, lse, h, s, causal, scale), iters=3)}
-        del qkv, do, out, lse, got
+            qkv, h, s, causal, scale), iters=3)}
+        if not forward_only:
+            plain["bwd"] = cuda_ms(lambda: fa.flash_bwd_plain(
+                do, qkv, out, lse, h, s, causal, scale), iters=3)
+        del qkv, do, out, lse
         # the full batch: times only
         bb = time_batch
         qkv = torch.randn(bb, s, 3 * w, generator=gen, device="cuda",
@@ -2093,8 +2122,6 @@ def _slice_kernel_rows(shapes, check_batch: int, time_batch: int,
 
         with torch.no_grad():
             sdpa_fwd = cuda_ms(sdpa)
-        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-            sdpa(), (q, k, v), do_h)) - sdpa_fwd
         base = {"tower": tower, "shape": [bb, s, h, d], "causal": causal,
                 "check_batch": b}
         for name, err, fn, nrows in (
@@ -2111,6 +2138,12 @@ def _slice_kernel_rows(shapes, check_batch: int, time_batch: int,
                                                      rows=nrows)
             rows[name].append(row)
             log(f"{name} " + json.dumps(row))
+        if forward_only:
+            del qkv, do, out, lse, q, k, v
+            torch.cuda.empty_cache()
+            continue
+        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+            sdpa(), (q, k, v), do_h)) - sdpa_fwd
         bwd = dict(base, max_abs_err=max(e[0] for e in errs.values()),
                    **{f"{sec}_max_abs_err": e[0] for sec, e in errs.items()},
                    **{f"{sec}_rel_rms_err": e[1] for sec, e in errs.items()},
@@ -2948,6 +2981,334 @@ def phase_finetune(tmp: str, ckpt: str) -> dict:
         "finetune_cls_data_with_test": data["cls"]["launches"], **paths}}
 
 
+# the contrastive-extras slice: CLIP ViT-L/14 at 4 frames (1025 visual
+# tokens), scripts/examples/pretrain_vitb_ego4d.sh with model.name=
+# CLIP_VITL14 at the reference's global batch 896 (docs/TRAINING.md:23,
+# 112 clips on each of 8 GPUs): on one card 8 cached microbatches of 112,
+# bf16 optimizer state
+CL_MODEL, CL_H128 = "CLIP_VITL14", "CLIP_VITL14_H128"
+CL_BATCH, CL_MICRO, CL_STEPS = 896, 8, 3
+CL_RECIPE = [*TRAIN_RECIPE, f"model.name={CL_MODEL}",
+             f"data.batch_size={CL_BATCH}", f"optim.update_freq={CL_MICRO}",
+             "optim.accum=cached", "optim.state_dtype=bfloat16"]
+# (tower, S, heads, head_dim, causal): the visual tower (split backward,
+# a last tile of one row), its head_dim-128 twin, the causal text tower;
+# the 336 px visual tower (2305 tokens) forward only
+CL_SHAPES = [("visual", 1025, 16, 64, False),
+             ("visual_h128", 1025, 8, 128, False),
+             ("text", 77, 12, 64, True)]
+CL_FWD_SHAPES = [("visual_336px", 2305, 16, 64, False)]
+CL_CHECK_BATCH, CL_TIME_BATCH = 4, 112
+# (c) cached against one shot; (e), (f) the options and the entry at two
+# microbatches of 112
+CL_ACCUM_BATCH, CL_ACCUM_MICRO = 32, 4
+CL_SHORT_BATCH, CL_SHORT_STEPS = 224, 2
+CL_LOSS_RTOL, CL_COSINE = 1e-3, 0.99
+
+
+def _accum_launches(model, micro: int) -> dict:
+    """A cached-accumulation step's launches: for each of ``micro``
+    microbatches, pass 1's inference forward in every attention layer of
+    both towers, and pass 2's forward with lse and backward."""
+    want = {k: v * micro for k, v in _ft_launches(model).items()}
+    want["flash_fwd"] = micro * (len(model.visual.transformer.resblocks)
+                                 + len(model.textual.transformer.resblocks))
+    return want
+
+
+def _cl_build(cfg, steps: int):
+    """The configured CLIP, its optimizer and step, as the entry builds
+    them."""
+    from avion_tpu_torch.train.pretrain_clip import (build_model_and_state,
+                                                     make_step)
+
+    model, opt, _ = build_model_and_state(cfg, steps)
+    return model, opt, make_step(cfg, model)
+
+
+def _moment_dtypes(opt) -> set:
+    return {v.dtype for s in opt.inner.state.values() for v in s.values()}
+
+
+def _cl_accum_check(tmp: str, model) -> dict:
+    """(c) ``update_freq=CL_ACCUM_MICRO`` cached against one step on the same
+    weights and batch, both bf16 through the kernels (an AdamW at lr 0 and
+    no clip keeps the weights and leaves each gradient in ``.grad``): loss
+    within CL_LOSS_RTOL, gradient cosine at least CL_COSINE; and pass 1's
+    cached embeddings (``flash_fwd``) against pass 2's live ones
+    (``flash_fwd_lse``) of one microbatch."""
+    from avion_tpu_torch.core.train_state import TrainState
+    from avion_tpu_torch.optim.factory import build_optimizer
+    from avion_tpu_torch.train.loop import microbatch_major
+    from avion_tpu_torch.train.pretrain_clip import make_step
+    from avion_tpu_torch.train.steps import prep_video, step_seed
+
+    batch = _to_device(_train_batches(1, CL_ACCUM_BATCH, FRAMES)[0])
+    results = {}
+    for name, micro in (("cached", CL_ACCUM_MICRO), ("one shot", 1)):
+        cfg = _train_config(os.path.join(tmp, "vitl_accum"),
+                            f"data.batch_size={CL_ACCUM_BATCH}",
+                            f"optim.update_freq={micro}", "optim.lr=0",
+                            "optim.fix_lr=true", "optim.grad_clip_norm=null",
+                            "optim.state_dtype=float32", recipe=CL_RECIPE)
+        opt, _ = build_optimizer(cfg.optim, model, 1)
+        state = TrainState.create(model, opt)
+        state, metrics = make_step(cfg, model)(
+            state, microbatch_major(batch, micro) if micro > 1 else batch)
+        torch.cuda.synchronize()
+        if metrics["step_ok"] != 1.0:
+            raise RuntimeError(f"(c) {name}: the step was not applied")
+        results[name] = (float(metrics["loss"]), {
+            n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None})
+        model.zero_grad(set_to_none=True)
+        del opt, state
+    (l_acc, g_acc), (l_one, g_one) = results["cached"], results["one shot"]
+    device = next(model.parameters()).device
+    dots = torch.zeros(3, dtype=torch.float64, device=device)
+    for n in g_one:
+        a, b = g_acc[n].double().reshape(-1), g_one[n].double().reshape(-1)
+        dots += torch.stack([a @ b, a @ a, b @ b])
+    ab, aa, bb = dots.tolist()
+    cos = ab / math.sqrt(aa * bb)
+    rel = abs(l_acc - l_one) / abs(l_one)
+    del results, g_acc, g_one
+
+    mb = {k: v[:CL_ACCUM_BATCH // CL_ACCUM_MICRO] for k, v in batch.items()}
+    video = prep_video(mb["video"], dtype=model.dtype, model=model)
+    embeds, launched = [], []
+    for grad in (False, True):
+        fa.reset_launches()
+        with torch.set_grad_enabled(grad):
+            out = model(video, mb["text"].long(), deterministic=False,
+                        generator=torch.Generator(device).manual_seed(
+                            step_seed(1, 0)))
+        torch.cuda.synchronize()
+        launched.append(dict(fa.launches))
+        embeds.append({k: out[k].detach() for k in ("image_embed",
+                                                   "text_embed")})
+        del out
+    diff = {k: (embeds[0][k] - embeds[1][k]).abs().max().item()
+            for k in embeds[0]}
+    log(f"(c) {CL_MODEL} at batch {CL_ACCUM_BATCH}: cached over "
+        f"{CL_ACCUM_MICRO} microbatches loss {l_acc:.6f}, one step "
+        f"{l_one:.6f}, relative difference {rel:.3e} (bound {CL_LOSS_RTOL}); "
+        f"gradient cosine {cos:.6f} (bound {CL_COSINE}); pass 1 (launches "
+        f"{launched[0]}) against pass 2 (launches {launched[1]}), largest "
+        f"embedding difference {diff}")
+    if not (rel <= CL_LOSS_RTOL and cos >= CL_COSINE):
+        raise RuntimeError("(c) cached accumulation disagrees with one step")
+    return {"loss_rel_diff": rel, "grad_cosine": cos,
+            "cached_vs_live_max_abs": diff}
+
+
+def _cl_seeded(tmp: str) -> dict:
+    """(b) the recipe at batch CL_BATCH through ``build_model_and_state``,
+    ``make_step`` and ``train.loop``: CL_STEPS steps on seeded batches and
+    a profiled step; (c) on its weights; (d) peak memory of the same steps
+    with f32 optimizer state against (b)'s bf16."""
+    from avion_tpu_torch.optim.factory import build_optimizer
+    from avion_tpu_torch.train.loop import microbatch_major, setup_run
+    from avion_tpu_torch.train.pretrain_clip import make_step
+
+    cfg = _train_config(os.path.join(tmp, "vitl"), recipe=CL_RECIPE)
+    t0 = time.perf_counter()
+    model, opt, step = _cl_build(cfg, CL_STEPS)
+    run = setup_run(cfg, model, opt, step)
+    batches = _train_batches(CL_STEPS, CL_BATCH, FRAMES)
+    log(f"== contrastive (b): {CL_MODEL}, {FRAMES} frames, batch {CL_BATCH} "
+        f"as {CL_MICRO} cached microbatches, bf16 AdamW state, remat; ready "
+        f"in {time.perf_counter() - t0:.1f} s")
+    res = _timed_epoch(run, batches)
+    report = _report_run(f"(b) {CL_MODEL} batch {CL_BATCH}", res, CL_BATCH,
+                         CL_STEPS, _accum_launches(model, CL_MICRO),
+                         _model_flops(model, CL_BATCH))
+    report["launches"] = res["launches"]
+    report["profile"] = profile_step(run, microbatch_major(
+        _to_device(batches[0]), CL_MICRO))
+    if _moment_dtypes(opt) != {torch.bfloat16}:
+        raise RuntimeError(f"(b) moments {_moment_dtypes(opt)}, not bf16")
+    del run, opt
+    torch.cuda.empty_cache()
+    report["accum"] = _cl_accum_check(tmp, model)
+    torch.cuda.empty_cache()
+
+    cfg32 = _train_config(os.path.join(tmp, "vitl_f32"),
+                          "optim.state_dtype=float32", recipe=CL_RECIPE)
+    opt32, _ = build_optimizer(cfg32.optim, model, CL_STEPS)
+    run = setup_run(cfg32, model, opt32, make_step(cfg32, model))
+    # (b)'s batches and steps, so that as many batches are in flight
+    res32 = _timed_epoch(run, batches)
+    report["peak_gib_f32_state"] = res32["peak"] / 2 ** 30
+    log(f"(d) peak memory allocated over {CL_STEPS} steps: f32 state "
+        f"{report['peak_gib_f32_state']:.3f} GiB, bf16 state "
+        f"{report['peak_gib']:.3f} GiB (moments {_moment_dtypes(opt32)} "
+        f"against bf16), step ms "
+        f"{[round(float(x), 3) for x in res32['step_ms']]}")
+    del run, opt32, model, batches
+    torch.cuda.empty_cache()
+    return report
+
+
+def _cl_options(tmp: str) -> dict:
+    """(e) CL_SHORT_STEPS steps each of ``CLIP_VITL14_H128`` (head_dim 128
+    launched), ``loss=siglip`` (``logit_bias`` learned) and
+    ``accum=multistep`` with ``update_freq=2`` (one update in two calls);
+    finite losses and the expected launches."""
+    runs = {
+        "h128": ([f"model.name={CL_H128}"], CL_SHORT_BATCH, 2),
+        "siglip": (["loss=siglip", "model.use_logit_bias=true"],
+                   CL_SHORT_BATCH, 2),
+        "multistep": (["optim.accum=multistep"], CL_TIME_BATCH, 1)}
+    from avion_tpu_torch.train.loop import setup_run
+
+    paths = {}
+    for name, (extra, batch, micro) in runs.items():
+        cfg = _train_config(os.path.join(tmp, f"vitl_{name}"), *extra,
+                            f"data.batch_size={batch}",
+                            "optim.update_freq=2", recipe=CL_RECIPE)
+        model, opt, step = _cl_build(cfg, CL_SHORT_STEPS)
+        run = setup_run(cfg, model, opt, step)
+        dims, fwd, bwd = set(), fa._fwd_cuda, fa._bwd_cuda
+
+        def fwd_rec(qkv, heads, *a, **k):
+            dims.add(qkv.shape[-1] // (3 * heads))
+            return fwd(qkv, heads, *a, **k)
+
+        def bwd_rec(do, qkv, out, lse, heads, *a, **k):
+            dims.add(qkv.shape[-1] // (3 * heads))
+            return bwd(do, qkv, out, lse, heads, *a, **k)
+
+        fa._fwd_cuda, fa._bwd_cuda = fwd_rec, bwd_rec
+        try:
+            res = _timed_epoch(run, _train_batches(CL_SHORT_STEPS, batch,
+                                                   FRAMES))
+        finally:
+            fa._fwd_cuda, fa._bwd_cuda = fwd, bwd
+        per_step = (_accum_launches(model, micro) if micro > 1
+                    else _ft_launches(model))
+        want = {k: v * CL_SHORT_STEPS for k, v in per_step.items()}
+        losses = [m["loss"] for m in res["metrics"]]
+        oks = [m["step_ok"] for m in res["metrics"]]
+        want_dims = {blk.attn.Wqkv.in_features // blk.attn.heads
+                     for tower in (model.visual, model.textual)
+                     for blk in tower.transformer.resblocks}
+        if name == "h128":
+            extra_ok = dims == want_dims
+        elif name == "siglip":
+            bias = model.logit_bias.item()
+            extra_ok = bias != -10.0 and math.isfinite(bias)
+        else:
+            extra_ok = opt.count == 1 and opt.mini_step == 0
+        log(f"(e) {name}: batch {batch}, losses {losses}, step_ok {oks}, "
+            f"step ms {[round(float(x), 3) for x in res['step_ms']]}, "
+            f"launches {res['launches']} (expected {want}), head dims "
+            f"{sorted(dims)} (the model's {sorted(want_dims)}), updates "
+            f"{opt.count}"
+            + (f", logit_bias {model.logit_bias.item():.6f}"
+               if name == "siglip" else ""))
+        if (not np.isfinite(losses).all() or oks != [1.0] * CL_SHORT_STEPS
+                or res["launches"] != want or not extra_ok):
+            raise RuntimeError(f"(e) {name} failed")
+        paths[f"contrastive_{name}"] = res["launches"]
+        del run, model, opt, step
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _cl_entry(tmp: str, fixture: tuple) -> dict:
+    """(f) ``pretrain_clip.main`` on the data phase's Ego4D layout with
+    ``CLIP_VITL14`` at batch CL_SHORT_BATCH as 2 cached microbatches, bf16
+    state, CL_SHORT_STEPS steps: each step's time and data wait from
+    ``log.jsonl``; then the checkpoint restored into a model drawn from
+    another seed, bit for bit, the moments bf16."""
+    from avion_tpu_torch.train import pretrain_clip
+    from avion_tpu_torch.train.loop import setup_run
+
+    root, meta = fixture
+    out = os.path.join(tmp, "vitl_data")
+    # 2048 rows at stride 4: two batches of 224
+    args = _data_args(out, root, meta, True, f"model.name={CL_MODEL}",
+                      f"data.batch_size={CL_SHORT_BATCH}",
+                      "data.subsample_stride=4", "optim.update_freq=2",
+                      "optim.accum=cached", "optim.state_dtype=bfloat16")
+    torch.cuda.synchronize()
+    fa.reset_launches()  # the entry's path, counted from here
+    t0 = time.perf_counter()
+    res = pretrain_clip.main(args)
+    torch.cuda.synchronize()
+    launches, wall = dict(fa.launches), time.perf_counter() - t0
+    recs = [r for r in _train_log(out) if "train/loss" in r]
+    step_ms = [r["perf/batch_time_win"] * 1e3 for r in recs]
+    data_ms = [r["perf/data_time_win"] * 1e3 for r in recs]
+    cfg = _train_config(out, *args[len(TRAIN_RECIPE):])
+    model, opt, step = _cl_build(_train_config(out, *args[len(TRAIN_RECIPE):],
+                                               "seed=1"), CL_SHORT_STEPS)
+    want = {k: v * CL_SHORT_STEPS for k, v in _accum_launches(model,
+                                                              2).items()}
+    log(f"(f) pretrain_clip.main, {CL_MODEL} batch {CL_SHORT_BATCH} (2 "
+        f"cached microbatches, bf16 state): {res['steps']} steps, losses "
+        f"{[r['train/loss'] for r in recs]}, step ms "
+        f"{[round(x, 3) for x in step_ms]}, data wait ms "
+        f"{[round(x, 3) for x in data_ms]}, launches {launches} (expected "
+        f"{want}), wall {wall:.2f} s")
+    if (res["steps"] != CL_SHORT_STEPS
+            or not all(np.isfinite(r["train/loss"]) for r in recs)):
+        raise RuntimeError("(f) the data-fed ViT-L run failed")
+    if launches != want:
+        raise RuntimeError(f"(f) launches {launches}, expected {want}")
+    saved = torch.load(os.path.join(out, "ckpt", str(res["step"]),
+                                    "state.pt"), weights_only=True)
+    run = setup_run(cfg, model, opt, step)
+    got = opt.state_dict()
+    same = (run.state.step == saved["step"] == res["step"]
+            and all(torch.equal(v.cpu(), saved["model"][k])
+                    for k, v in model.state_dict().items())
+            and got["count"] == saved["optimizer"]["count"]
+            and all(torch.equal(v.cpu(), saved["optimizer"]["adamw"][
+                "state"][i][k]) for i, s in got["adamw"]["state"].items()
+                    for k, v in s.items())
+            and _moment_dtypes(opt) == {torch.bfloat16})
+    log(f"(f) resume at step {run.state.step} into a model built from "
+        f"another seed: parameters and bf16 AdamW moments bit for bit: "
+        f"{same}")
+    if not same:
+        raise RuntimeError("(f) resume did not restore the state")
+    del run, model, opt, step, saved, got
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "data_ms": data_ms, "wall_s": wall,
+            "launches": launches}
+
+
+def phase_contrastive(tmp: str, fixture: tuple) -> dict:
+    """The contrastive-extras slice's paths at ViT-L/14's full width: (a)
+    the kernels at its shapes; (b) seeded steps of the batch-896 recipe
+    through cached accumulation and bf16 state, (c) cached against one
+    step, (d) peak memory of f32 against bf16 state; (e) H128, SigLIP and
+    multistep; (f) ``pretrain_clip.main`` on decoded video.  Returns the
+    kernel rows and every path's launches."""
+    t_phase = time.perf_counter()
+    log(f"== contrastive (a): kernels at the ViT-L shapes, errors at batch "
+        f"{CL_CHECK_BATCH}, times at batch {CL_TIME_BATCH}")
+    rows = _slice_kernel_rows(CL_SHAPES, CL_CHECK_BATCH, CL_TIME_BATCH, 13,
+                              "the ViT-L shapes")
+    fwd = _slice_kernel_rows(CL_FWD_SHAPES, CL_CHECK_BATCH, CL_TIME_BATCH,
+                             17, "the 336 px ViT-L shape", forward_only=True)
+    for name in rows:
+        rows[name] += fwd[name]
+    seeded = _cl_seeded(tmp)
+    paths = _cl_options(tmp)
+    entry = _cl_entry(tmp, fixture)
+    summary = {"seeded": {k: v for k, v in seeded.items()
+                          if k != "launches"},
+               "entry": {k: v for k, v in entry.items() if k != "launches"}}
+    log(f"contrastive summary {json.dumps(summary)}")
+    log(f"contrastive phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "paths": {
+        "contrastive_vitl_seeded": seeded["launches"], **paths,
+        "contrastive_vitl_data": entry["launches"]}}
+
+
 KERNEL_SOURCES = {
     "flash_fwd": ("flash_fwd.cu", 134), "flash_fwd_lse": ("flash_fwd.cu", 91),
     "flash_bwd_combined": ("flash_bwd.cu", 494),
@@ -2971,6 +3332,7 @@ def main() -> int:
                            os.path.join(tmp, "clip_vitb16_random.pt"))
         vmae = phase_videomae(tmp)
         ft = phase_finetune(tmp, os.path.join(tmp, "clip_vitb16_random.pt"))
+        cl = phase_contrastive(tmp, data["fixture"])
     # each kernel's launches from the path that drives it: serving, the
     # data-fed 4-frame main path (run A), and the data-fed MIR finetune at
     # 16 frames for the split kernels; every path's counts beside them
@@ -2982,10 +3344,11 @@ def main() -> int:
                "train_16_frames": long, "data_host_crop": data["host_crop"],
                "data_device_crop": data["device_crop"],
                "eval": evals["eval"], "data_with_eval": evals["with_eval"],
-               **vmae["paths"], **ft["paths"]}
+               **vmae["paths"], **ft["paths"], **cl["paths"]}
     rows["flash_fwd"] += evals["checks"]
     for name in rows:
-        rows[name] += vmae["rows"][name] + ft["rows"][name]
+        rows[name] += vmae["rows"][name] + ft["rows"][name] + \
+            cl["rows"][name]
     kernels = []
     for name, (source, line) in KERNEL_SOURCES.items():
         head = rows[name][0]

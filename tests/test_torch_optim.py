@@ -111,11 +111,14 @@ def test_five_adamw_steps_match_optax():
 
 
 def test_unported_options_raise():
-    for bad in (dict(update_freq=2), dict(state_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
+    for bad, match in ((dict(state_dtype="float16"), "state_dtype"),
+                       (dict(update_freq=2, accum="chunked"), "accum")):
+        with pytest.raises(ValueError, match=match):
             Optimizer([], OptimConfig(**bad), lambda step: 0.0)
     with pytest.raises(ValueError, match="unknown optimizer"):
         Optimizer([], OptimConfig(optimizer="adagrad"), lambda step: 0.0)
+    for ported in (dict(update_freq=2), dict(state_dtype="bfloat16")):
+        Optimizer([], OptimConfig(**ported), lambda step: 0.0)
 
 
 def test_fix_lr_and_state_roundtrip():

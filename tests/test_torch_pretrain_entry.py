@@ -101,9 +101,7 @@ def test_main_needs_cuda_unless_told_the_cpu(tiny_ego4d, tmp_path):
     assert not osp.exists(out)
 
 
-@pytest.mark.parametrize("extra", [
-    ["loss=siglip"], ["optim.update_freq=2"], ["mesh.fsdp=2"]],
-    ids=["siglip", "update_freq", "mesh"])
+@pytest.mark.parametrize("extra", [["mesh.fsdp=2"]], ids=["mesh"])
 def test_main_raises_on_later_slices(tiny_ego4d, tmp_path, extra):
     root, meta = tiny_ego4d
     with pytest.raises(NotImplementedError, match="slice"):
