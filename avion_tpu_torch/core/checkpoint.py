@@ -8,6 +8,12 @@ into place, so a crash never leaves a half-written ``<step>``; only the
 newest ``max_to_keep`` are kept.  Saves are synchronous (the state is
 copied to the host first), so :meth:`Checkpointer.wait` has nothing to
 wait for.
+
+In a process group every rank calls :meth:`Checkpointer.save`: sharded
+tensors are gathered whole (a collective), rank 0 alone writes, in the
+one-process key layout (so ``params_from_jax`` and ``import_clip_pt``
+files load it with ``strict=True``), and a barrier follows.  Every rank
+restores the whole state and keeps its shard.
 """
 
 from __future__ import annotations
@@ -20,14 +26,21 @@ from typing import Any, List, Optional
 
 import torch
 
+from avion_tpu_torch.parallel.launch import barrier, is_main
+from avion_tpu_torch.parallel.sharding import full_tensor
 
-def _to_cpu(obj: Any) -> Any:
+
+def _to_cpu(obj: Any, keep: bool = True) -> Any:
+    """The state on the host, sharded tensors whole (every rank calls
+    this, in one order: the gathers are collectives).  With ``keep``
+    false only the gathers run."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu()
+        whole = full_tensor(obj.detach())
+        return whole.cpu() if keep else None
     if isinstance(obj, dict):
-        return {k: _to_cpu(v) for k, v in obj.items()}
+        return {k: _to_cpu(v, keep) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_cpu(v) for v in obj)
+        return type(obj)(_to_cpu(v, keep) for v in obj)
     return obj
 
 
@@ -48,12 +61,14 @@ class Checkpointer:
 
     def save(self, step: int, state, extra: Optional[dict] = None) -> None:
         final = os.path.join(self.directory, str(step))
-        if os.path.exists(final):
-            return  # one checkpoint per step, as orbax skips a duplicate
+        whole = _to_cpu(state.state_dict(), keep=is_main())
+        if not is_main() or os.path.exists(final):
+            # one checkpoint per step, as orbax skips a duplicate
+            barrier()
+            return
         tmp = tempfile.mkdtemp(prefix=f".{step}-", dir=self.directory)
         try:
-            torch.save(_to_cpu(state.state_dict()),
-                       os.path.join(tmp, "state.pt"))
+            torch.save(whole, os.path.join(tmp, "state.pt"))
             with open(os.path.join(tmp, "extra.json"), "w") as f:
                 json.dump(extra or {}, f)
             os.replace(tmp, final)
@@ -62,6 +77,7 @@ class Checkpointer:
                 shutil.rmtree(tmp)
         for old in self.steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
+        barrier()
 
     def restore(self, state, step: Optional[int] = None):
         """Load checkpoint ``step`` (default the newest) into ``state`` in

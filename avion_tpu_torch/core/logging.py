@@ -19,11 +19,13 @@ from typing import Dict, Optional
 class MetricLogger:
     def __init__(self, output_dir: str, use_wandb: bool = False,
                  project: str = "avion_tpu", run_name: str = "",
-                 config: Optional[dict] = None):
+                 config: Optional[dict] = None, enabled: bool = True):
+        """``enabled=False`` (the ranks other than 0) logs nothing."""
         os.makedirs(output_dir, exist_ok=True)
         self.path = os.path.join(output_dir, "log.jsonl")
+        self.enabled = enabled
         self.wandb = None
-        if use_wandb:
+        if use_wandb and enabled:
             try:
                 import wandb
 
@@ -35,6 +37,8 @@ class MetricLogger:
                 print(f"[logging] wandb unavailable ({e}); using JSONL only")
 
     def log(self, metrics: Dict[str, float], step: Optional[int] = None):
+        if not self.enabled:
+            return
         rec = {"_time": time.time()}
         if step is not None:
             rec["step"] = int(step)

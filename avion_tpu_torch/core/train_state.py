@@ -9,16 +9,22 @@ call); a skipped step (non-finite loss) advances the first alone, as in
 the JAX package.  The optimizer's state dict holds its moments in their
 stored dtype (bf16 under ``state_dtype=bfloat16``) and, under
 ``update_freq``, the accumulated mean gradient and its call count, so a
-resume is exact."""
+resume is exact.
+
+Under FSDP2 the parameters, moments and average are sharded tensors: a
+checkpoint (``core.checkpoint``) holds them whole, and :meth:`TrainState.
+load_state_dict` cuts each back to this rank's shard, so a state saved at
+one world size restores at any other."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from avion_tpu_torch.optim.factory import Optimizer
+from avion_tpu_torch.parallel.sharding import local, shard_like
 
 
 @dataclass
@@ -27,23 +33,26 @@ class TrainState:
     model: torch.nn.Module
     optimizer: Optimizer
     ema: Optional[Dict[str, torch.Tensor]] = None
+    # parallel.sharding.Parallel over a mesh: the model the step calls and
+    # the batch group its loss gathers over (None: one process)
+    parallel: Optional[Any] = None
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: Optimizer,
-               use_ema: bool = False) -> "TrainState":
+               use_ema: bool = False, parallel=None) -> "TrainState":
         ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
                if use_ema else None)
-        return cls(0, model, optimizer, ema)
+        return cls(0, model, optimizer, ema, parallel)
 
     @torch.no_grad()
     def update_ema(self, decay: float) -> None:
         """``e * decay + (1 - decay) * p`` for every parameter."""
         names = list(self.ema)
         params = dict(self.model.named_parameters())
-        ema = [self.ema[n] for n in names]
+        ema = [local(self.ema[n]) for n in names]
         torch._foreach_mul_(ema, decay)
         torch._foreach_add_(ema, torch._foreach_mul(
-            [params[n].detach() for n in names], 1.0 - decay))
+            [local(params[n].detach()) for n in names], 1.0 - decay))
 
     def state_dict(self) -> dict:
         out = {"step": self.step, "model": self.model.state_dict(),
@@ -54,8 +63,10 @@ class TrainState:
 
     def load_state_dict(self, state: dict) -> None:
         self.step = int(state["step"])
-        self.model.load_state_dict(state["model"])
+        own = self.model.state_dict()
+        self.model.load_state_dict({k: shard_like(v, own[k]) if k in own
+                                    else v for k, v in state["model"].items()})
         self.optimizer.load_state_dict(state["optimizer"])
         if self.ema is not None:
             for n, v in state["ema"].items():
-                self.ema[n].copy_(v)
+                local(self.ema[n]).copy_(local(shard_like(v, self.ema[n])))

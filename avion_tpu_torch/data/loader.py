@@ -5,10 +5,15 @@
 forkserver worker pool; each worker collates a whole batch and hands it
 back through POSIX shared memory (or the pool's pickle pipe).
 ``device_prefetch`` ships batches to the card ahead of the step and
-``echo_batches`` repeats them (data echoing).  One process: the sharding
-of the index order across hosts comes with the parallel slice.  ``torch``
-is imported by the functions that make tensors, so the workers, which
-import this module, do not load it.
+``echo_batches`` repeats them (data echoing).  Over a mesh the loader
+shards the index order across the ``process_count`` batch groups (the
+``data x fsdp`` index, ``parallel.mesh.Mesh.batch_index``; the ``sp`` ranks
+of a group read the same clips): every group draws the same permutation,
+pads or trims it to a multiple of the groups and takes every
+``process_count``-th index from its own (``_host_order`` of the JAX
+loader), and ``batch_size`` is the global batch.  ``torch`` is imported by
+the functions that make tensors, so the workers, which import this module,
+do not load it.
 """
 
 from __future__ import annotations
@@ -147,9 +152,20 @@ class DataLoader:
         infinite: bool = False,
         skip_batches: int = 0,
         use_shm: bool = True,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        self.process_index = process_index
+        self.process_count = process_count
+        # a training loader shards; an eval loader (no shuffle) does not
+        self.shard_across_hosts = shuffle and process_count > 1
+        if self.shard_across_hosts and batch_size % process_count:
+            raise ValueError(f"batch {batch_size} does not divide by "
+                             f"{process_count} batch groups")
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.batch_size = batch_size  # global
+        self.local_batch = (batch_size // process_count
+                            if self.shard_across_hosts else batch_size)
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = num_workers
@@ -167,19 +183,35 @@ class DataLoader:
         self.epoch = epoch
 
     def _order(self, epoch: int) -> np.ndarray:
-        order = np.arange(len(self.dataset))
+        """This batch group's index order: the same seeded permutation on
+        every group, padded (or with ``drop_last`` trimmed) to a multiple
+        of the groups, every ``process_count``-th index from its own."""
+        n = len(self.dataset)
+        order = np.arange(n)
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(order)
-        return order
+        if not self.shard_across_hosts:
+            return order
+        world = self.process_count
+        if self.drop_last:
+            order = order[:(n // world) * world]
+        else:
+            total = -(-n // world) * world
+            order = np.concatenate([order, order[:total - n]])
+        return order[self.process_index::world]
 
     def __len__(self):
-        n, b = len(self.dataset), self.batch_size
+        n = len(self.dataset)
+        if self.shard_across_hosts:
+            world = self.process_count
+            n = n // world if self.drop_last else -(-n // world)
+        b = self.local_batch
         return n // b if self.drop_last else -(-n // b)
 
     def _index_batches(self, epoch: int):
         order = self._order(epoch)
         n = len(order)
-        b = self.batch_size
+        b = self.local_batch
         stop = (n // b) * b if self.drop_last else n
         start = self.skip_batches * b if epoch == self.epoch else 0
         self.skip_batches = 0

@@ -11,6 +11,12 @@ validation epochs only so as not to recompile both towers.
 The encoders cast the model they are given (:func:`cast_inference_params`
 works in place) and switch it to eval mode; a training run therefore
 evaluates a copy (``eval.validate.run_validation``).
+
+Over a batch group of several ranks (``group``) every rank walks the whole
+eval set, encodes its block of each chunk (the chunk padded with its last
+row to a multiple of the ranks) and the embeddings are all-gathered, as the
+JAX runner feeds each process its rows of a chunk; the ``sp`` ranks of a
+group encode the same rows, each its shard of the tokens.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from avion_tpu_torch.data.tokenizer import tokenize
 from avion_tpu_torch.data.transforms import normalize_video
@@ -74,7 +81,8 @@ class CLIPEncoders:
     of these with the suite's wall time (``suite_stats``).
     """
 
-    def __init__(self, model, batch: int = 64, weight_dtype: str = "bf16"):
+    def __init__(self, model, batch: int = 64, weight_dtype: str = "bf16",
+                 group=None):
         if weight_dtype == "bf16":
             cast_inference_params(model)
         elif weight_dtype != "f32":
@@ -83,6 +91,8 @@ class CLIPEncoders:
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.batch = batch
+        self.group = (group if group is not None and dist.is_initialized()
+                      and dist.get_world_size(group) > 1 else None)
         self.image_calls = self.text_calls = 0
         self.image_rows = self.text_rows = 0
         self.data_wait_s = 0.0
@@ -107,8 +117,24 @@ class CLIPEncoders:
             for i in range(0, arr.shape[0], self.batch):
                 chunk = torch.from_numpy(np.ascontiguousarray(
                     arr[i : i + self.batch])).to(self.device)
-                out.append(fn(chunk).float().cpu().numpy())
+                out.append(self._encode_shared(fn, chunk).float().cpu()
+                           .numpy())
         return np.concatenate(out, axis=0)
+
+    def _encode_shared(self, fn, chunk: torch.Tensor) -> torch.Tensor:
+        """``fn`` of ``chunk``; over a group, of this rank's block of it,
+        gathered."""
+        if self.group is None:
+            return fn(chunk)
+        n, rank = dist.get_world_size(self.group), dist.get_rank(self.group)
+        rows = chunk.shape[0]
+        per = -(-rows // n)
+        pad = chunk[-1:].expand(per * n - rows, *chunk.shape[1:])
+        mine = torch.cat([chunk, pad])[rank * per:(rank + 1) * per]
+        emb = fn(mine).contiguous()
+        parts = [torch.empty_like(emb) for _ in range(n)]
+        dist.all_gather(parts, emb, group=self.group)
+        return torch.cat(parts)[:rows]
 
     def _img(self, video: torch.Tensor) -> torch.Tensor:
         self.image_calls += 1

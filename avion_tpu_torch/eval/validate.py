@@ -169,18 +169,19 @@ def build_suites(data_cfg, env=None) -> Dict:
 
 
 def run_validation(model: torch.nn.Module, data_cfg, env=None,
-                   strict: bool = False) -> Dict[str, float]:
+                   strict: bool = False, group=None) -> Dict[str, float]:
     """Every configured suite on ``model``, which is left as it is: its
     mode and its (f32 master) weights.  The suites encode with a copy
     whose matrices are cast to bf16 (about 0.3 GB for ViT-B/16); a bf16
     model rounds each weight to bf16 at use, so the copy gives the same
     embeddings as the model's own weights would.  Without a configured
-    suite nothing is copied and the result is empty."""
+    suite nothing is copied and the result is empty.  Over a batch
+    ``group`` each rank encodes its rows (``CLIPEncoders``)."""
     suites = build_suites(data_cfg, env)
     if not suites:
         return {}
     enc = CLIPEncoders(copy.deepcopy(model).requires_grad_(False),
-                       batch=data_cfg.val_batch_size)
+                       batch=data_cfg.val_batch_size, group=group)
     return validate_all(enc, suites, strict=strict)
 
 
@@ -189,7 +190,8 @@ def main(argv=None) -> Dict[str, float]:
     path): every configured suite, strict (a failing suite raises); prints
     and returns the metrics."""
     from avion_tpu_torch.core.config import TrainConfig, load_dotenv
-    from avion_tpu_torch.parallel.launch import device_from_argv, setup_host
+    from avion_tpu_torch.parallel.launch import device_from_argv, host
+    from avion_tpu_torch.parallel.mesh import mesh_from_config, use_mesh
     from avion_tpu_torch.train.common import load_pretrained_params
     from avion_tpu_torch.train.pretrain_clip import build_model
 
@@ -200,17 +202,20 @@ def main(argv=None) -> Dict[str, float]:
     if not cfg.pretrain_model:
         raise SystemExit("pretrain_model=<ckpt.pt|checkpoint dir> is "
                          "required")
-    setup_host(cfg.seed)
-    # weights the checkpoint lacks keep their seeded init, as in the JAX
-    # entry (strict=False)
-    model = build_model(cfg).to_empty(device="cpu")
-    model.init_weights(torch.Generator().manual_seed(cfg.seed))
-    load_pretrained_params(cfg.pretrain_model, model,
-                           num_frames=cfg.data.clip_length,
-                           context_length=model.context_length,
-                           vocab_size=model.vocab_size)
-    enc = CLIPEncoders(model.to(device), batch=cfg.data.val_batch_size)
-    results = validate_all(enc, build_suites(cfg.data), strict=True)
+    with host(cfg.seed, device) as device:
+        mesh = mesh_from_config(cfg.mesh)
+        # weights the checkpoint lacks keep their seeded init, as in the
+        # JAX entry (strict=False)
+        model = build_model(cfg).to_empty(device="cpu")
+        model.init_weights(torch.Generator().manual_seed(cfg.seed))
+        load_pretrained_params(cfg.pretrain_model, model,
+                               num_frames=cfg.data.clip_length,
+                               context_length=model.context_length,
+                               vocab_size=model.vocab_size)
+        enc = CLIPEncoders(model.to(device), batch=cfg.data.val_batch_size,
+                           group=mesh.batch_group)
+        with use_mesh(mesh):
+            results = validate_all(enc, build_suites(cfg.data), strict=True)
     print(json.dumps(results, indent=2, sort_keys=True))
     return results
 

@@ -1,14 +1,60 @@
 """Training losses (``avion_tpu.losses.losses``): softmax cross-entropy
 with label smoothing, cross-entropy against soft targets (mixup / cutmix),
-the symmetric InfoNCE ``clip_loss`` over one device's batch (logits in f32),
-SigLIP's sigmoid loss, EK100-MIR's max-margin ranking loss and VideoMAE's
-normalized-pixel MSE.  The gathered global batch of several devices and
-SigLIP's ring over them wait for the parallel slice."""
+the symmetric InfoNCE ``clip_loss`` (logits in f32), SigLIP's sigmoid loss
+and its chunked ring, EK100-MIR's max-margin ranking loss and VideoMAE's
+normalized-pixel MSE.
+
+Over a batch group of several ranks (``group``, the mesh's
+``batch_group``), ``clip_loss`` and ``siglip_loss`` see the global batch
+through :func:`gather_batch`, an all-gather whose backward sums the
+cotangents of every rank (a reduce-scatter), and
+:func:`siglip_loss_chunked` runs the ring of ``_siglip_ring_local``.  Every
+rank gets the global loss, and its gradients are those whose average over
+the ranks, as DDP and FSDP take it, is the gradient of the global loss:
+n times its rows' share for the embeddings of a group of n, the whole
+gradient for the logit scale and bias.
+"""
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+
+def _size(group) -> int:
+    if group is None or not dist.is_initialized():
+        return 1
+    return dist.get_world_size(group)
+
+
+class _GatherBatch(torch.autograd.Function):
+    """All-gather along dim 0; the backward sums every rank's cotangent
+    and keeps this rank's rows (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        n = _size(ctx.group)
+        return g.chunk(n)[dist.get_rank(ctx.group)], None
+
+
+def gather_batch(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` [b_local, ...] of every rank of ``group``, in rank order, as
+    [n * b_local, ...]; differentiable (see :class:`_GatherBatch`).  The
+    identity without a group of more than one."""
+    if _size(group) == 1:
+        return x
+    return _GatherBatch.apply(x, group)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -23,10 +69,13 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def clip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
-              logit_scale: torch.Tensor, label_smoothing: float = 0.0
-              ) -> dict:
-    """Symmetric InfoNCE; embeddings L2-normalized.  Returns
-    ``{"loss", "clip_acc"}`` (accuracy in percent, no gradient)."""
+              logit_scale: torch.Tensor, label_smoothing: float = 0.0,
+              group=None) -> dict:
+    """Symmetric InfoNCE over the global batch of ``group`` (this rank's
+    rows without one); embeddings L2-normalized.  Returns ``{"loss",
+    "clip_acc"}`` (accuracy in percent, no gradient)."""
+    image_embed = gather_batch(image_embed, group)
+    text_embed = gather_batch(text_embed, group)
     logits = logit_scale * image_embed.float() @ text_embed.float().T
     labels = torch.arange(logits.shape[0], device=logits.device)
     loss = (softmax_cross_entropy(logits, labels, label_smoothing)
@@ -37,13 +86,15 @@ def clip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
 
 
 def siglip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
-                logit_scale: torch.Tensor, logit_bias: torch.Tensor) -> dict:
-    """Sigmoid contrastive loss (SigLIP, arXiv:2303.15343) in f32: every
-    (image, text) pair is a binary classification, ``-sum(logsigmoid(z *
-    (s i t^T + b))) / B`` with ``z`` +1 on the diagonal and -1 off it;
-    embeddings L2-normalized.  Returns ``{"loss", "clip_acc"}`` (argmax
-    accuracy in percent, no gradient)."""
-    img, txt = image_embed.float(), text_embed.float()
+                logit_scale: torch.Tensor, logit_bias: torch.Tensor,
+                group=None) -> dict:
+    """Sigmoid contrastive loss (SigLIP, arXiv:2303.15343) in f32 over the
+    global batch of ``group``: every (image, text) pair is a binary
+    classification, ``-sum(logsigmoid(z * (s i t^T + b))) / B`` with ``z``
+    +1 on the diagonal and -1 off it; embeddings L2-normalized.  Returns
+    ``{"loss", "clip_acc"}`` (argmax accuracy in percent, no gradient)."""
+    img = gather_batch(image_embed, group).float()
+    txt = gather_batch(text_embed, group).float()
     b = img.shape[0]
     logits = logit_scale * img @ txt.T + logit_bias
     z = 2.0 * torch.eye(b, device=logits.device) - 1.0
@@ -54,21 +105,85 @@ def siglip_loss(image_embed: torch.Tensor, text_embed: torch.Tensor,
     return {"loss": loss, "clip_acc": acc}
 
 
+class _SiglipRing(torch.autograd.Function):
+    """``_siglip_ring_local``: this rank's image rows against every text
+    chunk as the chunks rotate around ``group`` (``ops.ring_attention.
+    rotate``), one [b_local, D] block a hop; the backward runs the ring
+    again with each chunk's f32 gradient riding beside it, and one last
+    rotation brings it home."""
+
+    @staticmethod
+    def forward(ctx, img, txt, scale, bias, group):
+        from avion_tpu_torch.ops.ring_attention import rotate
+
+        n, b = _size(group), img.shape[0]
+        i32, t32 = img.float(), txt.float()
+        z = 2.0 * torch.eye(b, device=img.device) - 1.0
+        logits = scale * i32 @ t32.T + bias
+        loss = -F.logsigmoid(z * logits).sum()
+        pos, row_max = logits.diagonal(), logits.amax(dim=-1)
+        t = t32
+        for _ in range(1, n):
+            (t,) = rotate([t], group)
+            logits = scale * i32 @ t.T + bias
+            loss = loss - F.logsigmoid(-logits).sum()
+            row_max = torch.maximum(row_max, logits.amax(dim=-1))
+        # exact global retrieval accuracy: the positive is the row max
+        acc = (pos >= row_max).float().mean()
+        stats = torch.stack([loss, acc])
+        dist.all_reduce(stats, group=group)
+        ctx.save_for_backward(i32, t32, scale, bias)
+        ctx.group, ctx.dtypes = group, (img.dtype, txt.dtype)
+        return stats[0] / (n * b), 100.0 * stats[1] / n
+
+    @staticmethod
+    def backward(ctx, g_loss, _g_acc):
+        from avion_tpu_torch.ops.ring_attention import rotate
+
+        i32, t32, scale, bias = ctx.saved_tensors
+        group = ctx.group
+        n, b = _size(group), i32.shape[0]
+        # n times this rank's share of d loss / d logits: the gradient of
+        # the global loss once the ranks' gradients are averaged
+        c = g_loss / b
+        z = 2.0 * torch.eye(b, device=i32.device) - 1.0
+
+        def block(t, own: bool):
+            sim = i32 @ t.T
+            zz = z if own else -1.0
+            dl = -zz * torch.sigmoid(-zz * (scale * sim + bias)) * c
+            return (dl @ t * scale, dl.T @ i32 * scale,
+                    torch.stack([(dl * sim).sum(), dl.sum()]))
+
+        d_img, d_txt, d_sb = block(t32, True)
+        t = t32
+        for _ in range(1, n):
+            t, d_txt = rotate([t, d_txt], group)
+            di, dt, dsb = block(t, False)
+            d_img, d_txt, d_sb = d_img + di, d_txt + dt, d_sb + dsb
+        (d_txt,) = rotate([d_txt], group)
+        # the scale's and bias's whole gradient on every rank
+        dist.all_reduce(d_sb, group=group)
+        d_sb = d_sb / n
+        return (d_img.to(ctx.dtypes[0]), d_txt.to(ctx.dtypes[1]),
+                d_sb[0].reshape(scale.shape).to(scale.dtype),
+                d_sb[1].reshape(bias.shape).to(bias.dtype), None)
+
+
 def siglip_loss_chunked(image_embed: torch.Tensor, text_embed: torch.Tensor,
-                        logit_scale: torch.Tensor,
-                        logit_bias: torch.Tensor) -> dict:
-    """SigLIP blockwise around the ring of processes that share the batch
-    (``avion_tpu.losses.siglip_loss_chunked``).  With one process it is
+                        logit_scale: torch.Tensor, logit_bias: torch.Tensor,
+                        group=None) -> dict:
+    """SigLIP blockwise around the ring of the ranks of ``group``
+    (``avion_tpu.losses.siglip_loss_chunked``): each rank scores its image
+    rows against every text chunk as the chunks rotate, never forming the
+    [B, B] matrix.  Without a group of more than one it is
     :func:`siglip_loss`, as the JAX wrapper falls back when no batch axis
-    is sharded; the ring comes with the parallel slice, and a process group
-    of more than one raises until then."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "SigLIP's ring over several processes comes with the parallel "
-            "slice (ROADMAP.md Queue 1, item 7)")
-    return siglip_loss(image_embed, text_embed, logit_scale, logit_bias)
+    is sharded."""
+    if _size(group) == 1:
+        return siglip_loss(image_embed, text_embed, logit_scale, logit_bias)
+    loss, acc = _SiglipRing.apply(image_embed, text_embed, logit_scale,
+                                  logit_bias, group)
+    return {"loss": loss, "clip_acc": acc.detach()}
 
 
 def max_margin_ranking_loss(image_embed: torch.Tensor,

@@ -41,7 +41,8 @@ class CLIP(nn.Module):
                  remat_policy: str = "save_attn", input_norm: str = "none",
                  freeze_temperature: bool = False, pooling: str = "cls",
                  use_logit_bias: bool = False,
-                 logit_bias_init: float = -10.0):
+                 logit_bias_init: float = -10.0,
+                 sequence_parallel: bool = False):
         super().__init__()
         act = quick_gelu if use_quick_gelu else gelu
         self.dtype = dtype
@@ -55,7 +56,7 @@ class CLIP(nn.Module):
         self.visual = VisionTransformer(
             image_size, patch_size, num_frames, vision_width, vision_layers,
             vision_heads, act, dtype, patch_dropout, remat, remat_policy,
-            input_norm, pooling)
+            input_norm, pooling, sequence_parallel=sequence_parallel)
         self.textual = TextTransformer(context_length, vocab_size, text_width,
                                        text_heads, text_layers, act, dtype,
                                        remat, remat_policy)
@@ -83,7 +84,7 @@ class CLIP(nn.Module):
         device."""
         _init_modules_(self, generator)
         _init_visual_tables_(self.visual, generator)
-        vw = self.visual.class_embedding.shape[0]
+        vw = self.visual.width
         self.textual.positional_embedding.normal_(0.0, 0.01,
                                                   generator=generator)
         self.image_projection.normal_(0.0, vw ** -0.5, generator=generator)
@@ -149,8 +150,9 @@ def _init_visual_tables_(visual: VisionTransformer,
                          generator: Optional[torch.Generator]) -> None:
     """The class and positional embeddings normal(width ** -0.5), the
     temporal table zeros."""
-    vw = visual.class_embedding.shape[0]
-    visual.class_embedding.normal_(0.0, vw ** -0.5, generator=generator)
+    vw = visual.width
+    if visual.class_embedding is not None:  # none under sequence_parallel
+        visual.class_embedding.normal_(0.0, vw ** -0.5, generator=generator)
     visual.positional_embedding.normal_(0.0, vw ** -0.5, generator=generator)
     if visual.temporal_embedding is not None:
         visual.temporal_embedding.zero_()
@@ -167,7 +169,7 @@ class VideoClassifier(nn.Module):
         self.visual = visual
         self.dtype = visual.dtype
         self.dropout = dropout
-        self.fc_cls = nn.Linear(visual.class_embedding.shape[0], num_classes)
+        self.fc_cls = nn.Linear(visual.width, num_classes)
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None

@@ -18,8 +18,9 @@ are drawn for every layer before the blocks run (:meth:`Transformer.
 draw_drop_path`) and passed in as tensors, so a rematerialized block sees
 the same mask in its recompute.  LayerScale (``ls_init_value``; no registry
 configuration sets it) scales each residual branch before its DropPath and
-is recomputed with the rest of the block.  MoE and sequence parallelism are
-not ported yet.
+is recomputed with the rest of the block.  With ``sequence_parallel`` the
+attention runs the ring of ``ops.ring_attention`` over the current mesh's
+``sp`` group, on this rank's shard of the tokens.  MoE is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,8 +37,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
-from avion_tpu_torch.ops.flash_attention import (FWD_LSE_OP,
+from avion_tpu_torch.ops.flash_attention import (FWD_LSE_OP, HOP_FWD_OP,
                                                  flash_attention_fused_qkv)
+from avion_tpu_torch.ops.ring_attention import ring_flash_attention_packed
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -113,17 +115,25 @@ class SelfAttention(nn.Module):
     ``[q_all | k_all | v_all]``; the attention reads them in place, on
     CUDA through the flash kernel (no padding of the token dim)."""
 
-    def __init__(self, width: int, heads: int, causal: bool = False):
+    def __init__(self, width: int, heads: int, causal: bool = False,
+                 sequence_parallel: bool = False):
         super().__init__()
         self.heads = heads
         self.causal = causal
+        self.sequence_parallel = sequence_parallel
         self.Wqkv = nn.Linear(width, 3 * width)
         self.out_proj = nn.Linear(width, width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         qkv = dense(x, self.Wqkv)
-        o = flash_attention_fused_qkv(qkv, self.heads, x.shape[1],
-                                      causal=self.causal)
+        if self.sequence_parallel:
+            w = x.shape[-1]
+            o = ring_flash_attention_packed(
+                qkv[..., :w], qkv[..., w:2 * w], qkv[..., 2 * w:],
+                self.heads, causal=self.causal)
+        else:
+            o = flash_attention_fused_qkv(qkv, self.heads, x.shape[1],
+                                          causal=self.causal)
         return dense(o, self.out_proj)
 
 
@@ -159,10 +169,11 @@ class Block(nn.Module):
     def __init__(self, width: int, heads: int, act=gelu,
                  dtype: torch.dtype = torch.bfloat16, causal: bool = False,
                  drop_path: float = 0.0,
-                 ls_init_value: Optional[float] = None):
+                 ls_init_value: Optional[float] = None,
+                 sequence_parallel: bool = False):
         super().__init__()
         self.ln_1 = LayerNorm(width, dtype)
-        self.attn = SelfAttention(width, heads, causal)
+        self.attn = SelfAttention(width, heads, causal, sequence_parallel)
         self.ln_2 = LayerNorm(width, dtype)
         self.mlp = Mlp(width, act)
         self.drop_path = drop_path
@@ -196,10 +207,11 @@ def saved_attn_layers(remat_policy: str, layers: int) -> int:
 
 def _save_attn(ctx, op, *args, **kwargs):
     """Selective-checkpoint policy of ``save_attn``: keep the training
-    attention forward's outputs (out and lse), so the backward never
-    re-runs that kernel; recompute everything else."""
+    attention forward's outputs (out and lse; under sequence parallelism
+    each ring hop's), so the backward never re-runs that kernel; recompute
+    everything else (the ring's merge and rotations too)."""
     return (CheckpointPolicy.MUST_SAVE if op is FWD_LSE_OP
-            else CheckpointPolicy.PREFER_RECOMPUTE)
+            or op is HOP_FWD_OP else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class Transformer(nn.Module):
@@ -213,13 +225,15 @@ class Transformer(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, causal: bool = False,
                  remat: bool = False, remat_policy: str = "save_attn",
                  drop_path_rate: float = 0.0,
-                 ls_init_value: Optional[float] = None):
+                 ls_init_value: Optional[float] = None,
+                 sequence_parallel: bool = False):
         super().__init__()
         # layer i drops at rate * i / (layers - 1), as the JAX stack
         self.drop_rates = [drop_path_rate * i / max(1, layers - 1)
                            for i in range(layers)]
         self.resblocks = nn.ModuleList(
-            Block(width, heads, act, dtype, causal, rate, ls_init_value)
+            Block(width, heads, act, dtype, causal, rate, ls_init_value,
+                  sequence_parallel)
             for rate in self.drop_rates)
         self.remat = remat
         self.save_k = saved_attn_layers(remat_policy, layers) if remat else 0

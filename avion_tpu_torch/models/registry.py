@@ -4,8 +4,9 @@ The CLIP and VideoMAE entries of the JAX registry, with the same names and
 factory keyword arguments.  The VideoMAE factories, as the JAX ones, take
 and ignore keywords they have no use for.  ``use_flash_attn`` is accepted and ignored: attention
 always goes through ``ops.flash_attention``, which runs the CUDA kernels
-for CUDA tensors.  Machinery of later slices (sequence parallelism, MoE,
-pipelining) raises when it is asked for.
+for CUDA tensors.  ``sequence_parallel`` builds the ring-attention visual
+tower (``models.vit``); machinery of later slices (MoE, pipelining) raises
+when it is asked for.
 ``CLIP.init_weights`` draws the flax initializers' distributions; the
 constructors' own draws are placeholders.
 """
@@ -40,7 +41,7 @@ def create_model(name: str, **kwargs):
     return _REGISTRY[name](**kwargs)
 
 
-_LATER = {"sequence_parallel": False, "moe_experts": 0, "pipeline": False}
+_LATER = {"moe_experts": 0, "pipeline": False}
 
 
 def _training_kwargs(pooling: str = "cls", use_grad_checkpointing=False,
@@ -49,7 +50,8 @@ def _training_kwargs(pooling: str = "cls", use_grad_checkpointing=False,
                      freeze_temperature: bool = False,
                      use_logit_bias: bool = False,
                      use_flash_attn: bool = True,
-                     pipeline_microbatches: int = 8, **later) -> dict:
+                     pipeline_microbatches: int = 8,
+                     sequence_parallel: bool = False, **later) -> dict:
     """The CLIP keywords the train entry passes, checked (the visual
     tower refuses a pooling other than cls, gap or none)."""
     del use_flash_attn, pipeline_microbatches
@@ -62,7 +64,8 @@ def _training_kwargs(pooling: str = "cls", use_grad_checkpointing=False,
     return dict(remat=bool(use_grad_checkpointing), remat_policy=remat_policy,
                 patch_dropout=patch_dropout, input_norm=input_norm,
                 freeze_temperature=freeze_temperature, pooling=pooling,
-                use_logit_bias=use_logit_bias)
+                use_logit_bias=use_logit_bias,
+                sequence_parallel=bool(sequence_parallel))
 
 
 def _clip_factory(*, patch_size, vision_width, vision_layers, vision_heads,

@@ -21,6 +21,12 @@
 - The tower returns width features, the JAX tower's ``output_dim=None``:
   the projection to the joint space lives in ``clip.CLIP`` as
   ``image_projection``, as in the reference state dict.
+- ``sequence_parallel`` (gap or none pooling, no patch dropout, no CLS
+  token and so no ``class_embedding``, as in the JAX tower): each rank of
+  the current mesh's ``sp`` group keeps its S / sp tokens after the patch
+  embedding, attention runs the ring, and gap pooling sums the shards'
+  token sums by an all-reduce whose backward sums too, so that the average
+  of the ranks' gradients is the gradient of the whole sequence.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -37,6 +44,7 @@ from avion_tpu_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD,
                                              normalize_video)
 from avion_tpu_torch.models.layers import (LayerNorm, Transformer, gelu,
                                            patch_dropout)
+from avion_tpu_torch.ops.ring_attention import group_rank_size, sp_group
 
 INPUT_NORMS = {"none": None, "openai": (OPENAI_MEAN, OPENAI_STD),
                "imagenet": (IMAGENET_MEAN, IMAGENET_STD)}
@@ -71,21 +79,29 @@ class VisionTransformer(nn.Module):
                  patch_dropout: float = 0.0, remat: bool = False,
                  remat_policy: str = "save_attn", input_norm: str = "none",
                  pooling: str = "cls", drop_path_rate: float = 0.0,
-                 ls_init_value: Optional[float] = None):
+                 ls_init_value: Optional[float] = None,
+                 sequence_parallel: bool = False):
         super().__init__()
         if input_norm not in INPUT_NORMS:
             raise ValueError(f"input_norm must be none|openai|imagenet, "
                              f"got {input_norm!r}")
         if pooling not in POOLINGS:
             raise ValueError(f"pooling must be cls|gap|none, got {pooling!r}")
+        if sequence_parallel and (pooling == "cls" or patch_dropout):
+            raise ValueError("sequence_parallel needs gap or none pooling "
+                             "(no CLS token) and no patch dropout")
         self.pooling = pooling
+        self.width = width
+        self.sequence_parallel = sequence_parallel
         n = (image_size // patch_size) ** 2
         self.dtype = dtype
         self.patch_dropout_rate = patch_dropout
         self.remat = remat
         self.input_norm = input_norm
         self.conv1 = PatchEmbed(width, patch_size)
-        self.class_embedding = nn.Parameter(torch.randn(width) * width ** -0.5)
+        self.class_embedding = (
+            None if sequence_parallel
+            else nn.Parameter(torch.randn(width) * width ** -0.5))
         self.positional_embedding = nn.Parameter(
             torch.randn(n + 1, width) * width ** -0.5)
         self.temporal_embedding = (
@@ -96,7 +112,8 @@ class VisionTransformer(nn.Module):
                                        causal=False, remat=remat,
                                        remat_policy=remat_policy,
                                        drop_path_rate=drop_path_rate,
-                                       ls_init_value=ls_init_value)
+                                       ls_init_value=ls_init_value,
+                                       sequence_parallel=sequence_parallel)
         self.ln_post = LayerNorm(width, dtype)
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
@@ -122,8 +139,12 @@ class VisionTransformer(nn.Module):
         if self.temporal_embedding is not None:
             x = x + self.temporal_embedding[:t].to(self.dtype)[None, :, None]
         x = x.reshape(b, -1, x.shape[-1])
-        cls_tok = (self.class_embedding + pos[0]).to(self.dtype)
-        x = torch.cat([cls_tok.expand(b, 1, -1), x], dim=1)
+        if self.sequence_parallel:
+            group, tokens = sp_group(), x.shape[1]
+            x = _local_tokens(x, group)
+        else:
+            cls_tok = (self.class_embedding + pos[0]).to(self.dtype)
+            x = torch.cat([cls_tok.expand(b, 1, -1), x], dim=1)
         if self.patch_dropout_rate > 0.0 and not deterministic:
             x = patch_dropout(x, self.patch_dropout_rate, generator)
         keep = (None if deterministic else
@@ -132,5 +153,40 @@ class VisionTransformer(nn.Module):
         if self.pooling == "none":
             return self.ln_post(x)
         if self.pooling == "gap":
+            if self.sequence_parallel:
+                pooled = _all_reduce_sum(x.float().sum(dim=1), group)
+                return self.ln_post((pooled / tokens).to(x.dtype))
             return self.ln_post(x.float().mean(dim=1).to(x.dtype))
         return self.ln_post(x[:, 0])
+
+
+def _local_tokens(x: torch.Tensor, group) -> torch.Tensor:
+    """This ``sp`` rank's contiguous shard of the token dim."""
+    rank, n = group_rank_size(group)
+    if x.shape[1] % n:
+        raise ValueError(f"{x.shape[1]} tokens do not divide by sp={n}")
+    per = x.shape[1] // n
+    return x[:, rank * per:(rank + 1) * per]
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over ``group``; the backward sums the cotangents too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    if group_rank_size(group)[1] == 1:
+        return x
+    return _AllReduceSum.apply(x, group)

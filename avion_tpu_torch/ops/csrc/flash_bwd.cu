@@ -1,8 +1,16 @@
 // Flash-attention backward for Hopper, sm_90a: dq, dk and dv of
-// softmax(sm_scale * Q K^T [+ causal mask]) V, read straight off the fused
-// qkv projection output and written into one fused gradient [B, S, 3W]
-// (dq in columns [0, W), dk in [W, 2W), dv in [2W, 3W)); nothing is
-// concatenated afterwards.
+// softmax(sm_scale * Q K^T + extra_bias [+ causal mask]) V, written into
+// one fused gradient [B, S, 3W] (dq in columns [0, W), dk in [W, 2W), dv
+// in [2W, 3W)); nothing is concatenated afterwards.  The gradient is bf16,
+// or f32 on the split routes (a ring hop's, so that the ring sums its hops
+// without rounding each to bf16).  q, k and v are three
+// operands with their own bases, strides and tensor maps: the fused path
+// passes column views of the qkv projection output, a ring hop
+// (ops/ring_attention.py; `_bwd` with `extra_bias` in the JAX package) its
+// local q and a neighbour's [B, S, 2W] k/v buffer, with the global out and
+// lse.  extra_bias, an f32 runtime argument, is added to every log2-domain
+// score before P = exp2(S2 - lse): on a hop voided with -1e30 and a finite
+// global lse, P and so every gradient term come out exactly 0.
 //
 // Replaces three Pallas TPU kernels of avion_tpu/ops/flash_attention.py:
 //   - `_bwd_combined_kernel` (used while ceil(S, 128) <= 1024): dq, dk and
@@ -84,6 +92,15 @@ static_assert(128 * (kEntryRegs - kProducerRegs) ==
                   kConsumers * (kConsumerRegs - kEntryRegs),
               "register hand-over must balance");
 
+// two adjacent gradient columns into an f32 or a bf16 gradient
+__device__ __forceinline__ void store_pair(float* g, float lo, float hi) {
+  *reinterpret_cast<float2*>(g) = make_float2(lo, hi);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* g, float lo,
+                                           float hi) {
+  *reinterpret_cast<uint32_t*>(g) = pack_bf16(lo, hi);
+}
+
 // byte offsets of the dk/dv kernel's shared memory, from a 1024-aligned base
 template <int D, bool kDq>
 struct KvSmem {
@@ -118,14 +135,17 @@ struct DqSmem {
 // (key tile of 64, head, batch).
 template <int D, bool kCausal, bool kDq>
 __global__ void __launch_bounds__(kBwdThreads, 2)
-    bwd_kv_kernel(const __grid_constant__ CUtensorMap map_qkv,
+    bwd_kv_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v,
                   const __grid_constant__ CUtensorMap map_do,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dqkv,
+                  void* __restrict__ dqkv,
                   float* __restrict__ dq_acc, int seq, int width,
                   long long g_batch_stride, long long g_row_stride,
-                  float scale_log2, float sm_scale) {
+                  float scale_log2, float sm_scale, float extra_bias,
+                  int out_f32) {
   using L = KvSmem<D, kDq>;
   constexpr int kChunks = D / 64;  // 64-column tiles across the head
 
@@ -162,15 +182,17 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
     const long long row_base =
         (static_cast<long long>(batch) * gridDim.y + head) * seq;
     if (lane == 0) {
-      tma_prefetch_map(&map_qkv);
+      tma_prefetch_map(&map_q);
+      tma_prefetch_map(&map_k);
+      tma_prefetch_map(&map_v);
       tma_prefetch_map(&map_do);
       mbar_arrive_expect_tx(kv_bar, 2 * L::kTile);
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
-        tma_load_tile(smem + L::kK + c * kTileBytes, &map_qkv, kv_bar,
-                      width + head * D + 64 * c, k0, batch);
-        tma_load_tile(smem + L::kV + c * kTileBytes, &map_qkv, kv_bar,
-                      2 * width + head * D + 64 * c, k0, batch);
+        tma_load_tile(smem + L::kK + c * kTileBytes, &map_k, kv_bar,
+                      head * D + 64 * c, k0, batch);
+        tma_load_tile(smem + L::kV + c * kTileBytes, &map_v, kv_bar,
+                      head * D + 64 * c, k0, batch);
       }
     }
     for (int i = 0; i < n_steps; ++i) {
@@ -187,7 +209,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
           const int off = stage * L::kTile + c * kTileBytes;
-          tma_load_tile(smem + L::kQ + off, &map_qkv, &full[stage],
+          tma_load_tile(smem + L::kQ + off, &map_q, &full[stage],
                         head * D + 64 * c, q0, batch);
           tma_load_tile(smem + L::kDo + off, &map_do, &full[stage],
                         head * D + 64 * c, q0, batch);
@@ -245,8 +267,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
       fence_regs(acc_s);
       fence_regs(acc_dp);
 
-      // P^T = exp2(S^T - lse) with keys past S (and, if causal, past the
-      // query) at -inf; dS^T = P^T (dP^T - delta)
+      // P^T = exp2(S^T + extra_bias - lse) with keys past S (and, if
+      // causal, past the query) at -inf; dS^T = P^T (dP^T - delta)
       const bool masked = k0 + kBlock > seq || (kCausal && i == 0);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -259,7 +281,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
           for (int e = 0; e < 2; ++e) {
             const int idx = 4 * j + 2 * ii + e;
             const int key = key_a + 8 * ii;
-            float s = acc_s[idx];
+            float s = acc_s[idx] + extra_bias;
             if (masked && (key >= seq || (kCausal && key > q0 + ql + e)))
               s = -INFINITY;
             const float p = exp2_approx(s - (e ? l2.y : l2.x));
@@ -355,24 +377,30 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
     if (kDq && tid == 0) bulk_wait();
 
     // store dk (times sm_scale) and dv for keys below S
-    __nv_bfloat16* dst = dqkv + batch * g_batch_stride + head * D + 2 * tq;
+    auto store = [&](auto* g) {
+      auto* dst = g + batch * g_batch_stride + head * D + 2 * tq;
 #pragma unroll
-    for (int ii = 0; ii < 2; ++ii) {
-      const int key = key_a + 8 * ii;
-      if (key >= seq) continue;
-      __nv_bfloat16* row = dst + key * g_row_stride;
+      for (int ii = 0; ii < 2; ++ii) {
+        const int key = key_a + 8 * ii;
+        if (key >= seq) continue;
+        auto* row = dst + key * g_row_stride;
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c)
+        for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int idx = 4 * j + 2 * ii;
-          const int col = 64 * c + 8 * j;
-          *reinterpret_cast<uint32_t*>(row + width + col) =
-              pack_bf16(acc_dk[c][idx] * sm_scale, acc_dk[c][idx + 1] * sm_scale);
-          *reinterpret_cast<uint32_t*>(row + 2 * width + col) =
-              pack_bf16(acc_dv[c][idx], acc_dv[c][idx + 1]);
-        }
-    }
+          for (int j = 0; j < 8; ++j) {
+            const int idx = 4 * j + 2 * ii;
+            const int col = 64 * c + 8 * j;
+            store_pair(row + width + col, acc_dk[c][idx] * sm_scale,
+                       acc_dk[c][idx + 1] * sm_scale);
+            store_pair(row + 2 * width + col, acc_dv[c][idx],
+                       acc_dv[c][idx + 1]);
+          }
+      }
+    };
+    if (out_f32)
+      store(static_cast<float*>(dqkv));
+    else
+      store(static_cast<__nv_bfloat16*>(dqkv));
   }
 }
 
@@ -380,14 +408,17 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
 // computed here from dO and the forward's output.
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kBwdThreads, 2)
-    bwd_dq_kernel(const __grid_constant__ CUtensorMap map_qkv,
+    bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v,
                   const __grid_constant__ CUtensorMap map_do,
                   const __nv_bfloat16* __restrict__ dout,
                   const __nv_bfloat16* __restrict__ out,
                   const float* __restrict__ lse,
-                  __nv_bfloat16* __restrict__ dqkv, int seq, int width,
+                  void* __restrict__ dqkv, int seq, int width,
                   long long g_batch_stride, long long g_row_stride,
-                  float scale_log2, float sm_scale) {
+                  float scale_log2, float sm_scale, float extra_bias,
+                  int out_f32) {
   using L = DqSmem<D>;
   constexpr int kChunks = D / 64;
 
@@ -418,12 +449,14 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
     // ---- producer warp: Q, dO once; then (K, V) per stage
     regs_dealloc<kProducerRegs>();
     if (threadIdx.x == kConsumers) {
-      tma_prefetch_map(&map_qkv);
+      tma_prefetch_map(&map_q);
+      tma_prefetch_map(&map_k);
+      tma_prefetch_map(&map_v);
       tma_prefetch_map(&map_do);
       mbar_arrive_expect_tx(q_bar, 2 * L::kTile);
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
-        tma_load_tile(smem + L::kQ + c * kTileBytes, &map_qkv, q_bar,
+        tma_load_tile(smem + L::kQ + c * kTileBytes, &map_q, q_bar,
                       head * D + 64 * c, q0, batch);
         tma_load_tile(smem + L::kDo + c * kTileBytes, &map_do, q_bar,
                       head * D + 64 * c, q0, batch);
@@ -435,11 +468,11 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
           tma_load_tile(smem + L::kK + stage * L::kTile + c * kTileBytes,
-                        &map_qkv, &full[stage], width + head * D + 64 * c,
-                        i * kBlock, batch);
+                        &map_k, &full[stage], head * D + 64 * c, i * kBlock,
+                        batch);
           tma_load_tile(smem + L::kV + stage * L::kTile + c * kTileBytes,
-                        &map_qkv, &full[stage], 2 * width + head * D + 64 * c,
-                        i * kBlock, batch);
+                        &map_v, &full[stage], head * D + 64 * c, i * kBlock,
+                        batch);
         }
       }
     }
@@ -527,8 +560,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
       fence_regs(acc_s);
       fence_regs(acc_dp);
 
-      // P = exp2(S - lse), keys past S (and past the row, if causal) at
-      // -inf; dS = P (dP - delta)
+      // P = exp2(S + extra_bias - lse), keys past S (and past the row, if
+      // causal) at -inf; dS = P (dP - delta)
       const bool masked = kv0 + kBlock > seq || (kCausal && kv0 == q0);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -538,7 +571,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
           for (int e = 0; e < 2; ++e) {
             const int idx = 4 * j + 2 * ii + e;
             const int key = kv0 + 8 * j + 2 * tq + e;
-            float s = acc_s[idx];
+            float s = acc_s[idx] + extra_bias;
             if (masked && (key >= seq || (kCausal && key > row_a + 8 * ii)))
               s = -INFINITY;
             const float p = exp2_approx(s - lse_r[ii]);
@@ -564,21 +597,27 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
       mbar_arrive(&empty[stage]);
     }
 
-    __nv_bfloat16* dst = dqkv + batch * g_batch_stride + head * D + 2 * tq;
+    auto store = [&](auto* g) {
+      auto* dst = g + batch * g_batch_stride + head * D + 2 * tq;
 #pragma unroll
-    for (int ii = 0; ii < 2; ++ii) {
-      const int row = row_a + 8 * ii;
-      if (row >= seq) continue;
-      __nv_bfloat16* o_row = dst + row * g_row_stride;
+      for (int ii = 0; ii < 2; ++ii) {
+        const int row = row_a + 8 * ii;
+        if (row >= seq) continue;
+        auto* o_row = dst + row * g_row_stride;
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c)
+        for (int c = 0; c < kChunks; ++c)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int idx = 4 * j + 2 * ii;
-          *reinterpret_cast<uint32_t*>(o_row + 64 * c + 8 * j) = pack_bf16(
-              acc_dq[c][idx] * sm_scale, acc_dq[c][idx + 1] * sm_scale);
-        }
-    }
+          for (int j = 0; j < 8; ++j) {
+            const int idx = 4 * j + 2 * ii;
+            store_pair(o_row + 64 * c + 8 * j, acc_dq[c][idx] * sm_scale,
+                       acc_dq[c][idx + 1] * sm_scale);
+          }
+      }
+    };
+    if (out_f32)
+      store(static_cast<float*>(dqkv));
+    else
+      store(static_cast<__nv_bfloat16*>(dqkv));
   }
 }
 
@@ -652,7 +691,7 @@ __global__ void __launch_bounds__(256)
 }
 
 struct Args {
-  const void* qkv;
+  Operand q, k, v;
   const void* dout;
   const void* out;
   const void* lse;
@@ -660,23 +699,23 @@ struct Args {
   void* dq_acc;
   void* dqkv;
   int batch, seq, heads;
-  long long in_batch_stride, in_row_stride, g_batch_stride, g_row_stride;
-  float scale_log2, sm_scale;
+  long long g_batch_stride, g_row_stride;
+  float scale_log2, sm_scale, extra_bias;
+  int out_f32;  // dqkv is f32 (split routes only), else bf16
   cudaStream_t stream;
 };
 
-// tensor maps over qkv (columns 3W, rows seq, batch) and dO (W, seq, batch)
-cudaError_t make_maps(const Args& a, int head_dim, CUtensorMap* map_qkv,
-                      CUtensorMap* map_do) {
+// tensor maps over q, k, v (columns W, rows seq, batch) and dO
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+cudaError_t make_maps(const Args& a, int head_dim, Maps* m) {
   const long long w = static_cast<long long>(a.heads) * head_dim;
-  const long long row_bytes = a.in_row_stride * 2;
-  // a batch of one never steps the batch coordinate
-  const long long batch_bytes =
-      a.batch > 1 ? a.in_batch_stride * 2 : row_bytes * a.seq;
-  cudaError_t err = make_tile_map(map_qkv, a.qkv, 3 * w, a.seq, a.batch,
-                                  row_bytes, batch_bytes);
+  cudaError_t err =
+      make_qkv_maps(&m->q, &m->k, &m->v, a.q, a.k, a.v, w, a.seq, a.batch);
   if (err != cudaSuccess) return err;
-  return make_tile_map(map_do, a.dout, w, a.seq, a.batch, w * 2,
+  return make_tile_map(&m->dout, a.dout, w, a.seq, a.batch, w * 2,
                        w * 2 * a.seq);
 }
 
@@ -686,8 +725,8 @@ int launch_kv(const Args& a) {
   constexpr int smem = KvSmem<D, kDq>::kBytes;
   cudaError_t err = prepare_kernel(kernel, smem, kEntryRegs);
   if (err != cudaSuccess) return static_cast<int>(err);
-  CUtensorMap map_qkv, map_do;
-  err = make_maps(a, D, &map_qkv, &map_do);
+  Maps m;
+  err = make_maps(a, D, &m);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(a.batch) * a.seq;
   delta_kernel<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
@@ -700,10 +739,10 @@ int launch_kv(const Args& a) {
   const int n_q = (a.seq + kBlock - 1) / kBlock;
   const dim3 grid(n_q, a.heads, a.batch);
   kernel<<<grid, kBwdThreads, smem, a.stream>>>(
-      map_qkv, map_do, static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.dqkv),
+      m.q, m.k, m.v, m.dout, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), a.dqkv,
       static_cast<float*>(a.dq_acc), a.seq, a.heads * D, a.g_batch_stride,
-      a.g_row_stride, a.scale_log2, a.sm_scale);
+      a.g_row_stride, a.scale_log2, a.sm_scale, a.extra_bias, a.out_f32);
   err = cudaGetLastError();
   if (err != cudaSuccess || !kDq) return static_cast<int>(err);
   dq_convert_kernel<D><<<grid, kConsumers, 0, a.stream>>>(
@@ -718,16 +757,16 @@ int launch_dq(const Args& a) {
   constexpr int smem = DqSmem<D>::kBytes;
   cudaError_t err = prepare_kernel(kernel, smem, kEntryRegs);
   if (err != cudaSuccess) return static_cast<int>(err);
-  CUtensorMap map_qkv, map_do;
-  err = make_maps(a, D, &map_qkv, &map_do);
+  Maps m;
+  err = make_maps(a, D, &m);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.seq + kBlock - 1) / kBlock, a.heads, a.batch);
   kernel<<<grid, kBwdThreads, smem, a.stream>>>(
-      map_qkv, map_do, static_cast<const __nv_bfloat16*>(a.dout),
+      m.q, m.k, m.v, m.dout, static_cast<const __nv_bfloat16*>(a.dout),
       static_cast<const __nv_bfloat16*>(a.out),
-      static_cast<const float*>(a.lse), static_cast<__nv_bfloat16*>(a.dqkv),
+      static_cast<const float*>(a.lse), a.dqkv,
       a.seq, a.heads * D, a.g_batch_stride, a.g_row_stride, a.scale_log2,
-      a.sm_scale);
+      a.sm_scale, a.extra_bias, a.out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -735,7 +774,7 @@ enum Route { kCombined, kDkv, kDqOnly };
 
 int dispatch(Route route, int head_dim, int causal, const Args& a) {
   if (a.batch <= 0 || a.seq <= 0 || a.heads <= 0 || a.batch > 65535 ||
-      a.heads > 65535)
+      a.heads > 65535 || (a.out_f32 && route == kCombined))
     return static_cast<int>(cudaErrorInvalidValue);
 #define AVION_ROUTES(D, C)                                   \
   switch (route) {                                           \
@@ -757,60 +796,63 @@ int dispatch(Route route, int head_dim, int causal, const Args& a) {
 
 extern "C" {
 
-// Common arguments.  qkv: [batch, >= seq rows, 3W] bf16 (W = heads *
-// head_dim), rows `in_row_stride` and batches `in_batch_stride` elements
-// apart, both multiples of 8, 16-byte aligned.  dout and out (the
-// forward's output): [batch, seq, W] bf16, contiguous, 16-byte aligned.
-// lse: [batch, heads, seq] f32, contiguous, in log2 units as the forward
-// wrote it.  dqkv: [batch, >= seq rows, 3W] bf16, rows `g_row_stride`
-// elements apart; rows past seq are not written.  scale_log2 must be the
-// forward's (sm_scale * log2(e) as f32).  Each launches on `stream` and
-// returns the cudaError_t (0 on success; cudaErrorInvalidValue when a
-// tensor map cannot describe the input).
+// Common arguments.  q, k, v: [batch, >= seq rows, W] bf16 each (W = heads
+// * head_dim), rows `*_row_stride` and batches `*_batch_stride` elements
+// apart, both multiples of 8, 16-byte aligned; they may be column views of
+// one tensor.  dout and out (the forward's output; a ring passes the merged
+// one): [batch, seq, W] bf16, contiguous, 16-byte aligned.  lse: [batch,
+// heads, seq] f32, contiguous, in log2 units as the forward wrote it (a
+// ring passes the global one).  dqkv: [batch, >= seq rows, 3W], bf16, or
+// f32 with out_f32 (dq and dkv only), rows `g_row_stride` elements apart;
+// rows past seq are not written.
+// scale_log2 must be the forward's (sm_scale * log2(e) as f32), extra_bias
+// the one its scores took.  Each launches on `stream` and returns the
+// cudaError_t (0 on success; cudaErrorInvalidValue when a tensor map
+// cannot describe an input).
+#define AVION_BWD_PARAMS                                                    \
+  int batch, int seq, int heads, int head_dim, long long q_batch_stride,    \
+      long long q_row_stride, long long k_batch_stride,                     \
+      long long k_row_stride, long long v_batch_stride,                     \
+      long long v_row_stride, long long g_batch_stride,                     \
+      long long g_row_stride, int causal, float scale_log2, float sm_scale, \
+      float extra_bias, int out_f32, void *stream
+#define AVION_BWD_ARGS(delta, dq_acc)                                       \
+  const Args a {                                                            \
+    {q, q_batch_stride, q_row_stride}, {k, k_batch_stride, k_row_stride},   \
+        {v, v_batch_stride, v_row_stride}, dout, out, lse, delta, dq_acc,   \
+        dqkv, batch, seq, heads, g_batch_stride, g_row_stride, scale_log2,  \
+        sm_scale, extra_bias, out_f32, static_cast<cudaStream_t>(stream)    \
+  }
 
 // dq, dk and dv.  delta: [batch, heads, seq] f32 scratch (rowsum(dO * O)
 // is written there first); dq_acc: [batch, heads, ceil(seq / 64) * 64,
 // head_dim] f32 scratch, zero on entry.
-int avion_flash_bwd_combined_bf16(
-    const void* qkv, const void* dout, const void* out, const void* lse,
-    void* delta, void* dq_acc, void* dqkv, int batch, int seq, int heads,
-    int head_dim,
-    long long in_batch_stride, long long in_row_stride,
-    long long g_batch_stride, long long g_row_stride, int causal,
-    float scale_log2, float sm_scale, void* stream) {
-  const Args a{qkv, dout, out, lse, delta, dq_acc, dqkv, batch, seq,
-               heads, in_batch_stride, in_row_stride, g_batch_stride,
-               g_row_stride, scale_log2, sm_scale,
-               static_cast<cudaStream_t>(stream)};
+int avion_flash_bwd_combined_bf16(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* out,
+                                  const void* lse, void* delta, void* dq_acc,
+                                  void* dqkv, AVION_BWD_PARAMS) {
+  AVION_BWD_ARGS(delta, dq_acc);
   return dispatch(kCombined, head_dim, causal, a);
 }
 
 // dk and dv only; delta as for the combined route.
-int avion_flash_bwd_dkv_bf16(
-    const void* qkv, const void* dout, const void* out, const void* lse,
-    void* delta, void* dqkv, int batch, int seq, int heads, int head_dim,
-    long long in_batch_stride, long long in_row_stride,
-    long long g_batch_stride, long long g_row_stride, int causal,
-    float scale_log2, float sm_scale, void* stream) {
-  const Args a{qkv, dout, out, lse, delta, nullptr, dqkv, batch, seq,
-               heads, in_batch_stride, in_row_stride, g_batch_stride,
-               g_row_stride, scale_log2, sm_scale,
-               static_cast<cudaStream_t>(stream)};
+int avion_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                             const void* dout, const void* out,
+                             const void* lse, void* delta, void* dqkv,
+                             AVION_BWD_PARAMS) {
+  AVION_BWD_ARGS(delta, nullptr);
   return dispatch(kDkv, head_dim, causal, a);
 }
 
 // dq only, with delta computed in the kernel.
-int avion_flash_bwd_dq_bf16(
-    const void* qkv, const void* dout, const void* out, const void* lse,
-    void* dqkv, int batch, int seq, int heads, int head_dim,
-    long long in_batch_stride, long long in_row_stride,
-    long long g_batch_stride, long long g_row_stride, int causal,
-    float scale_log2, float sm_scale, void* stream) {
-  const Args a{qkv, dout, out, lse, nullptr, nullptr, dqkv, batch, seq,
-               heads, in_batch_stride, in_row_stride, g_batch_stride,
-               g_row_stride, scale_log2, sm_scale,
-               static_cast<cudaStream_t>(stream)};
+int avion_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const void* out,
+                            const void* lse, void* dqkv, AVION_BWD_PARAMS) {
+  AVION_BWD_ARGS(nullptr, nullptr);
   return dispatch(kDqOnly, head_dim, causal, a);
 }
+
+#undef AVION_BWD_ARGS
+#undef AVION_BWD_PARAMS
 
 }  // extern "C"

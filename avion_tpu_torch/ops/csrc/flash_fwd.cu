@@ -1,12 +1,22 @@
 // Flash-attention forward for Hopper, sm_90a.
 //
 // Replaces two Pallas TPU kernels of avion_tpu/ops/flash_attention.py,
-// both reached from `_fwd_fused`: `_fwd_infer_kernel` (need_lse=False, the
-// serving path) and `_fwd_kernel` (need_lse=True, the training forward,
+// reached from `_fwd_fused` and `_fwd`: `_fwd_infer_kernel` (need_lse=False,
+// the serving path) and `_fwd_kernel` (need_lse=True, the training forward,
 // which also writes each row's logsumexp for the backward).  They compute
-// softmax(sm_scale * Q K^T [+ causal mask]) V read straight off the fused
-// qkv projection output, in the log2 domain; one template flag, kWriteLse,
-// separates them.
+// softmax(sm_scale * Q K^T + extra_bias [+ causal mask]) V in the log2
+// domain; one template flag, kWriteLse, separates them.  q, k and v are
+// three operands, each with its own base, strides and tensor map: the fused
+// path passes three column views of the qkv projection output, a ring hop
+// (ops/ring_attention.py, `_fwd` with `extra_bias` in the JAX package) its
+// local q and a neighbour's [B, S, 2W] k/v buffer.
+//
+// extra_bias is an f32 runtime argument added to every log2-domain score
+// (the ring voids a hop of future keys with the mask value -1e30).  Then
+// every valid score rounds to exactly -1e30, the row max is -1e30 and not
+// -inf, so P = 1 on the valid keys: a finite output (the mean of v) and
+// lse = -1e30 + log2(S), which the ring's f32 merge weights to 0.  Keys
+// past S stay at -inf and still get P = 0.
 //
 // lse is the row logsumexp of the log2-domain scores, m + log2(l), as f32
 // [B, H, S] (the TPU layout [B, H/hpp, hpp, S_pad] exists only for its lane
@@ -51,10 +61,11 @@
 //   - no wgmma sits in a branch: ptxas serializes every wgmma of a kernel
 //     that has one on a divergent path (its C7520 note), which cost a
 //     quarter of the time in bring-up;
-//   - no padding of S: the tensor map ends at row S, so TMA zero-fills the
+//   - no padding of S: the tensor maps end at row S, so TMA zero-fills the
 //     ragged tile and never reads a row past S; keys at or past S (and,
 //     causal, past the row) go to -inf before exp2; no output row or lse
 //     past S is stored;
+//   - extra_bias is one FADD a score, outside any branch;
 //   - causal blocks stop at the diagonal tile and start longest first.
 // Two consumer warpgroups a block (128 rows sharing each K/V stage, one
 // block an SM), with or without a ping-pong between them on named barriers
@@ -189,11 +200,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
 
 template <int D, bool kCausal, bool kWriteLse>
 __global__ void __launch_bounds__(kFwdThreads, kMinBlocks)
-    flash_fwd_kernel(const __grid_constant__ CUtensorMap map_qkv,
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
                      __nv_bfloat16* __restrict__ out,
-                     float* __restrict__ lse, int seq, int width,
+                     float* __restrict__ lse, int seq,
                      long long out_batch_stride, long long out_row_stride,
-                     float scale_log2) {
+                     float scale_log2, float extra_bias) {
   using L = FwdSmem<D>;
   constexpr int kKeys = L::kKeys;
   constexpr int kChunks = D / 64;  // 64-column tiles across the head
@@ -230,27 +243,28 @@ __global__ void __launch_bounds__(kFwdThreads, kMinBlocks)
     // ---- producer: q once, then K and V tiles through their rings
     regs_dealloc<kProducerRegs>();
     if (threadIdx.x == kConsumers) {
-      tma_prefetch_map(&map_qkv);
+      tma_prefetch_map(&map_q);
+      tma_prefetch_map(&map_k);
+      tma_prefetch_map(&map_v);
       mbar_arrive_expect_tx(q_bar, L::kQTile);
 #pragma unroll
       for (int c = 0; c < kChunks; ++c)
-        tma_load_tile(smem + L::kQ + c * kTileBytes, &map_qkv, q_bar,
+        tma_load_tile(smem + L::kQ + c * kTileBytes, &map_q, q_bar,
                       head * D + 64 * c, q0, batch);
       // K runs one tile ahead of V, as the consumers use them
       for (int i = 0; i <= n_tiles; ++i) {
         if (i < n_tiles) {
           const int stage = i % kStages;
           mbar_wait(&empty_k[stage], ((i / kStages) & 1) ^ 1);
-          load_kv<D, kKeys>(smem + L::kK + stage * L::kKvTile, &map_qkv,
-                            &full_k[stage], width + head * D, i * kKeys,
-                            batch);
+          load_kv<D, kKeys>(smem + L::kK + stage * L::kKvTile, &map_k,
+                            &full_k[stage], head * D, i * kKeys, batch);
         }
         if (i > 0) {
           const int stage = (i - 1) % kStages;
           mbar_wait(&empty_v[stage], (((i - 1) / kStages) & 1) ^ 1);
-          load_kv<D, kKeys>(smem + L::kV + stage * L::kKvTile, &map_qkv,
-                            &full_v[stage], 2 * width + head * D,
-                            (i - 1) * kKeys, batch);
+          load_kv<D, kKeys>(smem + L::kV + stage * L::kKvTile, &map_v,
+                            &full_v[stage], head * D, (i - 1) * kKeys,
+                            batch);
         }
       }
     }
@@ -288,9 +302,11 @@ __global__ void __launch_bounds__(kFwdThreads, kMinBlocks)
     auto release = [&](uint64_t* bar) {
       if (lane == 0) mbar_arrive(bar);
     };
-    // mask and softmax of key tile i's scores; P into register A
+    // bias, mask and softmax of key tile i's scores; P into register A
     auto softmax = [&](int i) {
       const int kv0 = i * kKeys;
+#pragma unroll
+      for (int e = 0; e < kKeys / 2; ++e) acc_s[e] += extra_bias;
       if (kv0 + kKeys > seq ||
           (kCausal && kv0 + kKeys - 1 > q0 + warp * 16))
         mask_scores<kCausal>(acc_s, kv0 + 2 * tq, row_a, seq);
@@ -379,29 +395,31 @@ __global__ void __launch_bounds__(kFwdThreads, kMinBlocks)
   }
 }
 
+struct FwdArgs {
+  Operand q, k, v;
+  void* out;
+  float* lse;
+  int batch, seq, heads;
+  long long out_batch_stride, out_row_stride;
+  float scale_log2, extra_bias;
+  cudaStream_t stream;
+};
+
 template <int D, bool kCausal, bool kWriteLse>
-int launch(const void* qkv, void* out, float* lse, int batch, int seq,
-           int heads, long long in_batch_stride, long long in_row_stride,
-           long long out_batch_stride, long long out_row_stride,
-           float scale_log2, cudaStream_t stream) {
+int launch(const FwdArgs& a) {
   auto kernel = flash_fwd_kernel<D, kCausal, kWriteLse>;
   constexpr int smem = FwdSmem<D>::kBytes;
   cudaError_t err = prepare_kernel(kernel, smem, kEntryRegs);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // qkv as (columns 3W, rows seq, batch); a batch of one never steps the
-  // batch coordinate
-  CUtensorMap map_qkv;
-  const long long w = static_cast<long long>(heads) * D;
-  const long long row_bytes = in_row_stride * 2;
-  const long long batch_bytes =
-      batch > 1 ? in_batch_stride * 2 : row_bytes * seq;
-  err = make_tile_map(&map_qkv, qkv, 3 * w, seq, batch, row_bytes,
-                      batch_bytes);
+  CUtensorMap map_q, map_k, map_v;
+  const long long w = static_cast<long long>(a.heads) * D;
+  err = make_qkv_maps(&map_q, &map_k, &map_v, a.q, a.k, a.v, w, a.seq,
+                      a.batch);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
-  kernel<<<grid, kFwdThreads, smem, stream>>>(
-      map_qkv, static_cast<__nv_bfloat16*>(out), lse, seq, heads * D,
-      out_batch_stride, out_row_stride, scale_log2);
+  const dim3 grid((a.seq + kBlockM - 1) / kBlockM, a.heads, a.batch);
+  kernel<<<grid, kFwdThreads, smem, a.stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(a.out), a.lse, a.seq,
+      a.out_batch_stride, a.out_row_stride, a.scale_log2, a.extra_bias);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -409,29 +427,33 @@ int launch(const void* qkv, void* out, float* lse, int batch, int seq,
 
 extern "C" {
 
-// qkv: [batch, >= seq rows, 3 * heads * head_dim] bf16, rows
-// `in_row_stride` and batches `in_batch_stride` elements apart (multiples
-// of 8, below 2^39), 16-byte aligned; q/k/v sections at column 0, W and 2W
-// (W = heads * head_dim).  out: [batch, seq, W] bf16.  lse: null
-// (inference) or [batch, heads, seq] f32, the row logsumexp in log2 units.
-// Launches on `stream`; returns the cudaError_t (0 on success;
-// cudaErrorInvalidValue when the tensor map cannot describe qkv).
-int avion_flash_fwd_bf16(const void* qkv, void* out, void* lse, int batch,
-                         int seq,
-                         int heads, int head_dim, long long in_batch_stride,
-                         long long in_row_stride, long long out_batch_stride,
+// q, k, v: [batch, >= seq rows, W] bf16 each (W = heads * head_dim), rows
+// `*_row_stride` and batches `*_batch_stride` elements apart (multiples of
+// 8, below 2^39), 16-byte aligned; they may be column views of one tensor.
+// out: [batch, seq, W] bf16.  lse: null (inference) or [batch, heads, seq]
+// f32, the row logsumexp in log2 units.  extra_bias is added to every
+// log2-domain score.  Launches on `stream`; returns the cudaError_t (0 on
+// success; cudaErrorInvalidValue when a tensor map cannot describe an
+// operand).
+int avion_flash_fwd_bf16(const void* q, const void* k, const void* v,
+                         void* out, void* lse, int batch, int seq, int heads,
+                         int head_dim, long long q_batch_stride,
+                         long long q_row_stride, long long k_batch_stride,
+                         long long k_row_stride, long long v_batch_stride,
+                         long long v_row_stride, long long out_batch_stride,
                          long long out_row_stride, int causal,
-                         float scale_log2, void* stream) {
+                         float scale_log2, float extra_bias, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || batch > 65535 || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-#define AVION_LAUNCH(D, C, L)                                                \
-  return launch<D, C, L>(qkv, out, l, batch, seq, heads, in_batch_stride,    \
-                         in_row_stride, out_batch_stride, out_row_stride,    \
-                         scale_log2, s)
+  const FwdArgs a{{q, q_batch_stride, q_row_stride},
+                  {k, k_batch_stride, k_row_stride},
+                  {v, v_batch_stride, v_row_stride},
+                  out, static_cast<float*>(lse), batch, seq, heads,
+                  out_batch_stride, out_row_stride, scale_log2, extra_bias,
+                  static_cast<cudaStream_t>(stream)};
+#define AVION_LAUNCH(D, C, L) return launch<D, C, L>(a)
 #define AVION_LAUNCH_LSE(D, C) \
-  if (l) AVION_LAUNCH(D, C, true); \
+  if (a.lse) AVION_LAUNCH(D, C, true); \
   AVION_LAUNCH(D, C, false)
   if (head_dim == 64) {
     if (causal) { AVION_LAUNCH_LSE(64, true); }

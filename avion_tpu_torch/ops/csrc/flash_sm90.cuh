@@ -358,6 +358,36 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// one bf16 operand [batch, >= rows, cols]: its base and element strides
+struct Operand {
+  const void* ptr;
+  long long batch_stride, row_stride;
+};
+
+// a tensor map over the first `rows` rows of `op`; a batch of one never
+// steps the batch coordinate
+inline cudaError_t make_operand_map(CUtensorMap* map, const Operand& op,
+                                    long long cols, long long rows,
+                                    long long batch) {
+  const long long row_bytes = op.row_stride * 2;
+  const long long batch_bytes =
+      batch > 1 ? op.batch_stride * 2 : row_bytes * rows;
+  return make_tile_map(map, op.ptr, cols, rows, batch, row_bytes,
+                       batch_bytes);
+}
+
+// the maps of q, k and v, each [batch, >= rows, cols]
+inline cudaError_t make_qkv_maps(CUtensorMap* map_q, CUtensorMap* map_k,
+                                 CUtensorMap* map_v, const Operand& q,
+                                 const Operand& k, const Operand& v,
+                                 long long cols, long long rows,
+                                 long long batch) {
+  cudaError_t err = make_operand_map(map_q, q, cols, rows, batch);
+  if (err == cudaSuccess) err = make_operand_map(map_k, k, cols, rows, batch);
+  if (err == cudaSuccess) err = make_operand_map(map_v, v, cols, rows, batch);
+  return err;
+}
+
 // ---- host: launch preparation ---------------------------------------------
 
 // lets `kernel` take `smem` bytes of dynamic shared memory, and refuses it

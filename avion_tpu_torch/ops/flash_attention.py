@@ -15,6 +15,17 @@ TPU kernel (Pallas)         CUDA kernel                 plain version
 ``_bwd_dkv_kernel``         ``csrc/flash_bwd.cu``       ``flash_bwd_plain``
 ==========================  ==========================  ======================
 
+The kernels take q, k and v as three operands (the fused path passes
+column views of ``qkv``) and an f32 ``extra_bias`` added to every
+log2-domain score, as the JAX ``_fwd`` / ``_bwd`` take them.  The ring hops
+of ``ops.ring_attention`` reach them through two more custom ops:
+``avion::flash_hop_fwd`` (the forward with lse over local q and a
+neighbour's k / v, with the hop's bias; counted as ``flash_hop_fwd``) and
+``avion::flash_hop_bwd`` (dq by ``bwd_dq_kernel`` and dk / dv by
+``bwd_kv_kernel``, on the global out and lse; counted as
+``flash_hop_bwd_dq`` and ``flash_hop_bwd_dkv``), with their plain versions
+:func:`flash_hop_fwd_plain` and :func:`flash_hop_bwd_plain`.
+
 Without a gradient to take, :func:`flash_attention_fused_qkv` runs the
 inference forward.  With one, it calls the custom op ``avion::flash_fwd_lse``
 (forward that also returns the row logsumexp, in log2 units, f32
@@ -48,7 +59,8 @@ BWD_SOURCE = "flash_bwd.cu"
 LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 128)
 KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_combined", "flash_bwd_dq",
-           "flash_bwd_dkv")
+           "flash_bwd_dkv", "flash_hop_fwd", "flash_hop_bwd_dq",
+           "flash_hop_bwd_dkv")
 
 # kernel launches since the last reset, by kernel name; counted only where
 # a kernel is launched
@@ -81,15 +93,16 @@ def use_combined_bwd(s: int) -> bool:
 
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# (batch, seq, heads, head_dim), then q, k, v strides (batch, row) and the
+# output's; the trailing stream pointer is appended by _launch
+_SHAPE, _QKV_STRIDES = [_I] * 4, [_L] * 6
+_BWD_TAIL = [*_SHAPE, *_QKV_STRIDES, _L, _L, _I, _F, _F, _F, _I, _P]
 _SIGNATURES = {
-    "avion_flash_fwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I,
-                             _F, _P],
-    "avion_flash_bwd_combined_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _L, _L, _L, _L, _I, _F, _F, _P],
-    "avion_flash_bwd_dkv_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
-                                 _L, _L, _L, _I, _F, _F, _P],
-    "avion_flash_bwd_dq_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
-                                _L, _L, _I, _F, _F, _P],
+    "avion_flash_fwd_bf16": [_P] * 5 + _SHAPE + _QKV_STRIDES
+                            + [_L, _L, _I, _F, _F, _P],
+    "avion_flash_bwd_combined_bf16": [_P] * 9 + _BWD_TAIL,
+    "avion_flash_bwd_dkv_bf16": [_P] * 8 + _BWD_TAIL,
+    "avion_flash_bwd_dq_bf16": [_P] * 7 + _BWD_TAIL,
 }
 
 
@@ -119,29 +132,48 @@ def _split(qkv: torch.Tensor, heads: int):
     return w, w // heads
 
 
-def _check_cuda(qkv: torch.Tensor, heads: int, s: int):
-    """What the kernels take; returns (w, d, batch stride, row stride)."""
-    w, d = _split(qkv, heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"unsupported device {qkv.device}")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel takes bf16, got {qkv.dtype}")
+def _sections(qkv: torch.Tensor, heads: int):
+    """The q, k and v column views of a fused ``[B, S, 3W]``."""
+    w, _ = _split(qkv, heads)
+    return qkv[..., :w], qkv[..., w:2 * w], qkv[..., 2 * w:]
+
+
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                heads: int, s: int):
+    """What the kernels take: q, k, v [B, >= s rows, W] bf16 on one card,
+    unit column stride, 16-byte aligned rows that TMA can step; returns
+    (w, d, the six batch and row strides)."""
+    b, _, w = q.shape
+    if w % heads:
+        raise ValueError(f"width {w} is not divisible by {heads} heads")
+    d = w // heads
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if not 0 < s <= qkv.shape[1]:
-        raise ValueError(f"s={s} must be in [1, {qkv.shape[1]}]")
-    bstride, rstride, cstride = qkv.stride()
-    if (cstride != 1 or rstride % 8 or bstride % 8
-            or qkv.data_ptr() % 16):
-        raise ValueError(
-            f"qkv needs unit column stride and 16-byte aligned rows, got "
-            f"strides {qkv.stride()} at offset {qkv.data_ptr() % 16}")
-    # the kernels read qkv through a TMA tensor map: positive strides
-    # below 2**40 bytes
-    if not (0 < rstride < 2**39
-            and (qkv.shape[0] == 1 or 0 < bstride < 2**39)):
-        raise ValueError(f"qkv strides {qkv.stride()} cannot be read by TMA")
-    return w, d, bstride, rstride
+    strides = []
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dim() != 3 or x.shape[0] != b or x.shape[2] != w:
+            raise ValueError(f"{name} must be [{b}, S, {w}], got "
+                             f"{list(x.shape)}")
+        if x.device.type != "cuda" or x.device != q.device:
+            raise ValueError(f"unsupported device {x.device} for {name}")
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA kernel takes bf16, got {x.dtype}")
+        if not 0 < s <= x.shape[1]:
+            raise ValueError(f"s={s} must be in [1, {x.shape[1]}]")
+        bstride, rstride, cstride = x.stride()
+        if (cstride != 1 or rstride % 8 or bstride % 8
+                or x.data_ptr() % 16):
+            raise ValueError(
+                f"{name} needs unit column stride and 16-byte aligned rows, "
+                f"got strides {x.stride()} at offset {x.data_ptr() % 16}")
+        # the kernels read each operand through a TMA tensor map: positive
+        # strides below 2**40 bytes
+        if not (0 < rstride < 2**39
+                and (b == 1 or 0 < bstride < 2**39)):
+            raise ValueError(f"{name} strides {x.stride()} cannot be read "
+                             f"by TMA")
+        strides += [bstride, rstride]
+    return w, d, strides
 
 
 def _check_dense(name: str, x: torch.Tensor, shape, dtype) -> None:
@@ -162,43 +194,48 @@ def _heads_first(x: torch.Tensor, heads: int) -> torch.Tensor:
     return x.float().reshape(b, s, heads, w // heads).transpose(1, 2)
 
 
-def _qkv_heads(qkv: torch.Tensor, heads: int, s: int):
-    w, _ = _split(qkv, heads)
-    return tuple(_heads_first(qkv[:, :s, i * w:(i + 1) * w], heads)
-                 for i in range(3))
-
-
 def _causal_mask(s: int, device) -> torch.Tensor:
     return torch.ones(s, s, dtype=torch.bool, device=device).tril()
 
 
-def _scores_log2(q, k, s, causal, sm_scale):
-    """Log2-domain scores (q scaled by sm_scale * log2 e), masked keys at
-    -inf."""
-    s2 = torch.matmul(q * (sm_scale * LOG2E), k.transpose(-1, -2))
+def _scores_log2(q, k, s, causal, sm_scale, bias=0.0):
+    """Log2-domain scores (q scaled by sm_scale * log2 e) plus ``bias``,
+    masked keys at -inf."""
+    s2 = torch.matmul(q * (sm_scale * LOG2E), k.transpose(-1, -2)) + bias
     if causal:
         s2 = s2.masked_fill(~_causal_mask(s, q.device), -math.inf)
     return s2
 
 
-def flash_fwd_lse_plain(qkv: torch.Tensor, heads: int, s: int,
-                        causal: bool = False,
-                        sm_scale: Optional[float] = None):
-    """Plain version of the training forward, in f32, as the TPU kernel
-    computes it: returns (out [B, s, W] in qkv's dtype, lse [B, H, s] f32,
-    the row logsumexp of the log2-domain scores, ``m + log2(l)``)."""
-    w, d = _split(qkv, heads)
+def flash_hop_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        heads: int, s: int, causal: bool = False,
+                        sm_scale: Optional[float] = None, bias: float = 0.0):
+    """Plain version of the training forward over three operands
+    [B, >= s, W], in f32, as the TPU kernel computes it (``_fwd`` with
+    ``extra_bias``): returns (out [B, s, W] in q's dtype, lse [B, H, s]
+    f32, the row logsumexp of the log2-domain scores, ``m + log2(l)``).
+    With ``bias`` -1e30 every score is -1e30: out is the mean of v and lse
+    about -1e30, both finite."""
+    b, _, w = q.shape
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
-    q, k, v = _qkv_heads(qkv, heads, s)
-    s2 = _scores_log2(q, k, s, causal, sm_scale)
+        sm_scale = 1.0 / math.sqrt(w // heads)
+    qh, kh, vh = (_heads_first(x[:, :s], heads) for x in (q, k, v))
+    s2 = _scores_log2(qh, kh, s, causal, sm_scale, bias)
     m = s2.amax(dim=-1, keepdim=True)
     p = torch.exp2(s2 - m)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p, v) / l
+    out = torch.matmul(p, vh) / l
     lse = (m + torch.log2(l))[..., 0]
-    b = qkv.shape[0]
-    return out.transpose(1, 2).reshape(b, s, w).to(qkv.dtype), lse
+    return out.transpose(1, 2).reshape(b, s, w).to(q.dtype), lse
+
+
+def flash_fwd_lse_plain(qkv: torch.Tensor, heads: int, s: int,
+                        causal: bool = False,
+                        sm_scale: Optional[float] = None):
+    """Plain version of the training forward off the fused ``qkv``:
+    (out [B, s, W], lse [B, H, s])."""
+    return flash_hop_fwd_plain(*_sections(qkv, heads), heads, s, causal,
+                               sm_scale)
 
 
 def flash_attention_fused_qkv_plain(qkv: torch.Tensor, heads: int, s: int, *,
@@ -210,90 +247,123 @@ def flash_attention_fused_qkv_plain(qkv: torch.Tensor, heads: int, s: int, *,
     return flash_fwd_lse_plain(qkv, heads, s, causal, sm_scale)[0]
 
 
+def flash_hop_bwd_plain(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                        heads: int, s: int, causal: bool = False,
+                        sm_scale: Optional[float] = None,
+                        bias: float = 0.0) -> torch.Tensor:
+    """Plain version of the backward over three operands, in f32 (``_bwd``
+    with ``extra_bias``): the gradient of the attention with respect to q,
+    k and v given the output's gradient ``do`` [B, s, W], the forward's
+    ``out`` and ``lse`` (a ring's global ones) and the scores' ``bias``.
+    Returns [B, rows, 3W] f32 (dq | dk | dv, rows those of q), zero past
+    row ``s``."""
+    b, rows, w = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(w // heads)
+    qh, kh, vh = (_heads_first(x[:, :s], heads) for x in (q, k, v))
+    dof, of = _heads_first(do, heads), _heads_first(out, heads)
+    p = torch.exp2(_scores_log2(qh, kh, s, causal, sm_scale, bias)
+                   - lse.float()[..., None])
+    dp = torch.matmul(dof, vh.transpose(-1, -2))
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    grads = (torch.matmul(ds, kh) * sm_scale,
+             torch.matmul(ds.transpose(-1, -2), qh) * sm_scale,
+             torch.matmul(p.transpose(-1, -2), dof))
+    dqkv = q.new_zeros(b, rows, 3 * w, dtype=torch.float32)
+    dqkv[:, :s] = torch.cat([g.transpose(1, 2).reshape(b, s, w)
+                             for g in grads], dim=-1)
+    return dqkv
+
+
 def flash_bwd_plain(do: torch.Tensor, qkv: torch.Tensor, out: torch.Tensor,
                     lse: torch.Tensor, heads: int, s: int,
                     causal: bool = False,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version of the backward, in f32: the gradient of the attention
-    with respect to ``qkv`` given the output's gradient ``do`` [B, s, W],
-    the forward's ``out`` and ``lse``.  Returns [B, rows, 3W] in qkv's
-    dtype (dq | dk | dv), zero past row ``s``."""
-    w, d = _split(qkv, heads)
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
-    b, rows = qkv.shape[:2]
-    q, k, v = _qkv_heads(qkv, heads, s)
-    dof, of = _heads_first(do, heads), _heads_first(out, heads)
-    p = torch.exp2(_scores_log2(q, k, s, causal, sm_scale)
-                   - lse.float()[..., None])
-    dp = torch.matmul(dof, v.transpose(-1, -2))
-    delta = (dof * of).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta)
-    grads = (torch.matmul(ds, k) * sm_scale,
-             torch.matmul(ds.transpose(-1, -2), q) * sm_scale,
-             torch.matmul(p.transpose(-1, -2), dof))
-    dqkv = qkv.new_zeros(b, rows, 3 * w)
-    dqkv[:, :s] = torch.cat([g.transpose(1, 2).reshape(b, s, w)
-                             for g in grads], dim=-1).to(qkv.dtype)
-    return dqkv
+    """Plain version of the backward off the fused ``qkv``: [B, rows, 3W]
+    (dq | dk | dv) in qkv's dtype, zero past row ``s``."""
+    return flash_hop_bwd_plain(do, *_sections(qkv, heads), out, lse, heads,
+                               s, causal, sm_scale).to(qkv.dtype)
 
 
-def _fwd_cuda(qkv, heads, s, causal, sm_scale, with_lse: bool):
-    w, d, bstride, rstride = _check_cuda(qkv, heads, s)
-    b = qkv.shape[0]
-    out = torch.empty(b, s, w, dtype=qkv.dtype, device=qkv.device)
-    lse = (torch.empty(b, heads, s, dtype=torch.float32, device=qkv.device)
+def _fwd_launch(q, k, v, heads, s, causal, sm_scale, with_lse: bool,
+                bias: float = 0.0, kernel: Optional[str] = None):
+    """The forward kernel over q, k, v; ``kernel`` names the launch in
+    :data:`launches` (default ``flash_fwd_lse`` or ``flash_fwd``)."""
+    w, d, strides = _check_cuda(q, k, v, heads, s)
+    b = q.shape[0]
+    out = torch.empty(b, s, w, dtype=q.dtype, device=q.device)
+    lse = (torch.empty(b, heads, s, dtype=torch.float32, device=q.device)
            if with_lse else None)
-    with torch.cuda.device(qkv.device):
-        _launch(SOURCE, "avion_flash_fwd_bf16",
-                "flash_fwd_lse" if with_lse else "flash_fwd",
-                qkv.data_ptr(), out.data_ptr(),
+    kernel = kernel or ("flash_fwd_lse" if with_lse else "flash_fwd")
+    with torch.cuda.device(q.device):
+        _launch(SOURCE, "avion_flash_fwd_bf16", kernel, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if with_lse else None, b, s, heads, d,
-                bstride, rstride, out.stride(0), out.stride(1), int(causal),
-                float(sm_scale * LOG2E))
+                *strides, out.stride(0), out.stride(1), int(causal),
+                float(sm_scale * LOG2E), float(bias))
     return out, lse
 
 
-def _bwd_cuda(do, qkv, out, lse, heads, s, causal, sm_scale,
-              route: Optional[str] = None):
+def _bwd_launch(do, q, k, v, out, lse, heads, s, causal, sm_scale,
+                route: Optional[str] = None, bias: float = 0.0,
+                prefix: str = "flash_bwd", out_f32: bool = False):
     """``route``: "combined" or "split" (both split kernels); None follows
     :func:`use_combined_bwd`.  "dq" or "dkv" launch one split kernel only,
-    leaving the other sections unwritten (to time each kernel)."""
-    w, d, bstride, rstride = _check_cuda(qkv, heads, s)
-    b, rows = qkv.shape[:2]
+    leaving the other sections unwritten (to time each kernel).  Launches
+    count as ``<prefix>_combined``, ``<prefix>_dq`` and ``<prefix>_dkv``.
+    Returns [B, rows of q, 3W] (dq | dk | dv), in q's dtype or, with
+    ``out_f32`` (split kernels only), in f32."""
+    w, d, strides = _check_cuda(q, k, v, heads, s)
+    b, rows = q.shape[:2]
     _check_dense("do", do, (b, s, w), torch.bfloat16)
     _check_dense("out", out, (b, s, w), torch.bfloat16)
     _check_dense("lse", lse, (b, heads, s), torch.float32)
     if route is None:
         route = "combined" if use_combined_bwd(s) else "split"
+    if out_f32 and route == "combined":
+        raise ValueError("the combined backward writes bf16 only")
     # the kernels write every row below s; rows past it stay zero
     dqkv = (torch.empty if rows == s else torch.zeros)(
-        b, rows, 3 * w, dtype=qkv.dtype, device=qkv.device)
-    common = (b, s, heads, d, bstride, rstride, dqkv.stride(0),
-              dqkv.stride(1), int(causal), float(sm_scale * LOG2E),
-              float(sm_scale))
+        b, rows, 3 * w, dtype=torch.float32 if out_f32 else q.dtype,
+        device=q.device)
+    common = (b, s, heads, d, *strides, dqkv.stride(0), dqkv.stride(1),
+              int(causal), float(sm_scale * LOG2E), float(sm_scale),
+              float(bias), int(out_f32))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            out.data_ptr(), lse.data_ptr())
     # rowsum(do * out) per head, written by the combined and dkv launchers
-    delta = torch.empty(b, heads, s, dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
+    delta = torch.empty(b, heads, s, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
         if route == "combined":
             # per (batch, head, query tile of 64) one [64, d] share
             dq_acc = torch.zeros(b, heads, -(-s // 64) * 64, d,
-                                 dtype=torch.float32, device=qkv.device)
+                                 dtype=torch.float32, device=q.device)
             _launch(BWD_SOURCE, "avion_flash_bwd_combined_bf16",
-                    "flash_bwd_combined", qkv.data_ptr(), do.data_ptr(),
-                    out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    f"{prefix}_combined", *ptrs, delta.data_ptr(),
                     dq_acc.data_ptr(), dqkv.data_ptr(), *common)
             return dqkv
         if route in ("split", "dq"):
-            _launch(BWD_SOURCE, "avion_flash_bwd_dq_bf16", "flash_bwd_dq",
-                    qkv.data_ptr(), do.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), dqkv.data_ptr(), *common)
+            _launch(BWD_SOURCE, "avion_flash_bwd_dq_bf16", f"{prefix}_dq",
+                    *ptrs, dqkv.data_ptr(), *common)
         if route in ("split", "dkv"):
-            _launch(BWD_SOURCE, "avion_flash_bwd_dkv_bf16", "flash_bwd_dkv",
-                    qkv.data_ptr(), do.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
-                    *common)
+            _launch(BWD_SOURCE, "avion_flash_bwd_dkv_bf16", f"{prefix}_dkv",
+                    *ptrs, delta.data_ptr(), dqkv.data_ptr(), *common)
     return dqkv
+
+
+def _fwd_cuda(qkv, heads, s, causal, sm_scale, with_lse: bool):
+    """The forward kernel off a fused ``qkv`` (its three column views)."""
+    return _fwd_launch(*_sections(qkv, heads), heads, s, causal, sm_scale,
+                       with_lse)
+
+
+def _bwd_cuda(do, qkv, out, lse, heads, s, causal, sm_scale,
+              route: Optional[str] = None):
+    """The backward kernels off a fused ``qkv``: [B, rows, 3W]."""
+    return _bwd_launch(do, *_sections(qkv, heads), out, lse, heads, s,
+                       causal, sm_scale, route)
 
 
 @torch.library.custom_op("avion::flash_fwd_lse", mutates_args=())
@@ -361,3 +431,41 @@ def flash_attention_fused_qkv(qkv: torch.Tensor, heads: int, s: int, *,
         return flash_attention_fused_qkv_plain(qkv, heads, s, causal=causal,
                                                sm_scale=sm_scale)
     return _fwd_cuda(qkv, heads, s, causal, sm_scale, with_lse=False)[0]
+
+
+@torch.library.custom_op("avion::flash_hop_fwd", mutates_args=())
+def flash_hop_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  heads: int, causal: bool, sm_scale: float,
+                  bias: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """One ring hop's forward: local ``q`` against ``k`` / ``v`` (views of
+    a neighbour's [B, S, 2W] buffer), every score plus ``bias``; returns
+    (out [B, S, W], lse [B, H, S] f32, log2 units)."""
+    s = q.shape[1]
+    if q.device.type == "cpu":
+        _count(plain_calls, "flash_hop_fwd")
+        return flash_hop_fwd_plain(q, k, v, heads, s, causal, sm_scale, bias)
+    return _fwd_launch(q, k, v, heads, s, causal, sm_scale, with_lse=True,
+                       bias=bias, kernel="flash_hop_fwd")
+
+
+@torch.library.custom_op("avion::flash_hop_bwd", mutates_args=())
+def flash_hop_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                  heads: int, causal: bool, sm_scale: float,
+                  bias: float) -> torch.Tensor:
+    """One ring hop's backward on the global ``out`` and ``lse``: dq by the
+    dq kernel, dk / dv by the dkv kernel; [B, S, 3W] (dq | dk | dv) in f32,
+    so that the ring sums its hops without rounding each to bf16."""
+    s = q.shape[1]
+    if q.device.type == "cpu":
+        _count(plain_calls, "flash_hop_bwd_dq")
+        _count(plain_calls, "flash_hop_bwd_dkv")
+        return flash_hop_bwd_plain(do, q, k, v, out, lse, heads, s, causal,
+                                   sm_scale, bias)
+    return _bwd_launch(do, q, k, v, out, lse, heads, s, causal, sm_scale,
+                       route="split", bias=bias, prefix="flash_hop_bwd",
+                       out_f32=True)
+
+
+# and under sequence parallelism each ring hop's forward (models.layers)
+HOP_FWD_OP = torch.ops.avion.flash_hop_fwd.default

@@ -34,6 +34,10 @@ core is AdamW, SGD with momentum or Lion.
   gradients are averaged over ``update_freq`` calls and the clip, the
   schedule and the core act once, on the mean; the running mean and the
   calls since the last update are part of the state dict.
+- Under FSDP2 (``parallel.sharding``) parameters, gradients and moments
+  are sharded tensors of one layout: the cores run on their local shards,
+  and the global norm sums the shards' squared norms over the ``fsdp``
+  ranks before the clip.
 """
 
 from __future__ import annotations
@@ -42,8 +46,10 @@ import re
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from avion_tpu_torch.optim.schedules import cosine_schedule
+from avion_tpu_torch.parallel.sharding import is_dtensor, local, shard_like
 
 _NO_WD_TOKENS = (
     "bias", "norm", "ln_", "positional_embedding", "temporal_embedding",
@@ -125,10 +131,11 @@ class _Core(torch.optim.Optimizer):
         # torch casts loaded float state to each parameter's dtype; the
         # moments go back to state_dtype (exact for saved bf16 values)
         super().load_state_dict(state_dict)
-        for state in self.state.values():
+        for p, state in self.state.items():
             for name in self.MOMENTS:
                 if name in state:
-                    state[name] = state[name].to(self.state_dtype)
+                    state[name] = shard_like(state[name], p).to(
+                        self.state_dtype)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -143,11 +150,12 @@ class _Core(torch.optim.Optimizer):
                         self.state[p][name] = torch.zeros_like(
                             p, dtype=self.state_dtype)
                 stored.append([self.state[p][name] for p in params])
-            work = [[m.float() for m in ms] for ms in stored]
-            self._update(group, params, [p.grad for p in params], *work)
+            work = [[local(m).float() for m in ms] for ms in stored]
+            self._update(group, [local(p) for p in params],
+                         [local(p.grad) for p in params], *work)
             if self.state_dtype != torch.float32:
                 for ms, new in zip(stored, work):
-                    torch._foreach_copy_(ms, new)
+                    torch._foreach_copy_([local(m) for m in ms], new)
 
 
 class AdamW(_Core):
@@ -285,10 +293,20 @@ class Optimizer:
         return [p.grad for p in self.params if p.grad is not None]
 
     def global_norm(self) -> torch.Tensor:
-        """L2 norm of all gradients (``optax.global_norm``), on device."""
+        """L2 norm of all gradients (``optax.global_norm``), on device;
+        sharded gradients' squared norms are summed over their shards."""
         grads = self._grads()
-        return torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        whole = [g for g in grads if not is_dtensor(g)]
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in whole]))
+        sharded = [g for g in grads if is_dtensor(g)]
+        if not sharded:
+            return norm
+        sq = torch.stack([torch.linalg.vector_norm(local(g).float()) ** 2
+                          for g in sharded]).sum()
+        mesh = sharded[0].device_mesh
+        dist.all_reduce(sq, group=mesh.get_group(mesh.ndim - 1))
+        return torch.sqrt(norm ** 2 + sq)
 
     def _accumulate(self) -> bool:
         """Fold this call's gradients into the running mean (``acc + (g -
@@ -296,11 +314,12 @@ class Optimizer:
         On the ``every``-th call the mean becomes every parameter's
         gradient, and True says to apply it (:meth:`update` then resets
         the mean)."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
-        diff = torch._foreach_sub(grads, self.acc)
+        grads = [local(p.grad) if p.grad is not None
+                 else torch.zeros_like(local(p)) for p in self.params]
+        acc = [local(a) for a in self.acc]
+        diff = torch._foreach_sub(grads, acc)
         torch._foreach_div_(diff, float(self.mini_step + 1))
-        torch._foreach_add_(self.acc, diff)
+        torch._foreach_add_(acc, diff)
         del diff, grads
         if self.mini_step < self.every - 1:
             self.mini_step += 1
@@ -324,7 +343,7 @@ class Optimizer:
             if grad_norm is None:
                 grad_norm = self.global_norm()
             scale = (self.grad_clip_norm / grad_norm).clamp(max=1.0)
-            torch._foreach_mul_(self._grads(), scale)
+            torch._foreach_mul_([local(g) for g in self._grads()], scale)
         lr = self.schedule(self.count)
         wd = (self.wd_schedule(self.count) if self.wd_schedule is not None
               else None)
@@ -337,7 +356,7 @@ class Optimizer:
         self.count += 1
         if self.every > 1:
             self.zero_grad()  # the gradients are the mean's storage
-            torch._foreach_zero_(self.acc)
+            torch._foreach_zero_([local(a) for a in self.acc])
             self.mini_step = 0
 
     def state_dict(self) -> dict:
@@ -355,7 +374,7 @@ class Optimizer:
         if self.acc is not None:
             self.mini_step = int(state["mini_step"])
             for a, saved in zip(self.acc, state["acc"]):
-                a.copy_(saved)
+                local(a).copy_(local(shard_like(saved, a)))
 
 
 def build_optimizer(cfg, model: torch.nn.Module, niter_per_ep: int,

@@ -46,7 +46,8 @@ from avion_tpu_torch.models.pt_import import import_clip_pt
 from avion_tpu_torch.models.vit import VisionTransformer
 from avion_tpu_torch.optim.factory import (apply_batch_lr_scale,
                                            build_optimizer)
-from avion_tpu_torch.parallel.launch import device_from_argv, setup_host
+from avion_tpu_torch.parallel.launch import (device_from_argv, setup_host,
+                                             single_device_only)
 from avion_tpu_torch.train.common import (extract_visual_params,
                                           latest_model_state)
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
@@ -146,7 +147,8 @@ def main(argv=None) -> dict:
     cfg = env_defaults(TrainConfig().apply_overrides(argv))
     os.makedirs(cfg.output_dir, exist_ok=True)
     cfg.save(os.path.join(cfg.output_dir, "config.json"))
-    setup_host(cfg.seed)
+    single_device_only(cfg.mesh, "finetune_cls")
+    setup_host(cfg.seed, device)
     d = cfg.data
 
     labels, pairs, mapping = load_actions(d.label_map)

@@ -35,7 +35,8 @@ from avion_tpu_torch.data.video_reader import default_backend
 from avion_tpu_torch.eval.validate import run_validation
 from avion_tpu_torch.models.registry import create_model
 from avion_tpu_torch.optim.factory import build_optimizer
-from avion_tpu_torch.parallel.launch import device_from_argv, setup_host
+from avion_tpu_torch.parallel.launch import (device_from_argv, setup_host,
+                                             single_device_only)
 from avion_tpu_torch.train.common import load_pretrained_params
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
@@ -136,7 +137,8 @@ def main(argv=None) -> dict:
     cfg = env_defaults(TrainConfig().apply_overrides(argv))
     os.makedirs(cfg.output_dir, exist_ok=True)
     cfg.save(os.path.join(cfg.output_dir, "config.json"))
-    setup_host(cfg.seed)
+    single_device_only(cfg.mesh, "finetune_mir")
+    setup_host(cfg.seed, device)
 
     train_ds, train_loader = build_loader(cfg)
     print(f"[data] {len(train_ds)} clips, decode backend "

@@ -2,8 +2,14 @@
 auto-resume, train one epoch over any iterable loader, save, and stop
 cleanly on preemption.
 
-One device, no mesh: a ``cfg.mesh`` that asks for more than one device
-raises until the parallel slice.  The JAX package's resume semantics are
+Given a mesh (``parallel.mesh``; ``pretrain_clip`` passes one), the model
+takes part in it through ``parallel.sharding.Parallel`` (DDP, or the FSDP2
+module that ``build_model_and_state`` sharded), only rank 0 logs and
+writes, and a preemption signal is agreed on by every rank at a step
+boundary (``parallel.launch.agree``), so all of them checkpoint the same
+step.  Without one (the other entries) a ``cfg.mesh`` wider than one
+device, or a process group of more than one rank, raises.  The JAX
+package's resume semantics are
 kept: a mid-epoch preemption checkpoint records the batches consumed, a
 resumed epoch skips them (rounded down to a whole echo group under data
 echoing), and the preemption save waits for an echo-group boundary so
@@ -29,7 +35,10 @@ from avion_tpu_torch.core.logging import MetricLogger
 from avion_tpu_torch.core.meters import AverageMeter, ProgressMeter, StepTimer
 from avion_tpu_torch.core.train_state import TrainState
 from avion_tpu_torch.data.loader import device_prefetch, echo_batches
-from avion_tpu_torch.parallel.launch import preempted
+from avion_tpu_torch.parallel.launch import (agree, is_main, preempted,
+                                             single_device_only)
+from avion_tpu_torch.parallel.mesh import Mesh
+from avion_tpu_torch.parallel.sharding import Parallel
 
 
 @dataclass
@@ -46,18 +55,6 @@ class Run:
     start_batch: int = 0
 
 
-def _one_device(cfg: TrainConfig) -> None:
-    m = cfg.mesh
-    sizes = {"data": 1 if m.data == -1 else m.data, "fsdp": m.fsdp,
-             "pp": m.pp, "sp": m.sp, "ep": m.ep, "tensor": m.tensor,
-             "dcn_data": m.dcn_data}
-    wide = {k: v for k, v in sizes.items() if v != 1}
-    if wide:
-        raise NotImplementedError(
-            f"mesh {wide}: the PyTorch port trains on one device until the "
-            f"parallel slice")
-
-
 def microbatch_major(batch: Dict[str, torch.Tensor],
                      micro: int) -> Dict[str, torch.Tensor]:
     """Every entry [B, ...] viewed as [micro, B / micro, ...]; a batch
@@ -72,18 +69,29 @@ def microbatch_major(batch: Dict[str, torch.Tensor],
 
 
 def setup_run(cfg: TrainConfig, model: torch.nn.Module, optimizer,
-              step_fn: Callable, use_ema: bool = False) -> Run:
+              step_fn: Callable, use_ema: bool = False,
+              mesh: Optional[Mesh] = None) -> Run:
     """``model`` on its device and ``optimizer`` over its parameters
     (``pretrain_clip.build_model_and_state``); with ``use_ema`` the state
-    carries an average of the parameters.  Restores the newest checkpoint
-    under ``<output_dir>/ckpt`` when ``resume`` or ``auto_resume`` is
-    set."""
-    _one_device(cfg)
+    carries an average of the parameters; with ``mesh`` the model takes
+    part in it (DDP, or FSDP2 when ``build_model_and_state`` sharded it).
+    Restores the newest checkpoint under ``<output_dir>/ckpt`` when
+    ``resume`` or ``auto_resume`` is set."""
+    parallel = None
+    if mesh is None:
+        single_device_only(cfg.mesh, "this entry")
+    else:
+        # parameters without a gradient in a synchronized backward: the
+        # logit scale (and bias) outside cached accumulation's first
+        # pass, or a frozen temperature
+        parallel = Parallel(mesh, model, find_unused=(
+            (cfg.optim.update_freq > 1 and cfg.optim.accum == "cached")
+            or cfg.model.freeze_temperature))
     device = next(model.parameters()).device
-    state = TrainState.create(model, optimizer, use_ema)
+    state = TrainState.create(model, optimizer, use_ema, parallel)
     ckpt = Checkpointer(os.path.join(cfg.output_dir, "ckpt"))
     logger = MetricLogger(cfg.output_dir, cfg.wandb, cfg.wandb_project,
-                          cfg.run_name, cfg.to_dict())
+                          cfg.run_name, cfg.to_dict(), enabled=is_main())
     start_epoch, start_batch = 0, 0
     if cfg.resume or cfg.auto_resume:
         restored, extra = ckpt.restore(state)
@@ -137,7 +145,8 @@ def train_one_epoch(run: Run, loader, epoch: int) -> Dict[str, float]:
             break
         timer.data_time.update(time.perf_counter() - t_fetch)
         i += 1
-        if preempted() and (skipped + i) % echo == 0:
+        # every rank asks, so a signal that reached one rank stops all
+        if agree(preempted()) and (skipped + i) % echo == 0:
             # checkpoint mid-epoch at an echo-group boundary and stop;
             # auto-resume continues at the next batch of this epoch
             save_epoch(run, epoch - 1, batch_in_epoch=skipped + i)
@@ -155,7 +164,8 @@ def train_one_epoch(run: Run, loader, epoch: int) -> Dict[str, float]:
                 if k != "loss":
                     meters.setdefault(k, AverageMeter(k, ":.4f")).update(
                         float(v))
-            progress.display(i)
+            if is_main():
+                progress.display(i)
             run.logger.log(
                 {"train/loss": loss, "train/epoch": epoch,
                  **{f"train/{k}": float(v) for k, v in metrics.items()
@@ -175,7 +185,7 @@ def finish_if_preempted(run: Run, epoch: int,
     """Entry-loop guard after ``train_one_epoch``: True when a preemption
     signal fired.  A signal that fired after the epoch's last batch saves
     the epoch boundary here, so no completed work is replayed."""
-    if not preempted():
+    if not agree(preempted()):
         return False
     run.ckpt.wait()
     latest = run.ckpt.latest_step()

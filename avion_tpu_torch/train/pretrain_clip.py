@@ -31,13 +31,26 @@ suites (``eval.validate``) run before the first epoch and every
 cut into ``update_freq`` microbatches (``steps.
 make_clip_accum_train_step``); with ``multistep`` each batch is its own
 contrastive batch and the optimizer averages ``update_freq`` of them.
-One device.
+
+Over N ranks, one card each (gloo with ``--device cpu``)::
+
+    torchrun --nproc_per_node=N -m avion_tpu_torch.train.pretrain_clip \
+        data.batch_size=$((256 * N)) mesh.data=... mesh.fsdp=... \
+        mesh.sp=... [model.sequence_parallel=true model.pooling=gap] ...
+
+``data.batch_size`` is the global batch, cut into ``mesh.data *
+mesh.fsdp`` batch groups (``parallel.mesh``); ``mesh.fsdp`` shards
+parameters and optimizer state (FSDP2), ``mesh.data`` replicates them
+(DDP), and ``mesh.sp`` with ``model.sequence_parallel=true`` splits the
+visual tower's tokens over the ring.  Only rank 0 logs and writes; the
+losses see the global batch.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+from typing import Optional
 
 import torch
 
@@ -50,7 +63,9 @@ from avion_tpu_torch.eval.validate import run_validation
 from avion_tpu_torch.models.pt_import import import_clip_pt
 from avion_tpu_torch.models.registry import create_model
 from avion_tpu_torch.optim.factory import build_optimizer
-from avion_tpu_torch.parallel.launch import device_from_argv, setup_host
+from avion_tpu_torch.parallel.launch import device_from_argv, host, is_main
+from avion_tpu_torch.parallel.mesh import Mesh, mesh_from_config, use_mesh
+from avion_tpu_torch.parallel.sharding import full_tensor, shard_model
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import (make_clip_accum_train_step,
@@ -91,12 +106,15 @@ def build_model(cfg: TrainConfig, dtype=None) -> torch.nn.Module:
 
 
 def build_model_and_state(cfg: TrainConfig, niter_per_ep: int,
-                          device="cuda", dtype=None):
+                          device="cuda", dtype=None,
+                          mesh: Optional[Mesh] = None):
     """Returns (model on ``device``, optimizer, lr schedule).  Weights are
     drawn on the CPU from ``torch.Generator().manual_seed(cfg.seed)`` with
     the flax initializers' distributions (so a seed gives the same weights
-    on every device), then ``pretrain_model`` is merged in with
-    ``strict=False`` (missing keys keep their init)."""
+    on every device and every rank), then ``pretrain_model`` is merged in
+    with ``strict=False`` (missing keys keep their init).  A ``mesh`` with
+    ``fsdp`` shards the model (FSDP2) before the optimizer is built over
+    it."""
     model = build_model(cfg, dtype).to_empty(device="cpu")
     model.init_weights(torch.Generator().manual_seed(cfg.seed))
     if cfg.pretrain_model:  # e.g. OpenAI CLIP weights or an AVION .pt
@@ -107,14 +125,17 @@ def build_model_and_state(cfg: TrainConfig, niter_per_ep: int,
         model.load_state_dict(imported, strict=False)
         print(f"[init] imported weights from {cfg.pretrain_model}")
     model = model.to(device)
+    if mesh is not None:
+        shard_model(model, mesh)
     optimizer, schedule = build_optimizer(cfg.optim, model, niter_per_ep)
     return model, optimizer, schedule
 
 
-def build_loaders(cfg: TrainConfig):
+def build_loaders(cfg: TrainConfig, mesh: Optional[Mesh] = None):
     """(train dataset, train ``DataLoader``): per-file chunked video, or
     packed shards (``data.shard_dir``), plus ``data.train_metadata_aux``
-    pkls concatenated into the train set."""
+    pkls concatenated into the train set.  Over a ``mesh`` the loader
+    yields this rank's batch group's rows of each global batch."""
     d = cfg.data
     augment = AugmentSpec(
         crop_size=d.crop_size,
@@ -158,6 +179,8 @@ def build_loaders(cfg: TrainConfig):
         train_ds, d.batch_size, shuffle=True, drop_last=True,
         num_workers=d.num_workers, prefetch_depth=d.prefetch_depth,
         seed=cfg.seed,
+        process_index=mesh.batch_index if mesh is not None else 0,
+        process_count=mesh.n_batch_shards if mesh is not None else 1,
     )
     return train_ds, train_loader
 
@@ -181,11 +204,28 @@ def make_step(cfg: TrainConfig, model: torch.nn.Module):
     return make_clip_train_step(model, **common)
 
 
+def _eval_model(cfg: TrainConfig, model: torch.nn.Module,
+                mesh: Mesh) -> torch.nn.Module:
+    """The model the suites encode with: ``model`` itself, or under
+    ``fsdp`` an unsharded copy of its gathered weights (every rank calls
+    this)."""
+    if mesh.shape["fsdp"] == 1:
+        return model
+    whole = {k: full_tensor(v.detach())
+             for k, v in model.state_dict().items()}
+    device = next(iter(whole.values())).device
+    copy = build_model(cfg).to_empty(device=device)
+    copy.load_state_dict(whole)
+    return copy
+
+
 def main(argv=None) -> dict:
     """Train; returns ``{"steps": steps taken by this call, "step": the
     train state's step, "epochs": each epoch's metrics, "eval": the
     zero-shot metrics by epoch (-1 before the first), "decode_backend":
-    ..., "transfers": the loader's worker transfers}``."""
+    ..., "transfers": the loader's worker transfers}``.  Under torchrun
+    (or another launcher, ``parallel.launch``) every rank runs it; a
+    process group it joined is left when it returns."""
     load_dotenv()  # dataset-path env vars, the reference's .env convention
     argv, device = device_from_argv(
         argv if argv is not None else sys.argv[1:])
@@ -193,24 +233,33 @@ def main(argv=None) -> dict:
     if cfg.loss == "siglip":
         # the sigmoid loss learns the pairwise bias (arXiv:2303.15343)
         cfg.model.use_logit_bias = True
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    cfg.save(os.path.join(cfg.output_dir, "config.json"))
-    setup_host(cfg.seed)
+    with host(cfg.seed, device) as device:
+        mesh = mesh_from_config(cfg.mesh)
+        with use_mesh(mesh):
+            return _train(cfg, device, mesh)
 
-    train_ds, train_loader = build_loaders(cfg)
+
+def _train(cfg: TrainConfig, device: torch.device, mesh: Mesh) -> dict:
+    if is_main():
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        cfg.save(os.path.join(cfg.output_dir, "config.json"))
+    train_ds, train_loader = build_loaders(cfg, mesh)
     print(f"[data] {len(train_ds)} clips, decode backend "
-          f"{default_backend()}, {cfg.data.num_workers} workers")
+          f"{default_backend()}, {cfg.data.num_workers} workers, batch "
+          f"group {mesh.batch_index} of {mesh.n_batch_shards}")
     # steps per epoch include the echo repeats (the LR schedule spans
     # the true step count)
     niter = max(1, len(train_loader)) * max(1, cfg.data.echo_factor)
-    model, optimizer, _ = build_model_and_state(cfg, niter, device=device)
-    run = setup_run(cfg, model, optimizer, make_step(cfg, model))
+    model, optimizer, _ = build_model_and_state(cfg, niter, device=device,
+                                                mesh=mesh)
+    run = setup_run(cfg, model, optimizer, make_step(cfg, model), mesh=mesh)
     start_step = run.state.step
     best, epochs, evals = -1.0, [], {}
     try:
         if cfg.eval_freq and run.start_epoch == 0:
             # zero-shot pass before training
-            zs = run_validation(model, cfg.data)
+            zs = run_validation(_eval_model(cfg, model, mesh), cfg.data,
+                                group=mesh.batch_group)
             if zs:
                 evals[-1] = zs
                 print(f"[epoch -1 zero-shot] {zs}")
@@ -225,7 +274,9 @@ def main(argv=None) -> dict:
                 break
             eval_metrics = {}
             if cfg.eval_freq and (epoch + 1) % cfg.eval_freq == 0:
-                eval_metrics = run_validation(model, cfg.data)
+                eval_metrics = run_validation(
+                    _eval_model(cfg, model, mesh), cfg.data,
+                    group=mesh.batch_group)
                 if eval_metrics:
                     evals[epoch] = eval_metrics
                     run.logger.log(eval_metrics, step=run.state.step)

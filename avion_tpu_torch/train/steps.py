@@ -14,10 +14,19 @@ as in the JAX package.  Each step's random draws (patch dropout,
 DropPath, tube masks, mixup) come from a generator on the model's device
 seeded from (``seed``, ``state.step``), as the JAX steps fold the step
 into their key.
+
+Under a mesh (``state.parallel``, ``parallel.sharding.Parallel``) the CLIP
+steps call the wrapped model (DDP's, or the FSDP2 module), gather the
+embeddings over the batch group for the loss and reduce the gradients
+once an update: the cached accumulation's first M - 1 backwards run
+without synchronization.  Each batch group seeds its draws with its
+index folded in, so the groups' rows draw different masks while the
+``sp`` ranks of a group draw the same.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -26,7 +35,7 @@ from avion_tpu_torch.core.train_state import TrainState
 from avion_tpu_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD,
                                              OPENAI_MEAN, OPENAI_STD,
                                              normalize_video, tube_mask_device)
-from avion_tpu_torch.losses.losses import (clip_loss,
+from avion_tpu_torch.losses.losses import (clip_loss, gather_batch,
                                            max_margin_ranking_loss,
                                            siglip_loss, siglip_loss_chunked,
                                            soft_target_cross_entropy,
@@ -78,6 +87,21 @@ def _step_generator(model: torch.nn.Module, seed: int,
     return generator
 
 
+def _parallel_parts(state: TrainState, seed: int):
+    """(the model to call, the module to read, the loss's batch group, the
+    seed of this rank's draws) of ``state``."""
+    par = state.parallel
+    if par is None:
+        return state.model, state.model, None, seed
+    return (par.model, par.module, par.mesh.batch_group,
+            seed + 1000003 * par.mesh.batch_index)
+
+
+def _finish_backward(state: TrainState) -> None:
+    if state.parallel is not None:
+        state.parallel.finish_backward()
+
+
 @torch.no_grad()
 def _clamp_logit_scale(model: torch.nn.Module) -> None:
     if hasattr(model, "logit_scale"):
@@ -104,12 +128,13 @@ def _apply_or_skip(state: TrainState, loss: torch.Tensor,
 def _contrastive_loss(model: torch.nn.Module, loss_type: str,
                       label_smoothing: float, siglip_chunked: bool
                       ) -> Callable:
-    """``loss(image_embed, text_embed, scale, bias) -> {"loss",
-    "clip_acc"}`` for ``loss_type`` ``clip`` or ``siglip`` (which needs a
-    model built with ``use_logit_bias``)."""
+    """``loss(image_embed, text_embed, scale, bias, group) -> {"loss",
+    "clip_acc"}`` over the batch ``group`` (None: these rows alone) for
+    ``loss_type`` ``clip`` or ``siglip`` (which needs a model built with
+    ``use_logit_bias``)."""
     if loss_type == "clip":
-        return lambda zi, zt, scale, bias: clip_loss(zi, zt, scale,
-                                                     label_smoothing)
+        return lambda zi, zt, scale, bias, group: clip_loss(
+            zi, zt, scale, label_smoothing, group)
     if loss_type != "siglip":
         raise ValueError(f"unknown loss_type {loss_type!r}")
     if getattr(model, "logit_bias", None) is None:
@@ -155,17 +180,19 @@ def make_clip_train_step(model: torch.nn.Module,
                                 siglip_chunked)
 
     def step(state: TrainState, batch):
-        model, opt = state.model, state.optimizer
-        generator = _step_generator(model, seed, state.step)
+        call, model, group, rank_seed = _parallel_parts(state, seed)
+        opt = state.optimizer
+        generator = _step_generator(model, rank_seed, state.step)
         video = prep_video(batch["video"], dtype=dtype, batch=batch,
                            model=model, crop_size=crop_size)
-        out = model(video, batch["text"].long(), deterministic=False,
-                    generator=generator)
+        out = call(video, batch["text"].long(), deterministic=False,
+                   generator=generator)
         metrics = loss_fn(out["image_embed"], out["text_embed"],
-                          out["logit_scale"], out.get("logit_bias"))
+                          out["logit_scale"], out.get("logit_bias"), group)
         metrics["logit_scale"] = out["logit_scale"]
         opt.zero_grad()
         metrics["loss"].backward()
+        _finish_backward(state)
         return state, _finish_clip_step(state, metrics)
 
     return step
@@ -184,14 +211,18 @@ def make_clip_accum_train_step(model: torch.nn.Module, update_freq: int,
     (``train.loop`` reshapes it).
 
     - Pass 1, without gradients (the inference attention kernel), caches
-      every microbatch's image and text embeddings, [B, E] each.
+      every microbatch's image and text embeddings, [B, E] each; under a
+      mesh each microbatch's rows are gathered over the batch group, so
+      the cache holds the global batch, microbatch-major.
     - Pass 2 re-encodes microbatch m with gradients (the forward with lse
       and the backward), splices its rows into the cached matrices out of
       place, takes the loss of the whole batch and calls ``backward()``;
       each row is live in exactly one pass, so the gradient accumulated
-      over the M passes is the whole batch's.  The logit scale (and bias)
-      are live only at m = 0, else their gradient would be M times too
-      large.
+      over the M passes is the whole batch's.  Under a mesh the live rows
+      are gathered with a summing backward, and only the last pass's
+      backward reduces the gradients across the ranks.  The logit scale
+      (and bias) are live only at m = 0, else their gradient would be M
+      times too large.
     - Microbatch m draws its patch dropout from a generator seeded from
       (``seed``, ``state.step * M + m``) in both passes, so the live rows
       reproduce the cached ones.
@@ -205,42 +236,52 @@ def make_clip_accum_train_step(model: torch.nn.Module, update_freq: int,
                                 siglip_chunked)
 
     def step(state: TrainState, batch):
-        model, opt = state.model, state.optimizer
+        call, model, group, rank_seed = _parallel_parts(state, seed)
+        opt = state.optimizer
 
-        def encode(m: int) -> dict:
+        def encode(m: int, fn) -> dict:
             mb = {k: v[m] for k, v in batch.items()}
             video = prep_video(mb["video"], dtype=dtype, batch=mb,
                                model=model, crop_size=crop_size)
-            return model(video, mb["text"].long(), deterministic=False,
-                         generator=_step_generator(
-                             model, seed, state.step * micro + m))
+            return fn(video, mb["text"].long(), deterministic=False,
+                      generator=_step_generator(
+                          model, rank_seed, state.step * micro + m))
 
         with torch.no_grad():
-            cached = [encode(m) for m in range(micro)]
-        zi = torch.cat([c["image_embed"] for c in cached])
-        zt = torch.cat([c["text_embed"] for c in cached])
+            cached = [encode(m, model) for m in range(micro)]
+            zi = torch.cat([gather_batch(c["image_embed"], group)
+                            for c in cached])
+            zt = torch.cat([gather_batch(c["text_embed"], group)
+                            for c in cached])
         del cached
         rows = zi.shape[0] // micro
         opt.zero_grad()
         total = None
         for m in range(micro):
-            out = encode(m)
-            live = slice(m * rows, (m + 1) * rows)
-            zi_m = torch.slice_scatter(zi, out["image_embed"].to(zi.dtype),
-                                       start=live.start, end=live.stop)
-            zt_m = torch.slice_scatter(zt, out["text_embed"].to(zt.dtype),
-                                       start=live.start, end=live.stop)
-            scale, bias = out["logit_scale"], out.get("logit_bias")
-            if m:
-                scale = scale.detach()
-                bias = None if bias is None else bias.detach()
-            metrics = loss_fn(zi_m, zt_m, scale, bias)
-            metrics["loss"].backward()
+            sync = m == micro - 1 or state.parallel is None
+            with (contextlib.nullcontext() if sync
+                  else state.parallel.no_sync()):
+                out = encode(m, call)
+                live = slice(m * rows, (m + 1) * rows)
+                zi_m = torch.slice_scatter(
+                    zi, gather_batch(out["image_embed"], group).to(zi.dtype),
+                    start=live.start, end=live.stop)
+                zt_m = torch.slice_scatter(
+                    zt, gather_batch(out["text_embed"], group).to(zt.dtype),
+                    start=live.start, end=live.stop)
+                scale, bias = out["logit_scale"], out.get("logit_bias")
+                if m:
+                    scale = scale.detach()
+                    bias = None if bias is None else bias.detach()
+                # the cache is the global batch already
+                metrics = loss_fn(zi_m, zt_m, scale, bias, None)
+                metrics["loss"].backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["logit_scale"] = out["logit_scale"].detach()
             total = metrics if total is None else {
                 k: total[k] + v for k, v in metrics.items()}
             del out, zi_m, zt_m
+        _finish_backward(state)
         return state, _finish_clip_step(
             state, {k: v / micro for k, v in total.items()})
 

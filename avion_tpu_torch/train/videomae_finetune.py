@@ -47,7 +47,8 @@ from avion_tpu_torch.models.pt_import import import_videomae_pt
 from avion_tpu_torch.models.registry import create_model
 from avion_tpu_torch.optim.factory import (apply_batch_lr_scale,
                                            build_optimizer)
-from avion_tpu_torch.parallel.launch import device_from_argv, setup_host
+from avion_tpu_torch.parallel.launch import (device_from_argv, setup_host,
+                                             single_device_only)
 from avion_tpu_torch.train.augment_device import mixup_cutmix
 from avion_tpu_torch.train.common import latest_model_state
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
@@ -150,7 +151,8 @@ def main(argv=None) -> dict:
     d.val_metadata = d.val_metadata or os.environ.get("K400_VAL_LIST", "")
     os.makedirs(cfg.output_dir, exist_ok=True)
     cfg.save(os.path.join(cfg.output_dir, "config.json"))
-    setup_host(cfg.seed)
+    single_device_only(cfg.mesh, "videomae_finetune")
+    setup_host(cfg.seed, device)
 
     num_classes = cfg.model.num_classes or 400
     d.crop_size = build_model(cfg).image_size

@@ -32,7 +32,8 @@ from avion_tpu_torch.data.loader import DataLoader
 from avion_tpu_torch.data.video_reader import default_backend
 from avion_tpu_torch.models.registry import create_model
 from avion_tpu_torch.optim.factory import build_optimizer
-from avion_tpu_torch.parallel.launch import device_from_argv, setup_host
+from avion_tpu_torch.parallel.launch import (device_from_argv, setup_host,
+                                             single_device_only)
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import make_videomae_train_step
@@ -80,7 +81,8 @@ def main(argv=None) -> dict:
         "K400_TRAIN_LIST", "")
     os.makedirs(cfg.output_dir, exist_ok=True)
     cfg.save(os.path.join(cfg.output_dir, "config.json"))
-    setup_host(cfg.seed)
+    single_device_only(cfg.mesh, "videomae_pretrain")
+    setup_host(cfg.seed, device)
 
     geometry = build_model(cfg)
     cfg.model.patch_size = geometry.patch_size

@@ -129,7 +129,23 @@ Phases (each raises on failure; the script then exits non-zero):
    (``logit_bias`` learned) and ``accum=multistep`` with ``update_freq=2``
    (one update); (f) ``pretrain_clip.main`` on the data phase's layout at
    batch 224 as 2 cached microbatches with bf16 state, 2 steps, and its
-   checkpoint restored bit for bit.
+   checkpoint restored bit for bit;
+12. parallel, the ring hops and the process-group entry: (a) the hop
+   instances (the forward with lse, ``bwd_dq`` and ``bwd_kv<dq=0>``, D 64
+   and 128) from the build check's lines; (b) the hop kernels against
+   their plain f32 versions at ViT-B/16, 16 frames, gap pooling (3136
+   tokens) over sp = 4, (16, 784, 12, 64) and (16, 784, 6, 128), with
+   k / v from a [B, S, 2W] buffer other than q's and the score bias 0 and
+   -1e30 (phase 3's tolerances; a voided hop's gradients exactly 0), timed
+   at bias 0 beside the bound and SDPA; (c) the ring over 4 shards of
+   (16, 3136, 12, 64) played on the card through the hop ops and the f32
+   merge (``ring_attention.run_ring_local``) against the plain f32
+   attention over the whole sequence on the same inputs, causal and not:
+   out, dq, dk, dv (phase 3's tolerances: max abs 3e-2, RMS 0.5% / 1.5%),
+   16 + 16 + 16 hop launches a ring; (d) ``pretrain_clip.main`` at
+   ViT-B/16 batch 256, 2 seeded steps, without a process group and under
+   a one-rank NCCL group (torchrun's environment, ``mesh.data=1``, DDP):
+   the parameters bit for bit, the launches by kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -304,6 +320,10 @@ def serialized_instances(ptxas: str) -> set:
             if _instance(m)}
 
 
+# every instance's build-check line, for phase_parallel (a)
+_BUILD_LINES: list = []
+
+
 def check_build(source: str, instances: int) -> list:
     """Every kernel instance of ``source``'s library: registers and spills
     from ptxas (0 spill bytes, no wgmma serialized), and in its SASS wgmma
@@ -338,9 +358,11 @@ def check_build(source: str, instances: int) -> list:
                   for op in ("HGMMA", "UTMALDG", "UBLKRED")}
         counts["f32 RED/ATOM"] = len(F32_ATOMIC.findall(func))
         regs, spills = stats.get(label, (None, None))
-        log(f"  {label}: {regs} registers at launch (setmaxnreg: producer "
-            f"24, consumers 232), {spills} spill bytes, wgmma serialized "
-            f"{label in serialized}; SASS {counts}")
+        line = (f"{label}: {regs} registers at launch (setmaxnreg: producer "
+                f"24, consumers 232), {spills} spill bytes, wgmma serialized "
+                f"{label in serialized}; SASS {counts}")
+        _BUILD_LINES.append(line)
+        log("  " + line)
         if (not (counts["HGMMA"] and counts["UTMALDG"]) or spills != 0
                 or label in serialized):
             bad.append(label)
@@ -1731,10 +1753,10 @@ def _eval_in_training(tmp: str, fx: dict, fixture: tuple) -> dict:
                       f"data.root_val={d['root_val']}")
     inner, passes = pretrain_clip.run_validation, []
 
-    def checked(model, data_cfg, env=None, strict=False):
+    def checked(model, data_cfg, env=None, strict=False, group=None):
         before = {k: v.detach().clone() for k, v in model.state_dict().items()}
         modes = [m.training for m in model.modules()]
-        res = inner(model, data_cfg, env, strict)
+        res = inner(model, data_cfg, env, strict, group)
         after = model.state_dict()
         passes.append(modes == [m.training for m in model.modules()] and all(
             after[k].dtype == v.dtype and torch.equal(after[k], v)
@@ -3309,10 +3331,322 @@ def phase_contrastive(tmp: str, fixture: tuple) -> dict:
         "contrastive_vitl_data": entry["launches"]}}
 
 
+# (batch, tokens a shard, heads, head_dim): ViT-B/16 at 16 frames with gap
+# pooling (3136 tokens) over sp = 4, and the head_dim-128 geometry
+PAR_SHAPES = [(16, 784, 12, 64), (16, 784, 6, 128)]
+PAR_BIASES = (0.0, -1e30)  # a visible hop, a hop voided by the mask value
+RING_SP = 4
+RING_REF_ROWS = 2  # clips a plain f32 reference pass takes: 0.94 GB of scores
+PAR_BATCH, PAR_STEPS = 256, 2
+HOP_KERNELS = ("flash_hop_fwd", "flash_hop_bwd_dq", "flash_hop_bwd_dkv")
+
+
+def _build_rows(sources=(fa.SOURCE, fa.BWD_SOURCE)) -> list:
+    """(a) The instances a ring hop launches, from the build check's lines:
+    the forward with lse, bwd_dq and the dkv route's bwd_kv<dq=0>."""
+    hop = re.compile(r"flash_fwd_kernel<\d+, causal=0, lse=1>|bwd_dq_kernel"
+                     r"<\d+, causal=0>|bwd_kv_kernel<\d+, causal=0, dq=0>")
+    rows = [line for line in _BUILD_LINES if hop.search(line)]
+    log("(a) the hop instances passed the build check (0 spill bytes, no "
+        "wgmma serialized, HGMMA and UTMALDG in the SASS):")
+    for line in rows:
+        log("  " + line)
+    if len(rows) != 6:
+        raise RuntimeError(f"(a) {len(rows)} hop instances checked, not 6")
+    return rows
+
+
+def _hop_rows(gen, check) -> dict:
+    """(b) Each hop kernel against its plain f32 version at PAR_SHAPES with
+    k / v from a [B, S, 2W] buffer other than q's, at every bias of
+    PAR_BIASES: the forward (out, lse) and the backward on the global out
+    and lse of a bias-0 forward (dq, dk, dv; exactly 0 on a voided hop);
+    times at bias 0 beside the bound and SDPA's."""
+    rows = {name: [] for name in HOP_KERNELS}
+    for b, s, h, d in PAR_SHAPES:
+        w, scale, shape = h * d, d ** -0.5, [b, s, h, d]
+        q = torch.randn(b, s, w, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        kv = torch.randn(b, s, 2 * w, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        do = torch.randn(b, s, w, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        k, v = kv[..., :w], kv[..., w:]
+        out, lse = fa.flash_hop_fwd(q, k, v, h, False, scale, 0.0)
+        qh, kh, vh = (x.reshape(b, s, h, d).transpose(1, 2) for x in (q, k, v))
+        sdpa_fwd = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qh, kh, vh))
+        do_h = do.view(b, s, h, d).transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            o = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+            torch.autograd.grad(o, (qg, kg, vg), do_h)
+
+        sdpa_bwd = cuda_ms(sdpa_fwd_bwd) - sdpa_fwd
+        for bias in PAR_BIASES:
+            fa.reset_launches()
+            o, l = fa.flash_hop_fwd(q, k, v, h, False, scale, bias)
+            torch.cuda.synchronize()
+            if dict(fa.launches) != {"flash_hop_fwd": 1}:
+                raise RuntimeError(f"hop forward launches {dict(fa.launches)}")
+            ref_o, ref_l = fa.flash_hop_fwd_plain(q.float(), k.float(),
+                                                  v.float(), h, s, False,
+                                                  scale, bias)
+            err, rel = _errors(o, ref_o)
+            lse_err = (l - ref_l).abs().max().item()
+            check("flash_hop_fwd", shape + [bias], max_abs_err=(err, TOL),
+                  rel_rms_err=(rel, REL_TOL),
+                  lse_max_abs_err=(lse_err, LSE_TOL))
+            row = {"shape": shape, "bias": bias, "max_abs_err": err,
+                   "rel_rms_err": rel, "lse_max_abs_err": lse_err,
+                   "lse_min": l.min().item()}
+            if not bias:
+                row.update(kernel_ms=cuda_ms(lambda: fa.flash_hop_fwd(
+                    q, k, v, h, False, scale, 0.0)),
+                    plain_ms=cuda_ms(lambda: fa.flash_hop_fwd_plain(
+                        q, k, v, h, s, False, scale, 0.0), iters=3),
+                    library_ms=sdpa_fwd)
+                row["bound_ms"], row["bound_by"] = bound(b, s, h, d, False,
+                                                         rows=1)
+            rows["flash_hop_fwd"].append(row)
+            log("flash_hop_fwd " + json.dumps(row))
+            fa.reset_launches()
+            got = fa.flash_hop_bwd(do, q, k, v, out, lse, h, False, scale,
+                                   bias)
+            torch.cuda.synchronize()
+            if dict(fa.launches) != {"flash_hop_bwd_dq": 1,
+                                     "flash_hop_bwd_dkv": 1}:
+                raise RuntimeError(f"hop backward launches "
+                                   f"{dict(fa.launches)}")
+            ref = fa.flash_hop_bwd_plain(do.float(), q.float(), k.float(),
+                                         v.float(), out.float(), lse, h, s,
+                                         False, scale, bias)
+            errs = {}
+            for i, sec in enumerate(("dq", "dk", "dv")):
+                g, r = got[..., i * w:(i + 1) * w], ref[..., i * w:(i + 1) * w]
+                if bias:  # a voided hop: every term exactly 0
+                    err = g.float().abs().max().item()
+                    check("flash_hop_bwd", shape + [bias],
+                          **{f"{sec}_max_abs": (err, 0.0)})
+                    errs[sec] = {"max_abs_err": err}
+                    continue
+                err, rel = _errors(g, r)
+                check("flash_hop_bwd", shape + [bias], **{
+                    f"{sec}_max_abs_err": (err, TOL),
+                    f"{sec}_rel_rms_err": (rel, BWD_REL_TOL)})
+                errs[sec] = {"max_abs_err": err, "rel_rms_err": rel}
+            base = {"shape": shape, "bias": bias, **errs,
+                    "max_abs_err": max(e["max_abs_err"] for e in
+                                       errs.values())}
+            if bias:
+                for name in HOP_KERNELS[1:]:
+                    rows[name].append(dict(base))
+                log("flash_hop_bwd " + json.dumps(base))
+                continue
+            plain_ms = cuda_ms(lambda: fa.flash_hop_bwd_plain(
+                do, q, k, v, out, lse, h, s, False, scale, 0.0), iters=3)
+            # bf16-sized tensors: q, k, v, dO and out read, the f32
+            # gradients written (two each); f32 rows: lse (and delta)
+            for name, part, products, tensors, nrows in (
+                    ("flash_hop_bwd_dq", "dq", 3, 7, 1),
+                    ("flash_hop_bwd_dkv", "dkv", 4, 9, 2)):
+                r = dict(base, plain_ms=plain_ms, library_ms=sdpa_bwd,
+                         kernel_ms=cuda_ms(lambda: fa._bwd_launch(
+                             do, q, k, v, out, lse, h, s, False, scale,
+                             route=part, bias=0.0, prefix="flash_hop_bwd",
+                             out_f32=True)))
+                r["bound_ms"], r["bound_by"] = bound(b, s, h, d, False,
+                                                     products, tensors, nrows)
+                rows[name].append(r)
+                log(f"{name} " + json.dumps(r))
+        del q, kv, do, out, lse, qg, kg, vg
+    return rows
+
+
+def _ring_check(gen, check) -> dict:
+    """(c) RING_SP shards of (B, 3136 tokens, 12 x 64) on one card: each
+    shard's hops played in turn through the hop ops and the f32 merge
+    (``ring_attention.run_ring_local``, the bodies the process-group ring
+    runs), forward and backward, against the plain f32 attention over the
+    whole sequence on the same inputs (out, dq, dk, dv; RING_REF_ROWS clips
+    at a time), causal and not, within phase 3's tolerances.  Returns the
+    hop kernels' launches over the two ring drives."""
+    from avion_tpu_torch.ops import ring_attention as ra
+
+    b, s_loc, h, d = PAR_SHAPES[0]
+    s, w, scale = s_loc * RING_SP, h * d, d ** -0.5
+    qkv = torch.randn(b, s, 3 * w, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    do = torch.randn(b, s, w, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    total = {}
+    for causal in (False, True):
+        shards = [qkv[:, i * s_loc:(i + 1) * s_loc] for i in range(RING_SP)]
+        qs, ks, vs = ([x[..., j * w:(j + 1) * w].contiguous() for x in shards]
+                      for j in range(3))
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        fwd = ra.run_ring_local([
+            ra.ring_forward_body(qs[i], ks[i], vs[i], h, causal, scale, i,
+                                 RING_SP) for i in range(RING_SP)])
+        outs = [o for o, _ in fwd]
+        grads = ra.run_ring_local([
+            ra.ring_backward_body(do[:, i * s_loc:(i + 1) * s_loc]
+                                  .contiguous(), qs[i], ks[i], vs[i], *fwd[i],
+                                  h, causal, scale, i, RING_SP)
+            for i in range(RING_SP)])
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        want = {"flash_hop_fwd": RING_SP ** 2, "flash_hop_bwd_dq": RING_SP ** 2,
+                "flash_hop_bwd_dkv": RING_SP ** 2}
+        if launches != want:
+            raise RuntimeError(f"(c) ring launches {launches}, want {want}")
+        got = {"out": torch.cat(outs, 1)}
+        for j, sec in enumerate(("dq", "dk", "dv")):
+            got[sec] = torch.cat([g[j] for g in grads], 1)
+        del fwd, grads, outs, qs, ks, vs, shards
+        ref = {sec: torch.empty(b, s, w, device="cuda")
+               for sec in ("out", "dq", "dk", "dv")}
+        for r0 in range(0, b, RING_REF_ROWS):
+            rows = slice(r0, r0 + RING_REF_ROWS)
+            x = qkv[rows].float()
+            o, lse = fa.flash_fwd_lse_plain(x, h, s, causal, scale)
+            g = fa.flash_bwd_plain(do[rows].float(), x, o, lse, h, s, causal,
+                                   scale)
+            ref["out"][rows] = o
+            for j, sec in enumerate(("dq", "dk", "dv")):
+                ref[sec][rows] = g[..., j * w:(j + 1) * w]
+            del x, o, lse, g
+        row = {"shape": [b, s, h, d], "sp": RING_SP, "causal": causal,
+               "launches": launches}
+        for sec in ("out", "dq", "dk", "dv"):
+            err, rel = _errors(got[sec], ref[sec])
+            row[sec] = {"max_abs_err": err, "rel_rms_err": rel,
+                        "ref_max_abs": ref[sec].abs().max().item()}
+            check("ring", [b, s, h, d, causal], **{
+                f"{sec}_max_abs_err": (err, TOL),
+                f"{sec}_rel_rms_err": (rel, REL_TOL if sec == "out"
+                                       else BWD_REL_TOL)})
+        log("(c) ring " + json.dumps(row))
+        del got, ref
+    return total
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _nccl_entry(tmp: str, fixture: tuple) -> dict:
+    """(d) ``pretrain_clip.main`` at ViT-B/16 batch PAR_BATCH for PAR_STEPS
+    seeded steps without a process group, then under a one-rank NCCL group
+    (torchrun's environment, ``mesh.data=1``; DDP): the parameters of the
+    two final checkpoints bit for bit.  The visual tower is the
+    sequence-parallel one (gap pooling; a ring of one shard, so its
+    attention runs the hop kernels), and the text tower takes the split
+    backward: the combined route sums dq in an order that varies from run
+    to run, which no two runs could match bit for bit.  Every item draws
+    its crop from seed 0 and the loader decodes in this process, so both
+    runs see the same batches."""
+    from avion_tpu_torch.train import pretrain_clip
+
+    root, meta = fixture
+    want = {name: PAR_STEPS * LAYERS for name in (
+        "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", *HOP_KERNELS)}
+    orig = np.random.RandomState
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    params, launches = {}, {}
+    np.random.RandomState = lambda seed=None: orig(0 if seed is None
+                                                    else seed)
+    fa._COMBINED_BWD = False
+    try:
+        for name, group_env in (("alone", {}), ("nccl", env)):
+            out = os.path.join(tmp, f"parallel_{name}")
+            args = _data_args(out, root, meta, True,
+                              f"data.batch_size={PAR_BATCH}",
+                              "data.subsample_stride=4", "data.num_workers=0",
+                              "eval_freq=0", "mesh.data=1",
+                              "model.sequence_parallel=true",
+                              "model.pooling=gap")
+            os.environ.update(group_env)
+            try:
+                torch.cuda.synchronize()
+                fa.reset_launches()
+                t0 = time.perf_counter()
+                res = pretrain_clip.main(args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                for k in group_env:
+                    os.environ.pop(k, None)
+            launches[name] = dict(fa.launches)
+            if torch.distributed.is_initialized():
+                raise RuntimeError("(d) main left its process group")
+            recs = [r for r in _train_log(out) if "train/loss" in r]
+            log(f"(d) pretrain_clip.main {name}: {res['steps']} steps, losses "
+                f"{[r['train/loss'] for r in recs]}, launches "
+                f"{launches[name]}, wall {wall:.2f} s")
+            if res["steps"] != PAR_STEPS or launches[name] != want:
+                raise RuntimeError(f"(d) {name}: {res['steps']} steps, "
+                                   f"launches {launches[name]}, want {want}")
+            params[name] = torch.load(os.path.join(
+                out, "ckpt", str(res["step"]), "state.pt"),
+                weights_only=True)["model"]
+    finally:
+        np.random.RandomState = orig
+        fa._COMBINED_BWD = None
+    same = params["alone"].keys() == params["nccl"].keys() and all(
+        torch.equal(v, params["nccl"][k]) for k, v in params["alone"].items())
+    log(f"(d) parameters under the one-rank NCCL group equal the run "
+        f"without a group bit for bit: {same}; launches equal: "
+        f"{launches['alone'] == launches['nccl']}")
+    if not same or launches["alone"] != launches["nccl"]:
+        raise RuntimeError("(d) the one-rank NCCL run differs")
+    return launches["nccl"]
+
+
+def phase_parallel(tmp: str, fixture: tuple) -> dict:
+    """The parallel slice on one card: (a) the hop instances' build check;
+    (b) the hop kernels against their plain versions; (c) the ring over
+    RING_SP shards against attention over the whole sequence; (d)
+    ``pretrain_clip.main`` under a one-rank NCCL group against the run
+    without one.  Returns the hop kernels' rows and the launches."""
+    log("== parallel")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bad = []
+
+    def check(name, shape, **errs):
+        for key, (err, limit) in errs.items():
+            if not err <= limit:  # NaN fails too
+                bad.append(f"{name} {shape}: {key} {err} > {limit}")
+
+    _build_rows()
+    rows = _hop_rows(gen, check)
+    ring = _ring_check(gen, check)
+    if bad:
+        raise RuntimeError("parallel: " + "; ".join(bad))
+    nccl = _nccl_entry(tmp, fixture)
+    log(f"parallel phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "ring": ring, "nccl": nccl}
+
+
 KERNEL_SOURCES = {
     "flash_fwd": ("flash_fwd.cu", 134), "flash_fwd_lse": ("flash_fwd.cu", 91),
     "flash_bwd_combined": ("flash_bwd.cu", 494),
     "flash_bwd_dq": ("flash_bwd.cu", 220), "flash_bwd_dkv": ("flash_bwd.cu", 271),
+    # the ring hops: the pallas_calls of `_fwd` and `_bwd` with extra_bias
+    "flash_hop_fwd": ("flash_fwd.cu", 194),
+    "flash_hop_bwd_dq": ("flash_bwd.cu", 369),
+    "flash_hop_bwd_dkv": ("flash_bwd.cu", 388),
 }
 
 
@@ -3333,22 +3667,24 @@ def main() -> int:
         vmae = phase_videomae(tmp)
         ft = phase_finetune(tmp, os.path.join(tmp, "clip_vitb16_random.pt"))
         cl = phase_contrastive(tmp, data["fixture"])
+        par = phase_parallel(tmp, data["fixture"])
     # each kernel's launches from the path that drives it: serving, the
     # data-fed 4-frame main path (run A), and the data-fed MIR finetune at
     # 16 frames for the split kernels; every path's counts beside them
     mir = ft["paths"]["finetune_mir_data_with_validation"]
     launches = {"flash_fwd": serve, **data["host_crop"],
                 "flash_bwd_dq": mir["flash_bwd_dq"],
-                "flash_bwd_dkv": mir["flash_bwd_dkv"]}
+                "flash_bwd_dkv": mir["flash_bwd_dkv"], **par["ring"]}
     by_path = {"serve": {"flash_fwd": serve}, "train_seeded_batches": train,
                "train_16_frames": long, "data_host_crop": data["host_crop"],
                "data_device_crop": data["device_crop"],
                "eval": evals["eval"], "data_with_eval": evals["with_eval"],
-               **vmae["paths"], **ft["paths"], **cl["paths"]}
+               **vmae["paths"], **ft["paths"], **cl["paths"],
+               "parallel_ring": par["ring"], "parallel_nccl": par["nccl"]}
     rows["flash_fwd"] += evals["checks"]
     for name in rows:
         rows[name] += vmae["rows"][name] + ft["rows"][name] + \
-            cl["rows"][name]
+            cl["rows"][name] + par["rows"].get(name, [])
     kernels = []
     for name, (source, line) in KERNEL_SOURCES.items():
         head = rows[name][0]

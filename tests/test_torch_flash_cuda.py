@@ -286,3 +286,44 @@ def test_backward_rejects_what_it_does_not_take(cuda):
     strided = torch.randn(1, 16, 256, device=cuda).bfloat16()[..., ::2]
     with pytest.raises(ValueError):  # right shape, not contiguous
         fa.flash_bwd(strided, qkv, out, lse, 2, 16, False, 0.125)
+
+
+BWD_REL_TOL = 1.5e-2  # dq, dk, dv: RMS error over RMS reference (chip_smoke)
+
+
+@pytest.mark.parametrize("bias", [0.0, -1e30])
+@pytest.mark.parametrize("b,s,h,d", [(2, 63, 3, 64), (2, 130, 2, 128),
+                                     (1, 784, 12, 64)])
+def test_hop_kernels_match_plain(cuda, b, s, h, d, bias):
+    """A ring hop: q against k / v of another [B, S, 2W] buffer with the
+    score bias; the backward on the global out and lse of a bias-0
+    forward.  A voided hop (-1e30) gives finite output and lse and
+    gradients of exactly 0."""
+    w, scale = h * d, d ** -0.5
+    q = _qkv(b, s, h, d, seed=1)[..., :w].to(cuda, torch.bfloat16)
+    kv = _qkv(b, s, h, d, seed=2)[..., :2 * w].to(cuda, torch.bfloat16)
+    do = _qkv(b, s, h, d, seed=3)[..., :w].to(cuda, torch.bfloat16)
+    k, v = kv[..., :w], kv[..., w:]
+    out, lse = fa.flash_hop_fwd(q, k, v, h, False, scale, 0.0)
+    fa.reset_launches()
+    o, l = fa.flash_hop_fwd(q, k, v, h, False, scale, bias)
+    g = fa.flash_hop_bwd(do, q, k, v, out, lse, h, False, scale, bias)
+    torch.cuda.synchronize()
+    assert dict(fa.launches) == {"flash_hop_fwd": 1, "flash_hop_bwd_dq": 1,
+                                 "flash_hop_bwd_dkv": 1}
+    assert g.dtype == torch.float32  # the ring sums hops unrounded
+    ref_o, ref_l = fa.flash_hop_fwd_plain(q.float(), k.float(), v.float(),
+                                          h, s, False, scale, bias)
+    assert torch.isfinite(o).all() and torch.isfinite(l).all()
+    assert (o.float() - ref_o).abs().max().item() <= BF16_TOL
+    assert (l - ref_l).abs().max().item() <= LSE_TOL
+    if bias:
+        assert not g.any()
+        return
+    ref = fa.flash_hop_bwd_plain(do.float(), q.float(), k.float(), v.float(),
+                                 out.float(), lse, h, s, False, scale, 0.0)
+    for i in range(3):
+        diff = g[..., i * w:(i + 1) * w].float() - ref[..., i * w:(i + 1) * w]
+        assert diff.abs().max().item() <= BF16_TOL
+        assert (diff.norm() / ref[..., i * w:(i + 1) * w].norm()).item() \
+            <= BWD_REL_TOL

@@ -1,0 +1,94 @@
+"""The port's mesh, shard rule and host sharding against the JAX package's,
+without processes: rank r's coordinates against JAX device r's in
+``make_mesh``, ``shard_dim`` against ``_spec_for_param`` over CLIP_TINY's
+parameter tree, and each batch group's index order against the JAX
+loader's ``_host_order``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from avion_tpu.data.loader import DataLoader as JaxDataLoader
+from avion_tpu.models.clip import CLIP as JaxCLIP
+from avion_tpu.parallel import make_mesh as jax_make_mesh
+from avion_tpu.parallel.mesh import MESH_AXES as JAX_AXES
+from avion_tpu.parallel.sharding import _spec_for_param
+from avion_tpu_torch.data.loader import DataLoader
+from avion_tpu_torch.parallel.mesh import (MESH_AXES, axis_sizes,
+                                           local_batch_slice, make_mesh,
+                                           mesh_coords)
+from avion_tpu_torch.parallel.sharding import shard_dim
+
+CLIP_TINY = dict(embed_dim=32, image_size=32, patch_size=16, num_frames=2,
+                 vision_width=64, vision_layers=2, vision_heads=2,
+                 context_length=77, vocab_size=49408, text_width=32,
+                 text_heads=2, text_layers=2)
+
+
+@pytest.mark.parametrize("sizes", [dict(data=4, fsdp=2), dict(data=2, sp=4)])
+def test_rank_coordinates_match_jax_devices(sizes):
+    assert MESH_AXES == JAX_AXES
+    mesh = jax_make_mesh(tensor=1, **sizes)
+    shape = axis_sizes(8, **sizes)
+    assert tuple(shape.values()) == mesh.devices.shape
+    for dev in jax.devices()[:8]:
+        where = np.argwhere(mesh.devices == dev)[0]
+        assert mesh_coords(dev.id, shape) == dict(zip(MESH_AXES, where))
+
+
+def test_batch_groups_and_rows():
+    shape = axis_sizes(8, data=2, sp=4)
+    for rank in range(8):
+        m = make_mesh(data=2, sp=4, world=8, rank=rank)
+        assert m.coords == mesh_coords(rank, shape)
+        assert m.n_batch_shards == 2 and m.batch_index == rank // 4
+        assert local_batch_slice(m, 16) == slice(8 * (rank // 4),
+                                                 8 * (rank // 4) + 8)
+        assert m.ranks(sp=rank % 4) == [rank % 4, 4 + rank % 4]
+    with pytest.raises(NotImplementedError, match="tensor"):
+        make_mesh(data=4, tensor=2, world=8, rank=0)
+
+
+@pytest.mark.parametrize("fsdp", [2, 4])
+def test_fsdp_shard_rule_matches_spec_for_param(fsdp):
+    model = JaxCLIP(**CLIP_TINY, use_flash=False, dtype=jnp.float32)
+    params = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0),
+                           jnp.zeros((1, 2, 32, 32, 3)),
+                           jnp.zeros((1, 77), jnp.int32)))["params"]
+    mesh = jax_make_mesh(data=8 // fsdp, fsdp=fsdp, tensor=1)
+    leaves = jax.tree_util.tree_leaves_with_path(params)
+    sharded = 0
+    for path, leaf in leaves:
+        name = "/".join(str(getattr(k, "key", k)) for k in path)
+        spec = tuple(_spec_for_param(name, leaf.shape, mesh))
+        want = spec.index("fsdp") if "fsdp" in spec else None
+        assert shard_dim(leaf.shape, fsdp) == want, (name, leaf.shape)
+        sharded += want is not None
+    assert 0 < sharded < len(leaves)
+
+
+class _Sized:
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+
+@pytest.mark.parametrize("drop_last", [True, False])
+@pytest.mark.parametrize("world", [2, 4])
+def test_host_order_matches_jax_loader(world, drop_last):
+    ds = _Sized(37)
+    for group in range(world):
+        kw = dict(batch_size=4 * world, shuffle=True, drop_last=drop_last,
+                  num_workers=0, seed=5, process_index=group,
+                  process_count=world)
+        ours = DataLoader(ds, **kw)
+        ref = JaxDataLoader(ds, **kw)
+        for epoch in (0, 1):
+            np.testing.assert_array_equal(ours._order(epoch),
+                                          ref._host_order(epoch))
+        assert len(ours) == len(ref)
+        assert ours.local_batch == ref.local_batch == 4

@@ -101,7 +101,8 @@ def test_main_needs_cuda_unless_told_the_cpu(tiny_ego4d, tmp_path):
     assert not osp.exists(out)
 
 
-@pytest.mark.parametrize("extra", [["mesh.fsdp=2"]], ids=["mesh"])
+# data, fsdp and sp are ported; tensor (like pp and ep) comes later
+@pytest.mark.parametrize("extra", [["mesh.tensor=2"]], ids=["mesh"])
 def test_main_raises_on_later_slices(tiny_ego4d, tmp_path, extra):
     root, meta = tiny_ego4d
     with pytest.raises(NotImplementedError, match="slice"):

@@ -1,0 +1,308 @@
+"""The per-rank bodies of the port's parallel tests (run by
+``tests/torch_dist.run_ranks`` in spawned processes of a gloo group).
+
+They import torch and the port only: the JAX references run in the pytest
+process.  Inputs arrive as numpy arrays or torch state dicts, results go
+back the same way.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import signal
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+CLIP_TINY_FRAMES = 2
+NITER = 4
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def losses(rank, world, img, txt, scale_param, bias):
+    """Each loss over the world on this rank's rows of ``img`` / ``txt``:
+    loss, clip_acc and the gradients of this rank's embeddings, the logit
+    scale's parameter and the bias."""
+    from avion_tpu_torch.losses import losses as L
+
+    per = img.shape[0] // world
+    rows = slice(rank * per, (rank + 1) * per)
+    out = {}
+    for name in ("clip", "siglip", "siglip_chunked"):
+        zi = _t(img[rows]).requires_grad_()
+        zt = _t(txt[rows]).requires_grad_()
+        p = torch.tensor(scale_param, requires_grad=True)
+        b = torch.tensor(bias, requires_grad=True)
+        group = dist.group.WORLD
+        if name == "clip":
+            res = L.clip_loss(zi, zt, p.exp(), group=group)
+        elif name == "siglip":
+            res = L.siglip_loss(zi, zt, p.exp(), b, group=group)
+        else:
+            res = L.siglip_loss_chunked(zi, zt, p.exp(), b, group=group)
+        res["loss"].backward()
+        out[name] = {"loss": res["loss"].item(),
+                     "clip_acc": float(res["clip_acc"]),
+                     "d_img": zi.grad.numpy(), "d_txt": zt.grad.numpy(),
+                     "d_scale": p.grad.item(),
+                     "d_bias": 0.0 if b.grad is None else b.grad.item()}
+    return out
+
+
+class _Rotate(torch.autograd.Function):
+    """``rotate`` of one tensor; its gradient rotates back (n - 1 more
+    rotations on a ring of n)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from avion_tpu_torch.ops.ring_attention import rotate
+
+        ctx.group = group
+        return rotate([x], group)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        from avion_tpu_torch.ops.ring_attention import rotate
+
+        for _ in range(dist.get_world_size(ctx.group) - 1):
+            (g,) = rotate([g], ctx.group)
+        return g, None
+
+
+def ring_attention(q, k, v, group, causal, block_k):
+    """The blockwise plain ring (``avion_tpu.ops.ring_attention.
+    ring_attention``), the test's second reference: q, k, v the local
+    [B, S_local, H, D] shards; keys in ``block_k`` chunks with an online
+    softmax; the local output shard in q's dtype.  Autograd runs through
+    the rotations."""
+    from avion_tpu_torch.ops.ring_attention import (DEFAULT_MASK_VALUE,
+                                                    group_rank_size)
+
+    b, s_loc, h, d = q.shape
+    i, n = group_rank_size(group)
+    qe = q.float() / d ** 0.5
+    rows = torch.arange(s_loc)
+    o = q.new_zeros(b, s_loc, h, d, dtype=torch.float32)
+    m = q.new_full((b, h, s_loc), DEFAULT_MASK_VALUE, dtype=torch.float32)
+    l = q.new_zeros(b, h, s_loc, dtype=torch.float32)
+    kv = torch.stack([k, v])
+    for j in range(n):
+        if j:
+            kv = _Rotate.apply(kv, group)
+        src = (i - j) % n
+        for c0 in range(0, s_loc, block_k):
+            kb, vb = kv[0][:, c0:c0 + block_k], kv[1][:, c0:c0 + block_k]
+            logits = torch.einsum("bqhd,bkhd->bhqk", qe, kb.float())
+            if causal:
+                cols = src * s_loc + c0 + torch.arange(kb.shape[1])
+                ok = cols[None, :] <= (i * s_loc + rows)[:, None]
+                logits = logits + torch.where(ok, 0.0, DEFAULT_MASK_VALUE)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            a = torch.exp(m - m_new)
+            l = l * a + p.sum(dim=-1)
+            o = (o * a.transpose(1, 2)[..., None]
+                 + torch.einsum("bhqk,bkhd->bqhd", p, vb.float()))
+            m = m_new
+    return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def ring(rank, world, q, k, v, g, heads, causal):
+    """``sequence_parallel_attention`` (the kernel ring of
+    ``ring_flash_attention_packed`` on [B, S, H, D] views) over the world on
+    this rank's sequence shard: (out, dq, dk, dv) of the shard for
+    cotangent ``g``; the same of the blockwise :func:`ring_attention` under
+    ``blockwise``."""
+    from avion_tpu_torch.ops import flash_attention as fa
+    from avion_tpu_torch.ops.ring_attention import sequence_parallel_attention
+
+    per = q.shape[1] // world
+    b, s, w = q.shape[0], per, q.shape[2]
+    cut = lambda x: _t(x[:, rank * per:(rank + 1) * per])  # noqa: E731
+    heads_first = lambda x: x.view(b, s, heads, w // heads)  # noqa: E731
+    out = {}
+    for name in ("flash", "blockwise"):
+        qh, kh, vh = (heads_first(cut(x)).requires_grad_() for x in (q, k, v))
+        fa.reset_launches()
+        if name == "flash":
+            o = sequence_parallel_attention(qh, kh, vh,
+                                            group=dist.group.WORLD,
+                                            causal=causal)
+        else:
+            o = ring_attention(qh, kh, vh, dist.group.WORLD, causal,
+                               block_k=4)
+        o.backward(heads_first(cut(g)))
+        res = {"out": o.detach().reshape(b, s, w).numpy(),
+               **{key: x.grad.reshape(b, s, w).numpy() for key, x
+                  in (("dq", qh), ("dk", kh), ("dv", vh))}}
+        if name == "flash":
+            out.update(res, plain_calls=dict(fa.plain_calls))
+        else:
+            out["blockwise"] = res
+    return out
+
+
+def _mesh_model(model, data, fsdp=1, sp=1):
+    from avion_tpu_torch.parallel.mesh import make_mesh
+    from avion_tpu_torch.parallel.sharding import Parallel, shard_model
+
+    mesh = make_mesh(data=data, fsdp=fsdp, sp=sp)
+    shard_model(model, mesh)
+    return mesh, Parallel(mesh, model)
+
+
+def vit_sp(rank, world, state, video, data, sp, remat=False):
+    """The tiny sequence-parallel ViT over a data x sp mesh (with ``remat``
+    under the ``save_attn`` policy): this rank's batch group's clips, its
+    shard of the tokens; loss ``sum(o cos o)`` of the gathered pooled
+    features.  Returns the gathered output, the world-averaged gradients
+    and the plain calls by kernel, from every rank."""
+    from avion_tpu_torch.losses.losses import gather_batch
+    from avion_tpu_torch.models.vit import VisionTransformer
+    from avion_tpu_torch.ops import flash_attention as fa
+    from avion_tpu_torch.parallel.mesh import use_mesh
+    from avion_tpu_torch.parallel.sharding import make_global_batch
+
+    model = VisionTransformer(image_size=32, patch_size=16, num_frames=8,
+                              width=32, layers=2, heads=2,
+                              dtype=torch.float32, pooling="gap",
+                              sequence_parallel=True, remat=remat)
+    model.load_state_dict(state, strict=True)
+    mesh, par = _mesh_model(model, data=data, sp=sp)
+    fa.reset_launches()
+    with use_mesh(mesh):
+        x = make_global_batch(mesh, {"video": _t(video)})["video"]
+        o = gather_batch(par.model(x), mesh.batch_group)
+        (o * o.cos()).sum().backward()
+    return {"out": o.detach().numpy(),
+            "grads": {n: p.grad.numpy() for n, p in model.named_parameters()},
+            "plain_calls": dict(fa.plain_calls)}
+
+
+def _clip_tiny(sd, use_logit_bias=False, sequence_parallel=False):
+    from avion_tpu_torch.models.registry import create_model
+
+    model = create_model("CLIP_TINY", num_frames=CLIP_TINY_FRAMES,
+                         use_logit_bias=use_logit_bias,
+                         sequence_parallel=sequence_parallel,
+                         pooling="gap" if sequence_parallel else "cls")
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def encode(rank, world, sd, videos, texts, batch):
+    """``CLIPEncoders`` over the world: each rank encodes its rows of
+    every chunk, the embeddings are gathered."""
+    from avion_tpu_torch.eval.runners import CLIPEncoders
+
+    enc = CLIPEncoders(_clip_tiny(sd), batch=batch, weight_dtype="f32",
+                       group=dist.group.WORLD)
+    return enc.encode_images(videos), enc.encode_texts(texts)
+
+
+def train_step(rank, world, sd, opt, batch, data, fsdp, update_freq,
+               loss_type="clip", sp=1):
+    """One CLIP_TINY step over a data x fsdp x sp mesh (FSDP2 when fsdp >
+    1, DDP otherwise; with sp > 1 the sequence-parallel visual tower, gap
+    pooling) on this rank's rows of ``batch`` (microbatch-major [M, B / M,
+    ...] when ``update_freq`` > 1).  Returns the metrics, the whole updated
+    parameters and whether they are sharded at rest."""
+    from avion_tpu_torch.core.config import OptimConfig
+    from avion_tpu_torch.core.train_state import TrainState
+    from avion_tpu_torch.optim.factory import build_optimizer
+    from avion_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from avion_tpu_torch.parallel.sharding import (Parallel, full_tensor,
+                                                   is_dtensor,
+                                                   make_global_batch,
+                                                   shard_model)
+    from avion_tpu_torch.train.steps import (make_clip_accum_train_step,
+                                             make_clip_train_step)
+
+    model = _clip_tiny(sd, loss_type == "siglip", sequence_parallel=sp > 1)
+    mesh = make_mesh(data=data, fsdp=fsdp, sp=sp)
+    shard_model(model, mesh)
+    cfg = OptimConfig(**opt, update_freq=update_freq, accum="cached")
+    optimizer, _ = build_optimizer(cfg, model, NITER)
+    state = TrainState.create(model, optimizer, parallel=Parallel(
+        mesh, model, find_unused=update_freq > 1))
+    with use_mesh(mesh):
+        step = (make_clip_accum_train_step(model, update_freq,
+                                           loss_type=loss_type)
+                if update_freq > 1 else
+                make_clip_train_step(model, loss_type=loss_type))
+        local = make_global_batch(mesh, {k: _t(v) for k, v in batch.items()},
+                                  batch_dim=1 if update_freq > 1 else 0)
+        state, metrics = step(state, local)
+    sharded = {n: is_dtensor(p) for n, p in model.named_parameters()}
+    moments_sharded = all(
+        is_dtensor(m) == is_dtensor(p)
+        for p, s in optimizer.inner.state.items() for m in s.values())
+    whole = {k: full_tensor(v.detach()).numpy()
+             for k, v in model.state_dict().items()}
+    # the step's (clipped) gradients, still on the parameters
+    grads = {k: full_tensor(p.grad).numpy()
+             for k, p in model.named_parameters() if p.grad is not None}
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "params": whole if rank == 0 else None,
+            "grads": grads if rank == 0 else None, "sharded": sharded,
+            "moments_sharded": moments_sharded}
+
+
+def save_after_step(rank, world, sd, opt, batch, out_dir):
+    """One step at fsdp = world (sharded state), then a checkpoint; returns
+    the gathered state rank 0 wrote, serialized by ``torch.save``."""
+    from avion_tpu_torch.core.checkpoint import Checkpointer, _to_cpu
+    from avion_tpu_torch.core.config import OptimConfig
+    from avion_tpu_torch.core.train_state import TrainState
+    from avion_tpu_torch.optim.factory import build_optimizer
+    from avion_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from avion_tpu_torch.parallel.sharding import (Parallel,
+                                                   make_global_batch,
+                                                   shard_model)
+    from avion_tpu_torch.train.steps import make_clip_train_step
+
+    model = _clip_tiny(sd)
+    mesh = make_mesh(data=1, fsdp=world)
+    shard_model(model, mesh)
+    optimizer, _ = build_optimizer(OptimConfig(**opt), model, NITER)
+    state = TrainState.create(model, optimizer,
+                              parallel=Parallel(mesh, model))
+    with use_mesh(mesh):
+        step = make_clip_train_step(model)
+        state, _ = step(state, make_global_batch(
+            mesh, {k: _t(v) for k, v in batch.items()}))
+    Checkpointer(out_dir).save(state.step, state, extra={"world": world})
+    whole = _to_cpu(state.state_dict())
+    if rank:
+        return None
+    buf = io.BytesIO()  # tensors in a queue would travel as shared memory
+    torch.save(whole, buf)
+    return buf.getvalue()
+
+
+def preempted_main(rank, world, args):
+    """``pretrain_clip.main`` on every rank; rank 1 alone gets SIGTERM after
+    its first step.  Returns main's result."""
+    from avion_tpu_torch.train import pretrain_clip
+
+    make_step = pretrain_clip.make_step
+
+    def signalling(cfg, model):
+        step = make_step(cfg, model)
+
+        def wrapped(state, batch):
+            out = step(state, batch)
+            if rank == 1 and state.step == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        return wrapped
+
+    pretrain_clip.make_step = signalling
+    res = pretrain_clip.main(args)
+    return {"step": res["step"], "steps": res["steps"]}
