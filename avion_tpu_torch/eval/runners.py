@@ -330,3 +330,66 @@ def validate_all(encoders: CLIPEncoders, suites: Dict[str, Callable],
         for k, v in metrics.items():
             out[f"test_{name}_{k}"] = float(v)
     return out
+
+
+class _Rows:
+    """The items of ``dataset`` at ``rows``, in order."""
+
+    def __init__(self, dataset, rows: np.ndarray):
+        self.dataset, self.rows = dataset, rows
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, i: int):
+        return self.dataset[int(self.rows[i])]
+
+
+def block_rows(n_rows: int, rank: int, n: int) -> np.ndarray:
+    """Rank ``rank``'s block of ``n_rows`` rows over ``n`` ranks: ceil(n_rows
+    / n) consecutive rows, the last block padded with the last row."""
+    per = -(-n_rows // n)
+    return np.minimum(np.arange(rank * per, (rank + 1) * per), n_rows - 1)
+
+
+@torch.no_grad()
+def multi_view_probs(fn: Callable[[torch.Tensor], torch.Tensor], dataset,
+                     batch: int, num_workers: int, device: torch.device,
+                     group=None):
+    """The multi-view test's scores: (probs [N, classes] f32, labels [N])
+    of every item of ``dataset`` (``video`` [views, T, H, W, C] or [T, H, W,
+    C], ``label``), ``fn(video [rows * views, T, H, W, C] uint8 on
+    ``device``) -> logits``, the softmax averaged over each item's views.
+    Over a ``group`` of n ranks each rank scores its block of the items
+    (:func:`block_rows`), ``batch`` rows a call, so every rank calls ``fn``
+    as often; the blocks are gathered in rank order, which is row order."""
+    from avion_tpu_torch.data.loader import DataLoader
+
+    n_rows = len(dataset)
+    rank, n = ((dist.get_rank(group), dist.get_world_size(group))
+               if group is not None and dist.is_initialized() else (0, 1))
+    if n > 1:
+        dataset = _Rows(dataset, block_rows(n_rows, rank, n))
+    loader = DataLoader(dataset, batch, shuffle=False, drop_last=False,
+                        num_workers=num_workers)
+    probs, labels = [], []
+    try:
+        for b in loader:
+            video = torch.from_numpy(b["video"]).to(device)
+            views = video.shape[1] if video.dim() == 6 else 1
+            video = video.reshape((-1,) + video.shape[-4:])
+            p = torch.softmax(fn(video).float(), dim=-1)
+            probs.append(p.reshape(-1, views, p.shape[-1]).mean(dim=1))
+            labels.append(torch.as_tensor(np.asarray(b["label"]),
+                                          device=device))
+    finally:
+        loader.close()
+    probs, labels = torch.cat(probs), torch.cat(labels).long()
+    if n > 1:
+        parts = [torch.empty_like(probs) for _ in range(n)]
+        dist.all_gather(parts, probs.contiguous(), group=group)
+        probs = torch.cat(parts)[:n_rows]
+        parts = [torch.empty_like(labels) for _ in range(n)]
+        dist.all_gather(parts, labels.contiguous(), group=group)
+        labels = torch.cat(parts)[:n_rows]
+    return probs.cpu().numpy(), labels.cpu().numpy()

@@ -5,8 +5,8 @@ and its chunked ring, EK100-MIR's max-margin ranking loss and VideoMAE's
 normalized-pixel MSE.
 
 Over a batch group of several ranks (``group``, the mesh's
-``batch_group``), ``clip_loss`` and ``siglip_loss`` see the global batch
-through :func:`gather_batch`, an all-gather whose backward sums the
+``batch_group``), ``clip_loss``, ``siglip_loss`` and
+``max_margin_ranking_loss`` see the global batch through :func:`gather_batch`, an all-gather whose backward sums the
 cotangents of every rank (a reduce-scatter), and
 :func:`siglip_loss_chunked` runs the ring of ``_siglip_ring_local``.  Every
 rank gets the global loss, and its gradients are those whose average over
@@ -188,14 +188,17 @@ def siglip_loss_chunked(image_embed: torch.Tensor, text_embed: torch.Tensor,
 
 def max_margin_ranking_loss(image_embed: torch.Tensor,
                             text_embed: torch.Tensor, margin: float = 0.2,
-                            fix_norm: bool = True, eps: float = 1e-8) -> dict:
+                            fix_norm: bool = True, eps: float = 1e-8,
+                            group=None) -> dict:
     """Bidirectional hinge ``relu(margin - sim(i, i) + sim(i, j))`` over the
     row and the column negatives of ``sim(text, image)``, on L2-normalized
-    f32 embeddings (norms clamped at ``eps``).  With ``fix_norm`` the
+    f32 embeddings (norms clamped at ``eps``), over the global batch of
+    ``group`` (this rank's rows without one).  With ``fix_norm`` the
     diagonal is left out and the sum divided by ``2 n (n - 1)``, else
-    ``2 n n``.  Returns ``{"loss", "max_margin_loss"}``."""
-    a = text_embed.float()
-    b = image_embed.float()
+    ``2 n n``, n the global batch.  Returns ``{"loss",
+    "max_margin_loss"}``."""
+    a = gather_batch(text_embed, group).float()
+    b = gather_batch(image_embed, group).float()
     a = a / a.norm(dim=-1, keepdim=True).clamp_min(eps)
     b = b / b.norm(dim=-1, keepdim=True).clamp_min(eps)
     x = a @ b.T

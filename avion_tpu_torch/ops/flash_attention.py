@@ -35,7 +35,11 @@ selective-checkpoint policy (``models.layers``), which can keep the
 forward's outputs instead of re-running it.  The backward writes one fused
 ``[B, rows, 3W]`` gradient; it takes the combined kernel while
 ``ceil(S, 128) <= 1024`` (the JAX package's rule) and the split dq / dkv
-kernels beyond, unless :data:`_COMBINED_BWD` says otherwise.
+kernels beyond, unless :data:`_COMBINED_BWD` says otherwise.  Under
+``torch.use_deterministic_algorithms(True)`` (``warn_only`` too) every
+backward takes the split kernels: the combined kernel adds dq by bulk
+reduce-adds whose order varies between runs, the split kernels sum in a
+fixed order, so the same input gives the same bits.
 
 Unlike the TPU path, S is not padded to a multiple of 128: the kernels mask
 the ragged last tile themselves, so ``qkv`` may have exactly ``s`` rows.
@@ -70,7 +74,8 @@ plain_calls: Counter = Counter()
 _count_lock = threading.Lock()
 
 # backward route: None follows the JAX rule (combined while the padded
-# sequence is at most _COMBINED_MAX_SPAD); True / False force it
+# sequence is at most _COMBINED_MAX_SPAD) or, under deterministic
+# algorithms, the split kernels; True / False force it
 _COMBINED_BWD: Optional[bool] = None
 _COMBINED_MAX_SPAD = 1024
 
@@ -87,9 +92,11 @@ def _count(counter: Counter, name: str) -> None:
 
 
 def use_combined_bwd(s: int) -> bool:
-    if _COMBINED_BWD is None:
-        return (s + 127) // 128 * 128 <= _COMBINED_MAX_SPAD
-    return bool(_COMBINED_BWD)
+    if _COMBINED_BWD is not None:
+        return bool(_COMBINED_BWD)
+    if torch.are_deterministic_algorithms_enabled():
+        return False
+    return (s + 127) // 128 * 128 <= _COMBINED_MAX_SPAD
 
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float

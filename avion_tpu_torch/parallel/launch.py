@@ -166,25 +166,6 @@ def host(base_seed: int, device: torch.device):
             dist.destroy_process_group()
 
 
-def single_device_only(mesh_cfg, entry: str) -> None:
-    """Raise for an entry that trains on one device when ``mesh_cfg`` or
-    the process group is wider than one: the other entries come with the
-    next parallel slice (ROADMAP.md, Queue 1 item 7)."""
-    world = (dist.get_world_size() if dist.is_initialized()
-             else int(os.environ.get("WORLD_SIZE", 1)))
-    m = mesh_cfg
-    sizes = {"data": world if m.data == -1 else m.data, "fsdp": m.fsdp,
-             "pp": m.pp, "sp": m.sp, "ep": m.ep, "tensor": m.tensor,
-             "dcn_data": m.dcn_data}
-    wide = {k: v for k, v in sizes.items() if v != 1}
-    if wide or world > 1:
-        raise NotImplementedError(
-            f"{entry} trains on one device in the PyTorch port, not over "
-            f"mesh {wide} on {world} ranks: the next parallel slice brings "
-            f"the other entries under a mesh (ROADMAP.md, Queue 1 item 7); "
-            f"pretrain_clip trains over data, fsdp and sp now")
-
-
 def is_main() -> bool:
     """Rank 0, or a process without a group: the one that logs and
     writes."""

@@ -138,10 +138,24 @@ class Parallel:
 
     def finish_backward(self) -> None:
         """Average the gradients of the parameters FSDP2 leaves replicated
-        over the world (DDP and FSDP2 reduce the others)."""
+        over the world (DDP and FSDP2 reduce the others).  The ranks first
+        agree on which of them have a gradient: one that has none here but
+        has one on another rank counts as zeros (as DDP counts it), one
+        that has none anywhere keeps none (the MIR loss leaves the logit
+        scale without one)."""
         if not self.replicated:
             return
-        grads = [p.grad for p in self.replicated if p.grad is not None]
+        params = self.replicated
+        has = torch.tensor([p.grad is not None for p in params],
+                           dtype=torch.int32, device=params[0].device)
+        dist.all_reduce(has, op=dist.ReduceOp.MAX)
+        params = [p for p, h in zip(params, has.tolist()) if h]
+        if not params:
+            return
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat)
         flat /= dist.get_world_size()

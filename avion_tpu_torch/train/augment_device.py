@@ -9,13 +9,47 @@ explicit generator and returns per-sample ``(lam, box, use_cutmix,
 apply)``; :func:`apply_mix` is deterministic given them.  The JAX
 function's bits cannot be reproduced here, so the parity test feeds its
 draws into :func:`apply_mix`.
+
+Over a batch ``group`` (the mesh's ``batch_group``; each rank holds its
+block of the global batch, in rank order) the JAX step mixes the global
+batch: the partner of global row i is global row B - 1 - i, which lives on
+rank n - 1 - r.  :func:`mixup_cutmix` then draws for the whole global batch
+from a generator seeded alike on every rank of the group and keeps this
+rank's rows, and :func:`apply_mix` fetches the partner rows with one
+exchange of the video and the labels with that rank (:func:`global_flip`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+
+
+def _rank_size(group) -> Tuple[int, int]:
+    if group is None or not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def global_flip(xs: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """Each of ``xs`` (this rank's rows of a global batch) replaced by this
+    rank's rows of the global batch reversed: the rows of rank n - 1 - r of
+    ``group``, reversed, got by one exchange with that rank (a rank that is
+    its own partner, or one without a group, reverses its own)."""
+    rank, n = _rank_size(group)
+    peer = n - 1 - rank
+    if peer == rank:
+        return [x.flip(0) for x in xs]
+    peer = dist.get_global_rank(group, peer)
+    sends = [x.contiguous() for x in xs]
+    got = [torch.empty_like(x) for x in sends]
+    ops = [dist.P2POp(dist.isend, x, peer, group) for x in sends]
+    ops += [dist.P2POp(dist.irecv, x, peer, group) for x in got]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [x.flip(0) for x in got]
 
 
 def smooth_one_hot(labels: torch.Tensor, num_classes: int,
@@ -114,15 +148,17 @@ def draw_mix(generator, batch: int, h: int, w: int, device=None,
 
 def apply_mix(video: torch.Tensor, labels: torch.Tensor, num_classes: int,
               smoothing: float, lam: torch.Tensor, box: torch.Tensor,
-              use_cutmix: torch.Tensor, apply: torch.Tensor
+              use_cutmix: torch.Tensor, apply: torch.Tensor, group=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The deterministic part: (mixed video, soft targets [B, classes]).
     A cutmix sample takes its partner's pixels inside its box and the
     coefficient ``1 - box area / frame area``; a mixup sample blends in f32
-    (then the video's dtype) with ``lam``; a sample not applied is left."""
+    (then the video's dtype) with ``lam``; a sample not applied is left.
+    The partner is the sample at the mirrored place of the batch, of the
+    global batch over ``group`` (the draws are this rank's rows)."""
     h, w = video.shape[-3], video.shape[-2]
     targets = smooth_one_hot(labels, num_classes, smoothing)
-    flipped_v = video.flip(0)
+    flipped_v, flipped_l = global_flip([video, labels], group)
     lam_box = 1.0 - box.sum(dim=(1, 2)).float() / (h * w)
     cut_mixed = torch.where(box[:, None, :, :, None], flipped_v, video)
     lam_v = lam[:, None, None, None, None]
@@ -132,7 +168,8 @@ def apply_mix(video: torch.Tensor, labels: torch.Tensor, num_classes: int,
     coef = torch.where(use_cutmix, lam_box, lam)
     mixed = torch.where(apply[:, None, None, None, None], mixed, video)
     coef = torch.where(apply, coef, torch.ones_like(coef))
-    soft = coef[:, None] * targets + (1.0 - coef)[:, None] * targets.flip(0)
+    soft = (coef[:, None] * targets + (1.0 - coef)[:, None]
+            * smooth_one_hot(flipped_l, num_classes, smoothing))
     return mixed, soft
 
 
@@ -141,11 +178,17 @@ def mixup_cutmix(generator, video: torch.Tensor, labels: torch.Tensor,
                  cutmix_alpha: float = 1.0, switch_prob: float = 0.5,
                  prob: float = 1.0, smoothing: float = 0.1,
                  mode: str = "batch",
-                 cutmix_minmax: Optional[Sequence[float]] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 cutmix_minmax: Optional[Sequence[float]] = None,
+                 group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mixed video [B, T, H, W, C], soft targets [B, num_classes]); the
-    draws come from ``generator`` (on ``video``'s device)."""
-    draws = draw_mix(generator, video.shape[0], video.shape[-3],
-                     video.shape[-2], video.device, mixup_alpha, cutmix_alpha,
-                     switch_prob, prob, mode, cutmix_minmax)
-    return apply_mix(video, labels, num_classes, smoothing, *draws)
+    draws come from ``generator`` (on ``video``'s device).  Over a batch
+    ``group`` the global batch is mixed: ``generator`` must be seeded
+    alike on every rank of the group, and every rank holds as many rows."""
+    rank, n = _rank_size(group)
+    b = video.shape[0]
+    draws = draw_mix(generator, b * n, video.shape[-3], video.shape[-2],
+                     video.device, mixup_alpha, cutmix_alpha, switch_prob,
+                     prob, mode, cutmix_minmax)
+    draws = [x[rank * b:(rank + 1) * b] for x in draws]
+    return apply_mix(video, labels, num_classes, smoothing, *draws,
+                     group=group)

@@ -22,6 +22,19 @@ The tower is built from ``model``'s widths (``image_size``,
 inflated to ``data.clip_length`` frames) or a directory of this port's
 checkpoints; a source without the tower's blocks raises.  A script that
 calls ``main`` needs an ``if __name__ == "__main__"`` guard.
+
+Over N ranks, one card each (gloo with ``--device cpu``), the recipe's
+batch 512 over 8 cards::
+
+    torchrun --nproc_per_node=8 -m avion_tpu_torch.train.finetune_cls \
+        data.batch_size=512 mesh.data=8 ... (or mesh.data=4 mesh.fsdp=2)
+
+``data.batch_size`` is the global batch (the learning rate scales by it),
+cut into ``mesh.data * mesh.fsdp`` batch groups; ``mesh.fsdp`` shards
+parameters and optimizer state (FSDP2), ``mesh.data`` replicates them
+(DDP).  Mixup pairs rows across the global batch, the logged ``loss`` and
+``acc1`` are means over it, each rank scores its block of the test clips,
+and only rank 0 logs and writes.  ``mesh.sp`` above 1 raises.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ from __future__ import annotations
 import csv
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,16 +54,19 @@ from avion_tpu_torch.data.video_reader import default_backend
 from avion_tpu_torch.eval.classification_metrics import (
     confusion_matrix, get_marginal_indexes, marginalize, mean_class_accuracy,
     topk_accuracy)
+from avion_tpu_torch.eval.runners import multi_view_probs
 from avion_tpu_torch.models.clip import VideoClassifier
 from avion_tpu_torch.models.layers import gelu, quick_gelu
 from avion_tpu_torch.models.pt_import import import_clip_pt
 from avion_tpu_torch.models.vit import VisionTransformer
 from avion_tpu_torch.optim.factory import (apply_batch_lr_scale,
                                            build_optimizer)
-from avion_tpu_torch.parallel.launch import (device_from_argv, setup_host,
-                                             single_device_only)
+from avion_tpu_torch.parallel.launch import device_from_argv
+from avion_tpu_torch.parallel.mesh import Mesh
+from avion_tpu_torch.parallel.sharding import shard_model
 from avion_tpu_torch.train.common import (extract_visual_params,
-                                          latest_model_state)
+                                          latest_model_state, over_mesh,
+                                          refuse_sp, whole_model)
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import make_cls_train_step, prep_video
@@ -121,18 +138,22 @@ def load_visual_tower(model: VideoClassifier, path: str,
 
 
 def build_model_and_state(cfg: TrainConfig, num_classes: int,
-                          niter_per_ep: int, device="cuda", dtype=None):
+                          niter_per_ep: int, device="cuda", dtype=None,
+                          mesh: Optional[Mesh] = None):
     """(classifier on ``device``, optimizer, lr schedule): weights drawn on
     the CPU from ``torch.Generator().manual_seed(cfg.seed)``, then the
     pretrained tower overlaid; the optimizer with layer decay, when set,
     over ``model.vision_layers``.  The learning rate is taken as it stands
-    (``main`` scales it by batch / 128 first)."""
+    (``main`` scales it by batch / 128 first).  A ``mesh`` with ``fsdp``
+    shards the model (FSDP2) before the optimizer is built over it."""
     model = build_classifier(cfg, num_classes, dtype).to_empty(device="cpu")
     model.init_weights(torch.Generator().manual_seed(cfg.seed))
     if cfg.pretrain_model:
         load_visual_tower(model, cfg.pretrain_model, cfg.data.clip_length)
         print(f"[init] visual tower from {cfg.pretrain_model}")
     model = model.to(device)
+    if mesh is not None:
+        shard_model(model, mesh)
     optimizer, schedule = build_optimizer(
         cfg.optim, model, niter_per_ep, num_layers=cfg.model.vision_layers)
     return model, optimizer, schedule
@@ -140,17 +161,19 @@ def build_model_and_state(cfg: TrainConfig, num_classes: int,
 
 def main(argv=None) -> dict:
     """Finetune (and test); returns ``{"steps", "step", "epochs", "eval":
-    the test metrics by epoch, "decode_backend", "transfers"}``."""
+    the test metrics by epoch, "decode_backend", "transfers"}``.  Under
+    torchrun every rank runs it; a process group it joined is left when it
+    returns."""
     load_dotenv()
     argv, device = device_from_argv(
         argv if argv is not None else sys.argv[1:])
     cfg = env_defaults(TrainConfig().apply_overrides(argv))
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    cfg.save(os.path.join(cfg.output_dir, "config.json"))
-    single_device_only(cfg.mesh, "finetune_cls")
-    setup_host(cfg.seed, device)
-    d = cfg.data
+    refuse_sp(cfg.mesh, "finetune_cls")
+    return over_mesh(cfg, device, _train)
 
+
+def _train(cfg: TrainConfig, device: torch.device, mesh: Mesh) -> dict:
+    d = cfg.data
     labels, pairs, mapping = load_actions(d.label_map)
     num_classes = len(labels)
     # lr x batch / 128 (main_lavila_finetune_cls.py:367-370)
@@ -164,17 +187,25 @@ def main(argv=None) -> dict:
                             scale_min=d.scale_min, scale_max=d.scale_max))
     train_loader = DataLoader(train_ds, d.batch_size, shuffle=True,
                               drop_last=True, num_workers=d.num_workers,
-                              seed=cfg.seed)
+                              seed=cfg.seed, process_index=mesh.batch_index,
+                              process_count=mesh.n_batch_shards)
     print(f"[data] {len(train_ds)} clips, decode backend "
-          f"{default_backend()}, {d.num_workers} workers")
+          f"{default_backend()}, {d.num_workers} workers, batch group "
+          f"{mesh.batch_index} of {mesh.n_batch_shards}")
     niter = max(1, len(train_loader)) * max(1, d.echo_factor)
     model, optimizer, _ = build_model_and_state(cfg, num_classes, niter,
-                                                device=device)
+                                                device=device, mesh=mesh)
     step_fn = make_cls_train_step(model, label_smoothing=cfg.smoothing,
                                   mixup_fn=make_mixup(cfg, num_classes),
                                   seed=cfg.seed + 1)
-    run = setup_run(cfg, model, optimizer, step_fn)
+    run = setup_run(cfg, model, optimizer, step_fn, mesh=mesh)
     start_step, best, epochs, evals = run.state.step, -1.0, [], {}
+
+    def test() -> dict:
+        return validate(cfg, whole_model(
+            model, lambda: build_classifier(cfg, num_classes)), pairs,
+            mesh.batch_group)
+
     try:
         for epoch in range(run.start_epoch, cfg.optim.epochs):
             if cfg.evaluate:
@@ -188,7 +219,7 @@ def main(argv=None) -> dict:
                 break
             eval_metrics = {}
             if cfg.eval_freq and (epoch + 1) % cfg.eval_freq == 0:
-                eval_metrics = validate(cfg, model, pairs)
+                eval_metrics = test()
                 if eval_metrics:
                     evals[epoch] = eval_metrics
                     print(f"[epoch {epoch} test] {eval_metrics}")
@@ -198,7 +229,7 @@ def main(argv=None) -> dict:
             best = max(best, score)
             save_epoch(run, epoch, {**metrics, **eval_metrics}, is_best)
         if cfg.evaluate:
-            evals[-1] = validate(cfg, model, pairs)
+            evals[-1] = test()
             print(evals[-1])
         run.ckpt.wait()
         run.logger.finish()
@@ -226,10 +257,12 @@ def cls_metrics(probs: np.ndarray, labels: np.ndarray, pairs) -> dict:
 
 
 @torch.no_grad()
-def validate(cfg: TrainConfig, model: torch.nn.Module, pairs) -> dict:
+def validate(cfg: TrainConfig, model: torch.nn.Module, pairs,
+             group=None) -> dict:
     """The multi-view test: ``data.num_clips`` centre views of each test
     clip, the softmax averaged over them, then :func:`cls_metrics`; empty
-    without ``data.val_metadata``."""
+    without ``data.val_metadata``.  Over a batch ``group`` each rank
+    scores its block of the clips (``eval.runners.multi_view_probs``)."""
     d = cfg.data
     if not d.val_metadata:
         return {}
@@ -239,24 +272,12 @@ def validate(cfg: TrainConfig, model: torch.nn.Module, pairs) -> dict:
         is_training=False, clip_length=d.clip_length, chunk_len=d.chunk_len,
         num_clips=d.num_clips, label_mapping=mapping,
         augment=AugmentSpec(crop_size=d.crop_size, mode="center"))
-    loader = DataLoader(val_ds, d.val_batch_size, shuffle=False,
-                        drop_last=False, num_workers=d.num_workers)
-    device = next(model.parameters()).device
     dtype = getattr(model, "dtype", torch.bfloat16)
-    probs_all, labels_all = [], []
-    try:
-        for batch in loader:
-            video = torch.from_numpy(batch["video"]).to(device)
-            views = video.shape[1] if video.dim() == 6 else 1
-            video = video.reshape((-1,) + video.shape[-4:])
-            probs = torch.softmax(model(prep_video(video, dtype)).float(), -1)
-            probs_all.append(probs.reshape(-1, views, probs.shape[-1])
-                             .mean(dim=1).cpu().numpy())
-            labels_all.append(np.asarray(batch["label"]))
-    finally:
-        loader.close()
-    return cls_metrics(np.concatenate(probs_all), np.concatenate(labels_all),
-                       pairs)
+    probs, labels = multi_view_probs(
+        lambda video: model(prep_video(video, dtype)), val_ds,
+        d.val_batch_size, d.num_workers, next(model.parameters()).device,
+        group)
+    return cls_metrics(probs, labels, pairs)
 
 
 if __name__ == "__main__":

@@ -19,12 +19,25 @@ from ``data.train_metadata``.  The validation encodes a bf16 copy of the
 model (``eval.validate.run_validation``) and picks the best checkpoint on
 ``avg_map``.  A script that calls ``main`` needs an ``if __name__ ==
 "__main__"`` guard (the loader's forkserver workers re-import it).
+
+Over N ranks, one card each (gloo with ``--device cpu``), the recipe's
+batch 512 over 8 cards::
+
+    torchrun --nproc_per_node=8 -m avion_tpu_torch.train.finetune_mir \
+        data.batch_size=512 mesh.data=8 ... (or mesh.data=4 mesh.fsdp=2)
+
+``data.batch_size`` is the global batch, cut into ``mesh.data *
+mesh.fsdp`` batch groups; ``mesh.fsdp`` shards parameters and optimizer
+state (FSDP2), ``mesh.data`` replicates them (DDP).  The max-margin loss
+sees the global batch, each rank validates its share of the clips, and
+only rank 0 logs and writes.  ``mesh.sp`` above 1 raises.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+from typing import Optional
 
 import torch
 
@@ -35,9 +48,11 @@ from avion_tpu_torch.data.video_reader import default_backend
 from avion_tpu_torch.eval.validate import run_validation
 from avion_tpu_torch.models.registry import create_model
 from avion_tpu_torch.optim.factory import build_optimizer
-from avion_tpu_torch.parallel.launch import (device_from_argv, setup_host,
-                                             single_device_only)
-from avion_tpu_torch.train.common import load_pretrained_params
+from avion_tpu_torch.parallel.launch import device_from_argv
+from avion_tpu_torch.parallel.mesh import Mesh
+from avion_tpu_torch.parallel.sharding import shard_model
+from avion_tpu_torch.train.common import (load_pretrained_params, over_mesh,
+                                          refuse_sp, whole_model)
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import make_mir_finetune_step
@@ -68,12 +83,14 @@ def build_model(cfg: TrainConfig, dtype=None) -> torch.nn.Module:
 
 
 def build_model_and_state(cfg: TrainConfig, niter_per_ep: int,
-                          device="cuda", dtype=None):
+                          device="cuda", dtype=None,
+                          mesh: Optional[Mesh] = None):
     """(model on ``device``, optimizer, lr schedule): weights drawn on the
     CPU from ``torch.Generator().manual_seed(cfg.seed)``, then
     ``pretrain_model`` merged in (``train.common.load_pretrained_params``);
     layer decay, when set, over ``model.vision_layers``, as in the JAX
-    entry."""
+    entry.  A ``mesh`` with ``fsdp`` shards the model (FSDP2) before the
+    optimizer is built over it."""
     model = build_model(cfg, dtype).to_empty(device="cpu")
     model.init_weights(torch.Generator().manual_seed(cfg.seed))
     if cfg.pretrain_model:
@@ -83,15 +100,19 @@ def build_model_and_state(cfg: TrainConfig, niter_per_ep: int,
                                vocab_size=model.vocab_size)
         print(f"[init] loaded pretrain weights from {cfg.pretrain_model}")
     model = model.to(device)
+    if mesh is not None:
+        shard_model(model, mesh)
     optimizer, schedule = build_optimizer(
         cfg.optim, model, niter_per_ep, num_layers=cfg.model.vision_layers)
     return model, optimizer, schedule
 
 
-def build_loader(cfg: TrainConfig):
+def build_loader(cfg: TrainConfig, mesh: Optional[Mesh] = None):
     """(train dataset, ``DataLoader``): per-file EK100 clips with
     relevancy-sampled positives, or tar shards (``data.shard_dir``) whose
-    relevancy extras come from ``data.train_metadata``."""
+    relevancy extras come from ``data.train_metadata``.  Over a ``mesh``
+    the loader yields this rank's batch group's rows of each global
+    batch."""
     d = cfg.data
     augment = AugmentSpec(crop_size=d.crop_size, mode="rrc",
                           scale_min=d.scale_min, scale_max=d.scale_max)
@@ -111,18 +132,25 @@ def build_loader(cfg: TrainConfig):
             clip_length=d.clip_length, chunk_len=d.chunk_len,
             threads=d.decode_threads, decode_fast=d.decode_fast,
             subsample_stride=d.subsample_stride, augment=augment)
-    loader = DataLoader(train_ds, d.batch_size, shuffle=True, drop_last=True,
-                        num_workers=d.num_workers,
-                        prefetch_depth=d.prefetch_depth, seed=cfg.seed)
+    loader = DataLoader(
+        train_ds, d.batch_size, shuffle=True, drop_last=True,
+        num_workers=d.num_workers, prefetch_depth=d.prefetch_depth,
+        seed=cfg.seed,
+        process_index=mesh.batch_index if mesh is not None else 0,
+        process_count=mesh.n_batch_shards if mesh is not None else 1)
     return train_ds, loader
 
 
-def run_mir_validation(cfg: TrainConfig, model: torch.nn.Module) -> dict:
+def run_mir_validation(cfg: TrainConfig, model: torch.nn.Module,
+                       group=None) -> dict:
     """EK100-MIR mAP / nDCG (``vis_map`` ... ``avg_ndcg``) of ``model`` on
     ``data.val_metadata`` with ``data.relevancy_path``, encoded by a bf16
-    copy (the model keeps its weights and mode); empty when either is not
-    configured.  A failure raises."""
-    res = run_validation(model, cfg.data, env={}, strict=True)
+    copy (the model keeps its weights and mode; a sharded model's weights
+    are gathered first) with each rank of the batch ``group`` encoding its
+    rows; empty when either path is not configured.  A failure raises.
+    Every rank calls it."""
+    model = whole_model(model, lambda: build_model(cfg))
+    res = run_validation(model, cfg.data, env={}, strict=True, group=group)
     prefix = "test_ek100_mir_"
     return {k[len(prefix):]: v for k, v in res.items()
             if k.startswith(prefix)}
@@ -130,26 +158,32 @@ def run_mir_validation(cfg: TrainConfig, model: torch.nn.Module) -> dict:
 
 def main(argv=None) -> dict:
     """Finetune (and validate); returns ``{"steps", "step", "epochs",
-    "eval": the MIR metrics by epoch, "decode_backend", "transfers"}``."""
+    "eval": the MIR metrics by epoch, "decode_backend", "transfers"}``.
+    Under torchrun every rank runs it; a process group it joined is left
+    when it returns."""
     load_dotenv()
     argv, device = device_from_argv(
         argv if argv is not None else sys.argv[1:])
     cfg = env_defaults(TrainConfig().apply_overrides(argv))
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    cfg.save(os.path.join(cfg.output_dir, "config.json"))
-    single_device_only(cfg.mesh, "finetune_mir")
-    setup_host(cfg.seed, device)
+    refuse_sp(cfg.mesh, "finetune_mir")
+    return over_mesh(cfg, device, _train)
 
-    train_ds, train_loader = build_loader(cfg)
+
+def _train(cfg: TrainConfig, device: torch.device, mesh: Mesh) -> dict:
+    train_ds, train_loader = build_loader(cfg, mesh)
     print(f"[data] {len(train_ds)} clips, decode backend "
-          f"{default_backend()}, {cfg.data.num_workers} workers")
+          f"{default_backend()}, {cfg.data.num_workers} workers, batch "
+          f"group {mesh.batch_index} of {mesh.n_batch_shards}")
     # steps per epoch include the echo repeats (the LR schedule spans the
     # true step count)
     niter = max(1, len(train_loader)) * max(1, cfg.data.echo_factor)
-    model, optimizer, _ = build_model_and_state(cfg, niter, device=device)
+    model, optimizer, _ = build_model_and_state(cfg, niter, device=device,
+                                                mesh=mesh)
     # patch dropout draws from (seed + 1, step), as the JAX entry's key
     step_fn = make_mir_finetune_step(model, seed=cfg.seed + 1)
-    run = setup_run(cfg, model, optimizer, step_fn)
+    # the max-margin loss leaves the logit scale without a gradient
+    run = setup_run(cfg, model, optimizer, step_fn, mesh=mesh,
+                    find_unused=True)
     start_step, best, epochs, evals = run.state.step, -1.0, [], {}
     try:
         for epoch in range(run.start_epoch, cfg.optim.epochs):
@@ -164,7 +198,8 @@ def main(argv=None) -> dict:
                 break
             eval_metrics = {}
             if cfg.eval_freq and (epoch + 1) % cfg.eval_freq == 0:
-                eval_metrics = run_mir_validation(cfg, model)
+                eval_metrics = run_mir_validation(cfg, model,
+                                                  mesh.batch_group)
                 if eval_metrics:
                     evals[epoch] = eval_metrics
                     print(f"[epoch {epoch} test] {eval_metrics}")
@@ -174,7 +209,7 @@ def main(argv=None) -> dict:
             best = max(best, score)
             save_epoch(run, epoch, {**metrics, **eval_metrics}, is_best)
         if cfg.evaluate:
-            evals[-1] = run_mir_validation(cfg, model)
+            evals[-1] = run_mir_validation(cfg, model, mesh.batch_group)
             print(evals[-1])
         run.ckpt.wait()
         run.logger.finish()

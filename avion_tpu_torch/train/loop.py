@@ -2,14 +2,12 @@
 auto-resume, train one epoch over any iterable loader, save, and stop
 cleanly on preemption.
 
-Given a mesh (``parallel.mesh``; ``pretrain_clip`` passes one), the model
-takes part in it through ``parallel.sharding.Parallel`` (DDP, or the FSDP2
-module that ``build_model_and_state`` sharded), only rank 0 logs and
-writes, and a preemption signal is agreed on by every rank at a step
-boundary (``parallel.launch.agree``), so all of them checkpoint the same
-step.  Without one (the other entries) a ``cfg.mesh`` wider than one
-device, or a process group of more than one rank, raises.  The JAX
-package's resume semantics are
+The model takes part in the run's mesh (``parallel.mesh``; a mesh of one
+rank is the single-device case) through ``parallel.sharding.Parallel``
+(DDP, or the FSDP2 module that the entry's ``build_model_and_state``
+sharded), only rank 0 logs and writes, and a preemption signal is agreed
+on by every rank at a step boundary (``parallel.launch.agree``), so all of
+them checkpoint the same step.  The JAX package's resume semantics are
 kept: a mid-epoch preemption checkpoint records the batches consumed, a
 resumed epoch skips them (rounded down to a whole echo group under data
 echoing), and the preemption save waits for an echo-group boundary so
@@ -35,9 +33,8 @@ from avion_tpu_torch.core.logging import MetricLogger
 from avion_tpu_torch.core.meters import AverageMeter, ProgressMeter, StepTimer
 from avion_tpu_torch.core.train_state import TrainState
 from avion_tpu_torch.data.loader import device_prefetch, echo_batches
-from avion_tpu_torch.parallel.launch import (agree, is_main, preempted,
-                                             single_device_only)
-from avion_tpu_torch.parallel.mesh import Mesh
+from avion_tpu_torch.parallel.launch import agree, is_main, preempted
+from avion_tpu_torch.parallel.mesh import Mesh, mesh_from_config
 from avion_tpu_torch.parallel.sharding import Parallel
 
 
@@ -70,23 +67,27 @@ def microbatch_major(batch: Dict[str, torch.Tensor],
 
 def setup_run(cfg: TrainConfig, model: torch.nn.Module, optimizer,
               step_fn: Callable, use_ema: bool = False,
-              mesh: Optional[Mesh] = None) -> Run:
-    """``model`` on its device and ``optimizer`` over its parameters
-    (``pretrain_clip.build_model_and_state``); with ``use_ema`` the state
-    carries an average of the parameters; with ``mesh`` the model takes
-    part in it (DDP, or FSDP2 when ``build_model_and_state`` sharded it).
-    Restores the newest checkpoint under ``<output_dir>/ckpt`` when
-    ``resume`` or ``auto_resume`` is set."""
-    parallel = None
+              mesh: Optional[Mesh] = None, find_unused: bool = False) -> Run:
+    """``model`` on its device and ``optimizer`` over its parameters (the
+    entry's ``build_model_and_state``); with ``use_ema`` the state carries
+    an average of the parameters.  The model takes part in ``mesh`` (DDP,
+    or FSDP2 when ``build_model_and_state`` sharded it over the same
+    mesh), by default ``cfg.mesh`` over the current process group (one
+    rank without a group), which must not shard.  ``find_unused``: the
+    step's loss leaves some parameter without a gradient (DDP must look
+    for it).  Restores the newest checkpoint under ``<output_dir>/ckpt``
+    when ``resume`` or ``auto_resume`` is set."""
     if mesh is None:
-        single_device_only(cfg.mesh, "this entry")
-    else:
-        # parameters without a gradient in a synchronized backward: the
-        # logit scale (and bias) outside cached accumulation's first
-        # pass, or a frozen temperature
-        parallel = Parallel(mesh, model, find_unused=(
-            (cfg.optim.update_freq > 1 and cfg.optim.accum == "cached")
-            or cfg.model.freeze_temperature))
+        mesh = mesh_from_config(cfg.mesh)
+        if mesh.shape["fsdp"] > 1:
+            raise ValueError("mesh.fsdp > 1: pass the mesh the model was "
+                             "sharded over (build_model_and_state)")
+    # parameters without a gradient in a synchronized backward: the logit
+    # scale (and bias) outside cached accumulation's first pass, or a
+    # frozen temperature
+    find_unused = find_unused or cfg.model.freeze_temperature or (
+        cfg.optim.update_freq > 1 and cfg.optim.accum == "cached")
+    parallel = Parallel(mesh, model, find_unused=find_unused)
     device = next(model.parameters()).device
     state = TrainState.create(model, optimizer, use_ema, parallel)
     ckpt = Checkpointer(os.path.join(cfg.output_dir, "ckpt"))

@@ -63,9 +63,10 @@ from avion_tpu_torch.eval.validate import run_validation
 from avion_tpu_torch.models.pt_import import import_clip_pt
 from avion_tpu_torch.models.registry import create_model
 from avion_tpu_torch.optim.factory import build_optimizer
-from avion_tpu_torch.parallel.launch import device_from_argv, host, is_main
-from avion_tpu_torch.parallel.mesh import Mesh, mesh_from_config, use_mesh
-from avion_tpu_torch.parallel.sharding import full_tensor, shard_model
+from avion_tpu_torch.parallel.launch import device_from_argv
+from avion_tpu_torch.parallel.mesh import Mesh
+from avion_tpu_torch.parallel.sharding import shard_model
+from avion_tpu_torch.train.common import over_mesh, whole_model
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import (make_clip_accum_train_step,
@@ -204,19 +205,11 @@ def make_step(cfg: TrainConfig, model: torch.nn.Module):
     return make_clip_train_step(model, **common)
 
 
-def _eval_model(cfg: TrainConfig, model: torch.nn.Module,
-                mesh: Mesh) -> torch.nn.Module:
+def _eval_model(cfg: TrainConfig, model: torch.nn.Module) -> torch.nn.Module:
     """The model the suites encode with: ``model`` itself, or under
     ``fsdp`` an unsharded copy of its gathered weights (every rank calls
     this)."""
-    if mesh.shape["fsdp"] == 1:
-        return model
-    whole = {k: full_tensor(v.detach())
-             for k, v in model.state_dict().items()}
-    device = next(iter(whole.values())).device
-    copy = build_model(cfg).to_empty(device=device)
-    copy.load_state_dict(whole)
-    return copy
+    return whole_model(model, lambda: build_model(cfg))
 
 
 def main(argv=None) -> dict:
@@ -233,16 +226,10 @@ def main(argv=None) -> dict:
     if cfg.loss == "siglip":
         # the sigmoid loss learns the pairwise bias (arXiv:2303.15343)
         cfg.model.use_logit_bias = True
-    with host(cfg.seed, device) as device:
-        mesh = mesh_from_config(cfg.mesh)
-        with use_mesh(mesh):
-            return _train(cfg, device, mesh)
+    return over_mesh(cfg, device, _train)
 
 
 def _train(cfg: TrainConfig, device: torch.device, mesh: Mesh) -> dict:
-    if is_main():
-        os.makedirs(cfg.output_dir, exist_ok=True)
-        cfg.save(os.path.join(cfg.output_dir, "config.json"))
     train_ds, train_loader = build_loaders(cfg, mesh)
     print(f"[data] {len(train_ds)} clips, decode backend "
           f"{default_backend()}, {cfg.data.num_workers} workers, batch "
@@ -258,7 +245,7 @@ def _train(cfg: TrainConfig, device: torch.device, mesh: Mesh) -> dict:
     try:
         if cfg.eval_freq and run.start_epoch == 0:
             # zero-shot pass before training
-            zs = run_validation(_eval_model(cfg, model, mesh), cfg.data,
+            zs = run_validation(_eval_model(cfg, model), cfg.data,
                                 group=mesh.batch_group)
             if zs:
                 evals[-1] = zs
@@ -275,7 +262,7 @@ def _train(cfg: TrainConfig, device: torch.device, mesh: Mesh) -> dict:
             eval_metrics = {}
             if cfg.eval_freq and (epoch + 1) % cfg.eval_freq == 0:
                 eval_metrics = run_validation(
-                    _eval_model(cfg, model, mesh), cfg.data,
+                    _eval_model(cfg, model), cfg.data,
                     group=mesh.batch_group)
                 if eval_metrics:
                     evals[epoch] = eval_metrics

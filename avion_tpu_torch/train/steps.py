@@ -15,21 +15,28 @@ DropPath, tube masks, mixup) come from a generator on the model's device
 seeded from (``seed``, ``state.step``), as the JAX steps fold the step
 into their key.
 
-Under a mesh (``state.parallel``, ``parallel.sharding.Parallel``) the CLIP
-steps call the wrapped model (DDP's, or the FSDP2 module), gather the
-embeddings over the batch group for the loss and reduce the gradients
-once an update: the cached accumulation's first M - 1 backwards run
-without synchronization.  Each batch group seeds its draws with its
-index folded in, so the groups' rows draw different masks while the
-``sp`` ranks of a group draw the same.
+Under a mesh (``state.parallel``, ``parallel.sharding.Parallel``) every
+step calls the wrapped model (DDP's, or the FSDP2 module) and reduces the
+gradients once an update: the cached accumulation's first M - 1 backwards
+run without synchronization.  The step sees the global batch, as the JAX
+step does: the contrastive and max-margin losses gather the embeddings
+over the batch group; the classification and VideoMAE losses are means
+over each rank's rows (equal counts, so their average over the ranks is
+the global mean), and their logged metrics are means over the group.  A
+step is skipped on every rank alike, on the group's loss.  Each batch
+group seeds its draws (patch dropout, DropPath, tube masks) with its index
+folded in, so the groups' rows draw different masks while the ``sp`` ranks
+of a group draw the same; mixup / cutmix draws alike on every rank and
+mixes the global batch (``train.augment_device``).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from avion_tpu_torch.core.train_state import TrainState
 from avion_tpu_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD,
@@ -100,6 +107,21 @@ def _parallel_parts(state: TrainState, seed: int):
 def _finish_backward(state: TrainState) -> None:
     if state.parallel is not None:
         state.parallel.finish_backward()
+
+
+def _group_mean(values: Dict[str, torch.Tensor],
+                group) -> Dict[str, torch.Tensor]:
+    """``values`` (scalars of this rank's rows, detached) as their means
+    over the batch ``group``, whose ranks hold as many rows each: one
+    all-reduce; themselves without a group of more than one."""
+    values = {k: v.detach() for k, v in values.items()}
+    if group is None or not dist.is_initialized() \
+            or dist.get_world_size(group) == 1:
+        return values
+    flat = torch.stack([v.float() for v in values.values()])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    return dict(zip(values, flat.unbind()))
 
 
 @torch.no_grad()
@@ -294,22 +316,25 @@ def make_mir_finetune_step(model: torch.nn.Module, margin: float = 0.2,
     ``batch``: ``video`` and ``text`` as for :func:`make_clip_train_step`;
     the model runs in train mode, its patch dropout and DropPath drawing
     from (``seed``, ``state.step``), and the loss is
-    :func:`max_margin_ranking_loss` of its embeddings.  Unlike the CLIP
-    step there is no logit-scale clamp (the JAX step has none).  Metrics:
-    ``loss``, ``max_margin_loss`` (device tensors) and ``step_ok``."""
+    :func:`max_margin_ranking_loss` of its embeddings (over the batch
+    group's global batch under a mesh).  Unlike the CLIP step there is no
+    logit-scale clamp (the JAX step has none), and the logit scale gets no
+    gradient.  Metrics: ``loss``, ``max_margin_loss`` (device tensors) and
+    ``step_ok``."""
     dtype = getattr(model, "dtype", torch.bfloat16)
 
     def step(state: TrainState, batch):
-        model, opt = state.model, state.optimizer
-        generator = _step_generator(model, seed, state.step)
+        call, model, group, rank_seed = _parallel_parts(state, seed)
+        opt = state.optimizer
+        generator = _step_generator(model, rank_seed, state.step)
         video = prep_video(batch["video"], dtype=dtype, model=model)
-        out = model(video, batch["text"].long(), deterministic=False,
-                    generator=generator)
-        metrics = max_margin_ranking_loss(out["image_embed"],
-                                          out["text_embed"], margin=margin)
-        loss = metrics["loss"]
+        out = call(video, batch["text"].long(), deterministic=False,
+                   generator=generator)
+        loss = max_margin_ranking_loss(out["image_embed"], out["text_embed"],
+                                       margin=margin, group=group)["loss"]
         opt.zero_grad()
         loss.backward()
+        _finish_backward(state)
         ok = _apply_or_skip(state, loss)
         return state, {"loss": loss.detach(),
                        "max_margin_loss": loss.detach(),
@@ -329,12 +354,18 @@ def make_videomae_train_step(model: torch.nn.Module, patch_size: int = 16,
     ``regen_mask`` draws the tube masks on the device instead (under data
     echoing the repeats of a batch would otherwise reconstruct the same
     tokens).  The masks and DropPath draw from (``seed``, ``state.step``).
-    Metrics: ``loss`` (device tensor) and ``step_ok``."""
+    Every row must mask the model's count of tokens: the loss is a mean
+    over this rank's masked tokens, which averages to the global batch's
+    mean over the ranks only then (checked on the device, without a host
+    read).  Metrics: ``loss`` (device tensor; the group's mean) and
+    ``step_ok``."""
     dtype = getattr(model, "dtype", torch.bfloat16)
+    n_masked = model.num_patches - model.n_visible
 
     def step(state: TrainState, batch):
-        model, opt = state.model, state.optimizer
-        generator = _step_generator(model, seed, state.step)
+        call, model, group, rank_seed = _parallel_parts(state, seed)
+        opt = state.optimizer
+        generator = _step_generator(model, rank_seed, state.step)
         video = prep_video(batch["video"], dtype, mean=IMAGENET_MEAN,
                            std=IMAGENET_STD)
         mask = batch["mask"]
@@ -343,14 +374,18 @@ def make_videomae_train_step(model: torch.nn.Module, patch_size: int = 16,
             mask = tube_mask_device(generator, b, t // tubelet_size,
                                     h // patch_size, w // patch_size,
                                     model.mask_ratio, video.device)
-        pred, masked_idx = model(video, mask, deterministic=False,
-                                 generator=generator)
+        torch._assert_async((mask.sum(dim=-1) == n_masked).all(),
+                            f"every row must mask {n_masked} tokens")
+        pred, masked_idx = call(video, mask, deterministic=False,
+                                generator=generator)
         loss = videomae_loss(pred, video, masked_idx, patch_size,
                              tubelet_size, normalize_target)["loss"]
         opt.zero_grad()
         loss.backward()
-        ok = _apply_or_skip(state, loss)
-        return state, {"loss": loss.detach(), "step_ok": float(ok)}
+        _finish_backward(state)
+        metrics = _group_mean({"loss": loss}, group)
+        ok = _apply_or_skip(state, metrics["loss"])
+        return state, {**metrics, "step_ok": float(ok)}
 
     return step
 
@@ -362,21 +397,27 @@ def make_cls_train_step(model: torch.nn.Module, label_smoothing: float = 0.0,
     """Classification finetune: ``step(state, batch) -> (state, metrics)``.
     ``batch["label"]`` holds int labels [B] or soft targets [B, classes];
     ``video`` is normalized with OpenAI's statistics, as the JAX step does.
-    ``mixup_fn(generator, video, labels) -> (video, soft targets)`` mixes
-    int-labelled batches on the device.  With ``ema_decay`` and a state
-    that carries an EMA, the average follows each applied update.  Mixup
-    and DropPath draw from (``seed``, ``state.step``).  Metrics: ``loss``
-    and ``acc1`` (device tensors) and ``step_ok``."""
+    ``mixup_fn(generator, video, labels, group=...) -> (video, soft
+    targets)`` mixes int-labelled batches on the device, the global batch
+    over the batch group.  With ``ema_decay`` and a state that carries an
+    EMA, the average follows each applied update.  Mixup draws from
+    (``seed``, ``state.step``) alike on every rank; DropPath continues that
+    generator on batch group 0 (and on one process) and draws from its own
+    on the other groups.  Metrics: ``loss`` and ``acc1`` (device tensors;
+    the group's means) and ``step_ok``."""
     dtype = getattr(model, "dtype", torch.bfloat16)
 
     def step(state: TrainState, batch):
-        model, opt = state.model, state.optimizer
+        call, model, group, rank_seed = _parallel_parts(state, seed)
+        opt = state.optimizer
         generator = _step_generator(model, seed, state.step)
         video = prep_video(batch["video"], dtype=dtype)
         label = batch["label"]
         if mixup_fn is not None and label.dim() == 1:
-            video, label = mixup_fn(generator, video, label)
-        logits = model(video, deterministic=False, generator=generator)
+            video, label = mixup_fn(generator, video, label, group=group)
+        if rank_seed != seed:
+            generator = _step_generator(model, rank_seed, state.step)
+        logits = call(video, deterministic=False, generator=generator)
         if label.dim() == logits.dim():
             loss = soft_target_cross_entropy(logits, label)
             hard = label.argmax(dim=-1)
@@ -387,8 +428,9 @@ def make_cls_train_step(model: torch.nn.Module, label_smoothing: float = 0.0,
         acc = 100.0 * (logits.detach().argmax(dim=-1) == hard).float().mean()
         opt.zero_grad()
         loss.backward()
-        ok = _apply_or_skip(state, loss, ema_decay)
-        return state, {"loss": loss.detach(), "acc1": acc,
-                       "step_ok": float(ok)}
+        _finish_backward(state)
+        metrics = _group_mean({"loss": loss, "acc1": acc}, group)
+        ok = _apply_or_skip(state, metrics["loss"], ema_decay)
+        return state, {**metrics, "step_ok": float(ok)}
 
     return step

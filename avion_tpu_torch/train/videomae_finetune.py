@@ -23,14 +23,27 @@ no encoder block) or a directory of this port's checkpoints, such as a
 ``videomae_pretrain`` run's, whose encoder it takes; a source that lacks
 any encoder weight raises.  A script that calls
 ``main`` needs an ``if __name__ == "__main__"`` guard.
+
+Over N ranks, one card each (gloo with ``--device cpu``)::
+
+    torchrun --nproc_per_node=4 -m avion_tpu_torch.train.videomae_finetune \
+        data.batch_size=512 mesh.data=4 ... (or mesh.data=2 mesh.fsdp=2)
+
+``data.batch_size`` is the global batch (the learning rate scales by it),
+cut into ``mesh.data * mesh.fsdp`` batch groups; ``mesh.fsdp`` shards
+parameters, optimizer state and the EMA (FSDP2), ``mesh.data`` replicates
+them (DDP).  Mixup pairs rows across the global batch, the logged ``loss``
+and ``acc1`` are means over it, each rank scores its block of the test
+videos (on a gathered copy of the EMA weights), and only rank 0 logs and
+writes.  ``mesh.sp`` above 1 raises.
 """
 
 from __future__ import annotations
 
-import copy
 import functools
 import os
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,14 +56,17 @@ from avion_tpu_torch.data.rand_augment import (rand_augment_clip,
 from avion_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from avion_tpu_torch.data.video_reader import default_backend
 from avion_tpu_torch.eval.classification_metrics import topk_accuracy
+from avion_tpu_torch.eval.runners import multi_view_probs
 from avion_tpu_torch.models.pt_import import import_videomae_pt
 from avion_tpu_torch.models.registry import create_model
 from avion_tpu_torch.optim.factory import (apply_batch_lr_scale,
                                            build_optimizer)
-from avion_tpu_torch.parallel.launch import (device_from_argv, setup_host,
-                                             single_device_only)
+from avion_tpu_torch.parallel.launch import device_from_argv
+from avion_tpu_torch.parallel.mesh import Mesh
+from avion_tpu_torch.parallel.sharding import shard_model
 from avion_tpu_torch.train.augment_device import mixup_cutmix
-from avion_tpu_torch.train.common import latest_model_state
+from avion_tpu_torch.train.common import (latest_model_state, over_mesh,
+                                          refuse_sp, whole_model)
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import make_cls_train_step, prep_video
@@ -110,16 +126,21 @@ def load_encoder(model: torch.nn.Module, path: str) -> None:
 
 
 def build_model_and_state(cfg: TrainConfig, niter_per_ep: int,
-                          device="cuda", dtype=None):
+                          device="cuda", dtype=None,
+                          mesh: Optional[Mesh] = None):
     """(model on ``device``, optimizer, lr schedule): weights drawn on the
     CPU from ``torch.Generator().manual_seed(cfg.seed)``, then
-    ``pretrain_model`` overlaid; layer decay over the encoder's layers."""
+    ``pretrain_model`` overlaid; layer decay over the encoder's layers.  A
+    ``mesh`` with ``fsdp`` shards the model (FSDP2) before the optimizer
+    is built over it."""
     model = build_model(cfg, dtype).to_empty(device="cpu")
     model.init_weights(torch.Generator().manual_seed(cfg.seed))
     if cfg.pretrain_model:
         load_encoder(model, cfg.pretrain_model)
         print(f"[init] encoder from {cfg.pretrain_model}")
     model.to(device)
+    if mesh is not None:
+        shard_model(model, mesh)
     optimizer, schedule = build_optimizer(cfg.optim, model, niter_per_ep,
                                           num_layers=model.layers)
     return model, optimizer, schedule
@@ -138,7 +159,9 @@ def make_mixup(cfg: TrainConfig, num_classes: int):
 
 def main(argv=None) -> dict:
     """Train (and test); returns ``{"steps", "step", "epochs", "eval": the
-    test metrics by epoch, "decode_backend", "transfers"}``."""
+    test metrics by epoch, "decode_backend", "transfers"}``.  Under
+    torchrun every rank runs it; a process group it joined is left when it
+    returns."""
     load_dotenv()
     argv, device = device_from_argv(
         argv if argv is not None else sys.argv[1:])
@@ -149,11 +172,12 @@ def main(argv=None) -> dict:
     d.train_metadata = d.train_metadata or os.environ.get(
         "K400_TRAIN_LIST", "")
     d.val_metadata = d.val_metadata or os.environ.get("K400_VAL_LIST", "")
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    cfg.save(os.path.join(cfg.output_dir, "config.json"))
-    single_device_only(cfg.mesh, "videomae_finetune")
-    setup_host(cfg.seed, device)
+    refuse_sp(cfg.mesh, "videomae_finetune")
+    return over_mesh(cfg, device, _train)
 
+
+def _train(cfg: TrainConfig, device: torch.device, mesh: Mesh) -> dict:
+    d = cfg.data
     num_classes = cfg.model.num_classes or 400
     d.crop_size = build_model(cfg).image_size
     train_ds = AugmentedK400(
@@ -167,18 +191,22 @@ def main(argv=None) -> dict:
                             hflip_prob=0.5))
     train_loader = DataLoader(train_ds, d.batch_size, shuffle=True,
                               drop_last=True, num_workers=d.num_workers,
-                              seed=cfg.seed)
+                              seed=cfg.seed, process_index=mesh.batch_index,
+                              process_count=mesh.n_batch_shards)
     print(f"[data] {len(train_ds)} videos, decode backend "
-          f"{default_backend()}, {d.num_workers} workers")
+          f"{default_backend()}, {d.num_workers} workers, batch group "
+          f"{mesh.batch_index} of {mesh.n_batch_shards}")
     niter = max(1, len(train_loader)) * max(1, d.echo_factor)
     # lr x batch / 256 (main_videomae_finetune.py:285-288)
     apply_batch_lr_scale(cfg.optim, d.batch_size, default_base=256)
-    model, optimizer, _ = build_model_and_state(cfg, niter, device=device)
+    model, optimizer, _ = build_model_and_state(cfg, niter, device=device,
+                                                mesh=mesh)
     step_fn = make_cls_train_step(
         model, label_smoothing=cfg.smoothing,
         ema_decay=cfg.ema_decay if cfg.use_ema else None,
         mixup_fn=make_mixup(cfg, num_classes), seed=cfg.seed + 1)
-    run = setup_run(cfg, model, optimizer, step_fn, use_ema=cfg.use_ema)
+    run = setup_run(cfg, model, optimizer, step_fn, use_ema=cfg.use_ema,
+                    mesh=mesh)
     start_step, best, epochs, evals = run.state.step, -1.0, [], {}
     try:
         for epoch in range(run.start_epoch, cfg.optim.epochs):
@@ -218,38 +246,28 @@ def main(argv=None) -> dict:
 def validate(cfg: TrainConfig, run) -> dict:
     """The multi-view test: ``num_clips`` x ``num_crops`` centre views of
     each validation video, the softmax averaged over them, top-1 / top-5
-    accuracy; on the EMA weights when ``use_ema``.  Frames are normalized
-    with the ImageNet statistics into bf16, as the JAX entry does."""
+    accuracy; on the EMA weights when ``use_ema`` (an unsharded copy of the
+    model holding them; under ``fsdp`` the weights are gathered first).
+    Frames are normalized with the ImageNet statistics into bf16, as the
+    JAX entry does.  Over the run's batch group each rank scores its block
+    of the videos (``eval.runners.multi_view_probs``); every rank calls
+    it."""
     d = cfg.data
-    model = run.state.model
-    if cfg.use_ema and run.state.ema is not None:
-        model = copy.deepcopy(model)
-        for name, p in model.named_parameters():
-            p.copy_(run.state.ema[name])
+    ema = run.state.ema if cfg.use_ema else None
+    model = whole_model(run.state.model, lambda: build_model(cfg), ema)
+    par = run.state.parallel
     val_ds = VideoClassyDataset(
         "kinetics", d.root_val or d.root, d.val_metadata, is_training=False,
         clip_length=d.clip_length, clip_stride=d.clip_stride,
         num_clips=d.num_clips, num_crops=d.num_crops,
         augment=AugmentSpec(crop_size=d.crop_size, mode="center"))
-    loader = DataLoader(val_ds, d.val_batch_size, shuffle=False,
-                        drop_last=False, num_workers=d.num_workers)
-    device = next(model.parameters()).device
-    probs_all, labels_all = [], []
-    try:
-        for batch in loader:
-            video = torch.from_numpy(batch["video"]).to(device)
-            views = video.shape[1] if video.dim() == 6 else 1
-            video = video.reshape((-1,) + video.shape[-4:])
-            logits = model(prep_video(video, mean=IMAGENET_MEAN,
-                                      std=IMAGENET_STD))
-            probs = torch.softmax(logits.float(), dim=-1)
-            probs_all.append(probs.reshape(-1, views, probs.shape[-1])
-                             .mean(dim=1).cpu().numpy())
-            labels_all.append(np.asarray(batch["label"]))
-    finally:
-        loader.close()
-    acc1, acc5 = topk_accuracy(np.concatenate(probs_all),
-                               np.concatenate(labels_all), (1, 5))
+    probs, labels = multi_view_probs(
+        lambda video: model(prep_video(video, mean=IMAGENET_MEAN,
+                                       std=IMAGENET_STD)),
+        val_ds, d.val_batch_size, d.num_workers,
+        next(model.parameters()).device,
+        par.mesh.batch_group if par is not None else None)
+    acc1, acc5 = topk_accuracy(probs, labels, (1, 5))
     return {"acc1": float(acc1), "acc5": float(acc5)}
 
 

@@ -17,12 +17,26 @@ back to K400_ROOT and K400_TRAIN_LIST.  Under data echoing
 (``data.echo_factor > 1``) each step draws its own tube masks on the
 device.  A script that calls ``main`` needs an ``if __name__ ==
 "__main__"`` guard (the loader's forkserver workers re-import it).
+
+Over N ranks, one card each (gloo with ``--device cpu``), the recipe's
+batch 512 over four cards::
+
+    torchrun --nproc_per_node=4 -m avion_tpu_torch.train.videomae_pretrain \
+        data.batch_size=512 mesh.data=4 ... (or mesh.data=2 mesh.fsdp=2)
+
+``data.batch_size`` is the global batch (the learning rate scales by it),
+cut into ``mesh.data * mesh.fsdp`` batch groups; ``mesh.fsdp`` shards
+parameters and optimizer state (FSDP2), ``mesh.data`` replicates them
+(DDP).  Each batch group draws its own tube masks, the logged ``loss`` is
+the mean over the global batch, and only rank 0 logs and writes.
+``mesh.sp`` above 1 raises.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+from typing import Optional
 
 import torch
 
@@ -32,8 +46,10 @@ from avion_tpu_torch.data.loader import DataLoader
 from avion_tpu_torch.data.video_reader import default_backend
 from avion_tpu_torch.models.registry import create_model
 from avion_tpu_torch.optim.factory import build_optimizer
-from avion_tpu_torch.parallel.launch import (device_from_argv, setup_host,
-                                             single_device_only)
+from avion_tpu_torch.parallel.launch import device_from_argv
+from avion_tpu_torch.parallel.mesh import Mesh
+from avion_tpu_torch.parallel.sharding import shard_model
+from avion_tpu_torch.train.common import over_mesh, refuse_sp
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import make_videomae_train_step
@@ -54,13 +70,17 @@ def build_model(cfg: TrainConfig, dtype=None) -> torch.nn.Module:
 
 
 def build_model_and_state(cfg: TrainConfig, niter_per_ep: int,
-                          device="cuda", dtype=None):
+                          device="cuda", dtype=None,
+                          mesh: Optional[Mesh] = None):
     """(model on ``device``, optimizer, lr schedule).  The weights are
     drawn on the CPU from ``torch.Generator().manual_seed(cfg.seed)`` with
     the flax initializers' distributions; layer decay, when configured,
-    counts the encoder's layers."""
+    counts the encoder's layers.  A ``mesh`` with ``fsdp`` shards the model
+    (FSDP2) before the optimizer is built over it."""
     model = build_model(cfg, dtype).to_empty(device="cpu")
     model.init_weights(torch.Generator().manual_seed(cfg.seed)).to(device)
+    if mesh is not None:
+        shard_model(model, mesh)
     optimizer, schedule = build_optimizer(cfg.optim, model, niter_per_ep,
                                           num_layers=model.encoder_layers)
     return model, optimizer, schedule
@@ -69,7 +89,9 @@ def build_model_and_state(cfg: TrainConfig, niter_per_ep: int,
 def main(argv=None) -> dict:
     """Train; returns ``{"steps": steps taken by this call, "step": the
     train state's step, "epochs": each epoch's metrics, "decode_backend":
-    ..., "transfers": the loader's worker transfers}``."""
+    ..., "transfers": the loader's worker transfers}``.  Under torchrun
+    every rank runs it; a process group it joined is left when it
+    returns."""
     load_dotenv()
     argv, device = device_from_argv(
         argv if argv is not None else sys.argv[1:])
@@ -79,11 +101,12 @@ def main(argv=None) -> dict:
     d.root = d.root or os.environ.get("K400_ROOT", "")
     d.train_metadata = d.train_metadata or os.environ.get(
         "K400_TRAIN_LIST", "")
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    cfg.save(os.path.join(cfg.output_dir, "config.json"))
-    single_device_only(cfg.mesh, "videomae_pretrain")
-    setup_host(cfg.seed, device)
+    refuse_sp(cfg.mesh, "videomae_pretrain")
+    return over_mesh(cfg, device, _train)
 
+
+def _train(cfg: TrainConfig, device: torch.device, mesh: Mesh) -> dict:
+    d = cfg.data
     geometry = build_model(cfg)
     cfg.model.patch_size = geometry.patch_size
     cfg.model.tubelet_size = geometry.tubelet_size
@@ -98,20 +121,24 @@ def main(argv=None) -> dict:
                             hflip_prob=0.5))
     train_loader = DataLoader(train_ds, d.batch_size, shuffle=True,
                               drop_last=True, num_workers=d.num_workers,
-                              prefetch_depth=d.prefetch_depth, seed=cfg.seed)
+                              prefetch_depth=d.prefetch_depth, seed=cfg.seed,
+                              process_index=mesh.batch_index,
+                              process_count=mesh.n_batch_shards)
     print(f"[data] {len(train_ds)} videos, decode backend "
-          f"{default_backend()}, {d.num_workers} workers")
+          f"{default_backend()}, {d.num_workers} workers, batch group "
+          f"{mesh.batch_index} of {mesh.n_batch_shards}")
     # steps per epoch include the echo repeats
     niter = max(1, len(train_loader)) * max(1, d.echo_factor)
     cfg.optim.lr = cfg.optim.lr * d.batch_size / 256
-    model, optimizer, _ = build_model_and_state(cfg, niter, device=device)
+    model, optimizer, _ = build_model_and_state(cfg, niter, device=device,
+                                                mesh=mesh)
     # echoed repeats must not reuse the host batch's tube masks; the
     # draws come from (seed + 1, step), as the JAX entry's step key
     step_fn = make_videomae_train_step(
         model, patch_size=cfg.model.patch_size,
         tubelet_size=cfg.model.tubelet_size,
         regen_mask=d.echo_factor > 1, seed=cfg.seed + 1)
-    run = setup_run(cfg, model, optimizer, step_fn)
+    run = setup_run(cfg, model, optimizer, step_fn, mesh=mesh)
     start_step, epochs = run.state.step, []
     try:
         for epoch in range(run.start_epoch, cfg.optim.epochs):

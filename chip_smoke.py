@@ -28,7 +28,10 @@ Phases (each raises on failure; the script then exits non-zero):
    yardstick only, the port never calls it), the least time the card could
    take (``bound_ms``), its TFLOP/s and its device time kernel by kernel
    (torch.profiler; the forward's sum is ``device_ms``, the backward's
-   ``delta_kernel`` alone ``delta_ms``);
+   ``delta_kernel`` alone ``delta_ms``); then, under
+   ``torch.use_deterministic_algorithms(True)``, two backwards at the
+   combined route's (32, 785, 12, 64) bit-equal, each on the split dq /
+   dkv kernels (no combined launch), timed beside the default route;
 4. serve: a seeded random ``CLIP_VITB16`` checkpoint in the reference
    layout, served by ``avion_tpu_torch.serve.server.main`` at 4 frames on
    an ephemeral port; every endpoint is called, the answers checked, the
@@ -43,8 +46,10 @@ Phases (each raises on failure; the script then exits non-zero):
    losses and 24 forward-with-lse and 24 combined-backward launches per
    step; step time, clips/s, peak memory, a profiled step, the share of
    989 TFLOP/s; the forward counts of the ``full`` and ``save_attn_k10``
-   policies; one batch-4 step against the CPU in f32 (loss within 2%,
-   gradient cosine >= 0.99); save and an exact resume;
+   policies; 4 more steps under the deterministic flag (24 + 24 + 24
+   split launches a step, p50 beside the default's); one batch-4 step
+   against the CPU in f32 (loss within 2%, gradient cosine >= 0.99); save
+   and an exact resume;
 6. train at the config's default 16 frames (3137 tokens): 2 steps at
    batch 8, whose visual backward takes the split dq / dkv kernels;
 7. data: cv2's video I/O, then a seeded synthetic Ego4D layout (15 s mp4v
@@ -144,8 +149,14 @@ Phases (each raises on failure; the script then exits non-zero):
    out, dq, dk, dv (phase 3's tolerances: max abs 3e-2, RMS 0.5% / 1.5%),
    16 + 16 + 16 hop launches a ring; (d) ``pretrain_clip.main`` at
    ViT-B/16 batch 256, 2 seeded steps, without a process group and under
-   a one-rank NCCL group (torchrun's environment, ``mesh.data=1``, DDP):
-   the parameters bit for bit, the launches by kernel.
+   a one-rank NCCL group (torchrun's environment, ``mesh.data=1``, DDP),
+   under the deterministic flag: the parameters bit for bit, the launches
+   by kernel; (e) the same for ``finetune_mir.main``,
+   ``finetune_cls.main``, ``videomae_pretrain.main`` and
+   ``videomae_finetune.main`` at ViT-B/16, 16 frames, batch 8, 2 steps,
+   on the finetune and VideoMAE phases' layouts and checkpoints
+   (``mesh.data=1 mesh.fsdp=1``): the logged losses, the final parameters
+   (and EMA) bit for bit, every backward on the split kernels.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -155,6 +166,7 @@ prints no result.
 from __future__ import annotations
 
 import base64
+import contextlib
 import csv
 import json
 import math
@@ -175,6 +187,10 @@ import torch
 
 from avion_tpu_torch.ops import _build
 from avion_tpu_torch.ops import flash_attention as fa
+
+# cuBLAS is deterministic under torch.use_deterministic_algorithms only with
+# a fixed workspace, set before its first use (H100's default size)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12
@@ -228,6 +244,19 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` inside the block: every
+    flash backward takes the split kernels, whose sums run in a fixed
+    order."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -456,10 +485,54 @@ def phase_kernel() -> dict:
             _check_backward(gen, rows, check, b, s, h, d, causal)
         finally:
             fa._COMBINED_BWD = None
+    _deterministic_backward(gen)
     if bad:
         raise RuntimeError("kernels disagree with their plain versions: "
                            + "; ".join(bad))
     return rows
+
+
+DET_SHAPE = (32, 785, 12, 64)  # a combined-route shape: ViT-B/16, 4 frames
+
+
+def _deterministic_backward(gen) -> dict:
+    """Under ``torch.use_deterministic_algorithms(True)``: two autograd
+    backwards at DET_SHAPE, bit-equal in dq, dk and dv, each launching the
+    split dq and dkv kernels and no combined one; the backward's time on
+    the flag's route against the default (combined) route's, the same
+    inputs."""
+    b, s, h, d = DET_SHAPE
+    w, scale = h * d, d ** -0.5
+    qkv = torch.randn(b, s, 3 * w, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    do = torch.randn(b, s, w, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    out, lse = fa.flash_fwd_lse(qkv, h, s, False, scale)
+
+    def bwd():
+        return fa.flash_bwd(do, qkv, out, lse, h, s, False, scale)
+
+    default_ms = cuda_ms(bwd)
+    grads, launches = [], []
+    with deterministic():
+        for _ in range(2):
+            x = qkv.detach().requires_grad_()
+            fa.reset_launches()
+            fa.flash_attention_fused_qkv(x, h, s).backward(do)
+            torch.cuda.synchronize()
+            launches.append(dict(fa.launches))
+            grads.append(x.grad)
+        flag_ms = cuda_ms(bwd)
+    same = torch.equal(grads[0], grads[1])
+    want = {"flash_fwd_lse": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    row = {"shape": [b, s, h, d], "bit_equal": same, "launches": launches,
+           "default_route_ms": default_ms, "flag_route_ms": flag_ms,
+           "flag_over_default": flag_ms / default_ms}
+    log("deterministic backward " + json.dumps(row))
+    if not same or launches != [want, want]:
+        raise RuntimeError(f"the backward under the deterministic flag: "
+                           f"bit-equal {same}, launches {launches}")
+    return row
 
 
 def _forward_times(fn, flops: float) -> dict:
@@ -1065,6 +1138,7 @@ def phase_train(tmp: str) -> dict:
         f"attention layer, remat's extra forward not counted; at the p50 "
         f"step {flops / (p50 * 1e-3) / 1e12:.2f} TFLOP/s, "
         f"{flops / (p50 * 1e-3) / H100_BF16_FLOPS:.4f} of 989 TFLOP/s")
+    det = _deterministic_steps(run, batches)
     profile_step(run, _to_device(batches[0]))
 
     small = _to_device({k: v[:POLICY_BATCH] for k, v in batches[0].items()})
@@ -1100,7 +1174,32 @@ def phase_train(tmp: str) -> dict:
         f"seed: step, parameters and AdamW moments bit for bit: {same}")
     if not same:
         raise RuntimeError("resume did not restore the train state exactly")
-    return launches, p50
+    return launches, p50, det
+
+
+DET_STEPS = 4  # seeded steps under the deterministic flag, 2 of them timed
+
+
+def _deterministic_steps(run, batches: list) -> dict:
+    """DET_STEPS more steps of the seeded run under
+    ``torch.use_deterministic_algorithms(True)``: finite losses, every
+    backward on the split kernels (24 + 24 + 24 launches a step), the p50
+    of the steps after the first two beside the default route's."""
+    with deterministic():
+        res = _timed_epoch(run, [batches[i % len(batches)]
+                                 for i in range(DET_STEPS)])
+    launches = res["launches"]
+    want = {name: 2 * LAYERS * DET_STEPS for name in (
+        "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")}
+    losses = [m["loss"] for m in res["metrics"]]
+    p50 = float(np.median(res["step_ms"][2:]))
+    log(f"{DET_STEPS} steps under the deterministic flag: losses {losses}, "
+        f"step ms {[round(float(x), 3) for x in res['step_ms']]}, p50 of "
+        f"steps 3-{DET_STEPS} {p50:.3f} ms, launches {launches}")
+    if launches != want or not np.isfinite(losses).all():
+        raise RuntimeError(f"deterministic steps: launches {launches}, "
+                           f"expected {want}; losses {losses}")
+    return {"p50_ms": p50, "launches": launches}
 
 
 def phase_train_long(tmp: str) -> dict:
@@ -3544,81 +3643,170 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _nccl_entry(tmp: str, fixture: tuple) -> dict:
-    """(d) ``pretrain_clip.main`` at ViT-B/16 batch PAR_BATCH for PAR_STEPS
-    seeded steps without a process group, then under a one-rank NCCL group
-    (torchrun's environment, ``mesh.data=1``; DDP): the parameters of the
-    two final checkpoints bit for bit.  The visual tower is the
-    sequence-parallel one (gap pooling; a ring of one shard, so its
-    attention runs the hop kernels), and the text tower takes the split
-    backward: the combined route sums dq in an order that varies from run
-    to run, which no two runs could match bit for bit.  Every item draws
-    its crop from seed 0 and the loader decodes in this process, so both
-    runs see the same batches."""
-    from avion_tpu_torch.train import pretrain_clip
-
-    root, meta = fixture
-    want = {name: PAR_STEPS * LAYERS for name in (
-        "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", *HOP_KERNELS)}
+def _alone_and_nccl(label: str, main, args: list, out_dir: str,
+                    steps: int, want: dict) -> dict:
+    """``main(args)`` under ``torch.use_deterministic_algorithms(True)``
+    twice, without a process group and under a one-rank NCCL group
+    (torchrun's environment; DDP), each writing under ``out_dir``_<run> (a
+    last ``output_dir`` argument, so it overrides one in ``args``):
+    ``steps`` steps and the launches ``want`` in each, the logged losses,
+    the launches and the final checkpoint's parameters (and EMA) bit for
+    bit.  Every item draws from seed 0 and the loader decodes in this
+    process, so both runs see the same batches.  Returns the launches of
+    the run under the group."""
     orig = np.random.RandomState
-    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
-           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
-    params, launches = {}, {}
+    runs = {}
     np.random.RandomState = lambda seed=None: orig(0 if seed is None
                                                     else seed)
-    fa._COMBINED_BWD = False
     try:
-        for name, group_env in (("alone", {}), ("nccl", env)):
-            out = os.path.join(tmp, f"parallel_{name}")
-            args = _data_args(out, root, meta, True,
-                              f"data.batch_size={PAR_BATCH}",
-                              "data.subsample_stride=4", "data.num_workers=0",
-                              "eval_freq=0", "mesh.data=1",
-                              "model.sequence_parallel=true",
-                              "model.pooling=gap")
+        for name in ("alone", "nccl"):
+            group_env = {} if name == "alone" else {
+                "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+            out = f"{out_dir}_{name}"
             os.environ.update(group_env)
             try:
                 torch.cuda.synchronize()
-                fa.reset_launches()
+                fa.reset_launches()  # this run's path, counted from here
                 t0 = time.perf_counter()
-                res = pretrain_clip.main(args)
+                with deterministic():
+                    res = main([*args, f"output_dir={out}"])
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             finally:
                 for k in group_env:
                     os.environ.pop(k, None)
-            launches[name] = dict(fa.launches)
+            launches = dict(fa.launches)
             if torch.distributed.is_initialized():
-                raise RuntimeError("(d) main left its process group")
-            recs = [r for r in _train_log(out) if "train/loss" in r]
-            log(f"(d) pretrain_clip.main {name}: {res['steps']} steps, losses "
-                f"{[r['train/loss'] for r in recs]}, launches "
-                f"{launches[name]}, wall {wall:.2f} s")
-            if res["steps"] != PAR_STEPS or launches[name] != want:
-                raise RuntimeError(f"(d) {name}: {res['steps']} steps, "
-                                   f"launches {launches[name]}, want {want}")
-            params[name] = torch.load(os.path.join(
-                out, "ckpt", str(res["step"]), "state.pt"),
-                weights_only=True)["model"]
+                raise RuntimeError(f"{label} main left its process group")
+            losses = [r["train/loss"] for r in _train_log(out)
+                      if "train/loss" in r]
+            log(f"{label} main {name}: {res['steps']} steps, losses {losses}, "
+                f"launches {launches}, wall {wall:.2f} s")
+            if (res["steps"] != steps or launches != want
+                    or not np.isfinite(losses).all()):
+                raise RuntimeError(f"{label} {name}: {res['steps']} steps, "
+                                   f"losses {losses}, launches {launches}, "
+                                   f"want {want}")
+            state = torch.load(os.path.join(out, "ckpt", str(res["step"]),
+                                            "state.pt"), weights_only=True)
+            runs[name] = (losses, {p: state[p] for p in ("model", "ema")
+                                   if p in state}, launches)
+            torch.cuda.empty_cache()
     finally:
         np.random.RandomState = orig
-        fa._COMBINED_BWD = None
-    same = params["alone"].keys() == params["nccl"].keys() and all(
-        torch.equal(v, params["nccl"][k]) for k, v in params["alone"].items())
-    log(f"(d) parameters under the one-rank NCCL group equal the run "
-        f"without a group bit for bit: {same}; launches equal: "
-        f"{launches['alone'] == launches['nccl']}")
-    if not same or launches["alone"] != launches["nccl"]:
-        raise RuntimeError("(d) the one-rank NCCL run differs")
-    return launches["nccl"]
+    (la, sa, _), (ln, sn, launches) = runs["alone"], runs["nccl"]
+    same = la == ln and sa.keys() == sn.keys() and all(
+        sa[p].keys() == sn[p].keys()
+        and all(torch.equal(v, sn[p][k]) for k, v in sa[p].items())
+        for p in sa)
+    log(f"{label} losses, launches and {' and '.join(sa)} under the "
+        f"one-rank NCCL group equal the run without a group bit for bit: "
+        f"{same}")
+    if not same:
+        raise RuntimeError(f"{label} the one-rank NCCL run differs")
+    return launches
+
+
+def _nccl_entry(tmp: str, fixture: tuple) -> dict:
+    """(d) ``pretrain_clip.main`` at ViT-B/16 batch PAR_BATCH for PAR_STEPS
+    seeded steps (``mesh.data=1``) through :func:`_alone_and_nccl`.  The
+    visual tower is the sequence-parallel one (gap pooling; a ring of one
+    shard, so its attention runs the hop kernels); under the deterministic
+    flag the text tower takes the split backward: the combined route sums
+    dq in an order that varies from run to run, which no two runs could
+    match bit for bit."""
+    from avion_tpu_torch.train import pretrain_clip
+
+    root, meta = fixture
+    want = {name: PAR_STEPS * LAYERS for name in (
+        "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", *HOP_KERNELS)}
+    args = _data_args(os.path.join(tmp, "parallel"), root, meta, True,
+                      f"data.batch_size={PAR_BATCH}",
+                      "data.subsample_stride=4", "data.num_workers=0",
+                      "eval_freq=0", "mesh.data=1",
+                      "model.sequence_parallel=true", "model.pooling=gap")
+    return _alone_and_nccl("(d) pretrain_clip", pretrain_clip.main, args,
+                           os.path.join(tmp, "parallel"), PAR_STEPS, want)
+
+
+ENTRY_BATCH, ENTRY_STEPS = 8, 2
+
+
+def _entry_runs(tmp: str) -> dict:
+    """(e)'s four entries at full width, 16 frames, by name: (module, its
+    arguments, its model on the meta device) on the layouts and random
+    checkpoints that the finetune and VideoMAE phases wrote, cut to
+    ENTRY_STEPS steps of ENTRY_BATCH clips: MIR takes every
+    ``subsample_stride``-th row of the EK100 train split, the others the
+    first rows of a copy of their list; no validation."""
+    from avion_tpu_torch.core.config import TrainConfig
+    from avion_tpu_torch.train import (finetune_cls, finetune_mir,
+                                       videomae_finetune, videomae_pretrain)
+
+    rows = ENTRY_BATCH * ENTRY_STEPS
+    ek = os.path.join(tmp, "ek100_ft")
+    train_csv = os.path.join(ek, "EPIC_100_retrieval_train.csv")
+    cls_csv = os.path.join(ek, "entry_cls_train.csv")
+    with open(train_csv) as f, open(cls_csv, "w") as g:
+        g.writelines(f.readlines()[:1 + rows])  # the header and 16 rows
+    k400 = os.path.join(tmp, "k400")
+    k400_list = os.path.join(tmp, "k400_entry.txt")
+    with open(os.path.join(k400, "list.txt")) as f, open(k400_list, "w") as g:
+        g.writelines(f.readlines()[:rows])
+    common = [f"data.batch_size={ENTRY_BATCH}", "data.num_workers=0",
+              "optim.epochs=1", "eval_freq=0", "mesh.data=1", "mesh.fsdp=1"]
+    ek_args = [f"data.root={ek}", f"data.chunk_len={DATA_CHUNK_S}",
+               f"pretrain_model={os.path.join(tmp, 'clip_vitb16_random.pt')}"]
+    k_args = [f"data.root={k400}", f"data.train_metadata={k400_list}"]
+    runs = {
+        "finetune_mir": (finetune_mir, [
+            *FT_MIR_RECIPE, *ek_args, f"data.train_metadata={train_csv}",
+            f"data.subsample_stride={EK_TRAIN_CLIPS // rows}", *common]),
+        "finetune_cls": (finetune_cls, [
+            *FT_CLS_RECIPE, *ek_args, f"data.train_metadata={cls_csv}",
+            f"data.label_map={os.path.join(ek, 'actions.csv')}", *common]),
+        "videomae_pretrain": (videomae_pretrain, [
+            *VMAE_PRETRAIN_RECIPE, *k_args, *common]),
+        "videomae_finetune": (videomae_finetune, [
+            *VMAE_FINETUNE_RECIPE, *k_args, *common, "pretrain_model="
+            + os.path.join(tmp, "videomae_ft_random.pt")])}
+    out = {}
+    for name, (module, args) in runs.items():
+        cfg = TrainConfig().apply_overrides(args)
+        with torch.device("meta"):
+            model = (module.build_classifier(cfg, 100)
+                     if name == "finetune_cls" else module.build_model(cfg))
+        out[name] = (module, args, model)
+    return out
+
+
+def _entries_under_flag(tmp: str) -> dict:
+    """(e) each of the four entries' ``main`` (``_entry_runs``,
+    ``mesh.data=1 mesh.fsdp=1``) through :func:`_alone_and_nccl`, every
+    backward on the split kernels.  Returns each entry's launches."""
+    t_e = time.perf_counter()
+    report = {}
+    for entry, (module, args, model) in _entry_runs(tmp).items():
+        with deterministic():
+            per_step = (_ft_launches(model) if entry.startswith("fine")
+                        else _vmae_launches(model))
+        report[entry] = _alone_and_nccl(
+            f"(e) {entry}", module.main, args,
+            os.path.join(tmp, f"entry_{entry}"), ENTRY_STEPS,
+            {k: v * ENTRY_STEPS for k, v in per_step.items()})
+    log(f"(e) the four entries, 8 runs: wall {time.perf_counter() - t_e:.1f}"
+        f" s")
+    return report
 
 
 def phase_parallel(tmp: str, fixture: tuple) -> dict:
-    """The parallel slice on one card: (a) the hop instances' build check;
+    """The parallel slices on one card: (a) the hop instances' build check;
     (b) the hop kernels against their plain versions; (c) the ring over
     RING_SP shards against attention over the whole sequence; (d)
-    ``pretrain_clip.main`` under a one-rank NCCL group against the run
-    without one.  Returns the hop kernels' rows and the launches."""
+    ``pretrain_clip.main`` and (e) the four other entries' ``main`` under a
+    one-rank NCCL group against the run without one, under the
+    deterministic flag.  Returns the hop kernels' rows and the launches."""
     log("== parallel")
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -3635,8 +3823,9 @@ def phase_parallel(tmp: str, fixture: tuple) -> dict:
     if bad:
         raise RuntimeError("parallel: " + "; ".join(bad))
     nccl = _nccl_entry(tmp, fixture)
+    entries = _entries_under_flag(tmp)
     log(f"parallel phase wall {time.perf_counter() - t_phase:.1f} s")
-    return {"rows": rows, "ring": ring, "nccl": nccl}
+    return {"rows": rows, "ring": ring, "nccl": nccl, "entries": entries}
 
 
 KERNEL_SOURCES = {
@@ -3659,7 +3848,7 @@ def main() -> int:
     rows = phase_kernel()
     with tempfile.TemporaryDirectory() as tmp:
         serve = phase_serve(tmp)
-        train, echo_p50 = phase_train(tmp)
+        train, echo_p50, train_det = phase_train(tmp)
         long = phase_train_long(tmp)
         data = phase_data(tmp, echo_p50)
         evals = phase_eval(tmp, data["fixture"],
@@ -3676,11 +3865,14 @@ def main() -> int:
                 "flash_bwd_dq": mir["flash_bwd_dq"],
                 "flash_bwd_dkv": mir["flash_bwd_dkv"], **par["ring"]}
     by_path = {"serve": {"flash_fwd": serve}, "train_seeded_batches": train,
+               "train_seeded_deterministic": train_det["launches"],
                "train_16_frames": long, "data_host_crop": data["host_crop"],
                "data_device_crop": data["device_crop"],
                "eval": evals["eval"], "data_with_eval": evals["with_eval"],
                **vmae["paths"], **ft["paths"], **cl["paths"],
-               "parallel_ring": par["ring"], "parallel_nccl": par["nccl"]}
+               "parallel_ring": par["ring"], "parallel_nccl": par["nccl"],
+               **{f"parallel_entry_{name}": counts
+                  for name, counts in par["entries"].items()}}
     rows["flash_fwd"] += evals["checks"]
     for name in rows:
         rows[name] += vmae["rows"][name] + ft["rows"][name] + \

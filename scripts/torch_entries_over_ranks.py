@@ -1,0 +1,191 @@
+"""Run the four entries that train over ``data`` and ``fsdp`` on N cards
+(or N gloo processes) and hold each against one process on the same
+global batch: ``finetune_mir``, ``finetune_cls``, ``videomae_pretrain``
+and ``videomae_finetune`` at ViT-B/16, 16 frames, global batch 8, 2
+steps, on synthetic EK100 and Kinetics layouts and random checkpoints
+(``chip_smoke``'s writers).
+
+    python scripts/torch_entries_over_ranks.py prepare DIR
+    torchrun --nproc_per_node=4 scripts/torch_entries_over_ranks.py \\
+        run DIR ENTRY mesh.data=2 mesh.fsdp=2        # each ENTRY
+    python scripts/torch_entries_over_ranks.py run DIR ENTRY   # reference
+    python scripts/torch_entries_over_ranks.py compare DIR
+
+Every item draws its augmentation from seed 0 and mixup, DropPath and
+patch dropout are off, so both runs see the same global rows (the mesh
+run in another order, which none of the losses sees).  ``compare`` prints
+one JSON line: each entry's per-step losses on the mesh and alone, their
+relative gaps against the limits (5e-3 before any update, 2e-2 after
+one: the reductions run in another order and batch shape), the mesh
+run's validation metrics, and the card's name and power limit; it exits
+non-zero when a limit is missed.  ``--tiny`` (every sub-command) takes
+the tiny models on the CPU with gloo, a rehearsal.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+ENTRIES = ("finetune_mir", "finetune_cls", "videomae_pretrain",
+           "videomae_finetune")
+BATCH, STEPS = 8, 2
+LIMITS = (5e-3, 2e-2)  # relative loss gap: step 1, step 2
+
+
+def _tiny() -> bool:
+    return "--tiny" in sys.argv
+
+
+def prepare(root: str) -> None:
+    """The layouts and checkpoints under ``root``."""
+    import chip_smoke as cs
+    import torch
+
+    tiny = dict(w=64, h=48, fps=10) if _tiny() else {}
+    cs.write_ek100_fixture(os.path.join(root, "ek100"),
+                           train_clips=BATCH * STEPS, test_clips=BATCH,
+                           **(dict(tiny, chunk_s=2) if _tiny() else {}))
+    cs.write_k400_fixture(os.path.join(root, "k400"), videos=BATCH * STEPS,
+                          **(dict(tiny, frames=24) if _tiny() else {}))
+    clip = os.path.join(root, "clip.pt")
+    if _tiny():
+        from avion_tpu_torch.models.registry import create_model
+
+        model = create_model("CLIP_TINY").init_weights(
+            torch.Generator().manual_seed(5))
+        torch.save({"state_dict": model.state_dict()}, clip)
+        cs.VMAE_FT_MODEL, cs.VMAE_FRAMES = "VIDEOMAE_TINY_FT", 4
+    else:
+        cs.random_checkpoint(clip)
+    cs.random_videomae_checkpoint(os.path.join(root, "videomae.pt"))
+
+
+def entry_args(root: str, entry: str) -> list:
+    """``entry``'s recipe (``chip_smoke``'s) on the layouts, cut to STEPS
+    steps of BATCH clips, without mixup."""
+    import chip_smoke as cs
+
+    ek, k4 = os.path.join(root, "ek100"), os.path.join(root, "k400")
+    common = [f"data.batch_size={BATCH}", "data.num_workers=0",
+              "optim.epochs=1", "print_freq=1", "mixup=0", "cutmix=0"]
+    ek_args = [f"data.root={ek}", f"pretrain_model={root}/clip.pt",
+               f"data.train_metadata={ek}/EPIC_100_retrieval_train.csv",
+               f"data.val_metadata={ek}/EPIC_100_retrieval_test.csv",
+               f"data.val_batch_size={BATCH}", "eval_freq=1"]
+    k4_args = [f"data.root={k4}", f"data.train_metadata={k4}/list.txt"]
+    tiny_clip = ["model.name=CLIP_TINY", "data.clip_length=2",
+                 "data.crop_size=32", "model.image_size=32",
+                 "model.vision_width=64", "model.vision_layers=2",
+                 "model.vision_heads=2", "model.project_embed_dim=32",
+                 "data.chunk_len=2"]
+    args = {
+        "finetune_mir": [*cs.FT_MIR_RECIPE, *ek_args,
+                         f"data.relevancy_path={ek}/relevancy/caption_"
+                         f"relevancy_EPIC_100_retrieval_test.pkl",
+                         f"data.chunk_len={cs.DATA_CHUNK_S}"],
+        "finetune_cls": [*cs.FT_CLS_RECIPE, *ek_args,
+                         f"data.label_map={ek}/actions.csv",
+                         "data.num_clips=2", f"data.chunk_len={cs.DATA_CHUNK_S}"],
+        "videomae_pretrain": [*cs.VMAE_PRETRAIN_RECIPE, *k4_args],
+        "videomae_finetune": [*cs.VMAE_FINETUNE_RECIPE, *k4_args,
+                              f"pretrain_model={root}/videomae.pt",
+                              f"data.val_metadata={k4}/list.txt",
+                              f"data.val_batch_size={BATCH}",
+                              "data.num_clips=2", "data.num_crops=1",
+                              "eval_freq=1"]}[entry] + common
+    if _tiny():
+        args += {"finetune_mir": tiny_clip, "finetune_cls": tiny_clip,
+                 "videomae_pretrain": ["model.name=VIDEOMAE_TINY",
+                                       "data.clip_length=4"],
+                 "videomae_finetune": ["model.name=VIDEOMAE_TINY_FT",
+                                       "data.clip_length=4",
+                                       "model.num_classes=10"]}[entry]
+        args += ["--device", "cpu"]
+    return args
+
+
+def run(root: str, entry: str, mesh: list) -> None:
+    """``entry``'s ``main`` on this process (and its group, under
+    torchrun); rank 0 writes the logged losses and the validation to
+    ``<root>/<entry>_<world>.json``."""
+    import importlib
+
+    orig = np.random.RandomState
+    np.random.RandomState = lambda seed=None: orig(0 if seed is None
+                                                    else seed)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    out = os.path.join(root, "runs", f"{entry}_{world}")
+    main = importlib.import_module(f"avion_tpu_torch.train.{entry}").main
+    res = main([*entry_args(root, entry), *mesh, f"output_dir={out}"])
+    if int(os.environ.get("RANK", 0)) == 0:
+        with open(os.path.join(out, "log.jsonl")) as f:
+            losses = [r["train/loss"] for r in map(json.loads, f)
+                      if "train/loss" in r]
+        with open(os.path.join(root, f"{entry}_{world}.json"), "w") as f:
+            json.dump({"world": world, "mesh": mesh, "losses": losses,
+                       "steps": res["steps"],
+                       "eval": {str(k): v for k, v in
+                                res.get("eval", {}).items()}}, f)
+
+
+def card_line() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.splitlines()[0]
+    except (OSError, subprocess.CalledProcessError, IndexError):
+        return "cpu"
+
+
+def compare(root: str) -> int:
+    report, ok = {"card": card_line()}, True
+    for entry in ENTRIES:
+        runs = {}
+        for name in os.listdir(root):
+            if name.startswith(entry + "_") and name.endswith(".json"):
+                with open(os.path.join(root, name)) as f:
+                    r = json.load(f)
+                runs[r["world"]] = r
+        alone, wide = runs[1], runs[max(runs)]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(wide["losses"],
+                                                   alone["losses"])]
+        good = (wide["steps"] == alone["steps"] == STEPS
+                and len(gaps) == STEPS
+                and all(g <= lim for g, lim in zip(gaps, LIMITS))
+                and (entry == "videomae_pretrain" or bool(wide["eval"])))
+        ok &= good
+        report[entry] = {"world": wide["world"], "mesh": wide["mesh"],
+                         "losses": wide["losses"],
+                         "losses_alone": alone["losses"],
+                         "relative_gaps": gaps, "limits": LIMITS,
+                         "eval": wide["eval"], "ok": good}
+    print(json.dumps(report), flush=True)
+    return 0 if ok else 1
+
+
+def main() -> int:
+    argv = [a for a in sys.argv[1:] if a != "--tiny"]
+    cmd, root = argv[0], os.path.abspath(argv[1])
+    if cmd == "prepare":
+        os.makedirs(root, exist_ok=True)
+        prepare(root)
+    elif cmd == "run":
+        run(root, argv[2], argv[3:])
+    elif cmd == "compare":
+        return compare(root)
+    else:
+        raise SystemExit(f"unknown command {cmd!r}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -277,6 +277,31 @@ def test_split_backward_is_bit_for_bit_repeatable(cuda):
     assert torch.equal(first, second)
 
 
+def test_backward_under_deterministic_algorithms_is_repeatable(cuda):
+    """Under ``torch.use_deterministic_algorithms(True)`` a combined-route
+    shape, the ViT-B/16 tower at 4 frames, takes the split kernels: two
+    autograd backwards agree bit for bit and launch no combined kernel."""
+    b, s, h, d = 32, 785, 12, 64
+    qkv = _qkv(b, s, h, d).to(cuda, torch.bfloat16)
+    do = _qkv(b, s, h, d, seed=1)[..., :h * d].to(cuda, torch.bfloat16)
+    was = torch.are_deterministic_algorithms_enabled()
+    grads = []
+    try:
+        torch.use_deterministic_algorithms(True)
+        for _ in range(2):
+            x = qkv.clone().requires_grad_()
+            fa.reset_launches()
+            fa.flash_attention_fused_qkv(x, h, s).backward(do)
+            torch.cuda.synchronize()
+            assert dict(fa.launches) == {"flash_fwd_lse": 1,
+                                         "flash_bwd_dq": 1,
+                                         "flash_bwd_dkv": 1}
+            grads.append(x.grad)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert torch.equal(grads[0], grads[1])
+
+
 def test_backward_rejects_what_it_does_not_take(cuda):
     qkv = _qkv(1, 16, 2, 64).to(cuda, torch.bfloat16)
     out, lse = fa.flash_fwd_lse(qkv, 2, 16, False, 0.125)

@@ -135,3 +135,39 @@ def test_inference_forward_without_grad():
         fa.flash_attention_fused_qkv(x.requires_grad_(), 2, 77, causal=True)
     fa.flash_attention_fused_qkv(x.detach(), 2, 77, causal=True)
     assert dict(fa.plain_calls) == {"flash_fwd": 2}
+
+
+@pytest.mark.parametrize("s,combined,warn_only,names", [
+    (785, None, False, ("flash_bwd_dq", "flash_bwd_dkv")),
+    (77, None, True, ("flash_bwd_dq", "flash_bwd_dkv")),
+    (1025, None, False, ("flash_bwd_dq", "flash_bwd_dkv")),
+    (160, True, False, ("flash_bwd_combined",)),
+], ids=["s785", "s77_warn_only", "s1025", "forced_combined"])
+def test_backward_route_under_deterministic_algorithms(s, combined,
+                                                       warn_only, names):
+    """``torch.use_deterministic_algorithms(True)`` (``warn_only`` too)
+    routes every backward to the split kernels, whose sums run in a fixed
+    order; an explicit ``_COMBINED_BWD`` still wins.  The flag's backward
+    gives the same values as the default route."""
+    old, was = fa._COMBINED_BWD, torch.are_deterministic_algorithms_enabled()
+    was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    x = torch.randn(2, s, 3 * 64, generator=torch.Generator().manual_seed(s))
+    grads = []
+    try:
+        fa._COMBINED_BWD = combined
+        for flag in (False, True):
+            torch.use_deterministic_algorithms(flag, warn_only=warn_only)
+            want = names if flag else (
+                ("flash_bwd_combined",) if combined or s <= 1024
+                else ("flash_bwd_dq", "flash_bwd_dkv"))
+            assert fa.use_combined_bwd(s) == (want == ("flash_bwd_combined",))
+            xg = x.clone().requires_grad_()
+            fa.reset_launches()
+            fa.flash_attention_fused_qkv(xg, 1, s).sum().backward()
+            assert dict(fa.plain_calls) == {"flash_fwd_lse": 1,
+                                            **{n: 1 for n in want}}
+            grads.append(xg.grad)
+    finally:
+        fa._COMBINED_BWD = old
+        torch.use_deterministic_algorithms(was, warn_only=was_warn)
+    assert torch.equal(grads[0], grads[1])

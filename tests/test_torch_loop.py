@@ -127,5 +127,7 @@ def test_preemption_saves_at_an_echo_group_boundary(tmp_path):
 
 
 def test_multi_device_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError):
+    """A run set up without a mesh takes ``cfg.mesh`` over the process
+    group: one process holds no mesh of two ranks."""
+    with pytest.raises(ValueError, match="!= 1 ranks"):
         _run(tmp_path, "mesh.data=2")

@@ -10,8 +10,8 @@ parameters at 1e-5, except where JAX's gradient is at f32 noise (below
 within the learning rate.  Then a checkpoint written at world 2 with
 sharded state and restored at world 1 bit for bit, SIGTERM to one rank
 of ``pretrain_clip.main`` (both ranks checkpoint the same step and exit
-0), and the four entries that stay on one device refusing a mesh; the
-eval encoders' rows split over ranks.  Each group runs in spawned
+0), and the four other entries refusing ``mesh.sp``; the eval encoders'
+rows split over ranks.  Each group runs in spawned
 processes with a limit of 60 s (``tests/torch_dist.py``)."""
 
 import io
@@ -317,9 +317,13 @@ def test_sigterm_to_one_rank_checkpoints_both(tiny_ego4d, tmp_path):
 
 @pytest.mark.parametrize("entry", ["finetune_mir", "finetune_cls",
                                    "videomae_pretrain", "videomae_finetune"])
-def test_single_device_entries_refuse_a_mesh(entry, tmp_path):
+def test_entries_refuse_sequence_parallel(entry, tmp_path):
+    """The four entries train over data and fsdp; ``mesh.sp`` raises before
+    any group is joined, naming the ROADMAP item that ports it."""
     import importlib
 
     main = importlib.import_module(f"avion_tpu_torch.train.{entry}").main
-    with pytest.raises(NotImplementedError, match="next parallel slice"):
-        main(["mesh.data=2", f"output_dir={tmp_path}", "--device", "cpu"])
+    with pytest.raises(NotImplementedError,
+                       match=rf"mesh.sp=2: {entry} .*Queue 1 item 12"):
+        main(["mesh.sp=2", f"output_dir={tmp_path}", "--device", "cpu"])
+    assert not os.listdir(tmp_path)

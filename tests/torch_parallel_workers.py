@@ -306,3 +306,214 @@ def preempted_main(rank, world, args):
     pretrain_clip.make_step = signalling
     res = pretrain_clip.main(args)
     return {"step": res["step"], "steps": res["steps"]}
+
+
+# the four entries' models at the tests' tiny size (f32), by kind
+TINY_TOWER = dict(image_size=32, patch_size=16, num_frames=2, width=64,
+                  layers=2, heads=2)
+VMAE_GEOMETRY = dict(image_size=32, patch_size=16, num_frames=4,
+                     tubelet_size=2)
+VMAE_PRETRAIN = dict(VMAE_GEOMETRY, encoder_width=64, encoder_layers=2,
+                     encoder_heads=2, decoder_width=32, decoder_layers=2,
+                     decoder_heads=2, mask_ratio=0.5)
+VMAE_FINETUNE = dict(VMAE_GEOMETRY, width=64, layers=2, heads=2,
+                     num_classes=5)
+
+
+def entry_model(kind):
+    """The tiny f32 model of an entry: ``mir`` CLIP_TINY, ``cls`` the
+    classifier on a 2-frame tower (5 classes), ``vmae_pretrain`` /
+    ``vmae_finetune`` the VideoMAE pair of ``test_torch_videomae_model``."""
+    from avion_tpu_torch.models import videomae as vm
+    from avion_tpu_torch.models.clip import VideoClassifier
+    from avion_tpu_torch.models.layers import quick_gelu
+    from avion_tpu_torch.models.vit import VisionTransformer
+
+    if kind == "mir":
+        from avion_tpu_torch.models.registry import create_model
+
+        return create_model("CLIP_TINY", num_frames=CLIP_TINY_FRAMES)
+    if kind == "cls":
+        return VideoClassifier(VisionTransformer(
+            **TINY_TOWER, act=quick_gelu, dtype=torch.float32,
+            pooling="cls"), num_classes=5)
+    if kind == "vmae_pretrain":
+        return vm.PretrainVideoMAE(**VMAE_PRETRAIN, dtype=torch.float32)
+    return vm.FinetuneVideoMAE(**VMAE_FINETUNE, dtype=torch.float32,
+                               drop_path_rate=0.0)
+
+
+def entry_step(rank, world, kind, sd, opt, batch, data, fsdp, ema_decay=None,
+               label_smoothing=0.0):
+    """One step of an entry's train step (``kind`` as :func:`entry_model`)
+    over a data x fsdp mesh (FSDP2 when fsdp > 1, DDP otherwise) on this
+    rank's rows of ``batch``, with layer decay over 2 layers and, given
+    ``ema_decay``, an EMA.  Returns the metrics, the whole updated
+    parameters and EMA (rank 0), whether any parameter is sharded, and
+    each parameter's layer-decay scale by name."""
+    from avion_tpu_torch.core.config import OptimConfig
+    from avion_tpu_torch.core.train_state import TrainState
+    from avion_tpu_torch.optim.factory import build_optimizer
+    from avion_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from avion_tpu_torch.parallel.sharding import (Parallel, full_tensor,
+                                                   is_dtensor,
+                                                   make_global_batch,
+                                                   shard_model)
+    from avion_tpu_torch.train import steps
+
+    model = entry_model(kind)
+    model.load_state_dict(sd, strict=True)
+    mesh = make_mesh(data=data, fsdp=fsdp)
+    shard_model(model, mesh)
+    optimizer, _ = build_optimizer(OptimConfig(**opt), model, NITER,
+                                   num_layers=2)
+    state = TrainState.create(model, optimizer, use_ema=ema_decay is not None,
+                              parallel=Parallel(mesh, model,
+                                                find_unused=kind == "mir"))
+    if kind == "mir":
+        step = steps.make_mir_finetune_step(model)
+    elif kind == "vmae_pretrain":
+        step = steps.make_videomae_train_step(model)
+    else:
+        step = steps.make_cls_train_step(model, label_smoothing,
+                                         ema_decay=ema_decay)
+    with use_mesh(mesh):
+        local = make_global_batch(mesh, {k: _t(v) for k, v in batch.items()})
+        state, metrics = step(state, local)
+    names = {id(p): n for n, p in model.named_parameters()}
+    scales = {names[id(p)]: g["lr_scale"]
+              for g in optimizer.inner.param_groups for p in g["params"]}
+    whole = {k: full_tensor(v.detach()).numpy()
+             for k, v in model.state_dict().items()}
+    ema = ({k: full_tensor(v).numpy() for k, v in state.ema.items()}
+           if state.ema is not None else None)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "params": whole if rank == 0 else None,
+            "ema": ema if rank == 0 else None,
+            "sharded": any(is_dtensor(p) for p in model.parameters()),
+            "scales": scales}
+
+
+def max_margin(rank, world, img, txt):
+    """``max_margin_ranking_loss`` over the world on this rank's rows:
+    the loss and the gradients of this rank's embeddings."""
+    from avion_tpu_torch.losses.losses import max_margin_ranking_loss
+
+    per = img.shape[0] // world
+    rows = slice(rank * per, (rank + 1) * per)
+    zi = _t(img[rows]).requires_grad_()
+    zt = _t(txt[rows]).requires_grad_()
+    loss = max_margin_ranking_loss(zi, zt, group=dist.group.WORLD)["loss"]
+    loss.backward()
+    return {"loss": loss.item(), "d_img": zi.grad.numpy(),
+            "d_txt": zt.grad.numpy()}
+
+
+def mix(rank, world, video, labels, draws, seed, kw):
+    """This rank's rows of the global batch mixed over the world: by
+    ``apply_mix`` on this rank's rows of the given per-sample ``draws``,
+    and by ``mixup_cutmix`` drawing from a generator seeded ``seed``."""
+    from avion_tpu_torch.train import augment_device as ad
+
+    per = video.shape[0] // world
+    rows = slice(rank * per, (rank + 1) * per)
+    v, lab = _t(video[rows]), _t(labels[rows])
+    group = dist.group.WORLD
+    out = {}
+    if draws is not None:
+        got = ad.apply_mix(v, lab, 7, 0.1, *[_t(d[rows]) for d in draws],
+                           group=group)
+        out["apply"] = [x.numpy() for x in got]
+    got = ad.mixup_cutmix(torch.Generator().manual_seed(seed), v, lab, 7,
+                          smoothing=0.1, group=group, **kw)
+    out["drawn"] = [x.numpy() for x in got]
+    return out
+
+
+def entry_main(rank, world, entry, args):
+    """``<entry>.main(args)`` on every rank of the world; returns its
+    result's steps and eval metrics."""
+    import importlib
+
+    main = importlib.import_module(f"avion_tpu_torch.train.{entry}").main
+    res = main(args)
+    return {"steps": res["steps"], "step": res["step"],
+            "eval": res.get("eval"), "epochs": res["epochs"]}
+
+
+def vmae_validate(rank, world, cfg_args, sd, ema, fsdp):
+    """``videomae_finetune.validate`` over the world on a tiny finetune
+    model loaded with ``sd`` and carrying ``ema`` as its EMA, sharded over
+    ``fsdp`` (the rest data)."""
+    from types import SimpleNamespace
+
+    from avion_tpu_torch.core.config import TrainConfig
+    from avion_tpu_torch.parallel.mesh import make_mesh
+    from avion_tpu_torch.parallel.sharding import (Parallel, shard_like,
+                                                   shard_model)
+    from avion_tpu_torch.train import videomae_finetune as vf
+
+    cfg = TrainConfig().apply_overrides(cfg_args)
+    model = vf.build_model(cfg).to_empty(device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.load_state_dict(sd, strict=True)
+    mesh = make_mesh(data=world // fsdp, fsdp=fsdp)
+    shard_model(model, mesh)
+    params = dict(model.named_parameters())
+    state = SimpleNamespace(
+        model=model, parallel=Parallel(mesh, model),
+        ema={k: shard_like(v, params[k]) for k, v in ema.items()})
+    return vf.validate(cfg, SimpleNamespace(state=state))
+
+
+def cls_validate(rank, world, cfg_args, w):
+    """``finetune_cls.validate`` over the world with a linear scorer of the
+    normalized clip (``w``, the test's ``_Scorer``)."""
+    from avion_tpu_torch.core.config import TrainConfig
+    from avion_tpu_torch.train import finetune_cls
+
+    class Scorer(torch.nn.Module):
+        dtype = torch.bfloat16
+
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(_t(w))
+
+        def forward(self, video):
+            return video.reshape(video.shape[0], -1).float() @ self.w
+
+    cfg = finetune_cls.env_defaults(TrainConfig().apply_overrides(cfg_args))
+    _, pairs, _ = finetune_cls.load_actions(cfg.data.label_map)
+    return finetune_cls.validate(cfg, Scorer(), pairs, dist.group.WORLD)
+
+
+def ema_checkpoint(rank, world, sd, opt, batch, out_dir):
+    """One classification step of the tiny VideoMAE finetune model with an
+    EMA at fsdp = world, then a checkpoint; returns (the EMA gathered whole
+    by ``full_tensor`` on every rank, whether it was sharded)."""
+    from avion_tpu_torch.core.checkpoint import Checkpointer
+    from avion_tpu_torch.core.config import OptimConfig
+    from avion_tpu_torch.core.train_state import TrainState
+    from avion_tpu_torch.optim.factory import build_optimizer
+    from avion_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from avion_tpu_torch.parallel.sharding import (Parallel, full_tensor,
+                                                   is_dtensor,
+                                                   make_global_batch,
+                                                   shard_model)
+    from avion_tpu_torch.train.steps import make_cls_train_step
+
+    model = entry_model("vmae_finetune")
+    model.load_state_dict(sd, strict=True)
+    mesh = make_mesh(data=1, fsdp=world)
+    shard_model(model, mesh)
+    optimizer, _ = build_optimizer(OptimConfig(**opt), model, NITER,
+                                   num_layers=2)
+    state = TrainState.create(model, optimizer, use_ema=True,
+                              parallel=Parallel(mesh, model))
+    with use_mesh(mesh):
+        state, _ = make_cls_train_step(model, ema_decay=0.9)(
+            state, make_global_batch(mesh, {k: _t(v)
+                                            for k, v in batch.items()}))
+    Checkpointer(out_dir).save(state.step, state)
+    return ({k: full_tensor(v).numpy() for k, v in state.ema.items()},
+            any(is_dtensor(v) for v in state.ema.values()))
