@@ -4,7 +4,8 @@ The port's own copy of ``avion_tpu.data.tokenizer``: byte->unicode remap,
 greedy lowest-rank pair merging over the 16e6 merge table,
 ``<|startoftext|>`` / ``<|endoftext|>`` specials, a fixed 77-token
 context with truncation that keeps EOT in the last slot, and the same
-deterministic subset of ``ftfy.fix_text``.  Output is numpy int32.
+deterministic subset of ``ftfy.fix_text``.  Output is numpy int32;
+``SimpleTokenizer.decode`` turns ids back into text.
 
 The JAX tokenizer pre-splits with the third-party ``regex`` package
 (``\\p{L}``, ``\\p{N}``, its own ``\\s``, IGNORECASE), which the GPU
@@ -178,6 +179,7 @@ def _pre_split(text: str) -> List[str]:
 class SimpleTokenizer:
     def __init__(self, bpe_path: str = _ASSET):
         self.byte_encoder = _byte_to_unicode()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         with gzip.open(bpe_path) as f:
             lines = f.read().decode("utf-8").split("\n")
         # first line is a version header; the table holds 48894 merges
@@ -187,6 +189,7 @@ class SimpleTokenizer:
         vocab += ["".join(m) for m in merges]
         vocab += [SOT_TOKEN, EOT_TOKEN]
         self.encoder = {tok: i for i, tok in enumerate(vocab)}
+        self.decoder = {i: tok for tok, i in self.encoder.items()}
         self.bpe_ranks = {m: i for i, m in enumerate(merges)}
         self.cache = {SOT_TOKEN: SOT_TOKEN, EOT_TOKEN: EOT_TOKEN}
         self.sot_token = self.encoder[SOT_TOKEN]
@@ -228,6 +231,12 @@ class SimpleTokenizer:
             mapped = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
             tokens.extend(self.encoder[t] for t in self._bpe(mapped).split(" "))
         return tokens
+
+    def decode(self, tokens) -> str:
+        """Ids back to text: each word's ``</w>`` becomes a space."""
+        text = "".join(self.decoder[int(t)] for t in tokens)
+        raw = bytearray(self.byte_decoder[c] for c in text)
+        return raw.decode("utf-8", errors="replace").replace("</w>", " ")
 
 
 @functools.lru_cache()

@@ -46,7 +46,8 @@ from avion_tpu_torch.eval.retrieval_metrics import get_map, get_ndcg
 
 # parameters consumed at f32 BEFORE the compute-dtype cast (positional,
 # temporal and token embeddings); rounding them early would change outputs
-_CAST_EXCLUDE = ("positional", "temporal", "token_embedding")
+_CAST_EXCLUDE = ("positional", "temporal", "token_embedding", "pos_embed",
+                 "wte", "wpe")
 
 
 def cast_inference_params(model: torch.nn.Module) -> torch.nn.Module:

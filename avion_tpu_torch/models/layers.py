@@ -37,6 +37,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from avion_tpu_torch.ops.attention import cached_decode_attention
 from avion_tpu_torch.ops.flash_attention import (FWD_LSE_OP, HOP_FWD_OP,
                                                  flash_attention_fused_qkv)
 from avion_tpu_torch.ops.ring_attention import ring_flash_attention_packed
@@ -85,17 +86,19 @@ def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with f32 reductions regardless of input dtype."""
+    """LayerNorm with f32 reductions regardless of input dtype; the output
+    in ``dtype``."""
 
-    def __init__(self, width: int, dtype: torch.dtype):
+    def __init__(self, width: int, dtype: torch.dtype, eps: float = 1e-5):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(width))
         self.bias = nn.Parameter(torch.zeros(width))
         self.dtype = dtype
+        self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                         self.bias.float(), 1e-5)
+                         self.bias.float(), self.eps)
         return y.to(self.dtype)
 
 
@@ -135,6 +138,16 @@ class SelfAttention(nn.Module):
             o = flash_attention_fused_qkv(qkv, self.heads, x.shape[1],
                                           causal=self.causal)
         return dense(o, self.out_proj)
+
+    def decode_step(self, x1: torch.Tensor, pos: int, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor):
+        """KV-cached single-token causal attention for autoregressive
+        decoding (``ops.attention.cached_decode_attention``, plain f32).
+        ``x1``: [B, 1, W]; caches [B, L, W], written at ``pos`` in place.
+        Returns (out [B, 1, W] in ``x1``'s dtype, k_cache, v_cache)."""
+        o, k_cache, v_cache = cached_decode_attention(
+            dense(x1, self.Wqkv), pos, k_cache, v_cache, self.heads)
+        return dense(o.to(x1.dtype), self.out_proj), k_cache, v_cache
 
 
 def drop_path(y: torch.Tensor, keep: Optional[torch.Tensor],

@@ -22,8 +22,9 @@ The port's state-dict keys ARE the reference layout that
 JAX finetune merges with ``strict=False`` and would start the classifier
 from random weights).  :func:`import_videomae_pt` reads the VideoMAE
 finetune layout (``blocks.N.*``) into the port's ``FinetuneVideoMAE``
-names, and :func:`params_from_jax` also carries the flax VideoMAE and
-``VideoClassifier`` trees across.
+names, and :func:`params_from_jax` also carries the flax VideoMAE,
+``VideoClassifier``, ``VCLM`` and ``LavilaNarrator`` trees across (the
+released LaViLa file itself goes through ``models.lavila_import``).
 """
 
 from __future__ import annotations
@@ -208,14 +209,20 @@ def _videomae_param(parts, val, sd: Dict[str, torch.Tensor]) -> None:
 
 
 def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A flax CLIP, VideoMAE or ``VideoClassifier`` parameter tree (nested
-    dicts of arrays) -> the port's state dict, with the names and layouts
-    ``export_clip_to_pt`` writes: dense kernels [in, out] become weights
-    [out, in], the patchify kernel [(p p C), width] becomes conv1
-    [width, C, p, p] (VideoMAE's tube embed stays a dense weight); the
-    classifier's ``vision`` tower becomes ``visual``.  Every leaf is
-    carried (``logit_scale``, ``logit_bias``, LayerScale's ``gamma``); one
-    it does not know raises ``KeyError``."""
+    """A flax CLIP, VideoMAE, ``VideoClassifier``, ``VCLM`` or
+    ``LavilaNarrator`` parameter tree (nested dicts of arrays) -> the
+    port's state dict, with the names and layouts ``export_clip_to_pt``
+    writes: dense kernels [in, out] become weights [out, in], the patchify
+    kernel [(p p C), width] becomes conv1 [width, C, p, p] (VideoMAE's tube
+    embed stays a dense weight); the classifier's ``vision`` tower becomes
+    ``visual``.  The narrators go through :func:`_vclm_from_jax` and
+    :func:`_lavila_from_jax`.  Every leaf is carried (``logit_scale``,
+    ``logit_bias``, LayerScale's ``gamma``); one it does not know raises
+    ``KeyError``."""
+    if "text_decoder" in flax_params:
+        return _lavila_from_jax(flax_params)
+    if "visual_proj" in flax_params:
+        return _vclm_from_jax(flax_params)
     sd: Dict[str, torch.Tensor] = {}
     for key, val in _flatten(flax_params).items():
         parts = key.split("/")
@@ -252,6 +259,87 @@ def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                          rest[2:], val, sd)
         else:
             raise KeyError(f"unknown CLIP parameter {key!r}")
+    return sd
+
+
+def _leaf_name(parts, val, transpose: bool = True):
+    """(the port's name, value) of a generic flax leaf below ``parts[:-1]``:
+    a dense ``kernel`` becomes ``weight`` (transposed unless
+    ``transpose`` is false: HF's Conv1D keeps [in, out]), a LayerNorm's
+    ``scale`` ``weight``, an ``embedding`` table ``weight``."""
+    *mods, leaf = parts
+    raw = _raw(val)
+    if leaf == "kernel":
+        return ".".join(mods + ["weight"]), (raw.T.contiguous() if transpose
+                                             else raw)
+    if leaf in ("scale", "embedding"):
+        return ".".join(mods + ["weight"]), raw
+    return ".".join(parts), raw
+
+
+_VCLM_RENAMES = {"qkv": "Wqkv"}
+
+
+def _vclm_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``VCLM`` tree: the visual tower as a CLIP's, ``block_{i}`` as
+    ``blocks.{i}``, the layers' ``LayerNorm`` wrapper (``ln_1/norm``) as
+    ``ln_1``, ``attn/qkv`` as ``attn.Wqkv``."""
+    sd = params_from_jax({"visual": flax_params["visual"]})
+    for key, val in _flatten(flax_params).items():
+        parts = key.split("/")
+        if parts[0] == "visual":
+            continue
+        names = []
+        for p in parts:
+            m = re.fullmatch(r"block_(\d+)", p)
+            names += ["blocks", m.group(1)] if m else [_VCLM_RENAMES.get(p, p)]
+        if len(names) > 2 and names[-2] == "norm":
+            del names[-2]
+        name, value = _leaf_name(names, val)
+        sd[name] = value.reshape(()) if name.endswith("_gate") else value
+    return sd
+
+
+def _lavila_from_jax(flax_params: Mapping[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+    """A flax ``LavilaNarrator`` tree in the released layout's names and
+    shapes (``models.lavila``): the patchify kernel as the Conv2d weight
+    [D, C, p, p] (channel-first), the tables with their leading 1, the
+    decoder under ``text_decoder.transformer`` with its Conv1D kernels
+    [in, out] as they are, ``blocks_{i}`` / ``h_{i}`` as ``blocks.{i}`` /
+    ``h.{i}``, ``mlp_fc1`` as ``mlp.fc1``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, val in _flatten(flax_params).items():
+        parts = key.split("/")
+        raw = _raw(val)
+        if parts[:2] == ["visual", "patch_embed"]:
+            if parts[2] == "kernel":  # [(C p p), D]
+                w = raw.T
+                p = int(round((w.shape[1] // 3) ** 0.5))
+                raw = w.reshape(w.shape[0], 3, p, p).contiguous()
+            sd[f"visual.patch_embed.proj.{parts[2].replace('kernel', 'weight')}"] = raw
+            continue
+        if parts[0] == "visual" and parts[1] in ("cls_token", "pos_embed",
+                                                 "temporal_embed"):
+            sd[f"visual.{parts[1]}"] = raw.reshape(1, -1, raw.shape[-1])
+            continue
+        names = []
+        for p in parts:
+            m = re.fullmatch(r"(blocks|h)_(\d+)", p)
+            if m:
+                names += [m.group(1), m.group(2)]
+            elif p.startswith("mlp_fc"):
+                names += ["mlp", p[len("mlp_"):]]
+            else:
+                names.append(p)
+        if names[0] == "text_decoder":
+            names.insert(1, "transformer")
+            if names[2] in ("wte", "wpe"):
+                sd[".".join(names) + ".weight"] = raw
+                continue
+        name, value = _leaf_name(names, val,
+                                 transpose=names[0] != "text_decoder")
+        sd[name] = value.reshape(()) if "alpha_" in name else value
     return sd
 
 

@@ -1,7 +1,7 @@
 """Model registry: name -> factory (``avion_tpu.models.registry``).
 
-The CLIP and VideoMAE entries of the JAX registry, with the same names and
-factory keyword arguments.  The VideoMAE factories, as the JAX ones, take
+The CLIP, VideoMAE and narrator entries of the JAX registry, with the same
+names and factory keyword arguments.  The VideoMAE factories, as the JAX ones, take
 and ignore keywords they have no use for.  ``use_flash_attn`` is accepted and ignored: attention
 always goes through ``ops.flash_attention``, which runs the CUDA kernels
 for CUDA tensors.  ``sequence_parallel`` builds the ring-attention visual
@@ -18,6 +18,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from avion_tpu_torch.models.clip import CLIP
+from avion_tpu_torch.models.lavila import LavilaNarrator
+from avion_tpu_torch.models.narrator import VCLM
 from avion_tpu_torch.models.videomae import FinetuneVideoMAE, PretrainVideoMAE
 
 _REGISTRY: Dict[str, Callable] = {}
@@ -183,3 +185,52 @@ def _videomae_vitb16_ft(num_frames: int = 16, num_classes: int = 400,
         remat=use_grad_checkpointing, remat_policy=remat_policy,
         drop_path_rate=drop_path_rate, fc_drop_rate=fc_drop_rate,
         dtype=dtype if dtype is not None else torch.bfloat16)
+
+
+@register_model("VCLM_VITB16")
+def _vclm_vitb16(num_frames: int = 4, use_flash_attn: bool = True,
+                 cross_every: int = 2, dtype=None, pipeline: bool = False,
+                 pipeline_microbatches: int = 8,
+                 pipeline_remat: bool = False, vision_heads: int = 12,
+                 heads: int = 8, **_unused):
+    """Narrator VCLM: ViT-B/16 video tokens and a gated-cross-attention
+    causal decoder (12 x 512, 8 heads).  ``vision_heads`` / ``heads`` give
+    the head_dim-128 geometry (6 / 4) for narrators trained from scratch.
+    The pipelined decoder raises."""
+    del use_flash_attn, pipeline_microbatches, pipeline_remat
+    if pipeline:
+        raise NotImplementedError(
+            "pipeline=True is not in the PyTorch port yet (ROADMAP.md, "
+            "Queue 1 item 13)")
+    return VCLM(vocab_size=49408, context_length=77, width=512, layers=12,
+                heads=heads, cross_every=cross_every, image_size=224,
+                patch_size=16, num_frames=num_frames, vision_width=768,
+                vision_layers=12, vision_heads=vision_heads,
+                dtype=dtype if dtype is not None else torch.bfloat16)
+
+
+@register_model("VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL")
+def _lavila_narrator_xl(num_frames: int = 4, gated_xattn: bool = True,
+                        dtype=None, **_unused):
+    """The released LaViLa narrator: TimeSformer-L at 336 px and gated
+    GPT-2 XL, cross-attention every 3rd block (weights through
+    ``models.lavila_import``)."""
+    return LavilaNarrator(
+        image_size=336, patch_size=14, num_frames=num_frames,
+        vision_width=1024, vision_layers=24, vision_heads=16,
+        vocab_size=50257, text_width=1600, text_layers=48, text_heads=25,
+        cross_freq=3, gated_xattn=gated_xattn,
+        dtype=dtype if dtype is not None else torch.bfloat16)
+
+
+@register_model("LAVILA_NARRATOR_TINY")
+def _lavila_narrator_tiny(num_frames: int = 2, gated_xattn: bool = True,
+                          dtype=None, **_unused):
+    """Miniature narrator for tests (not in the reference)."""
+    return LavilaNarrator(
+        image_size=32, patch_size=16, num_frames=num_frames,
+        vision_width=48, vision_layers=2, vision_heads=2,
+        vocab_size=96, text_width=32, text_layers=3, text_heads=2,
+        cross_freq=3, gated_xattn=gated_xattn, num_img_queries=8,
+        pool_heads=2, pool_dim_head=16,
+        dtype=dtype if dtype is not None else torch.float32)

@@ -51,10 +51,12 @@ import torch.distributed as dist
 from avion_tpu_torch.optim.schedules import cosine_schedule
 from avion_tpu_torch.parallel.sharding import is_dtensor, local, shard_like
 
+# the JAX package's tokens, and ``cls_token``: the released TimeSformer
+# layout stores it [1, 1, D], where the flax parameter is [D] (ndim 1)
 _NO_WD_TOKENS = (
     "bias", "norm", "ln_", "positional_embedding", "temporal_embedding",
     "class_embedding", "logit_scale", "token_embedding", "mask_token",
-    "gamma", "fc_norm",
+    "gamma", "fc_norm", "cls_token",
 )
 
 

@@ -14,16 +14,26 @@ Endpoints (JSON in/out):
 - ``POST /v1/classify`` ``{"labels": [...], "frames_b64": ...}`` →
   zero-shot class probabilities (template-ensemble classifier, cached
   per label set)
+- ``POST /v1/narrate`` ``{"frames_b64": ..., "shape": [N,T,H,W,3]}`` →
+  generated narrations per clip (with ``--narrator-checkpoint``: the
+  LaViLa narrator, ``--narrator-model``, from a released ``.pt``, with
+  KV-cached decoding, one clip at a time)
 
 Not in this port yet: ``paths`` input with server-side decode (answered
-with a 400), ``/v1/narrate``, ``--mesh``, ``--weights int8`` and orbax
-checkpoint directories.
+with a 400), ``--mesh``, ``--weights int8`` and orbax checkpoint
+directories.
 
 Start::
 
     python -m avion_tpu_torch.serve model.name=CLIP_VITB16 \\
         data.clip_length=4 pretrain_model=<ckpt.pt> --port 8080 \\
-        [--host 0.0.0.0] [--weights bf16|f32] [--device cuda|cuda:N|cpu]
+        [--host 0.0.0.0] [--weights bf16|f32] [--device cuda|cuda:N|cpu] \\
+        [--narrator-checkpoint <narrator.pt> --narrator-model \\
+         VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL]
+
+The narrator decodes its generations with GPT-2's tokenizer
+(``tools.narrator.gpt2_tokenizer``: ``transformers`` and its ``gpt2``
+vocabulary must be installed).
 
 It serves on CUDA unless ``--device cpu`` is given, and raises when CUDA
 is missing.
@@ -44,7 +54,7 @@ import torch
 from avion_tpu_torch.parallel.launch import resolve_device
 from avion_tpu_torch.serve.batcher import MicroBatcher
 
-_DEFERRED_FLAGS = ("--mesh", "--narrator-checkpoint", "--narrator-model")
+_DEFERRED_FLAGS = ("--mesh",)
 
 
 def clips_from_request(req: dict, clip_length: int,
@@ -63,6 +73,31 @@ def clips_from_request(req: dict, clip_length: int,
         raise ValueError("server-side decode of 'paths' is not in the "
                          "PyTorch port yet; send 'frames_b64'")
     raise ValueError("request needs 'frames_b64'")
+
+
+class NarrateService:
+    """The narration endpoint over any ``caption_fn(frames) -> [str]``
+    (``tools.narrator``'s captioners).  The batcher serializes the card
+    against concurrent requests, one clip at a time; generation batches
+    inside through ``num_samples``."""
+
+    def __init__(self, caption_fn, *, clip_length: int, image_size: int):
+        self.clip_length = clip_length
+        self.image_size = image_size
+        self.batcher = MicroBatcher(
+            lambda clips: [caption_fn(c) for c in clips],
+            max_batch=1, max_wait_ms=0.0, name="narrate")
+
+    def narrate(self, req: dict) -> dict:
+        clips = clips_from_request(req, self.clip_length, self.image_size)
+        futs = [self.batcher.submit(c) for c in clips]
+        return {"narrations": [f.result(timeout=600) for f in futs]}
+
+    def metrics(self) -> dict:
+        return self.batcher.metrics()
+
+    def close(self):
+        self.batcher.close()
 
 
 class ClipService:
@@ -180,9 +215,12 @@ class ClipService:
 
 
 def make_server(service: ClipService, port: int = 0,
-                host: str = "127.0.0.1") -> ThreadingHTTPServer:
+                host: str = "127.0.0.1",
+                narrate: Optional[NarrateService] = None
+                ) -> ThreadingHTTPServer:
     """Build (not start) the HTTP server; ``server.server_address[1]``
-    is the bound port (ephemeral when ``port=0``)."""
+    is the bound port (ephemeral when ``port=0``).  With ``narrate`` it
+    also answers ``/v1/narrate``."""
     device = service.encoders.device
     health = {"status": "ok",
               "platform": "gpu" if device.type == "cuda" else device.type,
@@ -206,7 +244,10 @@ def make_server(service: ClipService, port: int = 0,
             if self.path == "/health":
                 self._json(200, health)
             elif self.path == "/metrics":
-                self._json(200, service.metrics())
+                m = service.metrics()
+                if narrate is not None:
+                    m["narrate"] = narrate.metrics()
+                self._json(200, m)
             else:
                 self._json(404, {"error": f"no route {self.path}"})
 
@@ -216,6 +257,8 @@ def make_server(service: ClipService, port: int = 0,
                       "/v1/embed/video": service.embed_video,
                       "/v1/similarity": service.similarity,
                       "/v1/classify": service.classify}
+            if narrate is not None:
+                routes["/v1/narrate"] = narrate.narrate
             try:
                 req = json.loads(self.rfile.read(n) or b"{}")
                 if self.path not in routes:
@@ -266,6 +309,9 @@ def main(argv=None,
     port = int(_flag("--port", "8080"))
     host = _flag("--host", "127.0.0.1")
     weight_dtype = _flag("--weights", "bf16")
+    narrator_ckpt = _flag("--narrator-checkpoint")
+    narrator_name = _flag("--narrator-model",
+                          "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL")
     device = resolve_device(_flag("--device", "cuda"))
     cfg = TrainConfig().apply_overrides(argv)
     m = cfg.model
@@ -281,7 +327,20 @@ def main(argv=None,
     load_clip_checkpoint(model, cfg.pretrain_model)
     service = ClipService(model.to(device), batch=cfg.data.val_batch_size,
                           weight_dtype=weight_dtype)
-    server = make_server(service, port=port, host=host)
+    narrate = None
+    if narrator_ckpt:
+        from avion_tpu_torch.tools import narrator as narrator_tools
+
+        with torch.device("meta"):
+            nmodel = create_model(narrator_name,
+                                  num_frames=cfg.data.clip_length)
+        nmodel = nmodel.to_empty(device=device)
+        narrate = NarrateService(
+            narrator_tools.lavila_captioner(
+                narrator_ckpt, model=nmodel,
+                num_frames=cfg.data.clip_length),
+            clip_length=cfg.data.clip_length, image_size=nmodel.image_size)
+    server = make_server(service, port=port, host=host, narrate=narrate)
     print(f"serving {m.name} on {device} at :{server.server_address[1]}",
           flush=True)
     try:
@@ -291,6 +350,8 @@ def main(argv=None,
     finally:
         server.server_close()
         service.close()
+        if narrate is not None:
+            narrate.close()
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ batches, then through the training entry on decoded video, evaluate it
 zero-shot on the five suites, pretrain and finetune VideoMAE ViT-B/16,
 finetune CLIP ViT-B/16 at 16 frames for EK100 retrieval and action
 classification, and train CLIP ViT-L/14 at the global batch 896 through
-cached gradient accumulation, SigLIP and bf16 optimizer state.
+cached gradient accumulation, SigLIP and bf16 optimizer state, and train,
+run and serve the narrators (the VCLM and LaViLa's).
 
     python3 chip_smoke.py
 
@@ -123,7 +124,7 @@ Phases (each raises on failure; the script then exits non-zero):
    ``scripts/examples/pretrain_vitb_ego4d.sh`` with ``CLIP_VITL14`` at the
    global batch 896 (``docs/TRAINING.md``) as 8 cached microbatches of
    112 with bf16 AdamW state, through ``pretrain_clip.
-   build_model_and_state``, ``make_step`` and ``train.loop``: 3 seeded
+   build_model_and_state``, ``make_step`` and ``train.loop``: 2 seeded
    steps (288 ``flash_fwd``, 288 forward-with-lse, 96 combined, 192 dq and
    192 dkv launches a step), a profiled step, p50, clips/s, share of 989
    TFLOP/s, peak memory; (c) 4 cached microbatches against one step at
@@ -156,7 +157,37 @@ Phases (each raises on failure; the script then exits non-zero):
    ``videomae_finetune.main`` at ViT-B/16, 16 frames, batch 8, 2 steps,
    on the finetune and VideoMAE phases' layouts and checkpoints
    (``mesh.data=1 mesh.fsdp=1``): the logged losses, the final parameters
-   (and EMA) bit for bit, every backward on the split kernels.
+   (and EMA) bit for bit, every backward on the split kernels;
+13. narrator: the kernels at the head_dim-128 decoder's (77, 4 x 128,
+   causal) and the generation decoder's (30, 8 x 64, causal, forward
+   only) shapes; (a) seeded ``VCLM_VITB16`` training (ViT-B/16 at 4
+   frames, a 12 x 512 causal decoder with gated cross-attention on every
+   2nd block) through ``train_narrator.build_model_and_state``,
+   ``make_narrator_step`` and ``train.loop``: the config's batch 256 as 2
+   calls of 128 averaged by ``optim.accum=multistep`` (one call of 256
+   keeps more activations than the card holds), 8 calls on 3 seeded
+   batches (24 forward-with-lse and 24 combined launches a call: 12 each
+   from the visual tower and 12 from the decoder), p50, clips/s, peak
+   memory, a profiled step, the activation bytes a clip keeps; (c) a batch-2 step against the CPU in f32 (loss within
+   2%, gradient cosine >= 0.99) and an exact resume; (b) 2 steps at batch
+   32 under the deterministic flag, twice from one state: split launches
+   only, parameters bit for bit; (e) ``tools.narrator.narrate_video`` with
+   ``vclm_captioner`` (bf16 copy, 3 samples of 30 tokens) over one 15 s
+   chunk of the data phase's layout: 12 ``flash_fwd`` a generation and
+   none in the cached decoder, windows a second, and one generation's
+   cached logits against a teacher-forced ``decode`` of its tokens (the
+   causal inference kernel; max abs error within 0.15 and RMS error
+   within 0.02 of the logits' RMS); (d) ``train_narrator.main`` on the
+   layout's first 128 rows at batch 64, 2 steps (p50, data wait, decode
+   ms a clip), and a second ``main`` that restores and trains no step;
+   (f) the LaViLa narrator ``VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL``
+   at full width (2.45 B parameters, seeded random weights, gates
+   opened, bf16 inference copy, an ids-only tokenizer) behind
+   ``serve.server.make_server(..., narrate=NarrateService(...))``: one
+   ``/v1/narrate`` of a 336 px clip (latency, tokens a second, peak
+   memory; no kernel launched), then a full-width twin with 2 vision
+   blocks and 3 decoder layers, teacher-forced, against the CPU in f32
+   (cosine >= 0.99).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -3108,7 +3139,7 @@ def phase_finetune(tmp: str, ckpt: str) -> dict:
 # 112 clips on each of 8 GPUs): on one card 8 cached microbatches of 112,
 # bf16 optimizer state
 CL_MODEL, CL_H128 = "CLIP_VITL14", "CLIP_VITL14_H128"
-CL_BATCH, CL_MICRO, CL_STEPS = 896, 8, 3
+CL_BATCH, CL_MICRO, CL_STEPS = 896, 8, 2
 CL_RECIPE = [*TRAIN_RECIPE, f"model.name={CL_MODEL}",
              f"data.batch_size={CL_BATCH}", f"optim.update_freq={CL_MICRO}",
              "optim.accum=cached", "optim.state_dtype=bfloat16"]
@@ -3828,6 +3859,493 @@ def phase_parallel(tmp: str, fixture: tuple) -> dict:
     return {"rows": rows, "ring": ring, "nccl": nccl, "entries": entries}
 
 
+# the narrator slice: VCLM_VITB16 (ViT-B/16 at 4 frames, 224 px, and a
+# 12 x 512 causal decoder with gated cross-attention on every 2nd block).
+# The config's batch 256 in one call keeps more activations than one card
+# holds (no remat: the JAX VCLM has none; phase (a) logs the bytes a clip);
+# it runs as 2 calls of 128 whose gradients optim.accum=multistep averages
+# into one update
+NR_MODEL = "VCLM_VITB16"
+NR_BATCH, NR_MICRO, NR_STEPS, NR_SEEDS = 256, 2, 8, 3
+NR_RECIPE = [f"model.name={NR_MODEL}", f"data.clip_length={FRAMES}",
+             f"data.crop_size={SIZE}",
+             f"data.batch_size={NR_BATCH // NR_MICRO}",
+             f"optim.update_freq={NR_MICRO}", "optim.accum=multistep",
+             "optim.optimizer=adamw", "optim.lr=3e-5", "optim.wd=0.01",
+             "optim.warmup_epochs=1", "optim.epochs=5",
+             "optim.grad_clip_norm=1.0", "print_freq=1"]
+NR_GATE = 0.5  # tanh gates opened, so the video reaches the loss
+NR_REF_BATCH, NR_DET_BATCH, NR_DET_STEPS = 2, 32, 2
+NR_DATA_BATCH, NR_DATA_STEPS = 64, 2
+NR_SAMPLES, NR_MAX_LEN, NR_WINDOW_S, NR_STRIDE_S = 3, 30, 4.0, 4.0
+# the cached decode's logits against a teacher-forced decode of the same
+# tokens, bf16: max abs and RMS error over the logits' RMS (0.046 and
+# 0.0053 on the CPU's plain path)
+NR_LOGIT_MAX_TOL, NR_LOGIT_RMS_TOL = 0.15, 0.02
+# the generation decoder (uncached: causal inference kernel) and the
+# head_dim-128 decoder (model.text_heads=4)
+NR_SHAPES = [("decoder H128", 77, 4, 128, True)]
+NR_GEN_SHAPES = [("decoder, generation", NR_MAX_LEN, 8, 64, True)]
+LV_MODEL, LV_SIZE = "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL", 336
+LV_TWIN = dict(vision_layers=2, text_layers=3)  # the CPU reference's depth
+NR_DEVICE = "cuda"
+
+
+def _open_gates(model) -> None:
+    """Every tanh gate of a narrator to NR_GATE."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("_gate", "alpha_cattn", "alpha_dense")):
+                p.fill_(NR_GATE)
+
+
+def _caption_batches(n: int, batch: int) -> list:
+    """Seeded batches in the caption dataset's contract: uint8 clips at
+    224 px and 77 token ids, SOT first, EOT, then padding."""
+    out = []
+    for seed in range(n):
+        rng = np.random.default_rng(100 + seed)
+        text = rng.integers(1, 49405, (batch, 77), dtype=np.int32)
+        text[:, 0] = 49406
+        ends = rng.integers(5, 77, batch)
+        text[np.arange(batch), ends] = 49407
+        text[np.arange(77)[None] > ends[:, None]] = 0
+        out.append({"video": rng.integers(0, 256, (batch, FRAMES, SIZE, SIZE,
+                                                   3), dtype=np.uint8),
+                    "text": text})
+    return out
+
+
+def _nr_step_launches(model, split: bool = False) -> dict:
+    """One narrator step's launches: a forward with lse and a backward for
+    every attention layer of the visual tower and of the decoder (both
+    take the combined backward: S 785 and 77 pad to 896 and 128)."""
+    layers = model.vision_layers + model.layers
+    names = ("flash_bwd_dq", "flash_bwd_dkv") if split else \
+        ("flash_bwd_combined",)
+    return {"flash_fwd_lse": layers, **{n: layers for n in names}}
+
+
+def _nr_flops(model, batch: int) -> float:
+    """6 x parameters x tokens of the visual tower and of the decoder (the
+    token table counts as the head's product only) plus 12 B H S^2 D per
+    self-attention layer and 12 B H S Sv D per cross-attention."""
+    v = model.visual
+    s_v = (v.positional_embedding.shape[0] - 1) * FRAMES + 1
+    s_t = model.context_length
+    vis = sum(p.numel() for p in v.parameters())
+    dec = sum(p.numel() for n, p in model.named_parameters()
+              if not n.startswith("visual."))
+    flops = 6 * vis * batch * s_v + 6 * dec * batch * s_t
+    flops += 12 * batch * s_v * s_v * v.width * model.vision_layers
+    flops += 12 * batch * s_t * s_t * model.width * model.layers
+    cross = sum(b.cross_attend for b in model.blocks)
+    return flops + 12 * batch * s_t * s_v * model.width * cross
+
+
+def _saved_bytes_per_clip(model, batch: dict) -> float:
+    """Bytes of the tensors one more clip makes the forward keep for the
+    backward (the caption loss at 2 clips less at 1; storages counted
+    once): what a batch costs in activation memory."""
+    def saved(n):
+        seen = {}
+
+        def pack(t):
+            storage = t.untyped_storage()
+            seen[storage.data_ptr()] = storage.nbytes()
+            return t
+
+        b = _to_device({k: v[:n] for k, v in batch.items()})
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            _caption_loss(model, b)
+        return sum(seen.values())
+
+    return float(saved(2) - saved(1))
+
+
+def _caption_loss(model, b: dict) -> torch.Tensor:
+    from avion_tpu_torch.models.narrator import caption_loss
+    from avion_tpu_torch.train.steps import prep_video
+
+    return caption_loss(model(prep_video(b["video"], dtype=model.dtype),
+                              b["text"].long()), b["text"])
+
+
+def _nr_seeded(tmp: str) -> dict:
+    """(a)-(c): seeded training through ``train_narrator.
+    build_model_and_state`` / ``make_narrator_step`` / ``train.loop``, a
+    profiled step, a step against the CPU, an exact resume, 2 steps under
+    the deterministic flag twice.  Returns the report and the resumed
+    model."""
+    from avion_tpu_torch.core.train_state import TrainState
+    from avion_tpu_torch.optim.factory import build_optimizer
+    from avion_tpu_torch.train.loop import save_epoch, setup_run
+    from avion_tpu_torch.train.train_narrator import (build_model,
+                                                      build_model_and_state,
+                                                      make_narrator_step)
+
+    out_dir = os.path.join(tmp, "narrator")
+    cfg = _train_config(out_dir, recipe=NR_RECIPE)
+    t0 = time.perf_counter()
+    model, opt, _ = build_model_and_state(cfg, NR_STEPS)
+    _open_gates(model)
+    run = setup_run(cfg, model, opt, make_narrator_step(model))
+    micro = cfg.data.batch_size
+    batches = _caption_batches(NR_SEEDS, micro)
+    log(f"== narrator (a): {cfg.model.name}, {FRAMES} frames, batch {NR_BATCH} "
+        f"as {NR_MICRO} calls of {micro} (optim.accum=multistep), AdamW, "
+        f"{NR_STEPS} calls over {NR_SEEDS} batches; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+        f"parameters, gates at {NR_GATE}; ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    per_step = _nr_step_launches(model)
+    res = _timed_epoch(run, [batches[i % NR_SEEDS] for i in range(NR_STEPS)])
+    report = _report_run("narrator (a)", res, micro, NR_STEPS, per_step,
+                         _nr_flops(model, micro))
+    report["updates"] = run.state.optimizer.count
+    if report["updates"] != NR_STEPS // NR_MICRO:
+        raise RuntimeError(f"narrator (a): {report['updates']} updates")
+    paths = {"narrator_seeded": res["launches"]}
+    report["profile"] = profile_step(run, _to_device(batches[0]))
+    per_clip = _saved_bytes_per_clip(model, batches[0])
+    report["saved_mib_a_clip"] = per_clip / 2 ** 20
+    log(f"narrator (a): the forward keeps {per_clip / 2 ** 20:.1f} MiB of "
+        f"activations a clip for the backward (no remat, as in JAX): "
+        f"{NR_BATCH * per_clip / 2 ** 30:.1f} GiB for {NR_BATCH} clips in "
+        f"one call, {micro * per_clip / 2 ** 30:.1f} GiB for {micro}")
+
+    # (c) one small step against the CPU in f32, then an exact resume
+    _reference_grads(model, build_model(cfg, torch.float32).to_empty(
+        device="cpu"), {k: v[:NR_REF_BATCH] for k, v in batches[1].items()},
+        _caption_loss, f"narrator (c) reference step at batch "
+        f"{NR_REF_BATCH}")
+    save_epoch(run, 0, res["summary"])
+    saved = {k: v.detach().clone() for k, v in
+             run.state.model.state_dict().items()}
+    saved_opt = run.state.optimizer.state_dict()
+    step = run.state.step
+    del run, model, opt
+    torch.cuda.empty_cache()
+    model, opt, _ = build_model_and_state(_train_config(
+        out_dir, "seed=1", recipe=NR_RECIPE), NR_STEPS)
+    run = setup_run(cfg, model, opt, make_narrator_step(model))
+    same = run.state.step == step and _same_state(run.state, saved,
+                                                  saved_opt)
+    log(f"narrator (c) checkpoint at step {step} restored into a model built "
+        f"from another seed: step, parameters and AdamW moments bit for "
+        f"bit: {same}")
+    if not same:
+        raise RuntimeError("narrator: the resume did not restore the state")
+    del run, opt, saved, saved_opt
+
+    # (b) two runs of NR_DET_STEPS steps under the flag from one state
+    small = [_to_device({k: v[:NR_DET_BATCH] for k, v in b.items()})
+             for b in batches[:NR_DET_STEPS]]
+    det_cfg = _train_config(out_dir, "optim.update_freq=1",
+                            recipe=NR_RECIPE)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(start)
+        state = TrainState.create(model, build_optimizer(
+            det_cfg.optim, model, NR_STEPS, num_layers=model.layers)[0])
+        step_fn = make_narrator_step(model)
+        torch.cuda.synchronize()
+        fa.reset_launches()  # (b)'s path, counted from here
+        with deterministic():
+            losses = []
+            for b in small:
+                state, m = step_fn(state, b)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+        runs.append((losses, dict(fa.launches), {
+            k: v.detach().clone() for k, v in model.state_dict().items()}))
+    want = {k: v * NR_DET_STEPS for k, v in
+            _nr_step_launches(model, split=True).items()}
+    same = runs[0][0] == runs[1][0] and all(
+        torch.equal(v, runs[1][2][k]) for k, v in runs[0][2].items())
+    log(f"narrator (b) {NR_DET_STEPS} steps at batch {NR_DET_BATCH} under "
+        f"the deterministic flag, twice from one state: losses "
+        f"{runs[0][0]} / {runs[1][0]}, launches {runs[0][1]} / {runs[1][1]} "
+        f"(want {want}), parameters bit for bit: {same}")
+    if not same or runs[0][1] != want or runs[1][1] != want:
+        raise RuntimeError("narrator (b): the flag's steps differ")
+    paths["narrator_deterministic"] = runs[0][1]
+    model.load_state_dict(start)
+    del runs, start, state
+    torch.cuda.empty_cache()
+    return {"report": report, "paths": paths, "model": model}
+
+
+def _nr_data(tmp: str, fixture: tuple) -> dict:
+    """(d): ``train_narrator.main`` on the data phase's Ego4D layout (its
+    first NR_DATA_BATCH x NR_DATA_STEPS rows) and a second ``main`` that
+    restores and trains no step."""
+    from avion_tpu_torch.core.config import TrainConfig
+    from avion_tpu_torch.train import train_narrator
+
+    root, meta = fixture
+    with open(meta, "rb") as f:
+        rows = pickle.load(f)[:NR_DATA_BATCH * NR_DATA_STEPS]
+    sub = os.path.join(tmp, "narrator_rows.pkl")
+    with open(sub, "wb") as f:
+        pickle.dump(rows, f)
+    out = os.path.join(tmp, "narrator_data")
+    args = [*NR_RECIPE, f"output_dir={out}", f"data.root={root}",
+            f"data.train_metadata={sub}",
+            f"data.batch_size={NR_DATA_BATCH}", "optim.update_freq=1",
+            f"data.num_workers={min(8, os.cpu_count() or 1)}",
+            "optim.epochs=1"]
+    cfg = TrainConfig().apply_overrides(args)
+    ds, _ = train_narrator.build_loader(cfg, 77)
+    ds[0]
+    t0 = time.perf_counter()
+    for i in range(1, 17):
+        ds[i % len(ds)]
+    decode_ms = (time.perf_counter() - t0) / 16 * 1e3
+    log(f"== narrator (d): train_narrator.main on the Ego4D layout, "
+        f"{len(rows)} rows, batch {NR_DATA_BATCH}; one caption item "
+        f"(decode, rrc crop, tokenize) in one process: {decode_ms:.3f} ms")
+    torch.cuda.synchronize()
+    fa.reset_launches()  # (d)'s main path, counted from here
+    t0 = time.perf_counter()
+    res = train_narrator.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    with torch.device("meta"):
+        want = {k: v * NR_DATA_STEPS for k, v in
+                _nr_step_launches(train_narrator.build_model(cfg)).items()}
+    recs = [r for r in _train_log(out) if "train/loss" in r]
+    losses = [r["train/loss"] for r in recs]
+    batch_ms = [r["perf/batch_time_win"] * 1e3 for r in recs]
+    data_ms = [r["perf/data_time_win"] * 1e3 for r in recs]
+    log(f"narrator (d): {res['steps']} steps, losses {losses}, launches "
+        f"{launches} (want {want}), decode backend {res['decode_backend']}, "
+        f"main() wall {wall:.2f} s, step ms {[round(x, 3) for x in batch_ms]}"
+        f", data wait ms {[round(x, 3) for x in data_ms]}")
+    if (res["steps"] != NR_DATA_STEPS or len(losses) != NR_DATA_STEPS
+            or not np.isfinite(losses).all() or launches != want):
+        raise RuntimeError("narrator (d): a data-fed step failed")
+    fa.reset_launches()
+    again = train_narrator.main(args)
+    if again["steps"] != 0 or again["step"] != res["step"] or fa.launches:
+        raise RuntimeError(f"narrator (d): the resume trained: {again}")
+    log(f"narrator (d): a second main restored step {again['step']} and "
+        f"trained no step")
+    return {"launches": launches, "report": {
+        "p50_ms": float(np.median(batch_ms[1:])),
+        "p50_data_ms": float(np.median(data_ms[1:])),
+        "first_step_ms": batch_ms[0], "decode_ms_a_clip": decode_ms}}
+
+
+def _nr_generate(model, fixture: tuple) -> dict:
+    """(e): ``tools.narrator.narrate_video`` with ``vclm_captioner`` (bf16
+    inference copy, NR_SAMPLES samples of NR_MAX_LEN tokens) on one 15 s
+    chunk of the layout; then one generation's cached per-step logits
+    against a teacher-forced ``decode`` of its tokens."""
+    from avion_tpu_torch.models.gpt2_gated import make_decode_cache
+    from avion_tpu_torch.models.narrator import nucleus_sample_step
+    from avion_tpu_torch.tools.narrator import narrate_video, vclm_captioner
+
+    root, _ = fixture
+    path = os.path.join(root, "vid0.mp4", "0.mp4")
+    cap = vclm_captioner(model, num_samples=NR_SAMPLES, max_len=NR_MAX_LEN)
+    clips = []
+
+    def counted(frames):
+        clips.append(frames)
+        return cap(frames)
+
+    torch.cuda.synchronize()
+    fa.reset_launches()  # (e)'s main path, counted from here
+    t0 = time.perf_counter()
+    rows = narrate_video(path, counted, window_sec=NR_WINDOW_S,
+                         stride_sec=NR_STRIDE_S, clip_length=FRAMES,
+                         crop_size=SIZE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    want = {"flash_fwd": model.vision_layers * len(clips) * NR_SAMPLES}
+    log(f"== narrator (e): narrate_video over a 15 s chunk: {len(clips)} "
+        f"windows of {NR_WINDOW_S} s every {NR_STRIDE_S} s, {len(rows)} rows "
+        f"after the dedup, {NR_SAMPLES} samples of {NR_MAX_LEN} tokens each; "
+        f"wall {wall:.2f} s, {len(clips) / wall:.3f} windows/s; launches "
+        f"{launches} (want {want}: the visual tower, none in the cached "
+        f"decoder); first row {rows[0]}")
+    if launches != want or not all(
+            len(r[2]) == NR_SAMPLES and all(isinstance(c, str) for c in r[2])
+            for r in rows):
+        raise RuntimeError("narrator (e): generation failed")
+    from avion_tpu_torch.data.transforms import normalize_video
+
+    video = normalize_video(torch.from_numpy(clips[0])[None].to(NR_DEVICE),
+                            dtype=model.dtype)
+    g = torch.Generator(device=NR_DEVICE).manual_seed(0)
+    with torch.inference_mode():
+        visual = model.encode_video(video)
+        cross = model.precompute_cross(visual)
+        kv = make_decode_cache(model.layers, 1, NR_MAX_LEN, model.width,
+                               model.dtype, NR_DEVICE)
+        tokens = torch.zeros(1, NR_MAX_LEN, dtype=torch.long,
+                             device=NR_DEVICE)
+        tokens[:, 0] = 49406
+        steps = []
+        for i in range(1, NR_MAX_LEN):
+            logits, kv = model.decode_one(tokens[:, i - 1:i], i - 1, kv,
+                                          cross)
+            steps.append(logits)
+            tokens[:, i] = nucleus_sample_step(g, logits)
+        fa.reset_launches()  # the uncached decode's path
+        full = model.decode(tokens, visual)[:, :-1]
+        torch.cuda.synchronize()
+        teacher = dict(fa.launches)
+        cached = torch.stack(steps, 1)
+        rms = full.pow(2).mean().sqrt().item()
+        max_err = (cached - full).abs().max().item() / rms
+        rms_err = (cached - full).pow(2).mean().sqrt().item() / rms
+    log(f"narrator (e) cached decode against the teacher-forced decode of "
+        f"its {NR_MAX_LEN} tokens: logits RMS {rms:.4f}, max abs error / RMS "
+        f"{max_err:.5f} (bound {NR_LOGIT_MAX_TOL}), RMS error / RMS "
+        f"{rms_err:.5f} (bound {NR_LOGIT_RMS_TOL}); the teacher-forced "
+        f"decoder's launches {teacher}")
+    if not (max_err <= NR_LOGIT_MAX_TOL and rms_err <= NR_LOGIT_RMS_TOL):
+        raise RuntimeError("narrator (e): cached logits disagree")
+    if teacher != {"flash_fwd": model.layers}:
+        raise RuntimeError(f"narrator (e): teacher-forced launches {teacher}")
+    return {"launches": launches, "teacher_forced": teacher, "report": {
+        "windows": len(clips), "windows_per_s": len(clips) / wall,
+        "wall_s": wall, "logit_max_err_over_rms": max_err,
+        "logit_rms_err_over_rms": rms_err}}
+
+
+class _IdsTokenizer:
+    """GPT-2's ids as text (its vocabulary is not in the repo)."""
+
+    eos_token_id = 50256
+
+    def decode(self, ids):
+        return " ".join(str(i) for i in ids)
+
+
+def _lavila(tmp: str) -> dict:
+    """(f): the LaViLa narrator at full width on the card (seeded random
+    weights, gates opened, bf16 inference copy) answering one
+    ``/v1/narrate`` of ``serve.server.make_server``; then a full-width twin
+    of LV_TWIN's depth, teacher-forced, against the CPU in f32."""
+    from avion_tpu_torch.models.lavila import LavilaNarrator
+    from avion_tpu_torch.models.pt_import import load_clip_checkpoint
+    from avion_tpu_torch.models.registry import create_model
+    from avion_tpu_torch.serve.server import (ClipService, NarrateService,
+                                              make_server,
+                                              serve_forever_in_thread)
+    from avion_tpu_torch.tools.narrator import lavila_captioner
+
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        xl = create_model(LV_MODEL, num_frames=FRAMES)
+    xl = xl.to_empty(device=NR_DEVICE)
+    xl.init_weights(torch.Generator(device=NR_DEVICE).manual_seed(0))
+    _open_gates(xl)
+    n_params = sum(p.numel() for p in xl.parameters())
+    clip = create_model(MODEL, num_frames=FRAMES)
+    load_clip_checkpoint(clip, os.path.join(tmp, "clip_vitb16_random.pt"))
+    service = ClipService(clip.to(NR_DEVICE), batch=32)
+    narrate = NarrateService(
+        lavila_captioner(model=xl, tokenizer=_IdsTokenizer(),
+                         num_frames=FRAMES),
+        clip_length=FRAMES, image_size=LV_SIZE)
+    server = make_server(service, port=0, narrate=narrate)
+    serve_forever_in_thread(server)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    log(f"== narrator (f): {LV_MODEL}, {n_params / 1e9:.3f} B parameters "
+        f"({sum(p.numel() * p.element_size() for p in xl.parameters()) / 2**30:.3f}"
+        f" GiB after the bf16 cast), served in {time.perf_counter() - t0:.1f} s")
+    try:
+        clips = np.random.default_rng(5).integers(
+            0, 256, (1, FRAMES, LV_SIZE, LV_SIZE, 3), dtype=np.uint8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()  # (f)'s path: LaViLa reaches no kernel
+        body, latency = _post(url, "/v1/narrate", _frames(clips))
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(fa.launches)
+        metrics = _get(url, "/metrics")["narrate"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        narrate.close()
+        service.close()
+    narrations = body.get("narrations", [])
+    tokens = sum(len(c.split()) for n in narrations for c in n)
+    log(f"narrator (f) one /v1/narrate of a {LV_SIZE} px clip: latency "
+        f"{latency:.3f} s, {tokens} tokens generated ({tokens / latency:.1f} "
+        f"tokens/s over 3 samples), peak memory "
+        f"allocated {peak / 2**30:.3f} GiB, launches {launches}, /metrics "
+        f"narrate requests {metrics.get('requests')}")
+    if (len(narrations) != 1 or len(narrations[0]) != 3 or launches
+            or not all(narrations[0])):
+        raise RuntimeError(f"narrator (f): bad answer {body}")
+    del xl, clip, service, narrate
+    torch.cuda.empty_cache()
+
+    # the twin: full widths, LV_TWIN's depth; card bf16 against CPU f32
+    kw = dict(num_frames=FRAMES, **LV_TWIN)
+    cpu = LavilaNarrator(dtype=torch.float32, **kw)
+    cpu.init_weights(torch.Generator().manual_seed(1))
+    _open_gates(cpu)
+    card = LavilaNarrator(dtype=torch.bfloat16, **kw)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(NR_DEVICE).eval()
+    rng = np.random.default_rng(6)
+    video = torch.from_numpy(rng.standard_normal(
+        (1, FRAMES, cpu.image_size, cpu.image_size, 3)).astype(np.float32))
+    text = torch.from_numpy(rng.integers(
+        0, cpu.text_decoder.transformer.wte.num_embeddings, (1, 16)))
+    with torch.inference_mode():
+        ref = cpu(video, text)["logits"].double()
+        got = card(video.to(NR_DEVICE),
+                   text.to(NR_DEVICE))["logits"].cpu().double()
+    cos = float((ref * got).sum() / (ref.norm() * got.norm()))
+    log(f"narrator (f) full-width twin ({LV_TWIN}) teacher-forced logits, "
+        f"card bf16 against CPU f32: cosine {cos:.6f} (bound 0.99)")
+    if not cos >= 0.99:
+        raise RuntimeError("narrator (f): the twin disagrees with the CPU")
+    return {"latency_s": latency, "tokens": tokens,
+            "tokens_per_s": tokens / latency, "peak_gib": peak / 2 ** 30,
+            "params": n_params, "twin_cosine": cos}
+
+
+def phase_narrator(tmp: str, fixture: tuple) -> dict:
+    """The narrator slice on one card: the kernels at its new shapes; (a)
+    seeded VCLM_VITB16 training, (b) the flag's split steps bit for bit,
+    (c) a step against the CPU and an exact resume, (d) ``train_narrator.
+    main`` on decoded video and its resume, (e) generation through
+    ``tools.narrator``, (f) LaViLa at full width behind ``/v1/narrate``.
+    Returns the launches by path and the kernels' rows."""
+    log("== narrator")
+    t_phase = time.perf_counter()
+    rows = _slice_kernel_rows(NR_SHAPES, 4, 128, 12, "the narrator's shapes")
+    gen_rows = _slice_kernel_rows(NR_GEN_SHAPES, NR_SAMPLES, NR_SAMPLES, 13,
+                                  "the narrator's generation",
+                                  forward_only=True)
+    for name in rows:
+        rows[name] += gen_rows[name]
+    seeded = _nr_seeded(tmp)
+    gen = _nr_generate(seeded.pop("model"), fixture)
+    torch.cuda.empty_cache()
+    data = _nr_data(tmp, fixture)
+    lavila = _lavila(tmp)
+    paths = {**seeded["paths"], "narrator_data": data["launches"],
+             "narrator_generate": gen["launches"],
+             "narrator_teacher_forced": gen["teacher_forced"]}
+    report = {"seeded": seeded["report"], "data": data["report"],
+              "generate": gen["report"], "lavila": lavila}
+    log("narrator summary " + json.dumps(report, default=float))
+    log(f"narrator phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "paths": paths}
+
+
 KERNEL_SOURCES = {
     "flash_fwd": ("flash_fwd.cu", 134), "flash_fwd_lse": ("flash_fwd.cu", 91),
     "flash_bwd_combined": ("flash_bwd.cu", 494),
@@ -3857,6 +4375,7 @@ def main() -> int:
         ft = phase_finetune(tmp, os.path.join(tmp, "clip_vitb16_random.pt"))
         cl = phase_contrastive(tmp, data["fixture"])
         par = phase_parallel(tmp, data["fixture"])
+        nar = phase_narrator(tmp, data["fixture"])
     # each kernel's launches from the path that drives it: serving, the
     # data-fed 4-frame main path (run A), and the data-fed MIR finetune at
     # 16 frames for the split kernels; every path's counts beside them
@@ -3872,11 +4391,13 @@ def main() -> int:
                **vmae["paths"], **ft["paths"], **cl["paths"],
                "parallel_ring": par["ring"], "parallel_nccl": par["nccl"],
                **{f"parallel_entry_{name}": counts
-                  for name, counts in par["entries"].items()}}
+                  for name, counts in par["entries"].items()},
+               **nar["paths"]}
     rows["flash_fwd"] += evals["checks"]
     for name in rows:
         rows[name] += vmae["rows"][name] + ft["rows"][name] + \
-            cl["rows"][name] + par["rows"].get(name, [])
+            cl["rows"][name] + par["rows"].get(name, []) + \
+            nar["rows"][name]
     kernels = []
     for name, (source, line) in KERNEL_SOURCES.items():
         head = rows[name][0]

@@ -59,7 +59,10 @@ def test_port_imports_nothing_of_jax():
                 "models.videomae", "data.rand_augment",
                 "train.augment_device", "train.videomae_pretrain",
                 "train.videomae_finetune", "train.finetune_mir",
-                "models.clip", "models.vit"):
+                "models.clip", "models.vit", "ops.attention",
+                "models.narrator", "models.timesformer",
+                "models.gpt2_gated", "models.lavila", "models.lavila_import",
+                "train.train_narrator", "tools.narrator"):
         assert f"avion_tpu_torch.{mod}" in modules
     script = _SCRIPT.format(blocked=BLOCKED, modules=modules, root=ROOT)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

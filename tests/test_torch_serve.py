@@ -141,8 +141,109 @@ def test_main_raises_without_cuda(monkeypatch):
         port_server.main(ARGV + ["pretrain_model=x.pt", "--device", "cuda:0"])
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--narrator-checkpoint"])
+@pytest.mark.parametrize("flag", ["--mesh"])
 def test_main_refuses_deferred_flags(flag):
     with pytest.raises(SystemExit, match="not in the PyTorch port"):
         port_server.main(ARGV + ["pretrain_model=x.pt", flag, "v",
                                  "--device", "cpu"])
+
+
+class FakeTok:
+    """An ids-only tokenizer (GPT-2's vocabulary is not in the repo)."""
+
+    eos_token_id = 1
+
+    def decode(self, ids):
+        return " ".join(f"w{i}" for i in ids)
+
+
+@pytest.fixture(scope="module")
+def narrate_servers(tmp_path_factory):
+    """The port's ``main`` with ``--narrator-checkpoint <tiny .pt>
+    --narrator-model LAVILA_NARRATOR_TINY`` (the fake tokenizer and
+    temperature 1e-6 injected into ``lavila_captioner``), and JAX's
+    ``NarrateService`` over the same file's import."""
+    import functools
+
+    from avion_tpu.models.lavila_import import import_lavila_narrator_pt
+    from avion_tpu.models.pt_import import merge_into_params
+    from avion_tpu.serve.server import NarrateService as JaxNarrateService
+    from avion_tpu.tools.narrator import lavila_captioner as jax_captioner
+    from avion_tpu_torch.models.pt_import import params_from_jax
+    from avion_tpu_torch.tools import narrator as narrator_tools
+
+    tmp = tmp_path_factory.mktemp("narrator")
+    jm = jax_create_model("LAVILA_NARRATOR_TINY", num_frames=FRAMES)
+    video = np.zeros((1, FRAMES, 32, 32, 3), np.float32)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), video,
+                              jnp.zeros((1, 6), jnp.int32))["params"]
+    rs = np.random.RandomState(1)
+    params = jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32)
+        + 0.05 * rs.standard_normal(np.shape(x)).astype(np.float32), params)
+    # the released layout: DDP's prefix, gamma-only pool norms
+    sd = params_from_jax(params)
+    for base in ("img_attn_pool.norm", "img_attn_pool.context_norm",
+                 "img_attn_pool_norm"):
+        sd[f"{base}.gamma"] = sd.pop(f"{base}.weight")
+        del sd[f"{base}.bias"]
+    pt = str(tmp / "narrator.pt")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}}, pt)
+    jparams = merge_into_params(params, import_lavila_narrator_pt(pt),
+                                strict=True)
+    kw = dict(tokenizer=FakeTok(), temperature=1e-6)
+    jax_narrate = JaxNarrateService(
+        jax_captioner(model=jm, params=jparams, num_frames=FRAMES, **kw),
+        clip_length=FRAMES, image_size=32)
+    jax_srv = jax_make_server(None, port=0, narrate=jax_narrate)
+    serve_forever_in_thread(jax_srv)
+
+    clip_ckpt = str(tmp / "clip_tiny.pt")
+    jclip = jax_create_model("CLIP_TINY", num_frames=FRAMES,
+                             project_embed_dim=32)
+    export_clip_to_pt(jax.jit(jclip.init)(
+        jax.random.PRNGKey(0), video, jnp.zeros((1, 77), jnp.int32))[
+            "params"], clip_ckpt)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(narrator_tools, "lavila_captioner",
+               functools.partial(narrator_tools.lavila_captioner, **kw))
+    ready = queue.Queue()
+    argv = ARGV + [f"pretrain_model={clip_ckpt}", "--port", "0",
+                   "--device", "cpu", "--narrator-checkpoint", pt,
+                   "--narrator-model", "LAVILA_NARRATOR_TINY"]
+    th = threading.Thread(target=port_server.main, args=(argv,),
+                          kwargs={"on_ready": ready.put}, daemon=True)
+    th.start()
+    port_srv = ready.get(timeout=120)
+    yield tuple(f"http://127.0.0.1:{s.server_address[1]}"
+                for s in (port_srv, jax_srv))
+    port_srv.shutdown()
+    th.join(timeout=30)
+    mp.undo()
+    assert not th.is_alive()
+    jax_srv.shutdown()
+    jax_narrate.close()
+
+
+def test_main_with_narrator_answers_narrate_as_jax(narrate_servers):
+    port_url, jax_url = narrate_servers
+    req = _frames(2, 5)
+    code, got = _post(port_url, "/v1/narrate", req)
+    assert code == 200
+    _, ref = _post(jax_url, "/v1/narrate", req)
+    assert got == ref
+    assert len(got["narrations"]) == 2
+    assert all(len(n) == 3 and all(isinstance(c, str) and c for c in n)
+               for n in got["narrations"])
+    code, m = _get(port_url, "/metrics")
+    assert code == 200 and m["narrate"]["requests"] == 2
+
+
+@pytest.mark.parametrize("req", [{"paths": ["clip.mp4"]},
+                                 {"frames_b64": "", "shape": [1, 5, 32, 32,
+                                                              3]}],
+                         ids=["paths", "shape"])
+def test_narrate_bad_requests(narrate_servers, req):
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(narrate_servers[0], "/v1/narrate", req)
+    assert e.value.code == 400

@@ -318,17 +318,26 @@ VMAE_PRETRAIN = dict(VMAE_GEOMETRY, encoder_width=64, encoder_layers=2,
                      decoder_heads=2, mask_ratio=0.5)
 VMAE_FINETUNE = dict(VMAE_GEOMETRY, width=64, layers=2, heads=2,
                      num_classes=5)
+# the narrator's VCLM: CLIP's vocabulary, so the embedding shards
+VCLM_TINY = dict(vocab_size=49408, context_length=16, width=32, layers=2,
+                 heads=2, cross_every=1, image_size=32, patch_size=16,
+                 num_frames=2, vision_width=32, vision_layers=2,
+                 vision_heads=2)
 
 
 def entry_model(kind):
     """The tiny f32 model of an entry: ``mir`` CLIP_TINY, ``cls`` the
     classifier on a 2-frame tower (5 classes), ``vmae_pretrain`` /
-    ``vmae_finetune`` the VideoMAE pair of ``test_torch_videomae_model``."""
+    ``vmae_finetune`` the VideoMAE pair of ``test_torch_videomae_model``,
+    ``narrator`` :data:`VCLM_TINY`."""
     from avion_tpu_torch.models import videomae as vm
     from avion_tpu_torch.models.clip import VideoClassifier
     from avion_tpu_torch.models.layers import quick_gelu
+    from avion_tpu_torch.models.narrator import VCLM
     from avion_tpu_torch.models.vit import VisionTransformer
 
+    if kind == "narrator":
+        return VCLM(**VCLM_TINY, dtype=torch.float32)
     if kind == "mir":
         from avion_tpu_torch.models.registry import create_model
 
@@ -372,6 +381,10 @@ def entry_step(rank, world, kind, sd, opt, batch, data, fsdp, ema_decay=None,
                                                 find_unused=kind == "mir"))
     if kind == "mir":
         step = steps.make_mir_finetune_step(model)
+    elif kind == "narrator":
+        from avion_tpu_torch.train.train_narrator import make_narrator_step
+
+        step = make_narrator_step(model)
     elif kind == "vmae_pretrain":
         step = steps.make_videomae_train_step(model)
     else:
