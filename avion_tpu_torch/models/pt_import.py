@@ -23,8 +23,10 @@ JAX finetune merges with ``strict=False`` and would start the classifier
 from random weights).  :func:`import_videomae_pt` reads the VideoMAE
 finetune layout (``blocks.N.*``) into the port's ``FinetuneVideoMAE``
 names, and :func:`params_from_jax` also carries the flax VideoMAE,
-``VideoClassifier``, ``VCLM`` and ``LavilaNarrator`` trees across (the
-released LaViLa file itself goes through ``models.lavila_import``).
+``VideoClassifier``, ``VCLM``, ``LavilaNarrator``, ``VSLNet`` and
+``FrozenInTime`` trees across (the released LaViLa file itself goes
+through ``models.lavila_import``, a released EgoVLP file through
+``egonlq.egovlp``).
 """
 
 from __future__ import annotations
@@ -209,8 +211,9 @@ def _videomae_param(parts, val, sd: Dict[str, torch.Tensor]) -> None:
 
 
 def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A flax CLIP, VideoMAE, ``VideoClassifier``, ``VCLM`` or
-    ``LavilaNarrator`` parameter tree (nested dicts of arrays) -> the
+    """A flax CLIP, VideoMAE, ``VideoClassifier``, ``VCLM``,
+    ``LavilaNarrator``, ``VSLNet`` or ``FrozenInTime`` parameter tree
+    (nested dicts of arrays) -> the
     port's state dict, with the names and layouts ``export_clip_to_pt``
     writes: dense kernels [in, out] become weights [out, in], the patchify
     kernel [(p p C), width] becomes conv1 [width, C, p, p] (VideoMAE's tube
@@ -223,6 +226,10 @@ def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         return _lavila_from_jax(flax_params)
     if "visual_proj" in flax_params:
         return _vclm_from_jax(flax_params)
+    if "video_affine" in flax_params:
+        return _vslnet_from_jax(flax_params)
+    if "video_model" in flax_params:
+        return _egovlp_from_jax(flax_params)
     sd: Dict[str, torch.Tensor] = {}
     for key, val in _flatten(flax_params).items():
         parts = key.split("/")
@@ -340,6 +347,85 @@ def _lavila_from_jax(flax_params: Mapping[str, Any]
         name, value = _leaf_name(names, val,
                                  transpose=names[0] != "text_decoder")
         sd[name] = value.reshape(()) if "alpha_" in name else value
+    return sd
+
+
+_VSLNET_TOP = ("video_affine", "query_affine", "feature_encoder",
+               "cq_attention", "cq_concat", "highlight", "predictor_encoder",
+               "start_ln", "end_ln", "start_fc1", "start_fc2", "end_fc1",
+               "end_fc2")
+_VSLNET_LEAVES = ("kernel", "bias", "scale", "embedding", "w4C", "w4Q",
+                  "w4mlu", "pool_weight")
+
+
+def _vslnet_from_jax(flax_params: Mapping[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+    """A flax ``VSLNet`` tree (``egonlq.vslnet``): the conv block's
+    ``ln_i`` / ``dw_i`` / ``pw_i`` as ``ln.i`` / ``dw.i`` / ``pw.i``, the
+    depthwise kernel [k, 1, C] as the ``Conv1d`` weight [C, 1, k], the
+    pointwise kernel [1, C, C] as a ``Linear`` weight, the positional
+    tables and the trilinear / pooling weights as they are."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, val in _flatten(flax_params).items():
+        parts = key.split("/")
+        if parts[0] not in _VSLNET_TOP or parts[-1] not in _VSLNET_LEAVES:
+            raise KeyError(f"unknown VSLNet parameter {key!r}")
+        names = []
+        for prev, p in zip([""] + parts, parts):
+            m = re.fullmatch(r"(ln|dw|pw)_(\d+)", p)
+            names += ([m.group(1), m.group(2)] if m and prev == "conv_block"
+                      else [p])
+        raw = _raw(val)
+        if parts[-1] == "kernel" and raw.dim() == 3:
+            w = raw.permute(2, 1, 0) if names[-3] == "dw" else raw[0].T
+            sd[".".join(names[:-1] + ["weight"])] = w.contiguous()
+            continue
+        name, value = _leaf_name(names, val)
+        sd[name] = value
+    return sd
+
+
+_ROBERTA_NAMES = {
+    "word_embeddings": "embeddings.word_embeddings",
+    "position_embeddings": "embeddings.position_embeddings",
+    "token_type_embeddings": "embeddings.token_type_embeddings",
+    "emb_ln": "embeddings.LayerNorm", "query": "attention.self.query",
+    "key": "attention.self.key", "value": "attention.self.value",
+    "attn_out": "attention.output.dense",
+    "attn_ln": "attention.output.LayerNorm",
+    "intermediate": "intermediate.dense", "output": "output.dense",
+    "out_ln": "output.LayerNorm"}
+_PROJ_INDEX = {"fc0": "0", "fc1": "2", "fc2": "4"}
+
+
+def _egovlp_from_jax(flax_params: Mapping[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+    """A flax ``FrozenInTime`` tree (``egonlq.egovlp``) in the released
+    EgoVLP layout's names: the video tower as LaViLa's
+    (:func:`_lavila_from_jax`) under ``video_model``, RoBERTa's
+    ``layer_i`` as HuggingFace's ``encoder.layer.i`` names, the
+    projections' ``fc0`` / ``fc1`` / ``fc2`` as ``0`` / ``2`` / ``4``."""
+    sd = {"video_model." + k[len("visual."):]: v for k, v in
+          _lavila_from_jax({"visual": flax_params["video_model"]}).items()}
+    for key, val in _flatten(flax_params).items():
+        parts = key.split("/")
+        if parts[0] == "video_model":
+            continue
+        if parts[0] == "text_model":
+            m = re.fullmatch(r"layer_(\d+)", parts[1])
+            mods = parts[2:-1] if m else parts[1:-1]
+            if len(mods) != 1 or mods[0] not in _ROBERTA_NAMES:
+                raise KeyError(f"unknown FrozenInTime parameter {key!r}")
+            base = (["text_model", "encoder", "layer", m.group(1)] if m
+                    else ["text_model"])
+            names = base + _ROBERTA_NAMES[mods[0]].split(".") + parts[-1:]
+        elif (parts[0] in ("vid_proj", "txt_proj") and len(parts) == 3
+              and parts[1] in _PROJ_INDEX):
+            names = [parts[0], _PROJ_INDEX[parts[1]], parts[2]]
+        else:
+            raise KeyError(f"unknown FrozenInTime parameter {key!r}")
+        name, value = _leaf_name(names, val)
+        sd[name] = value
     return sd
 
 

@@ -17,7 +17,7 @@ a [T, H, W, 3] uint8 clip:
 
 Sampling draws from a ``torch.Generator`` seeded with ``seed``.  The
 captioners run on CUDA unless they are given a model on the CPU (or
-``device="cpu"``).
+``device="cpu"``); without CUDA the default device raises.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import torch
 
 from avion_tpu_torch.data.sampling import get_frame_ids
 from avion_tpu_torch.data.video_reader import CropSpec, VideoReader
+from avion_tpu_torch.parallel.launch import resolve_device
 
 
 def narrate_video(
@@ -144,10 +145,13 @@ def vclm_captioner(model, *, num_samples: int = 3, max_len: int = 30,
 
 
 def hf_captioner(model_name: str = "Salesforce/blip2-opt-2.7b",
-                 num_samples: int = 3, device: str = "cpu"):
+                 num_samples: int = 3, device: str = "cuda"):
     """A ``caption_fn`` over a HuggingFace image-to-text checkpoint, on the
-    clip's middle frame (needs ``transformers`` and the weights on
-    disk)."""
+    clip's middle frame (needs ``transformers`` and the weights on disk),
+    on CUDA unless ``device="cpu"``: the device is resolved before
+    ``transformers`` is imported, so without CUDA it raises before it loads
+    anything."""
+    device = resolve_device(device)
     from transformers import pipeline  # gated import
 
     pipe = pipeline("image-to-text", model=model_name, device=device)
@@ -198,7 +202,6 @@ def lavila_captioner(checkpoint: Optional[str] = None, *,
 
     if model is None:
         from avion_tpu_torch.models.registry import create_model
-        from avion_tpu_torch.parallel.launch import resolve_device
 
         if not checkpoint:
             raise ValueError("need checkpoint=... or model=...")

@@ -5,8 +5,9 @@ batches, then through the training entry on decoded video, evaluate it
 zero-shot on the five suites, pretrain and finetune VideoMAE ViT-B/16,
 finetune CLIP ViT-B/16 at 16 frames for EK100 retrieval and action
 classification, and train CLIP ViT-L/14 at the global batch 896 through
-cached gradient accumulation, SigLIP and bf16 optimizer state, and train,
-run and serve the narrators (the VCLM and LaViLa's).
+cached gradient accumulation, SigLIP and bf16 optimizer state, train,
+run and serve the narrators (the VCLM and LaViLa's), and extract EgoNLQ
+features from a long video and train VSLNet on them.
 
     python3 chip_smoke.py
 
@@ -65,7 +66,7 @@ Phases (each raises on failure; the script then exits non-zero):
    CPU in f32 on one decoded batch (max abs error 1e-3); and a second
    ``main`` on run A's output that restores and trains no step;
 8. eval: seeded synthetic layouts of the five zero-shot suites (EK100
-   MIR with 512 clips, EK100 CLS, EGTEA, Charades-Ego, EgoMCQ; mp4v at
+   MIR with 256 clips, EK100 CLS, EGTEA, Charades-Ego, EgoMCQ; mp4v at
    512x288, 30 fps); (a) ``pretrain_clip.main`` with ``eval_freq=1`` and
    the MIR suite, two one-step epochs on the data phase's layout: metrics
    before training and after each epoch, ``is_best`` on the MIR mAP, the
@@ -187,7 +188,31 @@ Phases (each raises on failure; the script then exits non-zero):
    ``/v1/narrate`` of a 336 px clip (latency, tokens a second, peak
    memory; no kernel launched), then a full-width twin with 2 vision
    blocks and 3 decoder layers, teacher-forced, against the CPU in f32
-   (cosine >= 0.99).
+   (cosine >= 0.99);
+14. egonlq: the inference kernel at the extractor's shapes (32 windows of
+   785 tokens, 12 x 64; one query, 77 tokens, 8 x 64, causal); (a)
+   ``egonlq.extract_features.main`` at ``CLIP_VITB16``, 4 frames, batch
+   32, on a 240 s NLQ clip (mp4v at 512x288, 30 fps; an Ego4D NLQ clip is
+   480 s) with 64 queries in the official json schema: 120 windows in 4
+   batches, ``flash_fwd`` launches exactly 12 x 4 + 12 x 64, windows/s,
+   decode ms a window, ms a query, the idle share of one profiled window
+   batch, peak memory, features (120, 512) and (512,), 2 windows and 2
+   queries against the CPU in f32 (cosine >= 0.99); (b)
+   ``egonlq.train_nlq.main`` at the ``NLQConfig`` defaults on 1024
+   planted-span samples of the extractor's widths (``tests/
+   test_nlq_entry.py``'s generator), 2 epochs of 32 steps, evaluated on
+   256 of them after each epoch (R@1 / R@5 at IoU 0.3 / 0.5, mIoU, no
+   bound): p50 step, queries/s, data wait, the idle share of the last 2
+   steps with their batches, peak memory; then one epoch on (a)'s 64
+   extracted samples (the widths from the data); (c) one step at batch 8,
+   f32, drop 0, card against CPU (loss within 1e-3, gradient cosine >=
+   0.999) and a second ``main`` that restores and trains no step; (d)
+   ``extract_features.main --legacy`` with the full-width EgoVLP
+   FrozenInTime (TimeSformer ViT-B/16, RoBERTa-base, 4096-wide
+   projections, 312 M seeded random parameters in the released layout, a
+   made-up RoBERTa vocabulary): windows/s, ms a query, peak memory, no
+   kernel launched; a twin of 2 video blocks and 2 text layers, card f32
+   against CPU f32 (cosine >= 0.99).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -1015,12 +1040,13 @@ def _policy_forwards(tmp: str, policy: str, batch: dict) -> int:
     return fa.launches["flash_fwd_lse"]
 
 
-def _reference_grads(model_gpu, cpu, batch: dict, loss_fn,
-                     label: str) -> None:
+def _reference_grads(model_gpu, cpu, batch: dict, loss_fn, label: str,
+                     **bounds) -> None:
     """Loss and gradient of one batch on the card (bf16 compute, kernels)
     and on the CPU through the plain path in f32 (``cpu``: the same model
     built in f32 on the CPU), from the same weights; ``loss_fn(model,
-    batch on the model's device)`` gives the loss."""
+    batch on the model's device)`` gives the loss; ``bounds`` are
+    :func:`check_against_cpu`'s."""
     cpu.load_state_dict({k: v.cpu() for k, v in
                          model_gpu.state_dict().items()})
     results = []
@@ -1034,7 +1060,7 @@ def _reference_grads(model_gpu, cpu, batch: dict, loss_fn,
                  for n, p in model.named_parameters() if p.grad is not None}
         results.append((loss.item(), grads))
     model_gpu.zero_grad(set_to_none=True)
-    check_against_cpu(results, label)
+    check_against_cpu(results, label, **bounds)
 
 
 def _clip_loss(model, b: dict) -> torch.Tensor:
@@ -1047,10 +1073,11 @@ def _clip_loss(model, b: dict) -> torch.Tensor:
                      out["logit_scale"])["loss"]
 
 
-def check_against_cpu(results, label: str) -> None:
+def check_against_cpu(results, label: str, loss_tol: float = 2e-2,
+                      cos_tol: float = 0.99) -> None:
     """``results``: (loss, gradients by name) on the card, then on the CPU
-    in f32.  Relative loss difference at most 2e-2, cosine of the whole
-    gradient at least 0.99."""
+    in f32.  Relative loss difference at most ``loss_tol``, cosine of the
+    whole gradient at least ``cos_tol``."""
     (l_gpu, g_gpu), (l_cpu, g_cpu) = results
 
     def dots(a, b):  # f64: f32 sums over 1.5e8 terms drift past 1e-2
@@ -1066,10 +1093,10 @@ def check_against_cpu(results, label: str) -> None:
     worst = min(per, key=per.get)
     rel = abs(l_gpu - l_cpu) / abs(l_cpu)
     log(f"{label}: loss card {l_gpu:.6f}, CPU f32 {l_cpu:.6f}, relative "
-        f"difference {rel:.3e} (bound 2e-2); gradient cosine {cos:.6f} "
-        f"(bound 0.99); smallest per-tensor cosine {per[worst]:.6f} "
-        f"({worst})")
-    if not (rel <= 2e-2 and cos >= 0.99):
+        f"difference {rel:.3e} (bound {loss_tol}); gradient cosine "
+        f"{cos:.6f} (bound {cos_tol}); smallest per-tensor cosine "
+        f"{per[worst]:.6f} ({worst})")
+    if not (rel <= loss_tol and cos >= cos_tol):
         raise RuntimeError(f"{label}: the card disagrees with the CPU "
                            f"reference")
 
@@ -1392,7 +1419,8 @@ def _device_busy_ms(prof) -> float:
 
 
 class _ProfileLastSteps:
-    """Wraps the entry's ``make_clip_train_step`` so that the profiler
+    """Wraps an entry's step maker (``make_clip_train_step`` and the like)
+    so that the profiler
     covers the last ``window`` steps of the run together with the waits
     for their batches: it starts when the step before them returns and
     stops when the last returns.  Two steps: with ``prefetch_depth=2`` the batches land in
@@ -1402,14 +1430,14 @@ class _ProfileLastSteps:
         self.make_step, self.steps, self.window = make_step, steps, window
         self.prof, self.t0, self.wall_ms, self.busy_ms = None, 0.0, 0.0, 0.0
 
-    def __call__(self, model, **kwargs):
+    def __call__(self, *args, **kwargs):
         from torch.profiler import ProfilerActivity, profile
 
-        inner = self.make_step(model, **kwargs)
+        inner = self.make_step(*args, **kwargs)
         calls = [0]
 
-        def step(state, batch):
-            out = inner(state, batch)
+        def step(*step_args):
+            out = inner(*step_args)
             calls[0] += 1
             torch.cuda.synchronize()
             if calls[0] == self.steps - self.window:
@@ -1606,7 +1634,7 @@ def phase_data(tmp: str, echo_p50: float) -> dict:
 
 # the eval slice: seeded synthetic layouts of the five zero-shot suites in
 # their datasets' formats, at the data phase's 512x288 and 30 fps
-EVAL_SIZES = dict(mir_clips=512, egtea_clips=64,
+EVAL_SIZES = dict(mir_clips=256, egtea_clips=64,  # MIR: two batches of 128
                   charades_videos=32, charades_classes=24, mcq_items=64)
 EVAL_CLIP_S = 3  # seconds of each EGTEA clip and Charades-Ego video
 
@@ -4346,6 +4374,501 @@ def phase_narrator(tmp: str, fixture: tuple) -> dict:
     return {"rows": rows, "paths": paths}
 
 
+# the EgoNLQ slice: one NLQ clip (an Ego4D NLQ clip is 480 s; 240 s here,
+# for time) of 512x288 at 30 fps, and 64 queries in the official schema
+NLQ_VIDEO_S, NLQ_W, NLQ_H, NLQ_FPS, NLQ_QUERIES = 240, 512, 288, 30, 64
+NLQ_VDIM = NLQ_QDIM = 512  # CLIP_VITB16's embed_dim: both feature widths
+NLQ_WHERE = ("where did I put", "where was", "what did I do with",
+             "how many times did I touch", "in what location did I see",
+             "who handed me")
+
+
+def write_nlq_fixture(root: str, seed: int = 0, *,
+                      seconds: float = NLQ_VIDEO_S, w: int = NLQ_W,
+                      h: int = NLQ_H, fps: int = NLQ_FPS,
+                      queries: int = NLQ_QUERIES) -> str:
+    """``root/nlqvid0.mp4`` (mp4v, a seeded texture sliding one pixel a
+    frame) and an Ego4D NLQ json in the official schema (one video, one
+    clip from 0 to ``seconds``, ``queries`` language queries of varied
+    lengths with their spans); returns the json's path."""
+    rs = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    _write_chunk(os.path.join(root, "nlqvid0.mp4"), _canvas(rs, w, h), 0,
+                 int(seconds * fps), fps)
+    qs = []
+    for i in range(queries):
+        words = [NLQ_WHERE[rs.randint(len(NLQ_WHERE))],
+                 NOUNS[rs.randint(len(NOUNS))]]
+        for _ in range(i % 4):  # 0 to 3 more clauses
+            words += ["after I", VERBS[rs.randint(len(VERBS))],
+                      NOUNS[rs.randint(len(NOUNS))]]
+        length = float(rs.uniform(1.0, min(8.0, seconds / 2)))
+        start = float(rs.uniform(0.0, seconds - length))
+        qs.append({"query": " ".join(words) + "?", "clip_start_sec": start,
+                   "clip_end_sec": start + length})
+    ann = {"version": "v1", "videos": [{"video_uid": "nlqvid0", "clips": [{
+        "clip_uid": "nlqclip0", "video_start_sec": 0.0,
+        "video_end_sec": float(seconds),
+        "annotations": [{"annotation_uid": "a0",
+                         "language_queries": qs}]}]}]}
+    path = os.path.join(root, "nlq.json")
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path
+
+
+def write_nlq_features(root: str, n: int, seed: int, *, lv: int = 32,
+                       duration: float = 64.0, vdim: int = NLQ_VDIM,
+                       qdim: int = NLQ_QDIM) -> str:
+    """The planted-span generator of ``tests/test_nlq_entry.py``:
+    ``feat_<i>.npz`` whose rows inside the ground-truth span carry a shared
+    linear image of the query vector (a learnable correlation), and their
+    annotations; returns the json's path."""
+    rs = np.random.RandomState(seed)
+    proj = np.random.RandomState(7).randn(qdim, vdim).astype(np.float32)
+    videos = []
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        q = rs.randn(qdim).astype(np.float32)
+        q /= np.linalg.norm(q)
+        video = 0.3 * rs.randn(lv, vdim).astype(np.float32)
+        s = int(rs.randint(0, lv - 6))
+        e = s + int(rs.randint(2, 6))
+        video[s : e + 1] += q @ proj
+        scale = duration / lv
+        np.savez(os.path.join(root, f"feat_{i}.npz"), video=video, text=q)
+        videos.append({
+            "video_uid": f"v{i}",
+            "clips": [{
+                "clip_uid": f"c{i}", "video_start_sec": 0.0,
+                "video_end_sec": duration,
+                "annotations": [{"language_queries": [
+                    {"query": f"synthetic query {i}",
+                     "clip_start_sec": s * scale,
+                     "clip_end_sec": (e + 1) * scale},
+                ]}],
+            }],
+        })
+    path = os.path.join(root, f"nlq_{seed}.json")
+    with open(path, "w") as f:
+        json.dump({"videos": videos}, f)
+    return path
+
+
+NLQ_BATCH = 32  # extract_features' --batch default: windows a batch
+# the kernel at the extractor's shapes: a batch of 32 windows through the
+# visual tower (phase 3's first shape) and one query through the text tower
+NLQ_SHAPES = [("NLQ visual, 32 windows", 785, 12, 64, False)]
+NLQ_TEXT_SHAPES = [("NLQ text, one query", 77, 8, 64, True)]
+# (b): train_nlq.main at the NLQConfig defaults on NLQ_TRAIN planted-span
+# samples of the extractor's widths, 2 epochs of 32 steps; NLQ_VAL of them
+# evaluated after each epoch
+NLQ_TRAIN, NLQ_VAL, NLQ_EPOCHS = 1024, 256, 2
+NLQ_REF_BATCH = 8
+NLQ_LEGACY = {}  # (d)'s FrozenInTime keywords: the released geometry
+NLQ_TWIN = dict(layers=2, text_layers=2)  # (d)'s CPU reference depth
+NLQ_DEVICE = "cuda"
+
+
+def _cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                              * np.linalg.norm(b, axis=-1))
+
+
+def _nlq_extract(tmp: str, root: str, ann: str, ckpt: str) -> dict:
+    """(a): ``extract_features.main`` at CLIP_VITB16 over the NLQ clip; the
+    launches, rates and peak memory; one profiled window batch; 2 windows
+    and 2 queries against the CPU in f32."""
+    from avion_tpu_torch.egonlq import extract_features
+    from avion_tpu_torch.egonlq.features import FeatureExtractor
+    from avion_tpu_torch.egonlq.nlq_dataset import parse_nlq_annotations
+    from avion_tpu_torch.models.pt_import import load_clip_checkpoint
+    from avion_tpu_torch.models.registry import create_model
+
+    out = os.path.join(tmp, "nlq_features")
+    args = ["--ckpt", ckpt, "--model", MODEL, "--annotations", ann,
+            "--video-root", root, "--out", out, "--clip-length", str(FRAMES),
+            "--batch", str(NLQ_BATCH)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()  # (a)'s main path, counted from here
+    t0 = time.perf_counter()
+    stats = extract_features.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    samples = parse_nlq_annotations(ann)
+    windows = stats["windows"]
+    batches = -(-windows // NLQ_BATCH)
+    want = {"flash_fwd": LAYERS * batches + LAYERS * len(samples)}
+    feats = [np.load(os.path.join(out, f"feat_{i}.npz"))
+             for i in range(len(samples))]
+    report = {
+        "windows": windows, "queries": stats["queries"], "wall_s": wall,
+        "windows_per_s": windows / (stats["decode_s"] + stats["encode_s"]),
+        "encode_windows_per_s": windows / stats["encode_s"],
+        "decode_ms_a_window": stats["decode_s"] / windows * 1e3,
+        "ms_a_query": stats["text_s"] / stats["queries"] * 1e3,
+        "first_query_ms": stats["query_ms"][0],
+        "p50_query_ms": float(np.median(stats["query_ms"][1:])),
+        "peak_gib": peak / 2 ** 30}
+    log(f"== egonlq (a): extract_features.main, {MODEL} at {FRAMES} frames, "
+        f"a {NLQ_VIDEO_S} s clip at {NLQ_W}x{NLQ_H}: {windows} windows in "
+        f"{batches} batches of {NLQ_BATCH}, {len(samples)} queries; main() "
+        f"wall {wall:.2f} s; {report['windows_per_s']:.3f} windows/s "
+        f"(decode and encode), {report['encode_windows_per_s']:.3f} "
+        f"windows/s encoding alone, decode {report['decode_ms_a_window']:.3f}"
+        f" ms a window, {report['ms_a_query']:.3f} ms a query (the first "
+        f"{report['first_query_ms']:.3f} ms with the tokenizer's load, p50 "
+        f"of the rest {report['p50_query_ms']:.3f}), peak memory "
+        f"allocated {report['peak_gib']:.3f} GiB; launches {launches} (want "
+        f"{want}: {LAYERS} x {batches} visual + {LAYERS} x {len(samples)} "
+        f"text)")
+    if windows != NLQ_VIDEO_S // 2 or launches != want:
+        raise RuntimeError("egonlq (a): extraction went wrong")
+    if not all(f["video"].shape == (windows, NLQ_VDIM)
+               and f["text"].shape == (NLQ_QDIM,)
+               and np.isfinite(f["video"]).all()
+               and np.isfinite(f["text"]).all() for f in feats):
+        raise RuntimeError(f"egonlq (a): feature shapes "
+                           f"{feats[0]['video'].shape}, "
+                           f"{feats[0]['text'].shape}")
+
+    # one window batch profiled on the card's extractor
+    model = create_model(MODEL, num_frames=FRAMES)
+    load_clip_checkpoint(model, ckpt)
+    fx = FeatureExtractor(model.to(NLQ_DEVICE), clip_length=FRAMES,
+                          crop_size=model.image_size, batch=NLQ_BATCH)
+    clips = fx.decode_windows(os.path.join(root, "nlqvid0.mp4"))
+    report["profile"] = _profile_call(
+        lambda: fx.encode_windows(clips[:NLQ_BATCH]),
+        f"one batch of {NLQ_BATCH} windows (the host-to-device copy, both "
+        f"normalizations, the visual tower, the projection, the copy back)")
+    del fx, model
+    torch.cuda.empty_cache()
+
+    # 2 windows and 2 queries on the CPU in f32
+    cpu = create_model(MODEL, num_frames=FRAMES, dtype=torch.float32)
+    load_clip_checkpoint(cpu, ckpt)
+    ref = FeatureExtractor(cpu, clip_length=FRAMES,
+                           crop_size=cpu.image_size, batch=2)
+    v_cos = _cosines(feats[0]["video"][:2], ref.encode_windows(clips[:2]))
+    t_cos = _cosines(np.stack([f["text"] for f in feats[:2]]),
+                     np.concatenate([ref.text_features([s["query"]])
+                                     for s in samples[:2]]))
+    report["cpu_cosines"] = [*v_cos.tolist(), *t_cos.tolist()]
+    log(f"egonlq (a) the card's features (bf16) against the CPU's (f32): "
+        f"window cosines {v_cos.tolist()}, query cosines {t_cos.tolist()} "
+        f"(bound 0.99)")
+    if not (v_cos.min() >= 0.99 and t_cos.min() >= 0.99):
+        raise RuntimeError("egonlq (a): the card disagrees with the CPU")
+    return {"launches": launches, "report": report, "out": out,
+            "clips": clips[:2], "samples": samples}
+
+
+def _profile_call(fn, what: str) -> dict:
+    """Wall, device busy (the union of the device's intervals) and idle
+    share of one call of ``fn`` (synchronized), with the device time by
+    kind; empty when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = _device_busy_ms(prof)
+    if not busy:
+        log(f"profile of {what}: the profiler saw no device time (not "
+            f"measured)")
+        return {}
+    log(f"profile of {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+        f"idle share {1 - busy / wall:.4f}; device time by kind:")
+    log_device_time(_device_ms_by_name(prof), top=8)
+    return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall}
+
+
+def _nlq_args(out: str, ann: str, feats: str, *extra: str) -> list:
+    return [f"annotations={ann}", f"feature_dir={feats}", f"output_dir={out}",
+            "print_freq=1", *extra]
+
+
+def _nlq_train(tmp: str, ext: dict, ann_a: str) -> dict:
+    """(b) ``train_nlq.main`` at the NLQConfig defaults on planted-span
+    features of the extractor's widths, evaluated; one epoch on (a)'s
+    extracted samples; (c) one step against the CPU and a resume that
+    trains no step."""
+    from avion_tpu_torch.egonlq import train_nlq
+
+    feats = os.path.join(tmp, "nlq_planted")
+    ann = write_nlq_features(feats, NLQ_TRAIN, seed=0, lv=NLQ_VIDEO_S // 2,
+                             duration=float(NLQ_VIDEO_S), vdim=NLQ_VDIM,
+                             qdim=NLQ_QDIM)
+    with open(ann) as f:
+        data = json.load(f)
+    val = os.path.join(feats, "nlq_val.json")
+    with open(val, "w") as f:
+        json.dump({"videos": data["videos"][:NLQ_VAL]}, f)
+    out = os.path.join(tmp, "nlq_train")
+    cfg = train_nlq.NLQConfig()
+    steps = NLQ_TRAIN // cfg.batch_size * NLQ_EPOCHS
+    args = _nlq_args(out, ann, feats, f"val_annotations={val}",
+                     f"epochs={NLQ_EPOCHS}")
+    profiler = _ProfileLastSteps(train_nlq.make_train_step, steps)
+    train_nlq.make_train_step = profiler
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_nlq.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train_nlq.make_train_step = profiler.make_step
+    peak = torch.cuda.max_memory_allocated()
+    recs = _train_log(out)
+    losses = [r["train/loss"] for r in recs if "train/loss" in r]
+    batch_ms = np.array([r["perf/batch_time_win"] * 1e3 for r in recs
+                         if "train/loss" in r])
+    data_ms = np.array([r["perf/data_time_win"] * 1e3 for r in recs
+                        if "train/loss" in r])
+    vals = [{k[4:]: v for k, v in r.items() if k.startswith("val/")}
+            for r in recs if any(k.startswith("val/") for k in r)]
+    p50 = float(np.median(batch_ms[2:]))
+    report = {
+        "steps": res["step"], "p50_ms": p50,
+        "queries_per_s": cfg.batch_size / p50 * 1e3,
+        "p50_data_ms": float(np.median(data_ms[2:])),
+        "idle_share": (1 - profiler.busy_ms / profiler.wall_ms
+                       if profiler.busy_ms else None),
+        "peak_gib": peak / 2 ** 30, "wall_s": wall, "val": vals}
+    log(f"== egonlq (b): train_nlq.main at the NLQConfig defaults (dim "
+        f"{cfg.dim}, {cfg.num_heads} heads, max_pos_len {cfg.max_pos_len}, "
+        f"drop {cfg.drop_rate}, lr {cfg.lr}, batch {cfg.batch_size}, "
+        f"{cfg.variant}) on {NLQ_TRAIN} planted-span samples ({NLQ_VDIM} "
+        f"video, {NLQ_QDIM} query), {NLQ_EPOCHS} epochs, {res['step']} steps;"
+        f" main() wall {wall:.2f} s; losses {[round(x, 4) for x in losses]}")
+    log(f"egonlq (b): p50 step {p50:.3f} ms (steps 3-{steps}), "
+        f"{report['queries_per_s']:.1f} queries/s, p50 data wait "
+        f"{report['p50_data_ms']:.3f} ms, the last 2 steps with their "
+        f"batches: wall {profiler.wall_ms:.3f} ms, device busy "
+        f"{profiler.busy_ms:.3f} ms, idle share {report['idle_share']}, peak "
+        f"memory allocated {report['peak_gib']:.4f} GiB; evaluation on "
+        f"{NLQ_VAL} queries after each epoch: {vals}")
+    if (res["steps"] != steps or len(losses) != steps
+            or not np.isfinite(losses).all() or len(vals) != NLQ_EPOCHS):
+        raise RuntimeError("egonlq (b): training failed")
+
+    # the extracted features: widths from the data, one epoch
+    out_a = os.path.join(tmp, "nlq_train_extracted")
+    res_a = train_nlq.main(_nlq_args(out_a, ann_a, ext["out"], "epochs=1"))
+    losses_a = [r["train/loss"] for r in _train_log(out_a)
+                if "train/loss" in r]
+    width = res_a["model"].video_affine.in_features
+    log(f"egonlq (b) one epoch on (a)'s {len(ext['samples'])} extracted "
+        f"samples: {res_a['steps']} steps, losses {losses_a}, video_affine "
+        f"in {width}, query_affine in "
+        f"{res_a['model'].query_affine.in_features}")
+    if (res_a["steps"] != max(1, len(ext["samples"]) // cfg.batch_size)
+            or not np.isfinite(losses_a).all() or width != NLQ_VDIM):
+        raise RuntimeError("egonlq (b): the extracted features did not train")
+
+    # (c) one step at batch 8, f32, drop 0, card against CPU; a resume
+    ref_cfg = train_nlq.parse_config(["drop_rate=0.0"])
+    cpu = train_nlq.build_model(ref_cfg, NLQ_VDIM, NLQ_QDIM)
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    card = train_nlq.build_model(ref_cfg, NLQ_VDIM, NLQ_QDIM)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(NLQ_DEVICE)
+    from avion_tpu_torch.egonlq.nlq_dataset import (NLQFeatureDataset,
+                                                    parse_nlq_annotations)
+
+    ds = NLQFeatureDataset(parse_nlq_annotations(ann), feats)
+    batch = train_nlq._collate([ds[i] for i in range(NLQ_REF_BATCH)])
+
+    def loss_fn(model, b):
+        from avion_tpu_torch.egonlq.vslnet import vslnet_loss
+
+        out_ = model(b["video"], b["v_mask"], b["query"], b["q_mask"], False)
+        return vslnet_loss(*out_, b, ref_cfg.highlight_weight)[0]
+
+    _reference_grads(card, cpu, batch, loss_fn,
+                     f"egonlq (c) a step at batch {NLQ_REF_BATCH}, f32, drop "
+                     f"0", loss_tol=1e-3, cos_tol=0.999)
+    again = train_nlq.main(args)
+    log(f"egonlq (c): a second main restored step {again['step']} and "
+        f"trained {again['steps']} steps")
+    if again["steps"] != 0 or again["step"] != steps:
+        raise RuntimeError(f"egonlq (c): the resume trained: {again}")
+    return {"report": report}
+
+
+def random_egovlp_state(model, seed: int = 0) -> dict:
+    """A seeded random state dict of ``model`` (a ``FrozenInTime``) in the
+    released EgoVLP layout, with the entries feature extraction does not
+    read (a fusion block's, the text pooler, the ITM / MLM heads): weights
+    normal(0.02), LayerNorms ones and zeros, biases zeros."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in model.state_dict().items():
+        if k.endswith("bias"):
+            sd[k] = torch.zeros(v.shape)
+        elif ("norm" in k or "LayerNorm" in k) and v.dim() == 1:
+            sd[k] = torch.ones(v.shape)
+        else:
+            sd[k] = torch.randn(v.shape, generator=gen) * 0.02
+    w = model.video_model.width
+    sd["video_model.blocks.0.attn.qkv_text_i2t.weight"] = torch.zeros(2 * w, w)
+    sd["video_model.blocks.0.attn.alpha_i2t"] = torch.zeros(1)
+    sd["text_model.pooler.dense.weight"] = torch.zeros(w, w)
+    sd["itm_score.fc.weight"] = torch.zeros(2, 2 * w)
+    sd["mlm_score.bias"] = torch.zeros(8)
+    return sd
+
+
+def write_roberta_vocab(path: str) -> str:
+    """A made-up HF-format RoBERTa tokenizer directory: the specials at ids
+    0-4, the 256 byte symbols and a few merges."""
+    from avion_tpu_torch.data.tokenizer import _byte_to_unicode
+
+    vocab = {t: i for i, t in enumerate(("<s>", "<pad>", "</s>", "<unk>",
+                                         "<mask>"))}
+    for ch in _byte_to_unicode().values():
+        vocab[ch] = len(vocab)
+    merges = [("Ġ", "t"), ("h", "e"), ("Ġt", "he"), ("Ġ", "w"), ("e", "r"),
+              ("Ġw", "her"), ("h", "er"), ("Ġwher", "e"), ("Ġ", "I")]
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return path
+
+
+def _nlq_legacy(tmp: str, root: str, ann: str, clips: np.ndarray,
+                samples: list) -> dict:
+    """(d): ``extract_features.main --legacy`` with the full-width
+    FrozenInTime (seeded random weights in the released layout) and a
+    made-up tokenizer; then a twin of NLQ_TWIN's depth against the CPU."""
+    from avion_tpu_torch.data.roberta_tokenizer import RobertaTokenizer
+    from avion_tpu_torch.egonlq import extract_features
+    from avion_tpu_torch.egonlq.egovlp import (EgoVLPFeatureExtractor,
+                                               FrozenInTime,
+                                               load_egovlp_checkpoint)
+
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        full = FrozenInTime(num_frames=FRAMES, **NLQ_LEGACY)
+    proj = full.vid_proj[4].out_features
+    n_params = sum(p.numel() for p in full.parameters())
+    pth = os.path.join(tmp, "egovlp_random.pth")
+    torch.save({"state_dict": random_egovlp_state(full)}, pth)
+    tok = write_roberta_vocab(os.path.join(tmp, "roberta_tok"))
+    out = os.path.join(tmp, "nlq_legacy")
+    log(f"== egonlq (d): FrozenInTime, {n_params / 1e6:.1f} M parameters "
+        f"(a TimeSformer of {len(full.video_model.blocks)} blocks at width "
+        f"{full.video_model.width}, a RoBERTa of "
+        f"{len(full.text_model.encoder['layer'])} layers, {proj}-wide "
+        f"projections), written in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()  # (d)'s path: no kernel
+    t0 = time.perf_counter()
+    stats = extract_features.main([
+        "--legacy", "--ckpt", pth, "--tokenizer-dir", tok, "--annotations",
+        ann, "--video-root", root, "--out", out, "--clip-length", str(FRAMES),
+        "--batch", str(NLQ_BATCH)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    z = np.load(os.path.join(out, "feat_0.npz"))
+    report = {
+        "params": n_params, "wall_s": wall,
+        "windows_per_s": stats["windows"] / (stats["decode_s"]
+                                             + stats["encode_s"]),
+        "encode_windows_per_s": stats["windows"] / stats["encode_s"],
+        "ms_a_query": stats["text_s"] / stats["queries"] * 1e3,
+        "first_query_ms": stats["query_ms"][0],
+        "p50_query_ms": float(np.median(stats["query_ms"][1:])),
+        "peak_gib": peak / 2 ** 30}
+    log(f"egonlq (d) extract_features.main --legacy: main() wall {wall:.2f} "
+        f"s, {stats['windows']} windows, {report['windows_per_s']:.3f} "
+        f"windows/s (decode and encode), {report['encode_windows_per_s']:.3f}"
+        f" encoding alone, {report['ms_a_query']:.3f} ms a query (the first "
+        f"{report['first_query_ms']:.3f}, p50 of the rest "
+        f"{report['p50_query_ms']:.3f}), peak "
+        f"memory allocated {report['peak_gib']:.3f} GiB, launches {launches} "
+        f"(want none), features {z['video'].shape} {z['text'].shape}")
+    if (launches or z["video"].shape != (NLQ_VIDEO_S // 2, proj)
+            or z["text"].shape != (proj,) or not np.isfinite(z["video"]).all()
+            or not np.isfinite(z["text"]).all()):
+        raise RuntimeError("egonlq (d): the legacy extraction went wrong")
+    torch.cuda.empty_cache()
+
+    # the twin: full widths, NLQ_TWIN's depth, card f32 against CPU f32
+    twin = FrozenInTime(num_frames=FRAMES, **{**NLQ_LEGACY, **NLQ_TWIN})
+    state = random_egovlp_state(twin, seed=1)
+    tokenizer = RobertaTokenizer.from_dir(tok)
+    feats = []
+    for device in (NLQ_DEVICE, "cpu"):
+        fx = EgoVLPFeatureExtractor(
+            load_egovlp_checkpoint(state, num_frames=FRAMES).to(device),
+            tokenizer=tokenizer, clip_length=FRAMES,
+            crop_size=twin.image_size, batch=2)
+        feats.append((fx.encode_windows(clips),
+                      fx.text_features([s["query"] for s in samples[:2]])))
+    v_cos = _cosines(feats[0][0], feats[1][0])
+    t_cos = _cosines(feats[0][1], feats[1][1])
+    report["twin_cosines"] = [*v_cos.tolist(), *t_cos.tolist()]
+    log(f"egonlq (d) twin ({NLQ_TWIN}) card f32 against CPU f32: window "
+        f"cosines {v_cos.tolist()}, query cosines {t_cos.tolist()} (bound "
+        f"0.99)")
+    if not (v_cos.min() >= 0.99 and t_cos.min() >= 0.99):
+        raise RuntimeError("egonlq (d): the twin disagrees with the CPU")
+    return {"launches": launches, "report": report}
+
+
+def phase_egonlq(tmp: str, ckpt: str) -> dict:
+    """The EgoNLQ slice on one card: the inference kernel at the
+    extractor's shapes; (a) feature extraction through ``extract_features.
+    main``, (b) ``train_nlq.main`` on planted-span features and on (a)'s,
+    (c) a step against the CPU and a resume, (d) the legacy EgoVLP
+    extractor.  Returns the launches by path and the kernels' rows."""
+    log("== egonlq")
+    t_phase = time.perf_counter()
+    rows = _slice_kernel_rows(NLQ_SHAPES, 4, NLQ_BATCH, 14,
+                              "the NLQ extractor's windows",
+                              forward_only=True)
+    text_rows = _slice_kernel_rows(NLQ_TEXT_SHAPES, 1, 1, 15,
+                                   "the NLQ extractor's queries",
+                                   forward_only=True)
+    for name in rows:
+        rows[name] += text_rows[name]
+    root = os.path.join(tmp, "nlq")
+    t0 = time.perf_counter()
+    ann = write_nlq_fixture(root, seconds=NLQ_VIDEO_S, w=NLQ_W, h=NLQ_H,
+                            fps=NLQ_FPS, queries=NLQ_QUERIES)
+    log(f"egonlq: the {NLQ_VIDEO_S} s clip and {NLQ_QUERIES} queries written "
+        f"in {time.perf_counter() - t0:.1f} s")
+    ext = _nlq_extract(tmp, root, ann, ckpt)
+    train = _nlq_train(tmp, ext, ann)
+    legacy = _nlq_legacy(tmp, root, ann, ext["clips"], ext["samples"])
+    report = {"extract": ext["report"], "train": train["report"],
+              "legacy": legacy["report"]}
+    log("egonlq summary " + json.dumps(report, default=float))
+    log(f"egonlq phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "paths": {"nlq_features": ext["launches"],
+                                    "nlq_legacy": legacy["launches"]}}
+
+
 KERNEL_SOURCES = {
     "flash_fwd": ("flash_fwd.cu", 134), "flash_fwd_lse": ("flash_fwd.cu", 91),
     "flash_bwd_combined": ("flash_bwd.cu", 494),
@@ -4361,6 +4884,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     phase_environment()
     phase_build()
     rows = phase_kernel()
@@ -4376,6 +4900,7 @@ def main() -> int:
         cl = phase_contrastive(tmp, data["fixture"])
         par = phase_parallel(tmp, data["fixture"])
         nar = phase_narrator(tmp, data["fixture"])
+        nlq = phase_egonlq(tmp, os.path.join(tmp, "clip_vitb16_random.pt"))
     # each kernel's launches from the path that drives it: serving, the
     # data-fed 4-frame main path (run A), and the data-fed MIR finetune at
     # 16 frames for the split kernels; every path's counts beside them
@@ -4392,12 +4917,12 @@ def main() -> int:
                "parallel_ring": par["ring"], "parallel_nccl": par["nccl"],
                **{f"parallel_entry_{name}": counts
                   for name, counts in par["entries"].items()},
-               **nar["paths"]}
+               **nar["paths"], **nlq["paths"]}
     rows["flash_fwd"] += evals["checks"]
     for name in rows:
         rows[name] += vmae["rows"][name] + ft["rows"][name] + \
             cl["rows"][name] + par["rows"].get(name, []) + \
-            nar["rows"][name]
+            nar["rows"][name] + nlq["rows"][name]
     kernels = []
     for name, (source, line) in KERNEL_SOURCES.items():
         head = rows[name][0]
@@ -4413,6 +4938,7 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": rows[name]})
+    log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 """The port imports nothing of JAX or of the JAX package, and no
-``pandas`` (the card's machine has none): every module of
+``pandas``, ``regex`` or ``transformers`` (the card's machine has none of
+them; the port's ``transformers`` imports are inside the functions that
+need it): every module of
 ``avion_tpu_torch`` and ``chip_smoke.py`` import in a fresh interpreter
 where those names are blocked."""
 
@@ -11,7 +13,8 @@ import sys
 import avion_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "avion_tpu", "pandas")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "avion_tpu", "pandas",
+           "regex", "transformers")
 
 _SCRIPT = r"""
 import importlib, sys
@@ -62,7 +65,11 @@ def test_port_imports_nothing_of_jax():
                 "models.clip", "models.vit", "ops.attention",
                 "models.narrator", "models.timesformer",
                 "models.gpt2_gated", "models.lavila", "models.lavila_import",
-                "train.train_narrator", "tools.narrator"):
+                "train.train_narrator", "tools.narrator",
+                "data.roberta_tokenizer", "egonlq", "egonlq.nlq_eval",
+                "egonlq.nlq_dataset", "egonlq.vslnet", "egonlq.train_nlq",
+                "egonlq.features", "egonlq.extract_features",
+                "egonlq.egovlp"):
         assert f"avion_tpu_torch.{mod}" in modules
     script = _SCRIPT.format(blocked=BLOCKED, modules=modules, root=ROOT)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

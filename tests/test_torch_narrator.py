@@ -335,6 +335,19 @@ def test_vclm_captioner_end_to_end(ego4d, tmp_path):
                for r in rows)
 
 
+def test_hf_captioner_needs_cuda_unless_told_the_cpu(monkeypatch):
+    """The device is resolved before ``transformers`` is imported: without
+    CUDA the default raises and nothing is loaded."""
+    from avion_tpu_torch.tools import narrator as tool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setitem(sys.modules, "transformers", None)  # no import
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tool.hf_captioner()
+    with pytest.raises(ImportError):  # the CPU passes on to the import
+        tool.hf_captioner(device="cpu")
+
+
 def test_tokenizer_decode_matches_jax():
     from avion_tpu.data.tokenizer import _default_tokenizer as jax_tok
     from avion_tpu_torch.data.tokenizer import _default_tokenizer
