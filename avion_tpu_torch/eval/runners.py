@@ -8,9 +8,16 @@ independent, so the embeddings are the same.  For the same reason there is
 no ``CLIPEncoders.cached``: the JAX package keeps encoders across
 validation epochs only so as not to recompile both towers.
 
-The encoders cast the model they are given (:func:`cast_inference_params`
-works in place) and switch it to eval mode; a training run therefore
-evaluates a copy (``eval.validate.run_validation``).
+The encoders cast or quantize the model they are given
+(:func:`cast_inference_params` and :func:`quantize_inference_params` work
+in place) and switch it to eval mode; a training run therefore evaluates a
+copy (``eval.validate.run_validation``).
+
+Over several ``devices`` (the server's ``--mesh``) one process drives one
+model copy per device, each from a persistent worker thread of its own:
+each chunk is padded with its last row to a multiple of the replicas, row
+block r goes to replica r, and the embeddings come back in row order, as
+the JAX runner shards a batch over the data axes of a one-process mesh.
 
 Over a batch group of several ranks (``group``) every rank walks the whole
 eval set, encodes its block of each chunk (the chunk padded with its last
@@ -22,9 +29,12 @@ group encode the same rows, each its shard of the tokens.
 from __future__ import annotations
 
 import contextlib
+import copy
+import threading
 import time
 import traceback
-from typing import Callable, Dict, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,9 +55,11 @@ from avion_tpu_torch.eval.classification_metrics import (
 from avion_tpu_torch.eval.retrieval_metrics import get_map, get_ndcg
 
 # parameters consumed at f32 BEFORE the compute-dtype cast (positional,
-# temporal and token embeddings); rounding them early would change outputs
+# temporal and token embeddings) and the MoE router (rounding would flip its
+# discrete top-k); rounding them early would change outputs
 _CAST_EXCLUDE = ("positional", "temporal", "token_embedding", "pos_embed",
-                 "wte", "wpe")
+                 "wte", "wpe", "router")
+WEIGHT_DTYPES = ("bf16", "int8", "f32")
 
 
 def cast_inference_params(model: torch.nn.Module) -> torch.nn.Module:
@@ -67,53 +79,190 @@ def cast_inference_params(model: torch.nn.Module) -> torch.nn.Module:
     return model
 
 
+def _skips_quantization(name: str, p: torch.Tensor) -> bool:
+    return (any(k in name.lower() for k in _CAST_EXCLUDE) or p.dim() < 2
+            or p.dtype not in (torch.float32, torch.bfloat16))
+
+
+def _channel_dim(module: torch.nn.Module) -> int:
+    """The output channel of a parameter owned by ``module``: dim 0 of a
+    dense or patchify weight (``[out, in, ...]``, the reference's torch
+    layout), the last dim of a bare matrix used as ``x @ w`` (the
+    projections), as JAX takes the last axis of its ``[in, out]``
+    kernels."""
+    from avion_tpu_torch.models.vit import PatchEmbed
+
+    return 0 if isinstance(module, (torch.nn.Linear, PatchEmbed)) else -1
+
+
+def dequantize_params(q: torch.Tensor, scale: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The weight rebuilt from its int8 values and f32 scales:
+    ``(q * scale)`` in f32, then cast to the compute ``dtype``."""
+    return (q.float() * scale).to(dtype)
+
+
+class _Dequantize(torch.nn.Module):
+    """The parametrization of one quantized weight: the module keeps the
+    int8 tensor (``parametrizations.<name>.original``) and this its f32
+    scales; each access rebuilds that one weight in the compute dtype."""
+
+    def __init__(self, scale: torch.Tensor, dtype: torch.dtype):
+        super().__init__()
+        self.register_buffer("scale", scale)
+        self.dtype = dtype
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        return dequantize_params(q, self.scale, self.dtype)
+
+
+@torch.no_grad()
+def quantize_inference_params(model: torch.nn.Module
+                              ) -> Dict[str, tuple]:
+    """Weight-only int8 quantization of the matrix parameters, in place:
+    per output channel (:func:`_channel_dim`) ``s = max|w| / 127`` over
+    the other dims, floored at 1e-12, and ``q = clip(round(w / s), -127,
+    127)`` in f32 (round half to even, as numpy).  The parameters that
+    :func:`cast_inference_params` keeps f32 stay as they are.  Each
+    quantized weight becomes a parametrization (:class:`_Dequantize`), so
+    the model holds int8 values and f32 scales and never a full copy in
+    the compute dtype: a forward rebuilds one layer's weight at a time.
+    Lossy (about 0.4% a weight), so for serving only (``--weights
+    int8``).  Returns ``{name: (q, scale)}`` of the quantized
+    parameters."""
+    from torch.nn.utils import parametrize
+
+    out = {}
+    targets = [(name, *_owner(model, name))
+               for name, p in model.named_parameters()
+               if not _skips_quantization(name, p)]
+    for name, module, leaf in targets:
+        w = getattr(module, leaf).detach().float()
+        dim = _channel_dim(module) % w.dim()
+        other = tuple(d for d in range(w.dim()) if d != dim)
+        scale = (w.abs().amax(dim=other, keepdim=True) / 127.0).clamp_min(
+            1e-12)
+        q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+        setattr(module, leaf, torch.nn.Parameter(q, requires_grad=False))
+        parametrize.register_parametrization(
+            module, leaf, _Dequantize(scale, model.dtype), unsafe=True)
+        out[name] = (q, scale)
+    return out
+
+
+def _owner(model: torch.nn.Module, name: str):
+    *path, leaf = name.split(".")
+    return model.get_submodule(".".join(path)), leaf
+
+
+def weight_bytes(model: torch.nn.Module) -> int:
+    """Bytes of the model's parameters and buffers (int8 values and their
+    scales, where quantized)."""
+    return sum(t.numel() * t.element_size()
+               for t in [*model.parameters(), *model.buffers()])
+
+
+_CALL_COUNTERS = ("image_calls", "text_calls", "image_rows", "text_rows")
+
+
 class CLIPEncoders:
-    """Batched encode functions over a CLIP model on one device.
+    """Batched encode functions over a CLIP model on one device, or over
+    one copy of it on each of ``devices``.
 
     ``weight_dtype``: ``bf16`` pre-casts the matrices
-    (:func:`cast_inference_params`), ``f32`` keeps them.  Every call
-    enters ``torch.inference_mode()`` and the model's CUDA device itself:
-    both are thread-local, and the server calls from its batcher threads.
+    (:func:`cast_inference_params`), ``int8`` quantizes them
+    (:func:`quantize_inference_params`), ``f32`` keeps them.  Without
+    ``devices`` the model stays where it is; with them, the copies are
+    made on the host, prepared there and moved, the given model becoming
+    the first replica, and ``batch`` is rounded up to a multiple of the
+    replicas (the JAX runner's rounding to the mesh's batch shards).
+    Every call enters ``torch.inference_mode()`` and its replica's CUDA
+    device itself: both are thread-local, and the server calls from its
+    batcher threads.
 
     Counters: tower forwards (``image_calls`` / ``text_calls``, one per
-    chunk; served as /metrics 'encoder'), rows encoded (``image_rows`` /
-    ``text_rows``), seconds spent waiting for a loader's next batch
-    (``data_wait_s``), and per suite of :func:`validate_all` the changes
-    of these with the suite's wall time (``suite_stats``).
+    replica and chunk; served as /metrics 'encoder'), rows encoded
+    (``image_rows`` / ``text_rows``, pad rows included), each summed over
+    the replicas (``replica_counters`` keeps them by replica), seconds
+    spent waiting for a loader's next batch (``data_wait_s``), and per
+    suite of :func:`validate_all` the changes of these with the suite's
+    wall time (``suite_stats``).
     """
 
     def __init__(self, model, batch: int = 64, weight_dtype: str = "bf16",
-                 group=None):
-        if weight_dtype == "bf16":
-            cast_inference_params(model)
-        elif weight_dtype != "f32":
-            raise ValueError(f"weight_dtype must be bf16|f32 in this port, "
-                             f"got {weight_dtype!r}")
-        self.model = model.eval()
-        self.device = next(model.parameters()).device
-        self.batch = batch
+                 group=None, devices: Optional[Sequence] = None):
+        if weight_dtype not in WEIGHT_DTYPES:
+            raise ValueError(f"weight_dtype must be bf16|int8|f32, got "
+                             f"{weight_dtype!r}")
+        replicas = [model]
+        if devices is not None:
+            replicas += [copy.deepcopy(model) for _ in devices[1:]]
+        for m in replicas:
+            if weight_dtype == "bf16":
+                cast_inference_params(m)
+            elif weight_dtype == "int8":
+                quantize_inference_params(m)
+            m.eval()
+        if devices is not None:
+            replicas = [m.to(d) for m, d in zip(replicas, devices)]
+        self.model = replicas[0]
+        self.replicas: List[torch.nn.Module] = replicas
+        self.devices = [next(m.parameters()).device for m in replicas]
+        self.device = self.devices[0]
+        self.weight_dtype = weight_dtype
+        self.batch = -(-batch // len(replicas)) * len(replicas)
         self.group = (group if group is not None and dist.is_initialized()
                       and dist.get_world_size(group) > 1 else None)
-        self.image_calls = self.text_calls = 0
-        self.image_rows = self.text_rows = 0
+        if self.group is not None and len(replicas) > 1:
+            raise ValueError("replicas and a process group do not combine")
+        self._lock = threading.Lock()
+        self.replica_counters = [dict.fromkeys(_CALL_COUNTERS, 0)
+                                 for _ in replicas]
+        # one persistent thread per replica; a single replica runs inline
+        self._workers = ([ThreadPoolExecutor(1, f"replica{r}")
+                          for r in range(len(replicas))]
+                         if len(replicas) > 1 else [])
         self.data_wait_s = 0.0
         self.suite_stats: Dict[str, Dict[str, float]] = {}
 
+    def _total(self, key: str) -> int:
+        with self._lock:
+            return sum(c[key] for c in self.replica_counters)
+
+    image_calls = property(lambda self: self._total("image_calls"))
+    text_calls = property(lambda self: self._total("text_calls"))
+    image_rows = property(lambda self: self._total("image_rows"))
+    text_rows = property(lambda self: self._total("text_rows"))
+
     def counters(self) -> Dict[str, float]:
-        return {"image_calls": self.image_calls,
-                "text_calls": self.text_calls,
-                "image_rows": self.image_rows, "text_rows": self.text_rows,
+        return {**{k: self._total(k) for k in _CALL_COUNTERS},
                 "data_wait_s": self.data_wait_s}
 
-    def _context(self):
+    def replica_metrics(self) -> List[dict]:
+        """Each replica's device, weight bytes and counters."""
+        with self._lock:
+            counts = [dict(c) for c in self.replica_counters]
+        return [{"device": str(d), "weight_bytes": weight_bytes(m), **c}
+                for d, m, c in zip(self.devices, self.replicas, counts)]
+
+    def close(self) -> None:
+        for w in self._workers:
+            w.shutdown(wait=True)
+
+    def _context(self, r: int = 0):
         stack = contextlib.ExitStack()
         stack.enter_context(torch.inference_mode())
-        if self.device.type == "cuda":
-            stack.enter_context(torch.cuda.device(self.device))
+        if self.devices[r].type == "cuda":
+            stack.enter_context(torch.cuda.device(self.devices[r]))
         return stack
 
     def _sweep(self, fn, arr: np.ndarray) -> np.ndarray:
         out = []
+        if self._workers:
+            for i in range(0, arr.shape[0], self.batch):
+                out.append(self._encode_replicated(
+                    fn, arr[i : i + self.batch]))
+            return np.concatenate(out, axis=0)
         with self._context():
             for i in range(0, arr.shape[0], self.batch):
                 chunk = torch.from_numpy(np.ascontiguousarray(
@@ -121,6 +270,24 @@ class CLIPEncoders:
                 out.append(self._encode_shared(fn, chunk).float().cpu()
                            .numpy())
         return np.concatenate(out, axis=0)
+
+    def _encode_replicated(self, fn, chunk: np.ndarray) -> np.ndarray:
+        """``fn`` of ``chunk``: its rows padded with the last to a multiple
+        of the replicas, block r encoded by replica r on its own thread,
+        concatenated in row order."""
+        n, rows = len(self.replicas), chunk.shape[0]
+        per = -(-rows // n)
+        padded = chunk[np.minimum(np.arange(per * n), rows - 1)]
+        futs = [w.submit(self._encode_block, fn, r,
+                         padded[r * per : (r + 1) * per])
+                for r, w in enumerate(self._workers)]
+        return np.concatenate([f.result() for f in futs])[:rows]
+
+    def _encode_block(self, fn, r: int, block: np.ndarray) -> np.ndarray:
+        with self._context(r):
+            x = torch.from_numpy(np.ascontiguousarray(block)).to(
+                self.devices[r])
+            return fn(x, r).float().cpu().numpy()
 
     def _encode_shared(self, fn, chunk: torch.Tensor) -> torch.Tensor:
         """``fn`` of ``chunk``; over a group, of this rank's block of it,
@@ -137,16 +304,19 @@ class CLIPEncoders:
         dist.all_gather(parts, emb, group=self.group)
         return torch.cat(parts)[:rows]
 
-    def _img(self, video: torch.Tensor) -> torch.Tensor:
-        self.image_calls += 1
-        self.image_rows += video.shape[0]
-        v = normalize_video(video, dtype=self.model.dtype)
-        return self.model.encode_image(v)
+    def _bump(self, r: int, calls: str, rows: str, n: int) -> None:
+        with self._lock:
+            self.replica_counters[r][calls] += 1
+            self.replica_counters[r][rows] += n
 
-    def _txt(self, text: torch.Tensor) -> torch.Tensor:
-        self.text_calls += 1
-        self.text_rows += text.shape[0]
-        return self.model.encode_text(text.long())
+    def _img(self, video: torch.Tensor, r: int = 0) -> torch.Tensor:
+        self._bump(r, "image_calls", "image_rows", video.shape[0])
+        model = self.replicas[r]
+        return model.encode_image(normalize_video(video, dtype=model.dtype))
+
+    def _txt(self, text: torch.Tensor, r: int = 0) -> torch.Tensor:
+        self._bump(r, "text_calls", "text_rows", text.shape[0])
+        return self.replicas[r].encode_text(text.long())
 
     def encode_images(self, videos: np.ndarray) -> np.ndarray:
         """uint8 [N, T, H, W, 3] -> [N, D] f32 unit embeddings."""

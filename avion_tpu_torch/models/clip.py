@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from avion_tpu_torch.core.profiling import annotate
 from avion_tpu_torch.models.layers import (LayerNorm, LayerScale, gelu,
                                            lecun_normal_, quick_gelu)
 from avion_tpu_torch.models.text import TextTransformer
@@ -99,16 +100,20 @@ class CLIP(nn.Module):
                      generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
         """[B, T, H, W, C] video -> [B, embed_dim] unit f32 (pooling
-        ``none``: [B, S, width], unprojected)."""
-        pooled = self.visual(image, deterministic, generator)
-        if self.visual.pooling == "none":
-            return _l2norm(pooled)
-        return _l2norm(pooled @ self.image_projection.to(pooled.dtype))
+        ``none``: [B, S, width], unprojected); a trace shows it as the
+        ``encode_image`` region."""
+        with annotate("encode_image"):
+            pooled = self.visual(image, deterministic, generator)
+            if self.visual.pooling == "none":
+                return _l2norm(pooled)
+            return _l2norm(pooled @ self.image_projection.to(pooled.dtype))
 
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
-        """[B, L] token ids -> [B, embed_dim] unit f32."""
-        pooled = self.textual(text)
-        return _l2norm(pooled @ self.text_projection.to(pooled.dtype))
+        """[B, L] token ids -> [B, embed_dim] unit f32 (the
+        ``encode_text`` region of a trace)."""
+        with annotate("encode_text"):
+            pooled = self.textual(text)
+            return _l2norm(pooled @ self.text_projection.to(pooled.dtype))
 
     def forward(self, image: torch.Tensor, text: torch.Tensor,
                 deterministic: bool = True,

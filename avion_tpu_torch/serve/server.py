@@ -1,35 +1,51 @@
 """HTTP inference server over a CLIP dual encoder
 (``avion_tpu.serve.server``).  stdlib ``ThreadingHTTPServer`` front end,
-one ``MicroBatcher`` per modality feeding the encoders on one device.
+one ``MicroBatcher`` per modality feeding the encoders on one device, or on
+one model copy per local card with ``--mesh``.
 
 Endpoints (JSON in/out):
 
 - ``GET  /health``        → liveness + device/platform info
 - ``GET  /metrics``       → request counts, batch histogram, latency pXX
 - ``POST /v1/embed/text`` ``{"texts": [...]}`` → unit-norm embeddings
-- ``POST /v1/embed/video`` ``{"frames_b64": ..., "shape": [N,T,H,W,3]}``
-  (raw uint8 bytes, base64) → unit-norm embeddings
-- ``POST /v1/similarity`` ``{"texts": [...], "frames_b64": ...}`` →
-  temperature-scaled logits [n_videos, n_texts]
-- ``POST /v1/classify`` ``{"labels": [...], "frames_b64": ...}`` →
-  zero-shot class probabilities (template-ensemble classifier, cached
+- ``POST /v1/embed/video`` ``{"paths": [...]}`` (server-side decode on
+  the request thread: uniform temporal sampling between the optional
+  ``start`` / ``end`` seconds, short side resized, center crop) or
+  ``{"frames_b64": ..., "shape": [N,T,H,W,3]}`` (raw uint8 bytes, base64)
+  → unit-norm embeddings
+- ``POST /v1/similarity`` ``{"texts": [...], "paths"|"frames_b64": ...}``
+  → temperature-scaled logits [n_videos, n_texts]
+- ``POST /v1/classify`` ``{"labels": [...], "paths"|"frames_b64": ...}``
+  → zero-shot class probabilities (template-ensemble classifier, cached
   per label set)
-- ``POST /v1/narrate`` ``{"frames_b64": ..., "shape": [N,T,H,W,3]}`` →
-  generated narrations per clip (with ``--narrator-checkpoint``: the
-  LaViLa narrator, ``--narrator-model``, from a released ``.pt``, with
-  KV-cached decoding, one clip at a time)
+- ``POST /v1/narrate`` ``{"paths"|"frames_b64": ...}`` → generated
+  narrations per clip (with ``--narrator-checkpoint``: the LaViLa
+  narrator, ``--narrator-model``, from a released ``.pt``, with KV-cached
+  decoding, one clip at a time)
 
-Not in this port yet: ``paths`` input with server-side decode (answered
-with a 400), ``--mesh``, ``--weights int8`` and orbax checkpoint
-directories.
+A bad request (a missing key, a wrong shape, a path that escapes
+``--media-root``) is answered with 400, any other failure (a file that
+does not decode) with 500, as the JAX server answers.  Orbax checkpoint
+directories are not read.
 
 Start::
 
     python -m avion_tpu_torch.serve model.name=CLIP_VITB16 \\
         data.clip_length=4 pretrain_model=<ckpt.pt> --port 8080 \\
-        [--host 0.0.0.0] [--weights bf16|f32] [--device cuda|cuda:N|cpu] \\
+        [--host 0.0.0.0 --media-root /data/videos] \\
+        [--weights bf16|int8|f32] [--device cuda|cuda:N|cpu] \\
+        [--mesh mesh.data=-1] \\
         [--narrator-checkpoint <narrator.pt> --narrator-model \\
          VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL]
+
+``--media-root`` confines the ``paths`` a client may name to a directory.
+``--weights int8`` stores the encoders' matrices as int8 with per-channel
+f32 scales (lossy, about 0.4% a weight; ``eval.runners.
+quantize_inference_params``).  ``--mesh`` serves one model copy per card:
+``mesh.data`` x ``mesh.fsdp`` replicas on ``cuda:0..R-1``
+(``mesh.data=-1`` takes every visible card; with ``--device cpu`` the
+count must be given), each encode batch split into row blocks over them
+(:func:`replica_devices`).
 
 The narrator decodes its generations with GPT-2's tokenizer
 (``tools.narrator.gpt2_tokenizer``: ``transformers`` and its ``gpt2``
@@ -43,6 +59,7 @@ from __future__ import annotations
 
 import base64
 import json
+import os
 import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -54,25 +71,110 @@ import torch
 from avion_tpu_torch.parallel.launch import resolve_device
 from avion_tpu_torch.serve.batcher import MicroBatcher
 
-_DEFERRED_FLAGS = ("--mesh",)
+# mesh axes a replica cannot take yet, and where the queue lists them
+_LATER_AXES = {"tensor": 12, "sp": 12, "dcn_data": 12, "pp": 13, "ep": 13}
 
 
-def clips_from_request(req: dict, clip_length: int,
-                       size: int) -> List[np.ndarray]:
+def decode_clip(path: str, clip_length: int, size: int,
+                start: Optional[float] = None,
+                end: Optional[float] = None) -> np.ndarray:
+    """Uniform temporal sampling + center crop-resize to a square
+    input; returns [T, S, S, 3] uint8."""
+    import cv2
+
+    from avion_tpu_torch.data.video_reader import VideoReader
+
+    vr = VideoReader(path)
+    try:
+        fps = vr.get_avg_fps() or 30.0
+        lo = int((start or 0.0) * fps)
+        hi = int(end * fps) if end is not None else len(vr)
+        hi = max(lo + 1, min(hi, len(vr)))
+        ids = np.linspace(lo, hi - 1, clip_length).astype(int)
+        frames = vr.get_batch(list(ids))
+    finally:
+        vr.close()
+    t, h, w = frames.shape[:3]
+    scale = size / min(h, w)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    out = np.empty((t, nh, nw, 3), np.uint8)
+    for i in range(t):
+        out[i] = cv2.resize(frames[i], (nw, nh),
+                            interpolation=cv2.INTER_LINEAR)
+    y0, x0 = (nh - size) // 2, (nw - size) // 2
+    return out[:, y0 : y0 + size, x0 : x0 + size]
+
+
+def resolve_media_path(path: str, media_root: Optional[str]) -> str:
+    """Resolve a client-supplied path against the configured media root.
+
+    With no root configured the server trusts its caller (loopback-only
+    by default); with one, any path escaping the root is rejected so a
+    network client cannot probe arbitrary server-side files."""
+    if media_root is None:
+        return path
+    root = os.path.realpath(media_root)
+    full = os.path.realpath(os.path.join(root, path.lstrip("/")))
+    if full != root and not full.startswith(root + os.sep):
+        raise ValueError(f"path escapes media root: {path!r}")
+    return full
+
+
+def clips_from_request(req: dict, clip_length: int, size: int,
+                       media_root: Optional[str] = None) -> List[np.ndarray]:
+    """The request's clips, [T, size, size, 3] uint8 each; ``paths`` are
+    decoded here, on the calling (request) thread."""
     if "frames_b64" in req:
         shape = tuple(req["shape"])
         if len(shape) != 5 or shape[1] != clip_length or shape[4] != 3:
             raise ValueError(
                 f"shape must be [N, {clip_length}, H, W, 3], "
                 f"got {list(shape)}")
-        if shape[2] != size or shape[3] != size:
-            raise ValueError(f"frames must be {size}px square (pre-resized)")
         raw = base64.b64decode(req["frames_b64"])
-        return list(np.frombuffer(raw, np.uint8).reshape(shape))
+        arr = np.frombuffer(raw, np.uint8).reshape(shape)
+        if shape[2] != size or shape[3] != size:
+            raise ValueError(
+                f"frames must be {size}px square (pre-resized); "
+                "use 'paths' for server-side resize")
+        return list(arr)
     if "paths" in req:
-        raise ValueError("server-side decode of 'paths' is not in the "
-                         "PyTorch port yet; send 'frames_b64'")
-    raise ValueError("request needs 'frames_b64'")
+        return [decode_clip(resolve_media_path(p, media_root), clip_length,
+                            size, req.get("start"), req.get("end"))
+                for p in req["paths"]]
+    raise ValueError("request needs 'paths' or 'frames_b64'")
+
+
+def replica_devices(mesh, device: torch.device) -> List[torch.device]:
+    """The devices of ``--mesh``'s replicas: ``mesh.data`` x ``mesh.fsdp``
+    of them (``parallel.mesh.axis_sizes`` over the local device count),
+    ``cuda:0..R-1`` on CUDA (``mesh.data=-1`` takes every visible card)
+    or R CPU replicas with ``--device cpu``, where R must be given.  The
+    other axes raise; so do more replicas than cards."""
+    from avion_tpu_torch.parallel.mesh import axis_sizes
+
+    for axis, item in _LATER_AXES.items():
+        if getattr(mesh, axis) > 1:
+            raise NotImplementedError(
+                f"--mesh with mesh.{axis}={getattr(mesh, axis)} is not in "
+                f"the PyTorch port yet (ROADMAP.md Queue 1 item {item})")
+    if device.index is not None:
+        raise ValueError(f"--mesh places its replicas on cuda:0..R-1; "
+                         f"give --device cuda or cpu, not {device}")
+    if device.type == "cpu":
+        if mesh.data == -1:
+            raise ValueError("--mesh with --device cpu needs mesh.data")
+        count = mesh.data * mesh.fsdp
+    else:
+        count = torch.cuda.device_count()
+    sizes = axis_sizes(count if mesh.data == -1 else mesh.data * mesh.fsdp,
+                       data=mesh.data, fsdp=mesh.fsdp)
+    n = sizes["data"] * sizes["fsdp"]
+    if n > count:
+        raise ValueError(f"--mesh asks for {n} replicas; this host has "
+                         f"{count} cards")
+    if device.type == "cpu":
+        return [device] * n
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 class NarrateService:
@@ -81,15 +183,18 @@ class NarrateService:
     against concurrent requests, one clip at a time; generation batches
     inside through ``num_samples``."""
 
-    def __init__(self, caption_fn, *, clip_length: int, image_size: int):
+    def __init__(self, caption_fn, *, clip_length: int, image_size: int,
+                 media_root: Optional[str] = None):
         self.clip_length = clip_length
         self.image_size = image_size
+        self.media_root = media_root
         self.batcher = MicroBatcher(
             lambda clips: [caption_fn(c) for c in clips],
             max_batch=1, max_wait_ms=0.0, name="narrate")
 
     def narrate(self, req: dict) -> dict:
-        clips = clips_from_request(req, self.clip_length, self.image_size)
+        clips = clips_from_request(req, self.clip_length, self.image_size,
+                                   self.media_root)
         futs = [self.batcher.submit(c) for c in clips]
         return {"narrations": [f.result(timeout=600) for f in futs]}
 
@@ -101,17 +206,24 @@ class NarrateService:
 
 
 class ClipService:
-    """Model side of the server: tokenize / encode, batched."""
+    """Model side of the server: decode / tokenize / encode, batched.
+    With ``devices`` the encoders keep one copy of ``model`` on each
+    (``CLIPEncoders``)."""
 
     def __init__(self, model, *, batch: int = 32, max_wait_ms: float = 2.0,
                  clip_length: Optional[int] = None,
-                 weight_dtype: str = "bf16"):
+                 weight_dtype: str = "bf16",
+                 media_root: Optional[str] = None,
+                 devices: Optional[List[torch.device]] = None):
         from avion_tpu_torch.eval.runners import CLIPEncoders
 
-        self.model = model
+        self.model_name = type(model).__name__
+        self.media_root = media_root
         self.clip_length = clip_length or model.num_frames
         self.encoders = CLIPEncoders(model, batch=batch,
-                                     weight_dtype=weight_dtype)
+                                     weight_dtype=weight_dtype,
+                                     devices=devices)
+        self.model = self.encoders.model
         self.text_batcher = MicroBatcher(self._encode_texts, max_batch=batch,
                                          max_wait_ms=max_wait_ms, name="text")
         self.video_batcher = MicroBatcher(self._encode_videos,
@@ -157,7 +269,7 @@ class ClipService:
 
     def clips_from_request(self, req: dict) -> List[np.ndarray]:
         return clips_from_request(req, self.clip_length,
-                                  self.model.image_size)
+                                  self.model.image_size, self.media_root)
 
     def embed_text(self, req: dict) -> dict:
         futs = [self.text_batcher.submit(t) for t in req["texts"]]
@@ -203,15 +315,19 @@ class ClipService:
                            * v @ t.T).tolist()}
 
     def metrics(self) -> dict:
-        # tower forwards run: each runs every attention layer of its tower
+        # tower forwards run, summed over the replicas: each runs every
+        # attention layer of its tower
         return {"text": self.text_batcher.metrics(),
                 "video": self.video_batcher.metrics(),
                 "encoder": {"image_calls": self.encoders.image_calls,
-                            "text_calls": self.encoders.text_calls}}
+                            "text_calls": self.encoders.text_calls,
+                            "weight_dtype": self.encoders.weight_dtype,
+                            "replicas": self.encoders.replica_metrics()}}
 
     def close(self):
         self.text_batcher.close()
         self.video_batcher.close()
+        self.encoders.close()
 
 
 def make_server(service: ClipService, port: int = 0,
@@ -219,14 +335,18 @@ def make_server(service: ClipService, port: int = 0,
                 narrate: Optional[NarrateService] = None
                 ) -> ThreadingHTTPServer:
     """Build (not start) the HTTP server; ``server.server_address[1]``
-    is the bound port (ephemeral when ``port=0``).  With ``narrate`` it
-    also answers ``/v1/narrate``."""
-    device = service.encoders.device
+    is the bound port (ephemeral when ``port=0``), ``server.service`` the
+    service.  With ``narrate`` it also answers ``/v1/narrate``."""
+    devices = service.encoders.devices
+    names = [torch.cuda.get_device_name(d) if d.type == "cuda" else str(d)
+             for d in devices]
     health = {"status": "ok",
-              "platform": "gpu" if device.type == "cuda" else device.type,
-              "device": (torch.cuda.get_device_name(device)
-                         if device.type == "cuda" else str(device)),
-              "model": type(service.model).__name__}
+              "platform": "gpu" if devices[0].type == "cuda"
+              else devices[0].type,
+              "device": names[0],
+              "replicas": [{"device": str(d), "name": n}
+                           for d, n in zip(devices, names)],
+              "model": service.model_name}
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet by default
@@ -270,7 +390,9 @@ def make_server(service: ClipService, port: int = 0,
             except Exception as e:  # noqa: BLE001 — server must not die
                 self._json(500, {"error": f"{type(e).__name__}: {e}"})
 
-    return ThreadingHTTPServer((host, port), Handler)
+    server = ThreadingHTTPServer((host, port), Handler)
+    server.service = service
+    return server
 
 
 def serve_forever_in_thread(server) -> threading.Thread:
@@ -303,11 +425,14 @@ def main(argv=None,
             return val
         return default
 
-    for name in _DEFERRED_FLAGS:
-        if name in argv:
-            raise SystemExit(f"{name} is not in the PyTorch port yet")
     port = int(_flag("--port", "8080"))
+    # loopback by default: 'paths' name server-side files, so external
+    # binding is opt-in (pair it with --media-root)
     host = _flag("--host", "127.0.0.1")
+    media_root = _flag("--media-root")
+    use_mesh = "--mesh" in argv
+    if use_mesh:
+        argv.remove("--mesh")
     weight_dtype = _flag("--weights", "bf16")
     narrator_ckpt = _flag("--narrator-checkpoint")
     narrator_name = _flag("--narrator-model",
@@ -324,9 +449,11 @@ def main(argv=None,
         project_embed_dim=m.project_embed_dim,
         use_quick_gelu=m.use_quick_gelu, pooling=m.pooling,
         temperature_init=m.temperature_init)
+    devices = replica_devices(cfg.mesh, device) if use_mesh else [device]
     load_clip_checkpoint(model, cfg.pretrain_model)
-    service = ClipService(model.to(device), batch=cfg.data.val_batch_size,
-                          weight_dtype=weight_dtype)
+    service = ClipService(model, batch=cfg.data.val_batch_size,
+                          weight_dtype=weight_dtype, media_root=media_root,
+                          devices=devices)
     narrate = None
     if narrator_ckpt:
         from avion_tpu_torch.tools import narrator as narrator_tools
@@ -339,10 +466,12 @@ def main(argv=None,
             narrator_tools.lavila_captioner(
                 narrator_ckpt, model=nmodel,
                 num_frames=cfg.data.clip_length),
-            clip_length=cfg.data.clip_length, image_size=nmodel.image_size)
+            clip_length=cfg.data.clip_length, image_size=nmodel.image_size,
+            media_root=media_root)
     server = make_server(service, port=port, host=host, narrate=narrate)
-    print(f"serving {m.name} on {device} at :{server.server_address[1]}",
-          flush=True)
+    where = ", ".join(str(d) for d in devices)
+    print(f"serving {m.name} ({weight_dtype}) on {where} at "
+          f":{server.server_address[1]}", flush=True)
     try:
         if on_ready is not None:
             on_ready(server)

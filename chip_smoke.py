@@ -6,8 +6,10 @@ zero-shot on the five suites, pretrain and finetune VideoMAE ViT-B/16,
 finetune CLIP ViT-B/16 at 16 frames for EK100 retrieval and action
 classification, and train CLIP ViT-L/14 at the global batch 896 through
 cached gradient accumulation, SigLIP and bf16 optimizer state, train,
-run and serve the narrators (the VCLM and LaViLa's), and extract EgoNLQ
-features from a long video and train VSLNet on them.
+run and serve the narrators (the VCLM and LaViLa's), extract EgoNLQ
+features from a long video and train VSLNet on them, and convert
+checkpoints, serve decoded ``paths`` with int8 weights over one replica per
+card and profile a train step through the port's tools.
 
     python3 chip_smoke.py
 
@@ -212,7 +214,25 @@ Phases (each raises on failure; the script then exits non-zero):
    projections, 312 M seeded random parameters in the released layout, a
    made-up RoBERTa vocabulary): windows/s, ms a query, peak memory, no
    kernel launched; a twin of 2 video blocks and 2 text layers, card f32
-   against CPU f32 (cosine >= 0.99).
+   against CPU f32 (cosine >= 0.99);
+15. serve completed, tools: (a) ``tools.convert_checkpoint export`` of
+   phase 5's checkpoint directory to the reference ``.pt``, loaded back
+   with ``load_clip_checkpoint`` (strict) bit-equal to the saved model,
+   and ``import`` of phase 4's ``.pt`` to the JAX package's ``.npz``, read
+   back bit-equal; (b) ``serve.server.main`` on the exported ``.pt`` with
+   ``--weights int8 --mesh mesh.data=-1 --media-root`` (the data phase's
+   Ego4D layout; one replica on one card): 16-clip ``paths`` requests
+   (relative paths, one with ``start`` / ``end``) against ``frames_b64``
+   of the same clips decoded on the host by ``serve.server.decode_clip``
+   (max abs 1e-2), against the CPU f32 plain path on the same weights
+   (cosine >= 0.98), 12 ``flash_fwd`` a tower forward and no other
+   kernel, 400 for a path that escapes the root and 500 for a missing
+   file (the JAX server's codes), the matrices int8 on the card and their
+   weight bytes beside phase 4's bf16 service, the p50 of each route
+   beside phase 4's bf16 p50 and the host decode ms a clip; (c)
+   ``tools.profile_step.main`` at batch 32, 2 traced steps: 24
+   ``flash_fwd_kernel`` (forward) and 24 ``bwd_kv_kernel`` (combined
+   backward) a step in its rows, device time above 0 and below the wall.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -224,6 +244,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import csv
+import glob
 import json
 import math
 import os
@@ -235,6 +256,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -797,8 +819,9 @@ def profile_request(url: str, clips: np.ndarray, requests: int = 5) -> None:
     log_device_time(by_name, top=8)
 
 
-def phase_serve(tmp: str) -> int:
-    """Returns the kernel launches of the served main path."""
+def phase_serve(tmp: str) -> dict:
+    """Returns the kernel launches of the served main path, the p50 of its
+    16-clip video requests and the served model's weight bytes."""
     from avion_tpu_torch.models.pt_import import load_clip_checkpoint
     from avion_tpu_torch.models.registry import create_model
     from avion_tpu_torch.serve.server import main
@@ -857,6 +880,7 @@ def phase_serve(tmp: str) -> int:
         if set(fa.launches) != {"flash_fwd"}:
             raise RuntimeError(f"serving launched {dict(fa.launches)}")
         after = _get(url, "/metrics")["encoder"]
+        weight_bytes = after["replicas"][0]["weight_bytes"]
         profile_request(url, clips)
     finally:
         server.shutdown()
@@ -866,7 +890,7 @@ def phase_serve(tmp: str) -> int:
     if errors:
         raise errors[0]
 
-    calls = {k: after[k] - before[k] for k in after}
+    calls = {k: after[k] - before[k] for k in ("image_calls", "text_calls")}
     log(f"tower forwards {calls}, kernel launches {launches}")
     if min(calls.values()) < 1 or launches != LAYERS * sum(calls.values()):
         raise RuntimeError(f"{launches} launches for {calls} tower forwards; "
@@ -882,8 +906,10 @@ def phase_serve(tmp: str) -> int:
     if probs.shape != (2, len(labels)) or np.abs(probs.sum(-1) - 1).max() > 1e-4:
         raise RuntimeError(f"classify: bad probabilities {probs}")
     lat_ms = sorted(x * 1e3 for x in lat)
-    log(f"video requests of {len(clips)} clips: p50 {lat_ms[len(lat) // 2]:.1f}"
-        f" ms, {len(clips) * len(lat) / sum(lat):.1f} clips/s end to end")
+    p50 = lat_ms[len(lat) // 2]
+    log(f"video requests of {len(clips)} clips: p50 {p50:.1f}"
+        f" ms, {len(clips) * len(lat) / sum(lat):.1f} clips/s end to end; "
+        f"bf16 weights {weight_bytes} bytes")
 
     log("== reference: the same weights on the CPU, plain path, f32")
     model = create_model(MODEL, num_frames=FRAMES, dtype=torch.float32)
@@ -901,7 +927,7 @@ def phase_serve(tmp: str) -> int:
     log(f"cosine to the CPU reference: video {cos_v}, text {cos_t}")
     if min(cos_v.min(), cos_t.min()) < 0.99:
         raise RuntimeError("served embeddings disagree with the CPU reference")
-    return launches
+    return {"launches": launches, "p50_ms": p50, "weight_bytes": weight_bytes}
 
 
 def _train_config(out_dir: str, *overrides: str, recipe=None):
@@ -4869,6 +4895,302 @@ def phase_egonlq(tmp: str, ckpt: str) -> dict:
                                     "nlq_legacy": legacy["launches"]}}
 
 
+ST_REQUESTS = 5  # timed requests of each route: paths and frames_b64
+ST_MESH = "mesh.data=-1"  # every visible card: one replica on one card
+ST_PROFILE_BATCH = 32
+ST_DEVICE = "cuda"
+ST_TOL = 1e-2  # paths against frames_b64 of the same host decode
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for key, val in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = val
+    return tree
+
+
+def _export_import(tmp: str) -> str:
+    """(a) ``convert_checkpoint export`` of phase 5's checkpoint, loaded
+    back strict and bit-equal to the saved model; ``import`` of the serve
+    phase's ``.pt`` to the JAX package's ``.npz``, read back through
+    ``params_from_jax`` bit-equal to ``import_clip_pt``.  Returns the
+    exported ``.pt``."""
+    from avion_tpu_torch.models.pt_import import (import_clip_pt,
+                                                  load_clip_checkpoint,
+                                                  params_from_jax)
+    from avion_tpu_torch.models.registry import create_model
+    from avion_tpu_torch.tools import convert_checkpoint
+    from avion_tpu_torch.train.common import latest_model_state
+
+    t0 = time.perf_counter()
+    run_dir = os.path.join(tmp, "train")
+    exported = os.path.join(tmp, "clip_exported.pt")
+    geometry = ["--model", MODEL, "--frames", str(FRAMES)]
+    convert_checkpoint.main(["export", "--src", run_dir, "--dst", exported,
+                             *geometry])
+    state = latest_model_state(run_dir)
+    model = create_model(MODEL, num_frames=FRAMES, dtype=torch.float32)
+    load_clip_checkpoint(model, exported)
+    loaded = model.state_dict()
+    bad = [k for k in state if k not in loaded or not torch.equal(
+        loaded[k], state[k].detach().cpu())]
+    if set(loaded) != set(state) or bad:
+        raise RuntimeError(f"export: {len(bad)} tensors differ, e.g. "
+                           f"{bad[:3]}")
+    src, npz = (os.path.join(tmp, "clip_vitb16_random.pt"),
+                os.path.join(tmp, "clip_imported.npz"))
+    convert_checkpoint.main(["import", "--src", src, "--dst", npz,
+                             *geometry])
+    with np.load(npz) as z:
+        back = params_from_jax(_unflatten({k: z[k] for k in z.files}))
+    ref = import_clip_pt(src, num_frames=FRAMES)
+    bad = [k for k in ref if k not in back or not torch.equal(back[k],
+                                                              ref[k])]
+    if set(back) != set(ref) or bad:
+        raise RuntimeError(f"import: {len(bad)} arrays differ, e.g. "
+                           f"{bad[:3]}")
+    log(f"(a) export of phase 5's checkpoint ({len(state)} tensors), loaded "
+        f"strict, bit for bit; import to {len(back)} flax arrays and back, "
+        f"bit for bit; {time.perf_counter() - t0:.1f} s")
+    return exported
+
+
+def _status(url: str, path: str, obj: dict) -> int:
+    try:
+        _post(url, path, obj)
+    except urllib.error.HTTPError as e:
+        return e.code
+    return 200
+
+
+def _int8_matrices(model) -> tuple:
+    """(the int8 matrices' count, the matrices in another dtype that
+    quantization should have taken) of a served replica, whose every
+    parameter must be on the card."""
+    from avion_tpu_torch.eval.runners import _CAST_EXCLUDE
+
+    int8, wrong = 0, []
+    for name, p in model.named_parameters():
+        if ST_DEVICE == "cuda" and p.device.type != "cuda":
+            raise RuntimeError(f"{name} is on {p.device}")
+        if p.dtype == torch.int8:
+            int8 += 1
+        elif p.dim() >= 2 and not any(k in name.lower()
+                                      for k in _CAST_EXCLUDE):
+            wrong.append(name)
+    return int8, wrong
+
+
+def _serve_paths_int8(tmp: str, root: str, exported: str,
+                      bf16: dict) -> dict:
+    """(b) ``serve.server.main`` with ``--weights int8 --mesh`` and
+    ``--media-root`` on the data phase's Ego4D layout: ``paths`` requests
+    against ``frames_b64`` of the same clips decoded on the host, the CPU
+    f32 plain path, the launches, the status codes, the weight bytes."""
+    from avion_tpu_torch.data.tokenizer import tokenize
+    from avion_tpu_torch.data.transforms import normalize_video
+    from avion_tpu_torch.models.pt_import import load_clip_checkpoint
+    from avion_tpu_torch.models.registry import create_model
+    from avion_tpu_torch.serve.server import decode_clip, main
+
+    rel = sorted(os.path.relpath(p, root) for p in
+                 glob.glob(os.path.join(root, "*.mp4", "*.mp4")))
+    t0 = time.perf_counter()
+    host = np.stack([decode_clip(os.path.join(root, p), FRAMES, SIZE)
+                     for p in rel])
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(rel)
+    window = dict(start=2.0, end=6.5)
+    host_window = np.stack([decode_clip(os.path.join(root, p), FRAMES, SIZE,
+                                        **window) for p in rel[:4]])
+    log(f"(b) {len(rel)} clips under the media root; host decode "
+        f"{decode_ms:.2f} ms a clip ({FRAMES} frames, {SIZE} px)")
+
+    ready: queue.Queue = queue.Queue()
+    errors: list = []
+
+    def run():
+        try:
+            main([f"model.name={MODEL}", f"data.clip_length={FRAMES}",
+                  f"data.val_batch_size={BATCH}", f"pretrain_model={exported}",
+                  "--port", "0", "--weights", "int8", "--mesh", ST_MESH,
+                  "--media-root", root, "--device", ST_DEVICE],
+                 on_ready=ready.put)
+        except BaseException as e:  # noqa: BLE001 — re-raised in the caller
+            errors.append(e)
+            ready.put(None)
+
+    th = threading.Thread(target=run, name="serve-int8")
+    th.start()
+    server = ready.get(timeout=600)
+    if server is None:
+        raise RuntimeError("the int8 server failed to start") from errors[0]
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    texts = ["#C C cuts an onion", "#C C opens the fridge"]
+    try:
+        health = _get(url, "/health")
+        log(f"health {health}")
+        replica = server.service.encoders.replicas[0]
+        int8, wrong = _int8_matrices(replica)
+        _post(url, "/v1/embed/video", {"paths": rel[:2]})  # warm up
+        _post(url, "/v1/embed/text", {"texts": texts[:1]})
+
+        # the main path, with the launch count set to 0 just before
+        before = _get(url, "/metrics")["encoder"]
+        fa.reset_launches()
+        paths_emb, frames_emb, lat_paths, lat_frames = [], [], [], []
+        for _ in range(ST_REQUESTS):
+            body, dt = _post(url, "/v1/embed/video", {"paths": rel})
+            paths_emb.append(body["embeddings"])
+            lat_paths.append(dt * 1e3)
+            body, dt = _post(url, "/v1/embed/video", _frames(host))
+            frames_emb.append(body["embeddings"])
+            lat_frames.append(dt * 1e3)
+        win_paths = _post(url, "/v1/embed/video",
+                          {"paths": rel[:4], **window})[0]["embeddings"]
+        win_frames = _post(url, "/v1/embed/video",
+                           _frames(host_window))[0]["embeddings"]
+        text_emb = _post(url, "/v1/embed/text", {"texts": texts})[0][
+            "embeddings"]
+        launches = dict(fa.launches)
+        after = _get(url, "/metrics")["encoder"]
+        log("int8 frames_b64 requests, each profiled alone:")
+        profile_request(url, host)
+        codes = {"escape": _status(url, "/v1/embed/video",
+                                   {"paths": ["../outside.mp4"]}),
+                 "missing": _status(url, "/v1/embed/video",
+                                    {"paths": ["vid0.mp4/999.mp4"]})}
+    finally:
+        server.shutdown()
+        th.join(timeout=120)
+    if th.is_alive():
+        raise RuntimeError("server thread did not stop")
+    if errors:
+        raise errors[0]
+
+    if health["platform"] != "gpu" and ST_DEVICE == "cuda":
+        raise RuntimeError(f"not serving on the GPU: {health}")
+    if len(health["replicas"]) != torch.cuda.device_count() and \
+            ST_DEVICE == "cuda":
+        raise RuntimeError(f"replicas {health['replicas']}")
+    if after["weight_dtype"] != "int8" or not int8 or wrong:
+        raise RuntimeError(f"int8 service holds {int8} int8 matrices and "
+                           f"unquantized {wrong}")
+    calls = {k: after[k] - before[k] for k in ("image_calls", "text_calls")}
+    want = LAYERS * sum(calls.values())
+    log(f"tower forwards {calls}, kernel launches {launches}")
+    if launches != {"flash_fwd": want}:
+        raise RuntimeError(f"launches {launches}, expected {want} flash_fwd")
+    if codes != {"escape": 400, "missing": 500}:
+        raise RuntimeError(f"status codes {codes}, the JAX server's are "
+                           f"400 (escape) and 500 (missing file)")
+    p_emb = [_unit_rows("paths", e, len(rel)) for e in paths_emb]
+    f_emb = [_unit_rows("frames", e, len(rel)) for e in frames_emb]
+    err = max(np.abs(a - b).max() for a in p_emb for b in f_emb)
+    err_window = np.abs(_unit_rows("window paths", win_paths, 4)
+                        - _unit_rows("window frames", win_frames, 4)).max()
+    log(f"paths against frames_b64 of the host decode: max abs {err:.2e}, "
+        f"with start/end {err_window:.2e} (bound {ST_TOL})")
+    if max(err, err_window) > ST_TOL:
+        raise RuntimeError("paths and frames_b64 disagree")
+
+    model = create_model(MODEL, num_frames=FRAMES, dtype=torch.float32)
+    load_clip_checkpoint(model, exported)
+    with torch.inference_mode():
+        ref_v = model.encode_image(normalize_video(
+            torch.from_numpy(host[:2]), dtype=torch.float32)).numpy()
+        ref_t = model.encode_text(
+            torch.from_numpy(tokenize(texts)).long()).numpy()
+    cos_v = (ref_v * p_emb[0][:2]).sum(-1)
+    cos_t = (ref_t * _unit_rows("text", text_emb, 2)).sum(-1)
+    log(f"int8 against the CPU f32 plain path: cosine video {cos_v}, "
+        f"text {cos_t} (bound 0.98)")
+    if min(cos_v.min(), cos_t.min()) < 0.98:
+        raise RuntimeError("int8 embeddings disagree with the CPU reference")
+    p50_paths = float(np.median(lat_paths))
+    p50_frames = float(np.median(lat_frames))
+    int8_bytes = after["replicas"][0]["weight_bytes"]
+    log(f"int8 service: {int8} int8 matrices, {int8_bytes} weight bytes on "
+        f"the card against bf16's {bf16['weight_bytes']} "
+        f"({int8_bytes / bf16['weight_bytes']:.3f}); {len(rel)}-clip "
+        f"requests: paths p50 {p50_paths:.1f} ms (host decode included), "
+        f"frames_b64 p50 {p50_frames:.1f} ms, phase 4's bf16 frames_b64 p50 "
+        f"{bf16['p50_ms']:.1f} ms")
+    return {"launches": launches, "p50_paths_ms": p50_paths,
+            "p50_frames_ms": p50_frames, "decode_ms": decode_ms,
+            "weight_bytes": int8_bytes}
+
+
+ST_PROFILE_STEPS = 2
+
+
+def _profile_step_tool(tmp: str) -> dict:
+    """(c) ``tools.profile_step.main`` at ``CLIP_VITB16``, 4 frames, batch
+    32: 24 ``flash_fwd_lse`` and 24 combined-backward launches a step
+    (the wrappers' counts over 3 warm-up and 2 traced steps, exactly), its
+    rows 24 ``flash_fwd_kernel`` (forward) and 24 ``bwd_kv_kernel``
+    (backward) a step in both towers, and device time above 0 and below
+    the wall.  A trace may lose kernel records (1 of 5320 in one of three
+    traces of a fresh process on the card; late in this script, the first
+    kernels of one visual forward, PERF.md §6), and a row counts its
+    kernels a step rounded down, so a row may read one short of the
+    launches."""
+    from avion_tpu_torch.tools import profile_step
+
+    fa.reset_launches()
+    out = profile_step.main(["--batch", str(ST_PROFILE_BATCH), "--steps",
+                             str(ST_PROFILE_STEPS), "--model", MODEL,
+                             "--frames", str(FRAMES), "--top", "1000",
+                             "--device", ST_DEVICE,
+                             "--out", os.path.join(tmp, "steptrace")])
+    launches = dict(fa.launches)
+    flash: dict = {}
+    for _, n, kind, region, phase in out["rows"]:
+        if kind in ("flash_fwd_kernel", "bwd_kv_kernel", "bwd_dq_kernel"):
+            flash[(kind, region, phase)] = n
+    log(f"(c) profile_step: device {out['total_ms']:.3f} ms of "
+        f"{out['wall_ms']:.3f} ms wall a step; flash kernels a step {flash}; "
+        f"launches over {3 + ST_PROFILE_STEPS} steps {launches}")
+    if ST_DEVICE != "cuda":
+        return {"launches": launches, "rows": out["rows"][:10]}
+    steps = 3 + ST_PROFILE_STEPS
+    if launches != {"flash_fwd_lse": 2 * LAYERS * steps,
+                    "flash_bwd_combined": 2 * LAYERS * steps}:
+        raise RuntimeError(f"profile_step launched {launches}")
+    want = {("flash_fwd_kernel", "vision", "fwd"), ("flash_fwd_kernel",
+            "text", "fwd"), ("bwd_kv_kernel", "vision", "bwd"),
+            ("bwd_kv_kernel", "text", "bwd")}
+    counts = [sum(n for k, n in flash.items() if k[0] == kind)
+              for kind in ("flash_fwd_kernel", "bwd_kv_kernel")]
+    if set(flash) != want or not all(2 * LAYERS - 1 <= n <= 2 * LAYERS
+                                     for n in counts) or not \
+            0 < out["total_ms"] < out["wall_ms"]:
+        raise RuntimeError(f"profile_step rows {flash}, expected {want} at "
+                           f"{2 * LAYERS} a step; device {out['total_ms']} "
+                           f"ms of {out['wall_ms']} ms")
+    return {"launches": launches, "rows": out["rows"][:10]}
+
+
+def phase_serve_tools(tmp: str, fixture: tuple, bf16: dict) -> dict:
+    """Serving completed and the model tools: (a) the checkpoint
+    converter both ways, (b) ``paths`` under ``--media-root`` with
+    ``--weights int8`` over ``--mesh``, (c) ``tools.profile_step``.
+    Returns the launches by path."""
+    log("== serve completed, tools")
+    t_phase = time.perf_counter()
+    exported = _export_import(tmp)
+    served = _serve_paths_int8(tmp, fixture[0], exported, bf16)
+    prof = _profile_step_tool(tmp)
+    log("serve-tools summary " + json.dumps(
+        {k: v for k, v in served.items() if k != "launches"}, default=float))
+    log(f"serve-tools phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": {"serve_paths_int8": served["launches"],
+                      "profile_step": prof["launches"]}}
+
+
 KERNEL_SOURCES = {
     "flash_fwd": ("flash_fwd.cu", 134), "flash_fwd_lse": ("flash_fwd.cu", 91),
     "flash_bwd_combined": ("flash_bwd.cu", 494),
@@ -4901,14 +5223,16 @@ def main() -> int:
         par = phase_parallel(tmp, data["fixture"])
         nar = phase_narrator(tmp, data["fixture"])
         nlq = phase_egonlq(tmp, os.path.join(tmp, "clip_vitb16_random.pt"))
+        tools = phase_serve_tools(tmp, data["fixture"], serve)
     # each kernel's launches from the path that drives it: serving, the
     # data-fed 4-frame main path (run A), and the data-fed MIR finetune at
     # 16 frames for the split kernels; every path's counts beside them
     mir = ft["paths"]["finetune_mir_data_with_validation"]
-    launches = {"flash_fwd": serve, **data["host_crop"],
+    launches = {"flash_fwd": serve["launches"], **data["host_crop"],
                 "flash_bwd_dq": mir["flash_bwd_dq"],
                 "flash_bwd_dkv": mir["flash_bwd_dkv"], **par["ring"]}
-    by_path = {"serve": {"flash_fwd": serve}, "train_seeded_batches": train,
+    by_path = {"serve": {"flash_fwd": serve["launches"]},
+               "train_seeded_batches": train,
                "train_seeded_deterministic": train_det["launches"],
                "train_16_frames": long, "data_host_crop": data["host_crop"],
                "data_device_crop": data["device_crop"],
@@ -4917,7 +5241,7 @@ def main() -> int:
                "parallel_ring": par["ring"], "parallel_nccl": par["nccl"],
                **{f"parallel_entry_{name}": counts
                   for name, counts in par["entries"].items()},
-               **nar["paths"], **nlq["paths"]}
+               **nar["paths"], **nlq["paths"], **tools["paths"]}
     rows["flash_fwd"] += evals["checks"]
     for name in rows:
         rows[name] += vmae["rows"][name] + ft["rows"][name] + \

@@ -1,7 +1,7 @@
 """The port imports nothing of JAX or of the JAX package, and no
-``pandas``, ``regex`` or ``transformers`` (the card's machine has none of
-them; the port's ``transformers`` imports are inside the functions that
-need it): every module of
+``pandas``, ``regex``, ``transformers``, ``matplotlib`` or ``wandb`` (the
+card's machine has none of them; the port's imports of them are inside the
+functions that need them): every module of
 ``avion_tpu_torch`` and ``chip_smoke.py`` import in a fresh interpreter
 where those names are blocked."""
 
@@ -14,7 +14,7 @@ import avion_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "avion_tpu", "pandas",
-           "regex", "transformers")
+           "regex", "transformers", "matplotlib", "wandb")
 
 _SCRIPT = r"""
 import importlib, sys
@@ -69,7 +69,12 @@ def test_port_imports_nothing_of_jax():
                 "data.roberta_tokenizer", "egonlq", "egonlq.nlq_eval",
                 "egonlq.nlq_dataset", "egonlq.vslnet", "egonlq.train_nlq",
                 "egonlq.features", "egonlq.extract_features",
-                "egonlq.egovlp"):
+                "egonlq.egovlp", "core.flops", "core.profiling",
+                "tools.profile_step", "tools.convert_checkpoint",
+                "tools.chunk_videos", "tools.bench_decode",
+                "tools.alignment_ablation", "tools.refinement_eval",
+                "tools.dataset_tools", "tools.narration_refinement",
+                "tools.metrics_extractor", "tools.plots"):
         assert f"avion_tpu_torch.{mod}" in modules
     script = _SCRIPT.format(blocked=BLOCKED, modules=modules, root=ROOT)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
