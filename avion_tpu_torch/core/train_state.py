@@ -14,7 +14,9 @@ resume is exact.
 Under FSDP2 the parameters, moments and average are sharded tensors: a
 checkpoint (``core.checkpoint``) holds them whole, and :meth:`TrainState.
 load_state_dict` cuts each back to this rank's shard, so a state saved at
-one world size restores at any other."""
+one world size restores at any other.  Under ``mesh.tensor`` the parts a
+rank holds (``parallel.tensor_parallel``) are gathered and cut the same
+way, so the checkpoint keeps the one-process layout."""
 
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from avion_tpu_torch.optim.factory import Optimizer
-from avion_tpu_torch.parallel.sharding import local, shard_like
+from avion_tpu_torch.parallel.sharding import full_tensor, local, shard_like
+from avion_tpu_torch.parallel.tensor_parallel import tensor_layout
 
 
 @dataclass
@@ -55,14 +58,24 @@ class TrainState:
             [local(params[n].detach()) for n in names], 1.0 - decay))
 
     def state_dict(self) -> dict:
+        """Under ``mesh.tensor`` the parts each rank holds are gathered
+        whole (a collective: every rank calls it); FSDP2's shards stay
+        sharded tensors (``core.checkpoint`` gathers them)."""
         out = {"step": self.step, "model": self.model.state_dict(),
                "optimizer": self.optimizer.state_dict()}
         if self.ema is not None:
             out["ema"] = self.ema
+        layout = tensor_layout(self.model)
+        if layout is not None:
+            out = _over_parts(out, self.optimizer,
+                              lambda n, v: layout.gather(n, full_tensor(v)))
         return out
 
     def load_state_dict(self, state: dict) -> None:
         self.step = int(state["step"])
+        layout = tensor_layout(self.model)
+        if layout is not None:
+            state = _over_parts(state, self.optimizer, layout.cut)
         own = self.model.state_dict()
         self.model.load_state_dict({k: shard_like(v, own[k]) if k in own
                                     else v for k, v in state["model"].items()})
@@ -70,3 +83,26 @@ class TrainState:
         if self.ema is not None:
             for n, v in state["ema"].items():
                 local(self.ema[n]).copy_(local(shard_like(v, self.ema[n])))
+
+
+def _over_parts(state: dict, optimizer: Optimizer, fn) -> dict:
+    """``state`` with ``fn(name, value)`` applied to the model's tensors,
+    the EMA's and the optimizer's per-parameter tensors (its moments and
+    the accumulated mean, named by their parameter)."""
+    out = dict(state)
+    out["model"] = {k: fn(k, v) if torch.is_tensor(v) else v
+                    for k, v in state["model"].items()}
+    if state.get("ema") is not None:
+        out["ema"] = {k: fn(k, v) for k, v in state["ema"].items()}
+    opt = dict(state["optimizer"])
+    core = dict(opt[optimizer.name])
+    names = optimizer.names
+    core["state"] = {i: {k: fn(names[int(i)], v)
+                         if torch.is_tensor(v) and v.dim() else v
+                         for k, v in moments.items()}
+                     for i, moments in core["state"].items()}
+    opt[optimizer.name] = core
+    if opt.get("acc") is not None:
+        opt["acc"] = [fn(n, a) for n, a in zip(names, opt["acc"])]
+    out["optimizer"] = opt
+    return out

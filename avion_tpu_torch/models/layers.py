@@ -41,6 +41,7 @@ from avion_tpu_torch.ops.attention import cached_decode_attention
 from avion_tpu_torch.ops.flash_attention import (FWD_LSE_OP, HOP_FWD_OP,
                                                  flash_attention_fused_qkv)
 from avion_tpu_torch.ops.ring_attention import ring_flash_attention_packed
+from avion_tpu_torch.parallel.tensor_parallel import column, local_heads, row
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -103,20 +104,27 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
+    """``fc2(act(fc1(x)))``; under ``mesh.tensor`` (``tensor``, set by
+    ``parallel.tensor_parallel``) each rank computes its columns."""
+
     def __init__(self, width: int, act=gelu):
         super().__init__()
         self.fc1 = nn.Linear(width, 4 * width)
         self.fc2 = nn.Linear(4 * width, width)
         self.act = act
+        self.tensor = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(self.act(dense(x, self.fc1)), self.fc2)
+        h = self.act(column(x, self.fc1, self.tensor, "fc1"))
+        return row(h, self.fc2, self.tensor, "fc2")
 
 
 class SelfAttention(nn.Module):
     """Fused-qkv self-attention.  The projection's output lanes are
     ``[q_all | k_all | v_all]``; the attention reads them in place, on
-    CUDA through the flash kernel (no padding of the token dim)."""
+    CUDA through the flash kernel (no padding of the token dim).  Under
+    ``mesh.tensor`` (``tensor``, set by ``parallel.tensor_parallel``) each
+    rank computes its heads' lanes and attention (the ring's too)."""
 
     def __init__(self, width: int, heads: int, causal: bool = False,
                  sequence_parallel: bool = False):
@@ -126,25 +134,31 @@ class SelfAttention(nn.Module):
         self.sequence_parallel = sequence_parallel
         self.Wqkv = nn.Linear(width, 3 * width)
         self.out_proj = nn.Linear(width, width)
+        self.tensor = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qkv = dense(x, self.Wqkv)
+        qkv = column(x, self.Wqkv, self.tensor, "Wqkv")
+        heads = local_heads(self.heads, self.tensor)
         if self.sequence_parallel:
-            w = x.shape[-1]
+            w = qkv.shape[-1] // 3
             o = ring_flash_attention_packed(
                 qkv[..., :w], qkv[..., w:2 * w], qkv[..., 2 * w:],
-                self.heads, causal=self.causal)
+                heads, causal=self.causal)
         else:
-            o = flash_attention_fused_qkv(qkv, self.heads, x.shape[1],
+            o = flash_attention_fused_qkv(qkv, heads, x.shape[1],
                                           causal=self.causal)
-        return dense(o, self.out_proj)
+        return row(o, self.out_proj, self.tensor, "out_proj")
 
     def decode_step(self, x1: torch.Tensor, pos: int, k_cache: torch.Tensor,
                     v_cache: torch.Tensor):
         """KV-cached single-token causal attention for autoregressive
         decoding (``ops.attention.cached_decode_attention``, plain f32).
         ``x1``: [B, 1, W]; caches [B, L, W], written at ``pos`` in place.
-        Returns (out [B, 1, W] in ``x1``'s dtype, k_cache, v_cache)."""
+        Returns (out [B, 1, W] in ``x1``'s dtype, k_cache, v_cache).  A
+        whole model only (not under ``mesh.tensor``)."""
+        if self.tensor is not None:
+            raise NotImplementedError("cached decoding runs a whole model, "
+                                      "not one split over mesh.tensor")
         o, k_cache, v_cache = cached_decode_attention(
             dense(x1, self.Wqkv), pos, k_cache, v_cache, self.heads)
         return dense(o.to(x1.dtype), self.out_proj), k_cache, v_cache

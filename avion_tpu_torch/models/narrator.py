@@ -38,6 +38,7 @@ from avion_tpu_torch.models.layers import (LayerNorm, Mlp, SelfAttention,
                                            dense, gelu)
 from avion_tpu_torch.models.vit import VisionTransformer
 from avion_tpu_torch.ops.attention import xla_attention
+from avion_tpu_torch.parallel.tensor_parallel import whole_linear
 
 
 class CrossAttention(nn.Module):
@@ -50,22 +51,27 @@ class CrossAttention(nn.Module):
         self.q = nn.Linear(width, width)
         self.kv = nn.Linear(width, 2 * width)
         self.out_proj = nn.Linear(width, width)
+        # under mesh.tensor, the matrices held in part and gathered on use
+        # (parallel.tensor_parallel)
+        self.tensor = None
 
     def kv_heads(self, visual: torch.Tensor):
         """Visual-token (k, v), each [B, Sv, H, D]: constant per clip, so
         cached generation computes them once."""
         b, sv, _ = visual.shape
         d = self.width // self.heads
-        k, v = dense(visual, self.kv).chunk(2, dim=-1)
+        k, v = whole_linear(visual, self.kv, self.tensor, "kv").chunk(
+            2, dim=-1)
         return (k.reshape(b, sv, self.heads, d),
                 v.reshape(b, sv, self.heads, d))
 
     def attend(self, x: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
-        q = dense(x, self.q).reshape(b, s, self.heads, -1)
+        q = whole_linear(x, self.q, self.tensor, "q").reshape(
+            b, s, self.heads, -1)
         o = xla_attention(q, k, v).reshape(b, s, self.width)
-        return dense(o, self.out_proj)
+        return whole_linear(o, self.out_proj, self.tensor, "out_proj")
 
     def forward(self, x: torch.Tensor, visual: torch.Tensor) -> torch.Tensor:
         return self.attend(x, *self.kv_heads(visual))

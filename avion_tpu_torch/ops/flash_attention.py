@@ -44,12 +44,20 @@ fixed order, so the same input gives the same bits.
 Unlike the TPU path, S is not padded to a multiple of 128: the kernels mask
 the ragged last tile themselves, so ``qkv`` may have exactly ``s`` rows.
 Rows past ``s`` are never read, and get a zero gradient.
+
+A process started with ``AVION_KERNEL_COUNTS=<dir>`` writes its counts
+(``launches`` and ``plain_calls``) to ``<dir>/<pid>.json`` at exit, so a
+parent can read the launches of its children
+(``tools.e2e_convergence``).
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
+import json
 import math
+import os
 import threading
 from collections import Counter
 from typing import Optional
@@ -89,6 +97,18 @@ def reset_launches() -> None:
 def _count(counter: Counter, name: str) -> None:
     with _count_lock:
         counter[name] += 1
+
+
+def _write_counts(directory: str) -> None:
+    with _count_lock:
+        counts = {"launches": dict(launches),
+                  "plain_calls": dict(plain_calls)}
+    with open(os.path.join(directory, f"{os.getpid()}.json"), "w") as f:
+        json.dump(counts, f)
+
+
+if os.environ.get("AVION_KERNEL_COUNTS"):
+    atexit.register(_write_counts, os.environ["AVION_KERNEL_COUNTS"])
 
 
 def use_combined_bwd(s: int) -> bool:

@@ -37,7 +37,8 @@ core is AdamW, SGD with momentum or Lion.
 - Under FSDP2 (``parallel.sharding``) parameters, gradients and moments
   are sharded tensors of one layout: the cores run on their local shards,
   and the global norm sums the shards' squared norms over the ``fsdp``
-  ranks before the clip.
+  ranks before the clip; under ``mesh.tensor`` the parts a rank holds
+  (``parallel.tensor_parallel``) are summed over the ``tensor`` ranks too.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ import torch.distributed as dist
 
 from avion_tpu_torch.optim.schedules import cosine_schedule
 from avion_tpu_torch.parallel.sharding import is_dtensor, local, shard_like
+from avion_tpu_torch.parallel.tensor_parallel import tensor_layout
 
 # the JAX package's tokens, and ``cls_token``: the released TimeSformer
 # layout stores it [1, 1, D], where the flax parameter is [D] (ndim 1)
@@ -251,7 +253,9 @@ class Optimizer:
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], cfg,
                  schedule: Callable[[int], float],
                  num_layers: Optional[int] = None,
-                 wd_schedule: Optional[Callable[[int], float]] = None):
+                 wd_schedule: Optional[Callable[[int], float]] = None,
+                 tensor_layout=None):
+        named_params = list(named_params)
         if cfg.accum not in ACCUM_MODES:
             raise ValueError(f"accum must be one of {ACCUM_MODES}, got "
                              f"{cfg.accum!r}")
@@ -268,6 +272,13 @@ class Optimizer:
         if not groups:
             groups[(1.0, True)] = []
         self.params = [p for ps in groups.values() for p in ps]
+        names = {id(p): n for n, p in named_params}
+        self.names = [names[id(p)] for p in self.params]
+        # under mesh.tensor, the parameters each rank holds a part of
+        self.tensor_layout = tensor_layout
+        self.tensor_held = ({id(p) for n, p in zip(self.names, self.params)
+                             if n in tensor_layout.leaves}
+                            if tensor_layout is not None else set())
         self.schedule = schedule
         self.wd_schedule = wd_schedule
         self.grad_clip_norm = cfg.grad_clip_norm
@@ -296,19 +307,41 @@ class Optimizer:
 
     def global_norm(self) -> torch.Tensor:
         """L2 norm of all gradients (``optax.global_norm``), on device;
-        sharded gradients' squared norms are summed over their shards."""
-        grads = self._grads()
-        whole = [g for g in grads if not is_dtensor(g)]
+        sharded gradients' squared norms are summed over their shards
+        (FSDP2's over ``fsdp``, then the tensor parts' over ``tensor``)."""
+        whole, held = [], []
+        for p in self.params:
+            if p.grad is not None:
+                (held if id(p) in self.tensor_held else whole).append(p.grad)
+
+        def sharded_squares(grads):
+            """The squared norm of FSDP2-sharded gradients, summed over
+            their shards."""
+            sq = torch.stack([torch.linalg.vector_norm(local(g).float()) ** 2
+                              for g in grads]).sum()
+            mesh = grads[0].device_mesh
+            dist.all_reduce(sq, group=mesh.get_group(mesh.ndim - 1))
+            return sq
+
+        plain = [g for g in whole if not is_dtensor(g)]
         norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in whole]))
-        sharded = [g for g in grads if is_dtensor(g)]
-        if not sharded:
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in plain]))
+        extra = []
+        sharded = [g for g in whole if is_dtensor(g)]
+        if sharded:
+            extra.append(sharded_squares(sharded))
+        if held:
+            parts = [torch.linalg.vector_norm(g.float()) ** 2
+                     for g in held if not is_dtensor(g)]
+            sq = torch.stack(parts).sum() if parts else norm.new_zeros(())
+            sharded = [g for g in held if is_dtensor(g)]
+            if sharded:
+                sq = sq + sharded_squares(sharded)
+            dist.all_reduce(sq, group=self.tensor_layout.group)
+            extra.append(sq)
+        if not extra:
             return norm
-        sq = torch.stack([torch.linalg.vector_norm(local(g).float()) ** 2
-                          for g in sharded]).sum()
-        mesh = sharded[0].device_mesh
-        dist.all_reduce(sq, group=mesh.get_group(mesh.ndim - 1))
-        return torch.sqrt(norm ** 2 + sq)
+        return torch.sqrt(norm ** 2 + sum(extra))
 
     def _accumulate(self) -> bool:
         """Fold this call's gradients into the running mean (``acc + (g -
@@ -387,5 +420,6 @@ def build_optimizer(cfg, model: torch.nn.Module, niter_per_ep: int,
     in the JAX factory."""
     schedule = build_schedule(cfg, niter_per_ep)
     return (Optimizer(model.named_parameters(), cfg, schedule, num_layers,
-                      build_wd_schedule(cfg, niter_per_ep)),
+                      build_wd_schedule(cfg, niter_per_ep),
+                      tensor_layout(model)),
             schedule)

@@ -4,18 +4,32 @@ One process drives one card.  The JAX package lays its devices out as
 ``(data, fsdp, pp, sp, ep, tensor)`` with ``tensor`` fastest; here rank r
 takes the mesh coordinates of JAX device r in that layout, so rank r of a
 ``torch.distributed`` world and device r of a JAX mesh of the same shape
-hold the same rows of the batch and the same sequence shard.
+hold the same rows of the batch, the same sequence shard and the same
+tensor shard.
 
 - ``data`` and ``fsdp`` are the batch axes: the global batch is cut into
   ``data * fsdp`` batch groups (:attr:`Mesh.n_batch_shards`), and the losses
-  gather over the ranks of one ``sp`` index (:attr:`Mesh.batch_group`).
-- ``sp`` cuts the visual tower's tokens: the ranks of one batch group form
-  the ring of ``ops.ring_attention`` (:attr:`Mesh.sp_group`) and read the
-  same clips.
+  gather over the ranks of one ``(sp, tensor)`` index
+  (:attr:`Mesh.batch_group`).
+- ``sp`` cuts the sequence-parallel visual tower's tokens: the ranks of one
+  ``(data, fsdp, tensor)`` index form the ring of ``ops.ring_attention``
+  (:attr:`Mesh.sp_group`) and read the same clips.  In a model without a
+  sequence-parallel tower they hold replicas and compute the same step, as
+  the JAX devices of that axis do.
+- ``tensor`` splits the blocks' heads and MLP columns (Megatron's layout,
+  ``parallel.tensor_parallel``) over the ranks of one ``(data, fsdp, sp)``
+  index (:attr:`Mesh.tensor_group`); they read the same rows, and the
+  gradients are averaged over the ranks of one ``tensor`` index
+  (:attr:`Mesh.replica_group`).
 - ``fsdp`` also shards parameters and optimizer state
   (``parallel.sharding``).
-- ``pp``, ``ep``, ``tensor`` and ``dcn_data`` above 1 raise
-  :class:`NotImplementedError`: they come with later slices.
+- ``dcn_data`` places whole nodes as the outer blocks of ``data``
+  (:func:`hybrid_device_array`, the JAX package's multi-slice layout with a
+  node for a slice): every collective but the gradient reduction stays
+  inside a node.  torchrun numbers a node's ranks contiguously, so the
+  layout is the plain one; the checks are JAX's.
+- ``pp`` and ``ep`` above 1 raise :class:`NotImplementedError`: they come
+  with a later slice.
 
 :func:`use_mesh` makes a mesh current (the JAX package's ``jax.set_mesh``);
 the sequence-parallel layers read the current one's ``sp`` group.
@@ -24,18 +38,20 @@ the sequence-parallel layers read the current one's ``sp`` group.
 from __future__ import annotations
 
 import contextlib
+import itertools
+import os
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch.distributed as dist
 
 DATA_AXIS, FSDP_AXIS, PP_AXIS, SP_AXIS, EP_AXIS, TENSOR_AXIS = (
     "data", "fsdp", "pp", "sp", "ep", "tensor")
 MESH_AXES = (DATA_AXIS, FSDP_AXIS, PP_AXIS, SP_AXIS, EP_AXIS, TENSOR_AXIS)
-# axes of later slices: the port raises on any of them above 1
+# axes of a later slice: the port raises on either above 1
 LATER_AXES = {"pp": "the pipeline slice", "ep": "the mixture-of-experts "
-              "slice", "tensor": "the tensor-parallel slice",
-              "dcn_data": "the multi-slice slice"}
+              "slice"}
 
 
 def mesh_coords(rank: int, shape: Dict[str, int]) -> Dict[str, int]:
@@ -64,18 +80,107 @@ def axis_sizes(world: int, data: int = -1, fsdp: int = 1, pp: int = 1,
     return dict(zip(MESH_AXES, (data, fsdp, pp, sp, ep, tensor)))
 
 
+def group_devices_by_slice(devices: Sequence, dcn_data: int) -> list:
+    """Partition ``devices`` into ``dcn_data`` equal slice groups (the JAX
+    package's rule): by ``slice_index``, else by ``process_index`` blocks
+    (consecutive processes packed into a slice), else contiguous blocks;
+    groups in the order of their smallest key."""
+    n = len(devices)
+    if n % dcn_data:
+        raise ValueError(f"{n} ranks do not divide into dcn_data = "
+                         f"{dcn_data} equal groups")
+    per = n // dcn_data
+
+    def _try(keyf):
+        groups: dict = {}
+        for d in devices:
+            k = keyf(d)
+            if k is None:
+                return None
+            groups.setdefault(k, []).append(d)
+        if len(groups) == dcn_data and all(
+                len(g) == per for g in groups.values()):
+            return [groups[k] for k in sorted(groups)]
+        if len(groups) % dcn_data == 0 and len(groups) > dcn_data:
+            keys = sorted(groups)
+            stride = len(keys) // dcn_data
+            merged = [[d for k in keys[i * stride:(i + 1) * stride]
+                       for d in groups[k]] for i in range(dcn_data)]
+            if all(len(g) == per for g in merged):
+                return merged
+        return None
+
+    got = _try(lambda d: getattr(d, "slice_index", None))
+    if got is None and dcn_data > 1:
+        got = _try(lambda d: getattr(d, "process_index", None))
+    if got is None:
+        devices = list(devices)
+        got = [devices[i * per:(i + 1) * per] for i in range(dcn_data)]
+    return got
+
+
+def hybrid_device_array(devices, data, fsdp, pp, sp, ep, tensor,
+                        dcn_data) -> np.ndarray:
+    """The multi-slice layout: slice s owns data rows [s * data / dcn,
+    (s + 1) * data / dcn), every other axis inside a slice."""
+    if data % dcn_data:
+        raise ValueError(f"data axis {data} must be a multiple of dcn_data "
+                         f"{dcn_data}")
+    groups = group_devices_by_slice(devices, dcn_data)
+    blocks = []
+    for g in groups:
+        block = np.empty(len(g), dtype=object)
+        block[:] = g
+        blocks.append(block.reshape(data // dcn_data, fsdp, pp, sp, ep,
+                                    tensor))
+    return np.stack(blocks).reshape(data, fsdp, pp, sp, ep, tensor)
+
+
+@dataclass(frozen=True)
+class RankDevice:
+    """A rank as a device of :func:`group_devices_by_slice`: its node
+    (``slice_index``; None on one node) and its process."""
+
+    id: int
+    slice_index: Optional[int]
+    process_index: int
+
+
+def rank_devices(world: int) -> list:
+    """The world's ranks with their nodes: torchrun numbers the ranks of a
+    node contiguously, ``LOCAL_WORLD_SIZE`` of them."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "0") or 0)
+    multi = 0 < local < world
+    return [RankDevice(r, r // local if multi else None, r)
+            for r in range(world)]
+
+
 @dataclass
 class Mesh:
-    """This rank's place in the mesh and its process groups: the ranks of
-    its ``sp`` index (``batch_group``, which the losses gather over) and
-    of its batch group (``sp_group``, the ring); None in a world of one
-    process, where every collective is the identity."""
+    """This rank's place in the mesh and its process groups: the losses'
+    ``batch_group`` (the ranks of its ``(sp, tensor)`` index), the ring's
+    ``sp_group`` (of its ``(data, fsdp, tensor)`` index), the
+    ``tensor_group`` (of its ``(data, fsdp, sp)`` index) and the
+    gradients' ``replica_group`` (of its ``tensor`` index; None while
+    ``tensor`` is 1, where it is the world).  None in a world of one
+    process, where every collective is the identity.  ``layout`` holds
+    each position's rank."""
 
     shape: Dict[str, int]
     rank: int = 0
     coords: Dict[str, int] = field(default_factory=dict)
     batch_group: Optional[object] = None
     sp_group: Optional[object] = None
+    tensor_group: Optional[object] = None
+    replica_group: Optional[object] = None
+    layout: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        if self.layout is None:
+            self.layout = np.arange(self.size).reshape(
+                [self.shape[a] for a in MESH_AXES])
+        if not self.coords:
+            self.coords = self.coords_of(self.rank)
 
     @property
     def size(self) -> int:
@@ -94,11 +199,26 @@ class Mesh:
         return (self.coords[DATA_AXIS] * self.shape[FSDP_AXIS]
                 + self.coords[FSDP_AXIS])
 
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        where = np.argwhere(self.layout == rank)[0]
+        return dict(zip(MESH_AXES, (int(i) for i in where)))
+
     def ranks(self, **fixed: int) -> list:
         """The global ranks whose coordinates match ``fixed``, in order."""
-        return [r for r in range(self.size)
-                if all(mesh_coords(r, self.shape)[a] == v
-                       for a, v in fixed.items())]
+        index = tuple(fixed.get(a, slice(None)) for a in MESH_AXES)
+        return sorted(int(r) for r in np.asarray(self.layout[index]).flat)
+
+
+def _make_groups(mesh: Mesh, fixed: Sequence[str]):
+    """One process group for every index of the ``fixed`` axes (row-major,
+    the same calls on every rank); returns this rank's."""
+    mine = None
+    for index in itertools.product(*(range(mesh.shape[a]) for a in fixed)):
+        where = dict(zip(fixed, index))
+        group = dist.new_group(mesh.ranks(**where))
+        if all(mesh.coords[a] == i for a, i in where.items()):
+            mine = group
+    return mine
 
 
 def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1, sp: int = 1,
@@ -107,43 +227,52 @@ def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1, sp: int = 1,
               rank: Optional[int] = None) -> Mesh:
     """The mesh over the initialized process group (or ``world`` ranks,
     this one ``rank``, without one).  Every rank must call it, in the same
-    order, since it creates the ``batch`` and ``sp`` groups."""
-    for axis, size in (("pp", pp), ("ep", ep), ("tensor", tensor),
-                       ("dcn_data", dcn_data)):
+    order, since it creates the groups."""
+    for axis, size in (("pp", pp), ("ep", ep)):
         if size != 1:
             raise NotImplementedError(
                 f"mesh.{axis}={size}: the PyTorch port parallelizes data, "
-                f"fsdp and sp; {axis} comes with {LATER_AXES[axis]}")
+                f"fsdp, sp, tensor and dcn_data; {axis} comes with "
+                f"{LATER_AXES[axis]}")
     initialized = dist.is_available() and dist.is_initialized()
     if world is None:
         world = dist.get_world_size() if initialized else 1
     if rank is None:
         rank = dist.get_rank() if initialized else 0
     shape = axis_sizes(world, data, fsdp, pp, sp, ep, tensor)
-    mesh = Mesh(shape, rank, mesh_coords(rank, shape))
+    layout = None
+    if dcn_data > 1:
+        devices = rank_devices(world)
+        nodes = {d.slice_index for d in devices} - {None}
+        if nodes and len(nodes) != dcn_data:
+            raise ValueError(f"mesh.dcn_data={dcn_data} over {len(nodes)} "
+                             f"nodes: each node is one slice of the data "
+                             f"axis")
+        layout = np.vectorize(lambda d: d.id, otypes=[int])(
+            hybrid_device_array(devices, *shape.values(), dcn_data))
+    mesh = Mesh(shape, rank, layout=layout)
     if initialized and world > 1:
         # every rank creates every group, in one order
-        for s in range(shape[SP_AXIS]):
-            group = dist.new_group(mesh.ranks(sp=s))
-            if mesh.coords[SP_AXIS] == s:
-                mesh.batch_group = group
-        for d in range(shape[DATA_AXIS]):
-            for f in range(shape[FSDP_AXIS]):
-                group = dist.new_group(mesh.ranks(data=d, fsdp=f))
-                if (mesh.coords[DATA_AXIS], mesh.coords[FSDP_AXIS]) == (d, f):
-                    mesh.sp_group = group
+        mesh.batch_group = _make_groups(mesh, (SP_AXIS, TENSOR_AXIS))
+        mesh.sp_group = _make_groups(mesh, (DATA_AXIS, FSDP_AXIS,
+                                            TENSOR_AXIS))
+        if shape[TENSOR_AXIS] > 1:
+            mesh.tensor_group = _make_groups(mesh, (DATA_AXIS, FSDP_AXIS,
+                                                    SP_AXIS))
+            mesh.replica_group = _make_groups(mesh, (TENSOR_AXIS,))
     return mesh
 
 
-def mesh_from_config(cfg) -> Mesh:
+def mesh_from_config(cfg, world: Optional[int] = None,
+                     rank: Optional[int] = None) -> Mesh:
     """From a ``MeshConfig`` over the initialized process group."""
     return make_mesh(cfg.data, cfg.fsdp, cfg.tensor, cfg.sp, cfg.pp, cfg.ep,
-                     cfg.dcn_data)
+                     cfg.dcn_data, world=world, rank=rank)
 
 
 def local_batch_slice(mesh: Mesh, global_batch: int) -> slice:
     """This rank's rows of a global batch: its batch group's contiguous
-    block (the ``sp`` ranks of a group share it)."""
+    block (the ``sp`` and ``tensor`` ranks of a group share it)."""
     n = mesh.n_batch_shards
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} does not divide by "

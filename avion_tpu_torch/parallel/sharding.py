@@ -7,7 +7,12 @@
   that the JAX package's ``_spec_for_param`` picks (:func:`shard_dim`).
   A tensor that rule replicates (ndim <= 1, or no dim of 128 or more) is
   left out of FSDP and its gradient all-reduced by :class:`Parallel`.
-- Without ``fsdp``, DDP averages the gradients over the world.
+- Without ``fsdp``, DDP averages the gradients over the world, or under
+  ``tensor`` over the ranks of one tensor index (``Mesh.replica_group``),
+  which hold the same parts.
+- ``tensor`` cuts the blocks first (``parallel.tensor_parallel``); FSDP2
+  then shards each rank's part along the dim the JAX rule gives ``fsdp``
+  on the whole parameter (the largest other than the tensor dim).
 - The world average is the gradient of the global loss because the
   losses gather with a summing backward and the sequence-parallel pooling
   sums its cotangents (``losses.losses``, ``models.vit``).
@@ -26,7 +31,10 @@ import torch
 import torch.distributed as dist
 
 from avion_tpu_torch.parallel.mesh import (DATA_AXIS, FSDP_AXIS, SP_AXIS,
-                                           Mesh, local_batch_slice)
+                                           TENSOR_AXIS, Mesh,
+                                           local_batch_slice)
+from avion_tpu_torch.parallel.tensor_parallel import (tensor_layout,
+                                                      tensor_parallelize)
 
 
 def is_dtensor(t) -> bool:
@@ -38,16 +46,33 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if is_dtensor(t) else t
 
 
-def shard_dim(shape: Sequence[int], fsdp: int) -> Optional[int]:
+def shard_dim(shape: Sequence[int], fsdp: int,
+              taken: Optional[int] = None) -> Optional[int]:
     """The dim ``fsdp`` shards (``_spec_for_param``'s rule), or None to
     replicate: ndim <= 1 or every dim below 128 replicate; otherwise the
-    largest dim that divides by ``fsdp`` and is at least ``8 * fsdp``."""
+    largest dim that divides by ``fsdp`` and is at least ``8 * fsdp``,
+    other than ``taken`` (the dim ``tensor`` shards).  ``shape`` is the
+    whole parameter's."""
     if len(shape) <= 1 or max(shape) < 128 or fsdp <= 1:
         return None
     for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
-        if shape[i] % fsdp == 0 and shape[i] >= fsdp * 8:
+        if i != taken and shape[i] % fsdp == 0 and shape[i] >= fsdp * 8:
             return i
     return None
+
+
+def fsdp_dims(model: torch.nn.Module, fsdp: int) -> Dict[str, Optional[int]]:
+    """Each parameter's ``fsdp`` dim by name (:func:`shard_dim` on its whole
+    shape; under ``mesh.tensor`` the tensor dim is taken, and FSDP2 cuts
+    this rank's part along the same dim)."""
+    layout = tensor_layout(model)
+    dims = {}
+    for name, p in model.named_parameters():
+        leaf = layout.leaves.get(name) if layout is not None else None
+        shape = layout.global_shape(name, p.shape) if layout else p.shape
+        dims[name] = shard_dim(shape, fsdp,
+                               leaf.dim if leaf is not None else None)
+    return dims
 
 
 def make_global_batch(mesh: Mesh, batch: Dict[str, torch.Tensor],
@@ -66,34 +91,49 @@ def _start_len(mesh: Mesh, n: int) -> tuple:
 def _device_mesh(mesh: Mesh, device: torch.device):
     """FSDP2's mesh: ``(shard,)`` over fsdp, or ``(replicate, shard)`` with
     the data and sp ranks replicating; rank r at the coordinates it has in
-    :class:`Mesh`."""
+    :class:`Mesh`.  Under ``tensor`` it is the sub-mesh of this rank's
+    tensor index (the ranks that hold the same parts)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    d, f, sp = (mesh.shape[a] for a in (DATA_AXIS, FSDP_AXIS, SP_AXIS))
-    ranks = torch.arange(mesh.size).reshape(d, f, sp).permute(0, 2, 1)
+    d, f, sp, t = (mesh.shape[a] for a in (DATA_AXIS, FSDP_AXIS, SP_AXIS,
+                                           TENSOR_AXIS))
+    ranks = torch.as_tensor(mesh.layout).reshape(d, f, sp, t).permute(
+        0, 2, 1, 3)
+    if t == 1:
+        if d * sp == 1:
+            return DeviceMesh(device.type, ranks.reshape(f),
+                              mesh_dim_names=("shard",))
+        return DeviceMesh(device.type, ranks.reshape(d * sp, f),
+                          mesh_dim_names=("replicate", "shard"))
     if d * sp == 1:
-        return DeviceMesh(device.type, ranks.reshape(f),
-                          mesh_dim_names=("shard",))
-    return DeviceMesh(device.type, ranks.reshape(d * sp, f),
-                      mesh_dim_names=("replicate", "shard"))
+        return DeviceMesh(device.type, ranks.reshape(f, t),
+                          mesh_dim_names=("shard", "tensor"))["shard"]
+    return DeviceMesh(device.type, ranks.reshape(d * sp, f, t),
+                      mesh_dim_names=("replicate", "shard", "tensor"))[
+        "replicate", "shard"]
 
 
 def replicated_params(model: torch.nn.Module, fsdp: int) -> list:
-    return [p for p in model.parameters() if shard_dim(p.shape, fsdp) is None]
+    dims = fsdp_dims(model, fsdp)
+    return [p for n, p in model.named_parameters() if dims[n] is None]
 
 
 def shard_model(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
-    """Shard ``model`` in place over ``fsdp`` (FSDP2) when the mesh has one;
-    build the optimizer after this, over the sharded parameters."""
+    """Cut ``model`` in place over ``tensor`` (``parallel.tensor_parallel``)
+    and shard it over ``fsdp`` (FSDP2) where the mesh has them; build the
+    optimizer after this, over the sharded parameters."""
+    tensor_parallelize(model, mesh)
     fsdp = mesh.shape[FSDP_AXIS]
     if fsdp == 1:
         return model
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
+    dims = fsdp_dims(model, fsdp)
+    by_id = {id(p): dims[n] for n, p in model.named_parameters()}
     device = next(model.parameters()).device
     fully_shard(model, mesh=_device_mesh(mesh, device),
-                shard_placement_fn=lambda p: Shard(shard_dim(p.shape, fsdp)),
+                shard_placement_fn=lambda p: Shard(by_id[id(p)]),
                 ignored_params=set(replicated_params(model, fsdp)))
     return model
 
@@ -103,7 +143,7 @@ class Parallel:
     step calls (DDP's wrapper, or the FSDP2 module itself), ``module`` the
     module whose attributes it reads.  After a backward that should
     synchronize, :meth:`finish_backward` all-reduces the gradients FSDP2
-    does not own."""
+    does not own (over ``Mesh.replica_group``, as DDP)."""
 
     def __init__(self, mesh: Mesh, module: torch.nn.Module,
                  find_unused: bool = False):
@@ -119,7 +159,8 @@ class Parallel:
             device = next(module.parameters()).device
             self.model = DistributedDataParallel(
                 module, device_ids=[device] if device.type == "cuda" else None,
-                find_unused_parameters=find_unused)
+                find_unused_parameters=find_unused,
+                process_group=mesh.replica_group)
 
     @contextlib.contextmanager
     def no_sync(self):
@@ -148,7 +189,8 @@ class Parallel:
         params = self.replicated
         has = torch.tensor([p.grad is not None for p in params],
                            dtype=torch.int32, device=params[0].device)
-        dist.all_reduce(has, op=dist.ReduceOp.MAX)
+        dist.all_reduce(has, op=dist.ReduceOp.MAX,
+                        group=self.mesh.replica_group)
         params = [p for p, h in zip(params, has.tolist()) if h]
         if not params:
             return
@@ -157,8 +199,8 @@ class Parallel:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
-        flat /= dist.get_world_size()
+        dist.all_reduce(flat, group=self.mesh.replica_group)
+        flat /= dist.get_world_size(self.mesh.replica_group)
         for g, new in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(new.view_as(g))
 

@@ -72,7 +72,7 @@ from avion_tpu_torch.parallel.launch import resolve_device
 from avion_tpu_torch.serve.batcher import MicroBatcher
 
 # mesh axes a replica cannot take yet, and where the queue lists them
-_LATER_AXES = {"tensor": 12, "sp": 12, "dcn_data": 12, "pp": 13, "ep": 13}
+_LATER_AXES = {"pp": 13, "ep": 13}
 
 
 def decode_clip(path: str, clip_length: int, size: int,
@@ -146,10 +146,15 @@ def clips_from_request(req: dict, clip_length: int, size: int,
 
 def replica_devices(mesh, device: torch.device) -> List[torch.device]:
     """The devices of ``--mesh``'s replicas: ``mesh.data`` x ``mesh.fsdp``
-    of them (``parallel.mesh.axis_sizes`` over the local device count),
-    ``cuda:0..R-1`` on CUDA (``mesh.data=-1`` takes every visible card)
-    or R CPU replicas with ``--device cpu``, where R must be given.  The
-    other axes raise; so do more replicas than cards."""
+    of them, ``cuda:0..R-1`` on CUDA or R CPU replicas with ``--device
+    cpu``, where ``mesh.data`` must be given.  ``mesh.data=-1`` takes what
+    ``fsdp x sp x tensor`` leave of the visible cards
+    (``parallel.mesh.axis_sizes``).  As in the JAX encoders, which shard
+    only the batch, the ``sp`` and ``tensor`` devices of a replica would
+    hold whole copies of the same rows: the replica's one card does their
+    work, and they count only towards the cards the mesh needs.
+    ``dcn_data`` must divide ``data``.  ``pp`` and ``ep`` raise; so do more
+    cards than the host has."""
     from avion_tpu_torch.parallel.mesh import axis_sizes
 
     for axis, item in _LATER_AXES.items():
@@ -160,17 +165,22 @@ def replica_devices(mesh, device: torch.device) -> List[torch.device]:
     if device.index is not None:
         raise ValueError(f"--mesh places its replicas on cuda:0..R-1; "
                          f"give --device cuda or cpu, not {device}")
+    per = mesh.sp * mesh.tensor  # the cards of one replica's rows
     if device.type == "cpu":
         if mesh.data == -1:
             raise ValueError("--mesh with --device cpu needs mesh.data")
-        count = mesh.data * mesh.fsdp
+        count = mesh.data * mesh.fsdp * per
     else:
         count = torch.cuda.device_count()
-    sizes = axis_sizes(count if mesh.data == -1 else mesh.data * mesh.fsdp,
-                       data=mesh.data, fsdp=mesh.fsdp)
+    sizes = axis_sizes(
+        count if mesh.data == -1 else mesh.data * mesh.fsdp * per,
+        data=mesh.data, fsdp=mesh.fsdp, sp=mesh.sp, tensor=mesh.tensor)
+    if sizes["data"] % mesh.dcn_data:
+        raise ValueError(f"data axis {sizes['data']} must be a multiple of "
+                         f"dcn_data {mesh.dcn_data}")
     n = sizes["data"] * sizes["fsdp"]
-    if n > count:
-        raise ValueError(f"--mesh asks for {n} replicas; this host has "
+    if n * per > count:
+        raise ValueError(f"--mesh asks for {n * per} cards; this host has "
                          f"{count} cards")
     if device.type == "cpu":
         return [device] * n

@@ -1,7 +1,6 @@
 """What the entries share (``avion_tpu.train.common``): a CLIP's weights
 from a ``.pt`` or a checkpoint directory, the visual tower alone for the
-classifier heads, the run over the mesh of process groups, the refusal of
-``mesh.sp`` by the entries that train over data and fsdp only, and an
+classifier heads, the run over the mesh of process groups, and an
 unsharded copy of a sharded model for evaluation."""
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ from avion_tpu_torch.models.pt_import import import_clip_pt
 from avion_tpu_torch.parallel.launch import host, is_main
 from avion_tpu_torch.parallel.mesh import mesh_from_config, use_mesh
 from avion_tpu_torch.parallel.sharding import full_tensor, is_dtensor
+from avion_tpu_torch.parallel.tensor_parallel import tensor_layout
 
 
 def over_mesh(cfg, device: torch.device, train: Callable):
@@ -32,31 +32,28 @@ def over_mesh(cfg, device: torch.device, train: Callable):
             return train(cfg, device, mesh)
 
 
-def refuse_sp(mesh_cfg, entry: str) -> None:
-    """Raise for ``mesh.sp`` above 1: ``entry`` trains over the ``data``
-    and ``fsdp`` axes only (the JAX entry builds no sequence-parallel
-    model either)."""
-    if mesh_cfg.sp != 1:
-        raise NotImplementedError(
-            f"mesh.sp={mesh_cfg.sp}: {entry} trains over mesh.data and "
-            f"mesh.fsdp; its sequence-parallel model is still to be ported "
-            f"(ROADMAP.md, Queue 1 item 12)")
-
-
 def whole_model(model: torch.nn.Module, build: Callable[[], torch.nn.Module],
                 params: Optional[Dict[str, torch.Tensor]] = None
                 ) -> torch.nn.Module:
-    """``model`` itself, or, when it is sharded (FSDP2) or ``params``
-    (e.g. an EMA, by name) stand in for its parameters, a new unsharded
-    module of ``build()`` (on the meta device) holding the whole weights,
+    """``model`` itself, or, when it is sharded (FSDP2, or cut over
+    ``mesh.tensor``) or ``params`` (e.g. an EMA, by name) stand in for its
+    parameters, a new unsharded module of ``build()`` (on the meta device)
+    holding the whole weights,
     on ``model``'s device.  Every rank calls it: the gathers are
     collectives."""
     state = model.state_dict()
-    if params is None and not any(is_dtensor(v) for v in state.values()):
+    layout = tensor_layout(model)
+    if params is None and layout is None and not any(
+            is_dtensor(v) for v in state.values()):
         return model
-    whole = {k: full_tensor(v.detach()) for k, v in state.items()}
+
+    def gather(name, value):
+        value = full_tensor(value.detach())
+        return value if layout is None else layout.gather(name, value)
+
+    whole = {k: gather(k, v) for k, v in state.items()}
     for k, v in (params or {}).items():
-        whole[k] = full_tensor(v.detach())
+        whole[k] = gather(k, v)
     copy = build().to_empty(device=next(iter(whole.values())).device)
     copy.load_state_dict(whole)
     with torch.no_grad():  # the tables the state dict leaves out

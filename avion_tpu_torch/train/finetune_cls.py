@@ -34,7 +34,9 @@ cut into ``mesh.data * mesh.fsdp`` batch groups; ``mesh.fsdp`` shards
 parameters and optimizer state (FSDP2), ``mesh.data`` replicates them
 (DDP).  Mixup pairs rows across the global batch, the logged ``loss`` and
 ``acc1`` are means over it, each rank scores its block of the test clips,
-and only rank 0 logs and writes.  ``mesh.sp`` above 1 raises.
+and only rank 0 logs and writes.  ``mesh.sp`` ranks hold replicas of their
+batch group's step, as in JAX; ``mesh.tensor`` cuts the blocks' heads and
+MLP columns (``parallel.tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ from avion_tpu_torch.parallel.mesh import Mesh
 from avion_tpu_torch.parallel.sharding import shard_model
 from avion_tpu_torch.train.common import (extract_visual_params,
                                           latest_model_state, over_mesh,
-                                          refuse_sp, whole_model)
+                                          whole_model)
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import make_cls_train_step, prep_video
@@ -168,7 +170,6 @@ def main(argv=None) -> dict:
     argv, device = device_from_argv(
         argv if argv is not None else sys.argv[1:])
     cfg = env_defaults(TrainConfig().apply_overrides(argv))
-    refuse_sp(cfg.mesh, "finetune_cls")
     return over_mesh(cfg, device, _train)
 
 

@@ -26,11 +26,13 @@ batch 512 over 8 cards::
     torchrun --nproc_per_node=8 -m avion_tpu_torch.train.finetune_mir \
         data.batch_size=512 mesh.data=8 ... (or mesh.data=4 mesh.fsdp=2)
 
-``data.batch_size`` is the global batch, cut into ``mesh.data *
-mesh.fsdp`` batch groups; ``mesh.fsdp`` shards parameters and optimizer
-state (FSDP2), ``mesh.data`` replicates them (DDP).  The max-margin loss
-sees the global batch, each rank validates its share of the clips, and
-only rank 0 logs and writes.  ``mesh.sp`` above 1 raises.
+``data.batch_size`` is the global batch, cut into ``mesh.data * mesh.fsdp``
+batch groups; ``mesh.fsdp`` shards parameters and optimizer state (FSDP2),
+``mesh.data`` replicates them (DDP).  The max-margin loss sees the global
+batch, each rank validates its share of the clips, and only rank 0 logs and
+writes.  ``mesh.sp`` ranks hold replicas of their batch group's step, as in
+JAX; ``mesh.tensor`` cuts the blocks' heads and MLP columns
+(``parallel.tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ from avion_tpu_torch.parallel.launch import device_from_argv
 from avion_tpu_torch.parallel.mesh import Mesh
 from avion_tpu_torch.parallel.sharding import shard_model
 from avion_tpu_torch.train.common import (load_pretrained_params, over_mesh,
-                                          refuse_sp, whole_model)
+                                          whole_model)
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import make_mir_finetune_step
@@ -165,7 +167,6 @@ def main(argv=None) -> dict:
     argv, device = device_from_argv(
         argv if argv is not None else sys.argv[1:])
     cfg = env_defaults(TrainConfig().apply_overrides(argv))
-    refuse_sp(cfg.mesh, "finetune_mir")
     return over_mesh(cfg, device, _train)
 
 

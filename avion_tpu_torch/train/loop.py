@@ -79,9 +79,10 @@ def setup_run(cfg: TrainConfig, model: torch.nn.Module, optimizer,
     when ``resume`` or ``auto_resume`` is set."""
     if mesh is None:
         mesh = mesh_from_config(cfg.mesh)
-        if mesh.shape["fsdp"] > 1:
-            raise ValueError("mesh.fsdp > 1: pass the mesh the model was "
-                             "sharded over (build_model_and_state)")
+        for axis in ("fsdp", "tensor"):
+            if mesh.shape[axis] > 1:
+                raise ValueError(f"mesh.{axis} > 1: pass the mesh the model "
+                                 f"was sharded over (build_model_and_state)")
     # parameters without a gradient in a synchronized backward: the logit
     # scale (and bias) outside cached accumulation's first pass, or a
     # frozen temperature

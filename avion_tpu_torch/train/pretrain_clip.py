@@ -36,14 +36,17 @@ Over N ranks, one card each (gloo with ``--device cpu``)::
 
     torchrun --nproc_per_node=N -m avion_tpu_torch.train.pretrain_clip \
         data.batch_size=$((256 * N)) mesh.data=... mesh.fsdp=... \
-        mesh.sp=... [model.sequence_parallel=true model.pooling=gap] ...
+        mesh.sp=... mesh.tensor=... mesh.dcn_data=... \
+        [model.sequence_parallel=true model.pooling=gap] ...
 
 ``data.batch_size`` is the global batch, cut into ``mesh.data *
 mesh.fsdp`` batch groups (``parallel.mesh``); ``mesh.fsdp`` shards
 parameters and optimizer state (FSDP2), ``mesh.data`` replicates them
-(DDP), and ``mesh.sp`` with ``model.sequence_parallel=true`` splits the
-visual tower's tokens over the ring.  Only rank 0 logs and writes; the
-losses see the global batch.
+(DDP), ``mesh.sp`` with ``model.sequence_parallel=true`` splits the
+visual tower's tokens over the ring, and ``mesh.tensor`` cuts the blocks'
+heads and MLP columns (``parallel.tensor_parallel``; the ring's hops then
+run on H / t heads).  Only rank 0 logs and writes; the losses see the
+global batch.
 """
 
 from __future__ import annotations

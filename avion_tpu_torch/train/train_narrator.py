@@ -24,11 +24,13 @@ Over N ranks, one card each (gloo with ``--device cpu``)::
     torchrun --nproc_per_node=N -m avion_tpu_torch.train.train_narrator \
         data.batch_size=<global> mesh.data=.. mesh.fsdp=..
 
-``data.batch_size`` is the global batch, cut into ``mesh.data *
-mesh.fsdp`` batch groups; ``mesh.fsdp`` shards parameters and optimizer
-state (FSDP2), ``mesh.data`` replicates them (DDP).  The loss is the mean
-over the global batch's non-padding tokens, as the JAX step's, and only
-rank 0 logs and writes.  ``mesh.sp`` above 1 raises.
+``data.batch_size`` is the global batch, cut into ``mesh.data * mesh.fsdp``
+batch groups; ``mesh.fsdp`` shards parameters and optimizer state (FSDP2),
+``mesh.data`` replicates them (DDP).  The loss is the mean over the global
+batch's non-padding tokens, as the JAX step's, and only rank 0 logs and
+writes.  ``mesh.sp`` ranks hold replicas of their batch group's step, as in
+JAX; ``mesh.tensor`` cuts the blocks' heads and MLP columns
+(``parallel.tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from avion_tpu_torch.optim.factory import build_optimizer
 from avion_tpu_torch.parallel.launch import device_from_argv
 from avion_tpu_torch.parallel.mesh import Mesh
 from avion_tpu_torch.parallel.sharding import shard_model
-from avion_tpu_torch.train.common import over_mesh, refuse_sp
+from avion_tpu_torch.train.common import over_mesh
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import (_apply_or_skip, _finish_backward,
@@ -161,7 +163,6 @@ def main(argv=None) -> dict:
     d.root = d.root or os.environ.get("ROOT", "")
     d.train_metadata = d.train_metadata or os.environ.get(
         "TRAIN_METADATA", "")
-    refuse_sp(cfg.mesh, "train_narrator")
     return over_mesh(cfg, device, _train)
 
 

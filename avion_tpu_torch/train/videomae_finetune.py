@@ -35,7 +35,9 @@ parameters, optimizer state and the EMA (FSDP2), ``mesh.data`` replicates
 them (DDP).  Mixup pairs rows across the global batch, the logged ``loss``
 and ``acc1`` are means over it, each rank scores its block of the test
 videos (on a gathered copy of the EMA weights), and only rank 0 logs and
-writes.  ``mesh.sp`` above 1 raises.
+writes.  ``mesh.sp`` ranks hold replicas of their batch group's step, as in
+JAX; ``mesh.tensor`` cuts the blocks' heads and MLP columns
+(``parallel.tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ from avion_tpu_torch.parallel.mesh import Mesh
 from avion_tpu_torch.parallel.sharding import shard_model
 from avion_tpu_torch.train.augment_device import mixup_cutmix
 from avion_tpu_torch.train.common import (latest_model_state, over_mesh,
-                                          refuse_sp, whole_model)
+                                          whole_model)
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import make_cls_train_step, prep_video
@@ -172,7 +174,6 @@ def main(argv=None) -> dict:
     d.train_metadata = d.train_metadata or os.environ.get(
         "K400_TRAIN_LIST", "")
     d.val_metadata = d.val_metadata or os.environ.get("K400_VAL_LIST", "")
-    refuse_sp(cfg.mesh, "videomae_finetune")
     return over_mesh(cfg, device, _train)
 
 

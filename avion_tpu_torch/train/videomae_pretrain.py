@@ -29,7 +29,9 @@ cut into ``mesh.data * mesh.fsdp`` batch groups; ``mesh.fsdp`` shards
 parameters and optimizer state (FSDP2), ``mesh.data`` replicates them
 (DDP).  Each batch group draws its own tube masks, the logged ``loss`` is
 the mean over the global batch, and only rank 0 logs and writes.
-``mesh.sp`` above 1 raises.
+``mesh.sp`` ranks hold replicas of their batch group's step, as in JAX;
+``mesh.tensor`` cuts the blocks' heads and MLP columns
+(``parallel.tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from avion_tpu_torch.optim.factory import build_optimizer
 from avion_tpu_torch.parallel.launch import device_from_argv
 from avion_tpu_torch.parallel.mesh import Mesh
 from avion_tpu_torch.parallel.sharding import shard_model
-from avion_tpu_torch.train.common import over_mesh, refuse_sp
+from avion_tpu_torch.train.common import over_mesh
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
 from avion_tpu_torch.train.steps import make_videomae_train_step
@@ -101,7 +103,6 @@ def main(argv=None) -> dict:
     d.root = d.root or os.environ.get("K400_ROOT", "")
     d.train_metadata = d.train_metadata or os.environ.get(
         "K400_TRAIN_LIST", "")
-    refuse_sp(cfg.mesh, "videomae_pretrain")
     return over_mesh(cfg, device, _train)
 
 

@@ -9,7 +9,9 @@ cached gradient accumulation, SigLIP and bf16 optimizer state, train,
 run and serve the narrators (the VCLM and LaViLa's), extract EgoNLQ
 features from a long video and train VSLNet on them, and convert
 checkpoints, serve decoded ``paths`` with int8 weights over one replica per
-card and profile a train step through the port's tools.
+card and profile a train step through the port's tools, run the
+convergence drill (train, preempt, resume, evaluate) and play the ranks of
+tensor-parallel blocks on the card.
 
     python3 chip_smoke.py
 
@@ -68,8 +70,9 @@ Phases (each raises on failure; the script then exits non-zero):
    CPU in f32 on one decoded batch (max abs error 1e-3); and a second
    ``main`` on run A's output that restores and trains no step;
 8. eval: seeded synthetic layouts of the five zero-shot suites (EK100
-   MIR with 256 clips, EK100 CLS, EGTEA, Charades-Ego, EgoMCQ; mp4v at
-   512x288, 30 fps); (a) ``pretrain_clip.main`` with ``eval_freq=1`` and
+   MIR with 128 clips, EK100 CLS, EGTEA with 32, Charades-Ego with 16
+   videos, EgoMCQ with 32 items; mp4v at 512x288, 30 fps);
+   (a) ``pretrain_clip.main`` with ``eval_freq=1`` and
    the MIR suite, two one-step epochs on the data phase's layout: metrics
    before training and after each epoch, ``is_best`` on the MIR mAP, the
    training model bit-equal across each eval pass; (b)
@@ -133,10 +136,10 @@ Phases (each raises on failure; the script then exits non-zero):
    TFLOP/s, peak memory; (c) 4 cached microbatches against one step at
    batch 32 on the same weights (loss within 1e-3, gradient cosine >=
    0.99) and pass 1's cached embeddings against pass 2's live ones; (d)
-   peak memory with f32 optimizer state; (e) 2 steps each of
-   ``CLIP_VITL14_H128`` (head_dim 128 launched), ``loss=siglip``
-   (``logit_bias`` learned) and ``accum=multistep`` with ``update_freq=2``
-   (one update); (f) ``pretrain_clip.main`` on the data phase's layout at
+   peak memory with f32 optimizer state; (e) a step of
+   ``CLIP_VITL14_H128`` (head_dim 128 launched), 2 of
+   ``loss=siglip`` (``logit_bias`` learned) and 2 of ``accum=multistep``
+   with ``update_freq=2`` (one update); (f) ``pretrain_clip.main`` on the data phase's layout at
    batch 224 as 2 cached microbatches with bf16 state, 2 steps, and its
    checkpoint restored bit for bit;
 12. parallel, the ring hops and the process-group entry: (a) the hop
@@ -152,8 +155,9 @@ Phases (each raises on failure; the script then exits non-zero):
    attention over the whole sequence on the same inputs, causal and not:
    out, dq, dk, dv (phase 3's tolerances: max abs 3e-2, RMS 0.5% / 1.5%),
    16 + 16 + 16 hop launches a ring; (d) ``pretrain_clip.main`` at
-   ViT-B/16 batch 256, 2 seeded steps, without a process group and under
-   a one-rank NCCL group (torchrun's environment, ``mesh.data=1``, DDP),
+   ViT-B/16 batch 64, 2 seeded steps, without a
+   process group and under a one-rank NCCL group (torchrun's
+   environment, ``mesh.data=1 mesh.tensor=1 mesh.dcn_data=1``, DDP),
    under the deterministic flag: the parameters bit for bit, the launches
    by kernel; (e) the same for ``finetune_mir.main``,
    ``finetune_cls.main``, ``videomae_pretrain.main`` and
@@ -232,7 +236,33 @@ Phases (each raises on failure; the script then exits non-zero):
    beside phase 4's bf16 p50 and the host decode ms a clip; (c)
    ``tools.profile_step.main`` at batch 32, 2 traced steps: 24
    ``flash_fwd_kernel`` (forward) and 24 ``bwd_kv_kernel`` (combined
-   backward) a step in its rows, device time above 0 and below the wall.
+   backward) a step in its rows, device time above 0 and below the wall;
+16. drill: ``python -m avion_tpu_torch.tools.e2e_convergence --family
+   clip`` as a child process (DRILL_ARGS: the default ``CLIP_VITB16_H128``
+   at 4 frames, 224 px; 8 seeded mp4v classes x 16 windows, batch 32, 3
+   epochs, SIGTERM once step 6 is logged): the tool trains
+   ``pretrain_clip`` in a child, preempts it, relaunches it to the end
+   and scores the restored checkpoint on 32 held-out windows against the
+   run's fresh init; the phase asks for a resume step above 0, a last
+   logged loss below the first, the restored zero-shot top-1 above the
+   init's and forward-with-lse, combined-backward and inference launches
+   in the children (their counter files, ``AVION_KERNEL_COUNTS``), and
+   logs the steps, losses, resume step, top-1 against init, clips/s and
+   walls with the card's name and power limit;
+17. tensor: (a) the kernels at every shard of TP_BLOCKS (H / t heads at t
+   = 2 and 4 where they divide; errors at batch 4, times at the block's
+   batch) against their plain versions; (b) ViT-B/16's visual block (32,
+   785, 12 x 64) and (8, 3137, 12 x 64), the text block (32, 77, 8 x 64,
+   causal) and the H128 block (32, 785, 6 x 128), bf16, whole and with its
+   t ranks played on the card (``parallel.tensor_parallel.
+   run_block_local``: each rank's heads through the kernels, the
+   row-parallel partials summed): output (max abs error over the largest
+   value 3e-2, RMS 0.5%), the gradients of x and of every weight (3e-2,
+   1.5% RMS), the launches, and the
+   split block's, the whole block's, a shard's attention and the whole
+   attention's ms.  Phase 12 (d) passes ``mesh.tensor=1
+   mesh.dcn_data=1``, so the new mesh and group code runs there, alone
+   and under the one-rank NCCL group.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -1660,8 +1690,9 @@ def phase_data(tmp: str, echo_p50: float) -> dict:
 
 # the eval slice: seeded synthetic layouts of the five zero-shot suites in
 # their datasets' formats, at the data phase's 512x288 and 30 fps
-EVAL_SIZES = dict(mir_clips=256, egtea_clips=64,  # MIR: two batches of 128
-                  charades_videos=32, charades_classes=24, mcq_items=64)
+# the suites' sizes keep the phase's host decode (most of its time) short
+EVAL_SIZES = dict(mir_clips=128, egtea_clips=32,
+                  charades_videos=16, charades_classes=24, mcq_items=32)
 EVAL_CLIP_S = 3  # seconds of each EGTEA clip and Charades-Ego video
 
 
@@ -2882,6 +2913,9 @@ def phase_videomae(tmp: str) -> dict:
 # 16 frames (3137 visual tokens), from a CLIP_VITB16 reference-layout .pt
 FT_FRAMES, FT_BATCH, FT_STEPS, FT_SHORT_STEPS = 16, 64, 8, 2
 FT_CHECK_BATCH, FT_REF_BATCH, FT_OPT_BATCH = 4, 2, 16
+# the CLS reference's batch: the CPU pass at 3137 tokens takes about 26 s
+# a clip; MIR's max-margin loss needs 2 rows
+FT_CLS_REF_BATCH = 1
 FT_CLASSES = 3806  # EPIC-Kitchens-100's actions
 FT_MIR_RECIPE = [
     f"model.name={MODEL}", "model.use_grad_checkpointing=true",
@@ -2948,9 +2982,9 @@ def _cls_loss(model, b: dict) -> torch.Tensor:
 def _ft_seeded(tmp: str, name: str, label: str) -> dict:
     """(b) MIR / (c) CLS: the recipe at batch FT_BATCH through the entry's
     ``build_model_and_state`` and ``train.loop``: FT_STEPS steps over 3
-    seeded batches, a profiled step, a batch-FT_REF_BATCH step against the
-    CPU in f32, and an exact resume into a model built from another
-    seed."""
+    seeded batches, a profiled step, a step against the CPU in f32 (batch
+    FT_REF_BATCH for MIR, FT_CLS_REF_BATCH for CLS), and an exact resume
+    into a model built from another seed."""
     from avion_tpu_torch.optim.factory import apply_batch_lr_scale
     from avion_tpu_torch.train import finetune_cls, finetune_mir
     from avion_tpu_torch.train.loop import save_epoch, setup_run
@@ -2993,10 +3027,11 @@ def _ft_seeded(tmp: str, name: str, label: str) -> dict:
     cpu = (finetune_mir.build_model(cfg, torch.float32) if mir else
            finetune_cls.build_classifier(cfg, FT_CLASSES, torch.float32))
     t0 = time.perf_counter()
+    ref = FT_REF_BATCH if mir else FT_CLS_REF_BATCH
     _reference_grads(model, cpu.to_empty(device="cpu"),
-                     {k: v[:FT_REF_BATCH] for k, v in batches[1].items()},
+                     {k: v[:ref] for k, v in batches[1].items()},
                      _mir_loss if mir else _cls_loss,
-                     f"{label}: reference step at batch {FT_REF_BATCH}")
+                     f"{label}: reference step at batch {ref}")
     log(f"{label}: the CPU reference took {time.perf_counter() - t0:.1f} s")
     del cpu
     save_epoch(run, 0, {})
@@ -3357,19 +3392,22 @@ def _cl_seeded(tmp: str) -> dict:
 
 
 def _cl_options(tmp: str) -> dict:
-    """(e) CL_SHORT_STEPS steps each of ``CLIP_VITL14_H128`` (head_dim 128
-    launched), ``loss=siglip`` (``logit_bias`` learned) and
+    """(e) a step of ``CLIP_VITL14_H128`` (head_dim 128 launched) and
+    CL_SHORT_STEPS each of ``loss=siglip`` (``logit_bias`` learned) and
     ``accum=multistep`` with ``update_freq=2`` (one update in two calls);
     finite losses and the expected launches."""
+    # siglip's bias moves by the warmup's first rate (1e-6) in its first
+    # step, and multistep needs 2 calls for an update
     runs = {
-        "h128": ([f"model.name={CL_H128}"], CL_SHORT_BATCH, 2),
+        "h128": ([f"model.name={CL_H128}"], CL_SHORT_BATCH, 2, 1),
         "siglip": (["loss=siglip", "model.use_logit_bias=true"],
-                   CL_SHORT_BATCH, 2),
-        "multistep": (["optim.accum=multistep"], CL_TIME_BATCH, 1)}
+                   CL_SHORT_BATCH, 2, CL_SHORT_STEPS),
+        "multistep": (["optim.accum=multistep"], CL_TIME_BATCH, 1,
+                      CL_SHORT_STEPS)}
     from avion_tpu_torch.train.loop import setup_run
 
     paths = {}
-    for name, (extra, batch, micro) in runs.items():
+    for name, (extra, batch, micro, steps) in runs.items():
         cfg = _train_config(os.path.join(tmp, f"vitl_{name}"), *extra,
                             f"data.batch_size={batch}",
                             "optim.update_freq=2", recipe=CL_RECIPE)
@@ -3387,13 +3425,13 @@ def _cl_options(tmp: str) -> dict:
 
         fa._fwd_cuda, fa._bwd_cuda = fwd_rec, bwd_rec
         try:
-            res = _timed_epoch(run, _train_batches(CL_SHORT_STEPS, batch,
+            res = _timed_epoch(run, _train_batches(steps, batch,
                                                    FRAMES))
         finally:
             fa._fwd_cuda, fa._bwd_cuda = fwd, bwd
         per_step = (_accum_launches(model, micro) if micro > 1
                     else _ft_launches(model))
-        want = {k: v * CL_SHORT_STEPS for k, v in per_step.items()}
+        want = {k: v * steps for k, v in per_step.items()}
         losses = [m["loss"] for m in res["metrics"]]
         oks = [m["step_ok"] for m in res["metrics"]]
         want_dims = {blk.attn.Wqkv.in_features // blk.attn.heads
@@ -3413,7 +3451,7 @@ def _cl_options(tmp: str) -> dict:
             f"{opt.count}"
             + (f", logit_bias {model.logit_bias.item():.6f}"
                if name == "siglip" else ""))
-        if (not np.isfinite(losses).all() or oks != [1.0] * CL_SHORT_STEPS
+        if (not np.isfinite(losses).all() or oks != [1.0] * steps
                 or res["launches"] != want or not extra_ok):
             raise RuntimeError(f"(e) {name} failed")
         paths[f"contrastive_{name}"] = res["launches"]
@@ -3521,7 +3559,8 @@ PAR_SHAPES = [(16, 784, 12, 64), (16, 784, 6, 128)]
 PAR_BIASES = (0.0, -1e30)  # a visible hop, a hop voided by the mask value
 RING_SP = 4
 RING_REF_ROWS = 2  # clips a plain f32 reference pass takes: 0.94 GB of scores
-PAR_BATCH, PAR_STEPS = 256, 2
+# (d) decodes its clips in the script's process
+PAR_BATCH, PAR_STEPS = 64, 2
 HOP_KERNELS = ("flash_hop_fwd", "flash_hop_bwd_dq", "flash_hop_bwd_dkv")
 
 
@@ -3795,7 +3834,9 @@ def _alone_and_nccl(label: str, main, args: list, out_dir: str,
 
 def _nccl_entry(tmp: str, fixture: tuple) -> dict:
     """(d) ``pretrain_clip.main`` at ViT-B/16 batch PAR_BATCH for PAR_STEPS
-    seeded steps (``mesh.data=1``) through :func:`_alone_and_nccl`.  The
+    seeded steps (``mesh.data=1 mesh.tensor=1 mesh.dcn_data=1``: the
+    tensor and multi-node axes' mesh and group code on the card) through
+    :func:`_alone_and_nccl`.  The
     visual tower is the sequence-parallel one (gap pooling; a ring of one
     shard, so its attention runs the hop kernels); under the deterministic
     flag the text tower takes the split backward: the combined route sums
@@ -3808,9 +3849,12 @@ def _nccl_entry(tmp: str, fixture: tuple) -> dict:
         "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv", *HOP_KERNELS)}
     args = _data_args(os.path.join(tmp, "parallel"), root, meta, True,
                       f"data.batch_size={PAR_BATCH}",
-                      "data.subsample_stride=4", "data.num_workers=0",
-                      "eval_freq=0", "mesh.data=1",
-                      "model.sequence_parallel=true", "model.pooling=gap")
+                      "data.subsample_stride="
+                      f"{DATA_ROWS // (PAR_BATCH * PAR_STEPS)}",
+                      "data.num_workers=0",
+                      "eval_freq=0", "mesh.data=1", "mesh.tensor=1",
+                      "mesh.dcn_data=1", "model.sequence_parallel=true",
+                      "model.pooling=gap")
     return _alone_and_nccl("(d) pretrain_clip", pretrain_clip.main, args,
                            os.path.join(tmp, "parallel"), PAR_STEPS, want)
 
@@ -5191,6 +5235,215 @@ def phase_serve_tools(tmp: str, fixture: tuple, bf16: dict) -> dict:
                       "profile_step": prof["launches"]}}
 
 
+# the convergence drill: the e2e tool's clip family at its default model
+# (CLIP_VITB16_H128: 6 visual and 4 text heads of 128), 4 frames, 224 px,
+# cut to 8 classes x 16 windows (4 steps an epoch at batch 32) over 3
+# epochs, SIGTERM once step 6 is logged (the steps are bound by the host's
+# decode, about 1.2 s each on an 8-core host); a checkpoint at the
+# preemption and at the end only (each is 1.8 GB, and the script writes
+# about 40 GB in all)
+DRILL_ARGS = ["--family", "clip", "--classes", "8", "--windows", "16",
+              "--batch", "32", "--epochs", "3", "--preempt-step", "6",
+              "--workers", str(min(8, os.cpu_count() or 1)),
+              "--extra", "save_freq=3"]
+DRILL_DEVICE = "cuda"
+DRILL_TIMEOUT_S = 600
+DRILL_COUNTS = "launches"  # the summary's counters the checks read
+
+
+def phase_drill(tmp: str) -> dict:
+    """16. ``python -m avion_tpu_torch.tools.e2e_convergence`` as a child
+    process: the drill writes its seeded mp4v classes, trains
+    ``pretrain_clip`` in a child of its own, preempts it, relaunches it to
+    the end and scores the restored checkpoint against the run's fresh
+    init on the held-out windows.  It must show a preemption with a resume
+    step above 0, a last logged loss below the first, the restored model's
+    zero-shot top-1 above the init's, and the training kernels' and the
+    inference kernel's launches in the children (their counter files)."""
+    log("== drill")
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "drill")
+    cmd = [sys.executable, "-m", "avion_tpu_torch.tools.e2e_convergence",
+           *DRILL_ARGS, "--out", out, "--device", DRILL_DEVICE,
+           "--timeout", str(DRILL_TIMEOUT_S), "--stall-timeout", "300"]
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         timeout=2 * DRILL_TIMEOUT_S + 300)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        tail = ""
+        log_path = os.path.join(out, "train_stdout.log")
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                tail = f.read()[-4000:]
+        raise RuntimeError(f"drill: rc {res.returncode}\n"
+                           f"{res.stderr[-4000:]}\n{tail}")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    train, evals = (summary[DRILL_COUNTS][k] for k in ("train", "eval"))
+    log(f"drill ({card_line()}): {summary['steps_logged']} steps logged to "
+        f"step {summary['ckpt_step']}, preempted and resumed at step "
+        f"{summary['resume_step']}; loss {summary['first_loss']:.4f} -> "
+        f"{summary['final_loss']:.4f}; zero-shot top-1 "
+        f"{summary['zeroshot_top1']} (top-5 {summary['zeroshot_top5']}) "
+        f"against the fresh init's {summary['init_zeroshot_top1']} "
+        f"({summary['init_zeroshot_top5']}) over "
+        f"{summary['heldout_clips']} held-out clips; "
+        f"{summary['samples_per_s']:.3f} clips/s over both launches "
+        f"({summary['train_s']:.1f} s, start-ups included); launches: "
+        f"training {train}, eval {evals}; the tool's wall "
+        f"{summary['wall_s']:.1f} s, the phase's {wall:.1f} s")
+    bad = []
+    if not summary["resume_step"] > 0:
+        bad.append(f"resume step {summary['resume_step']}")
+    if not summary["final_loss"] < summary["first_loss"]:
+        bad.append(f"loss {summary['first_loss']} -> {summary['final_loss']}")
+    if not summary["zeroshot_top1"] > summary["init_zeroshot_top1"]:
+        bad.append(f"top-1 {summary['zeroshot_top1']} against the init's "
+                   f"{summary['init_zeroshot_top1']}")
+    for name, counts in (("flash_fwd_lse", train),
+                         ("flash_bwd_combined", train), ("flash_fwd", evals)):
+        if not counts.get(name, 0) > 0:
+            bad.append(f"no {name} launch")
+    if bad:
+        raise RuntimeError("drill: " + "; ".join(bad))
+    return {"paths": {"drill_train": train, "drill_eval": evals},
+            "summary": summary}
+
+
+# the tensor-parallel blocks: (tower, B, S, H, D, causal) at the widths of
+# ViT-B/16 (4 and 16 frames), its text tower and the H128 split, each at
+# the tensor sizes that divide its heads
+TP_BLOCKS = [("ViT-B/16 visual", 32, 785, 12, 64, False),
+             ("ViT-B/16 visual, 16 frames", 8, 3137, 12, 64, False),
+             ("text", 32, 77, 8, 64, True),
+             ("H128 visual", 32, 785, 6, 128, False)]
+TP_SIZES = (2, 4)
+TP_CHECK_BATCH = 4  # the shard kernels against their plain f32 versions
+
+
+def _scaled_errors(got: torch.Tensor, ref: torch.Tensor):
+    """(max abs error over the reference's max abs value, RMS error over
+    its RMS): phase 3 holds tensors of unit scale to 3e-2; a block's bf16
+    output (one ulp is 3e-2 at 4) and its weights' gradients (sums over
+    B x S rows) are not of unit scale."""
+    diff = got.float() - ref.float()
+    return ((diff.abs().max() / ref.float().abs().max()).item(),
+            (diff.norm() / ref.float().norm()).item())
+
+
+def _tp_block_check(gen, tower, b, s, h, d, causal, check) -> list:
+    """One block, whole and with each of TP_SIZES's tensor ranks played on
+    the card (``run_block_local``): output and the gradients of x and of
+    every weight against the whole block's; the block's and the shard
+    attention's times.  Returns the rows."""
+    from avion_tpu_torch.models.layers import Block
+    from avion_tpu_torch.parallel.tensor_parallel import run_block_local
+
+    block = Block(h * d, h, causal=causal).cuda()
+    with torch.no_grad():
+        for p in block.parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn(b, s, h * d, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    g = torch.randn(b, s, h * d, generator=gen, device="cuda")
+
+    def run(fn):
+        block.zero_grad(set_to_none=True)
+        xi = x.detach().requires_grad_()
+        out = fn(xi)
+        (out.float() * g).sum().backward()
+        return out.detach(), xi.grad, {n: p.grad for n, p in
+                                       block.named_parameters()}
+
+    def attn_ms(heads):
+        qkv = torch.randn(b, s, 3 * heads * d, generator=gen, device="cuda",
+                          dtype=torch.bfloat16, requires_grad=True)
+        do = torch.randn(b, s, heads * d, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        return cuda_ms(lambda: fa.flash_attention_fused_qkv(
+            qkv, heads, s, causal=causal).backward(do), iters=10)
+
+    whole = run(block)
+    whole_ms = cuda_ms(lambda: run(block), iters=5)
+    attn_whole = attn_ms(h)
+    rows = []
+    for t in TP_SIZES:
+        if h % t:
+            continue
+        fa.reset_launches()
+        split = run(lambda xi: run_block_local(block, xi, t))
+        launches = dict(fa.launches)
+        name = f"{tower} t={t}"
+        errs = {"out": (_scaled_errors(split[0], whole[0]), REL_TOL),
+                "dx": (_scaled_errors(split[1], whole[1]), BWD_REL_TOL),
+                **{n: (_scaled_errors(split[2][n], whole[2][n]),
+                       BWD_REL_TOL) for n in whole[2]}}
+        for key, ((err, rel), rel_tol) in errs.items():
+            check(name, key, scaled_max_abs_err=(err, TOL),
+                  rel_rms_err=(rel, rel_tol))
+        want = t if s <= 1024 else 0
+        if launches.get("flash_fwd_lse") != t or launches.get(
+                "flash_bwd_combined", 0) != want:
+            raise RuntimeError(f"{name}: launches {launches}")
+        row = {"tower": tower, "shape": [b, s, h, d], "causal": causal,
+               "tensor": t, "launches": launches,
+               "max_abs_err": max(e[0][0] for e in errs.values()),
+               "raw_max_abs_err": max(
+                   (split[i] - whole[i]).abs().max().item() for i in (0, 1)),
+               "out_rel_rms_err": errs["out"][0][1],
+               "grad_rel_rms_err": max(e[0][1] for k, e in errs.items()
+                                       if k != "out"),
+               "block_ms": cuda_ms(lambda: run(
+                   lambda xi: run_block_local(block, xi, t)), iters=5),
+               "whole_block_ms": whole_ms,
+               "shard_attn_ms": attn_ms(h // t),
+               "whole_attn_ms": attn_whole}
+        rows.append(row)
+        log(f"tensor shards ({card_line()}) " + json.dumps(row))
+    del block, x, g, whole
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tensor() -> dict:
+    """17. The tensor axis on one card: (a) the attention kernels at each
+    shard's H / t heads against their plain versions, with their times;
+    (b) the blocks of TP_BLOCKS with their tensor ranks played on the card
+    (``parallel.tensor_parallel.run_block_local``) against the whole
+    block.  (``pretrain_clip.main`` with ``mesh.tensor=1`` under a
+    one-rank NCCL group is phase 12 (d).)  Returns the kernel rows and
+    the block rows."""
+    log("== tensor")
+    t_phase = time.perf_counter()
+    shards = sorted({(f"{tower} / {t}", s, h // t, d, causal)
+                     for tower, _, s, h, d, causal in TP_BLOCKS
+                     for t in TP_SIZES if h % t == 0},
+                    key=lambda r: (r[1], r[2], r[3]))
+    kernel_rows = {}
+    for shape in shards:
+        batch = next(b for tower, b, s, *_ in TP_BLOCKS if s == shape[1])
+        got = _slice_kernel_rows([shape], TP_CHECK_BATCH, batch, seed=17,
+                                 what="the tensor shards")
+        for name, rs in got.items():
+            kernel_rows.setdefault(name, []).extend(rs)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    bad = []
+
+    def check(name, what, **errs):
+        for key, (err, limit) in errs.items():
+            if not err <= limit:  # NaN fails too
+                bad.append(f"{name} {what}: {key} {err} > {limit}")
+
+    blocks = []
+    for spec in TP_BLOCKS:
+        blocks += _tp_block_check(gen, *spec, check)
+    if bad:
+        raise RuntimeError("tensor shards: " + "; ".join(bad))
+    log(f"tensor phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": kernel_rows, "blocks": blocks}
+
+
 KERNEL_SOURCES = {
     "flash_fwd": ("flash_fwd.cu", 134), "flash_fwd_lse": ("flash_fwd.cu", 91),
     "flash_bwd_combined": ("flash_bwd.cu", 494),
@@ -5210,10 +5463,15 @@ def main() -> int:
     phase_environment()
     phase_build()
     rows = phase_kernel()
+    log(f"phases 1-3 wall {time.perf_counter() - t_start:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
+        t_phase = time.perf_counter()
         serve = phase_serve(tmp)
+        log(f"serve phase wall {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
         train, echo_p50, train_det = phase_train(tmp)
         long = phase_train_long(tmp)
+        log(f"train phases wall {time.perf_counter() - t_phase:.1f} s")
         data = phase_data(tmp, echo_p50)
         evals = phase_eval(tmp, data["fixture"],
                            os.path.join(tmp, "clip_vitb16_random.pt"))
@@ -5224,6 +5482,8 @@ def main() -> int:
         nar = phase_narrator(tmp, data["fixture"])
         nlq = phase_egonlq(tmp, os.path.join(tmp, "clip_vitb16_random.pt"))
         tools = phase_serve_tools(tmp, data["fixture"], serve)
+        drill = phase_drill(tmp)
+        tensor = phase_tensor()
     # each kernel's launches from the path that drives it: serving, the
     # data-fed 4-frame main path (run A), and the data-fed MIR finetune at
     # 16 frames for the split kernels; every path's counts beside them
@@ -5241,12 +5501,14 @@ def main() -> int:
                "parallel_ring": par["ring"], "parallel_nccl": par["nccl"],
                **{f"parallel_entry_{name}": counts
                   for name, counts in par["entries"].items()},
-               **nar["paths"], **nlq["paths"], **tools["paths"]}
+               **nar["paths"], **nlq["paths"], **tools["paths"],
+               **drill["paths"]}
     rows["flash_fwd"] += evals["checks"]
     for name in rows:
         rows[name] += vmae["rows"][name] + ft["rows"][name] + \
             cl["rows"][name] + par["rows"].get(name, []) + \
-            nar["rows"][name] + nlq["rows"][name]
+            nar["rows"][name] + nlq["rows"][name] + \
+            tensor["rows"].get(name, [])
     kernels = []
     for name, (source, line) in KERNEL_SOURCES.items():
         head = rows[name][0]

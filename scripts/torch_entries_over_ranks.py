@@ -1,13 +1,14 @@
-"""Run the four entries that train over ``data`` and ``fsdp`` on N cards
-(or N gloo processes) and hold each against one process on the same
-global batch: ``finetune_mir``, ``finetune_cls``, ``videomae_pretrain``
-and ``videomae_finetune`` at ViT-B/16, 16 frames, global batch 8, 2
-steps, on synthetic EK100 and Kinetics layouts and random checkpoints
-(``chip_smoke``'s writers).
+"""Run the training entries on N cards (or N gloo processes) and hold each
+against one process on the same global batch: ``finetune_mir``,
+``finetune_cls``, ``videomae_pretrain`` and ``videomae_finetune`` at
+ViT-B/16, 16 frames, and ``pretrain_clip`` at ViT-B/16, 4 frames, each at
+global batch 8 for 2 steps, on synthetic Ego4D, EK100 and Kinetics
+layouts and random checkpoints (``chip_smoke``'s writers), over any mesh
+(``mesh.data``, ``mesh.fsdp``, ``mesh.sp``, ``mesh.tensor``).
 
-    python scripts/torch_entries_over_ranks.py prepare DIR
+    python scripts/torch_entries_over_ranks.py prepare DIR [ENTRY ...]
     torchrun --nproc_per_node=4 scripts/torch_entries_over_ranks.py \\
-        run DIR ENTRY mesh.data=2 mesh.fsdp=2        # each ENTRY
+        run DIR ENTRY mesh.data=2 mesh.fsdp=2        # each ENTRY and mesh
     python scripts/torch_entries_over_ranks.py run DIR ENTRY   # reference
     python scripts/torch_entries_over_ranks.py compare DIR
 
@@ -16,8 +17,9 @@ patch dropout are off, so both runs see the same global rows (the mesh
 run in another order, which none of the losses sees).  ``compare`` prints
 one JSON line: each entry's per-step losses on the mesh and alone, their
 relative gaps against the limits (5e-3 before any update, 2e-2 after
-one: the reductions run in another order and batch shape), the mesh
-run's validation metrics, and the card's name and power limit; it exits
+one: the reductions run in another order and batch shape) for every mesh
+run, the mesh runs' validation metrics, and the card's name and power
+limit; it exits
 non-zero when a limit is missed.  ``--tiny`` (every sub-command) takes
 the tiny models on the CPU with gloo, a rehearsal.
 """
@@ -35,7 +37,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 ENTRIES = ("finetune_mir", "finetune_cls", "videomae_pretrain",
-           "videomae_finetune")
+           "videomae_finetune", "pretrain_clip")
 BATCH, STEPS = 8, 2
 LIMITS = (5e-3, 2e-2)  # relative loss gap: step 1, step 2
 
@@ -44,11 +46,17 @@ def _tiny() -> bool:
     return "--tiny" in sys.argv
 
 
-def prepare(root: str) -> None:
-    """The layouts and checkpoints under ``root``."""
+def prepare(root: str, entries=ENTRIES) -> None:
+    """The layouts and checkpoints under ``root`` that ``entries`` read."""
     import chip_smoke as cs
     import torch
 
+    if "pretrain_clip" in entries:
+        if _tiny():
+            cs.DATA_W, cs.DATA_H, cs.DATA_ROWS = 64, 48, 64
+        cs.write_ego4d_fixture(os.path.join(root, "ego4d"))
+    if set(entries) <= {"pretrain_clip"}:
+        return
     tiny = dict(w=64, h=48, fps=10) if _tiny() else {}
     cs.write_ek100_fixture(os.path.join(root, "ek100"),
                            train_clips=BATCH * STEPS, test_clips=BATCH,
@@ -81,6 +89,8 @@ def entry_args(root: str, entry: str) -> list:
                f"data.val_metadata={ek}/EPIC_100_retrieval_test.csv",
                f"data.val_batch_size={BATCH}", "eval_freq=1"]
     k4_args = [f"data.root={k4}", f"data.train_metadata={k4}/list.txt"]
+    eg = os.path.join(root, "ego4d")
+    rows = 64 if _tiny() else cs.DATA_ROWS
     tiny_clip = ["model.name=CLIP_TINY", "data.clip_length=2",
                  "data.crop_size=32", "model.image_size=32",
                  "model.vision_width=64", "model.vision_layers=2",
@@ -100,14 +110,21 @@ def entry_args(root: str, entry: str) -> list:
                               f"data.val_metadata={k4}/list.txt",
                               f"data.val_batch_size={BATCH}",
                               "data.num_clips=2", "data.num_crops=1",
-                              "eval_freq=1"]}[entry] + common
+                              "eval_freq=1"],
+        "pretrain_clip": [*cs.TRAIN_RECIPE, f"data.root={eg}",
+                          f"data.train_metadata={eg}/train.pkl",
+                          "data.dataset=ego4d", "eval_freq=0",
+                          f"data.subsample_stride={rows // (BATCH * STEPS)}"],
+    }[entry] + common
     if _tiny():
         args += {"finetune_mir": tiny_clip, "finetune_cls": tiny_clip,
                  "videomae_pretrain": ["model.name=VIDEOMAE_TINY",
                                        "data.clip_length=4"],
                  "videomae_finetune": ["model.name=VIDEOMAE_TINY_FT",
                                        "data.clip_length=4",
-                                       "model.num_classes=10"]}[entry]
+                                       "model.num_classes=10"],
+                 "pretrain_clip": [*tiny_clip, "data.decode_size=40",
+                                   "data.chunk_len=15"]}[entry]
         args += ["--device", "cpu"]
     return args
 
@@ -115,21 +132,23 @@ def entry_args(root: str, entry: str) -> list:
 def run(root: str, entry: str, mesh: list) -> None:
     """``entry``'s ``main`` on this process (and its group, under
     torchrun); rank 0 writes the logged losses and the validation to
-    ``<root>/<entry>_<world>.json``."""
+    ``<root>/<entry>_<world>[_<mesh>].json``."""
     import importlib
 
     orig = np.random.RandomState
     np.random.RandomState = lambda seed=None: orig(0 if seed is None
                                                     else seed)
     world = int(os.environ.get("WORLD_SIZE", 1))
-    out = os.path.join(root, "runs", f"{entry}_{world}")
+    tag = "_".join([f"{entry}_{world}", *(m.replace("mesh.", "").replace(
+        "=", "") for m in mesh)])
+    out = os.path.join(root, "runs", tag)
     main = importlib.import_module(f"avion_tpu_torch.train.{entry}").main
     res = main([*entry_args(root, entry), *mesh, f"output_dir={out}"])
     if int(os.environ.get("RANK", 0)) == 0:
         with open(os.path.join(out, "log.jsonl")) as f:
             losses = [r["train/loss"] for r in map(json.loads, f)
                       if "train/loss" in r]
-        with open(os.path.join(root, f"{entry}_{world}.json"), "w") as f:
+        with open(os.path.join(root, f"{tag}.json"), "w") as f:
             json.dump({"world": world, "mesh": mesh, "losses": losses,
                        "steps": res["steps"],
                        "eval": {str(k): v for k, v in
@@ -150,24 +169,27 @@ def compare(root: str) -> int:
     report, ok = {"card": card_line()}, True
     for entry in ENTRIES:
         runs = {}
-        for name in os.listdir(root):
+        for name in sorted(os.listdir(root)):
             if name.startswith(entry + "_") and name.endswith(".json"):
                 with open(os.path.join(root, name)) as f:
-                    r = json.load(f)
-                runs[r["world"]] = r
-        alone, wide = runs[1], runs[max(runs)]
-        gaps = [abs(a - b) / abs(b) for a, b in zip(wide["losses"],
-                                                   alone["losses"])]
-        good = (wide["steps"] == alone["steps"] == STEPS
-                and len(gaps) == STEPS
-                and all(g <= lim for g, lim in zip(gaps, LIMITS))
-                and (entry == "videomae_pretrain" or bool(wide["eval"])))
-        ok &= good
-        report[entry] = {"world": wide["world"], "mesh": wide["mesh"],
-                         "losses": wide["losses"],
-                         "losses_alone": alone["losses"],
-                         "relative_gaps": gaps, "limits": LIMITS,
-                         "eval": wide["eval"], "ok": good}
+                    runs[name[:-len(".json")]] = json.load(f)
+        alone = runs.pop(f"{entry}_1", None)
+        if alone is None:
+            continue
+        for tag, wide in runs.items():
+            gaps = [abs(a - b) / abs(b) for a, b in zip(wide["losses"],
+                                                       alone["losses"])]
+            good = (wide["steps"] == alone["steps"] == STEPS
+                    and len(gaps) == STEPS
+                    and all(g <= lim for g, lim in zip(gaps, LIMITS))
+                    and (entry in ("videomae_pretrain", "pretrain_clip")
+                         or bool(wide["eval"])))
+            ok &= good
+            report[tag] = {"world": wide["world"], "mesh": wide["mesh"],
+                           "losses": wide["losses"],
+                           "losses_alone": alone["losses"],
+                           "relative_gaps": gaps, "limits": LIMITS,
+                           "eval": wide["eval"], "ok": good}
     print(json.dumps(report), flush=True)
     return 0 if ok else 1
 
@@ -177,7 +199,7 @@ def main() -> int:
     cmd, root = argv[0], os.path.abspath(argv[1])
     if cmd == "prepare":
         os.makedirs(root, exist_ok=True)
-        prepare(root)
+        prepare(root, tuple(argv[2:]) or ENTRIES)
     elif cmd == "run":
         run(root, argv[2], argv[3:])
     elif cmd == "compare":

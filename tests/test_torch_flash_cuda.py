@@ -352,3 +352,55 @@ def test_hop_kernels_match_plain(cuda, b, s, h, d, bias):
         assert diff.abs().max().item() <= BF16_TOL
         assert (diff.norm() / ref[..., i * w:(i + 1) * w].norm()).item() \
             <= BWD_REL_TOL
+
+
+def _block_grads(block, x, g, run):
+    """(output, dx, every weight's gradient) of ``run(block, x)`` for the
+    cotangent ``g``."""
+    block.zero_grad(set_to_none=True)
+    x = x.detach().requires_grad_()
+    out = run(block, x)
+    (out.float() * g).sum().backward()
+    return out.detach(), x.grad, {n: p.grad.float()
+                                  for n, p in block.named_parameters()}
+
+
+@pytest.mark.parametrize("b,s,h,d,causal,t", [
+    (2, 785, 12, 64, False, 2), (2, 785, 12, 64, False, 4),
+    (1, 3137, 12, 64, False, 4), (2, 77, 8, 64, True, 2),
+    (2, 77, 8, 64, True, 4), (2, 785, 6, 128, False, 2)])
+def test_tensor_shards_match_whole_block(cuda, b, s, h, d, causal, t):
+    """A bf16 block with its ``t`` tensor ranks played on one card
+    (``parallel.tensor_parallel.run_block_local``: each rank's H / t heads
+    through the kernels, the row-parallel partials summed) against the
+    whole block on the same card: output within 3e-2 (the max abs error
+    over the largest value) and 0.5% RMS, dx and every weight's gradient
+    within 3e-2 and 1.5% RMS (chip_smoke's phase 3 bounds), and each
+    shard's attention launched at H / t heads."""
+    from avion_tpu_torch.models.layers import Block
+    from avion_tpu_torch.parallel.tensor_parallel import run_block_local
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    block = Block(h * d, h, causal=causal).to(cuda)
+    with torch.no_grad():
+        for p in block.parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn(b, s, h * d, device=cuda, generator=gen,
+                    dtype=torch.bfloat16)
+    g = torch.randn(b, s, h * d, device=cuda, generator=gen)
+    whole = _block_grads(block, x, g, lambda m, v: m(v))
+    fa.reset_launches()
+    split = _block_grads(block, x, g,
+                         lambda m, v: run_block_local(m, v, t))
+    assert fa.launches["flash_fwd_lse"] == t
+    for got, ref, rel_tol, what in (
+            (split[0], whole[0], REL_TOL, "out"),
+            (split[1], whole[1], 1.5e-2, "dx"),
+            *((split[2][n], whole[2][n], 1.5e-2, n) for n in whole[2])):
+        # the max abs error over the largest value: the bf16 output and
+        # the weights' gradients (sums over B x S rows) are not of unit
+        # scale, which the kernel tests' 3e-2 assumes
+        diff, ref = got.float() - ref.float(), ref.float()
+        assert (diff.abs().max() / ref.abs().max()).item() <= BF16_TOL, what
+        assert (diff.norm() / ref.norm()).item() <= rel_tol, what

@@ -283,7 +283,10 @@ def test_main_needs_cuda_unless_told_the_cpu(ego4d, tmp_path, monkeypatch):
 
 
 def test_main_refuses_sequence_parallel(ego4d, tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh.sp=2"):
+    """``mesh.sp`` is accepted (its ranks hold replicas, as in JAX;
+    ``test_torch_parallel_sp_entries``), but one process cannot hold two of
+    them: the mesh refuses before the model is built."""
+    with pytest.raises(ValueError, match=r"1 ranks do not divide by .* = 2"):
         train_narrator.main(_entry_args(ego4d, str(tmp_path / "run"),
                                         "mesh.sp=2", "--device", "cpu"))
 

@@ -71,12 +71,13 @@ def perturbed(params, seed=0):
         + 0.05 * rs.standard_normal(np.shape(x)).astype(np.float32), params)
 
 
-def jax_mesh_step(make_step, params, batch, data, fsdp, use_ema=False):
-    """``make_step(tx)``'s step jitted over a (data, fsdp) mesh of the
-    conftest's CPU devices on the global ``batch``: (metrics, the updated
-    parameters and EMA in the port's names)."""
-    mesh = jax_make_mesh(data=data, fsdp=fsdp, tensor=1,
-                         devices=jax.devices()[:data * fsdp])
+def jax_mesh_step(make_step, params, batch, data, fsdp, use_ema=False,
+                  tensor=1, sp=1):
+    """``make_step(tx)``'s step jitted over a (data, fsdp, sp, tensor) mesh
+    of the conftest's CPU devices on the global ``batch``: (metrics, the
+    updated parameters and EMA in the port's names)."""
+    mesh = jax_make_mesh(data=data, fsdp=fsdp, tensor=tensor, sp=sp,
+                         devices=jax.devices()[:data * fsdp * tensor * sp])
     tx, _ = jax_build_optimizer(JaxOptimConfig(**OPT), params, workers.NITER,
                                 num_layers=2)
     with jax.set_mesh(mesh):

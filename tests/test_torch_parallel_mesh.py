@@ -26,10 +26,12 @@ CLIP_TINY = dict(embed_dim=32, image_size=32, patch_size=16, num_frames=2,
                  text_heads=2, text_layers=2)
 
 
-@pytest.mark.parametrize("sizes", [dict(data=4, fsdp=2), dict(data=2, sp=4)])
+@pytest.mark.parametrize("sizes", [
+    dict(data=4, fsdp=2), dict(data=2, sp=4), dict(data=2, tensor=4),
+    dict(data=2, fsdp=2, tensor=2), dict(data=2, sp=2, tensor=2)])
 def test_rank_coordinates_match_jax_devices(sizes):
     assert MESH_AXES == JAX_AXES
-    mesh = jax_make_mesh(tensor=1, **sizes)
+    mesh = jax_make_mesh(**{"tensor": 1, **sizes})
     shape = axis_sizes(8, **sizes)
     assert tuple(shape.values()) == mesh.devices.shape
     for dev in jax.devices()[:8]:
@@ -46,8 +48,29 @@ def test_batch_groups_and_rows():
         assert local_batch_slice(m, 16) == slice(8 * (rank // 4),
                                                  8 * (rank // 4) + 8)
         assert m.ranks(sp=rank % 4) == [rank % 4, 4 + rank % 4]
-    with pytest.raises(NotImplementedError, match="tensor"):
-        make_mesh(data=4, tensor=2, world=8, rank=0)
+    for axis in ("pp", "ep"):
+        with pytest.raises(NotImplementedError, match=f"mesh.{axis}=2"):
+            make_mesh(data=4, world=8, rank=0, **{axis: 2})
+
+
+def test_tensor_groups_and_rows():
+    """data=2 x sp=2 x tensor=2: the tensor ranks of a batch group read its
+    rows; each group kind holds the ranks of one index of the other axes."""
+    for rank in range(8):
+        m = make_mesh(data=2, sp=2, tensor=2, world=8, rank=rank)
+        assert m.coords == mesh_coords(rank, m.shape)
+        assert m.batch_index == rank // 4
+        assert local_batch_slice(m, 16) == slice(8 * (rank // 4),
+                                                 8 * (rank // 4) + 8)
+        c = m.coords
+        # the losses' group, the ring, the tensor group, the replicas
+        assert m.ranks(sp=c["sp"], tensor=c["tensor"]) == [
+            r for r in range(8) if r % 4 == rank % 4]
+        assert m.ranks(data=c["data"], tensor=c["tensor"]) == [
+            r for r in range(8) if r // 4 == rank // 4 and r % 2 == rank % 2]
+        assert m.ranks(data=c["data"], sp=c["sp"]) == [
+            r for r in range(8) if r // 2 == rank // 2]
+        assert m.ranks(tensor=c["tensor"]) == list(range(rank % 2, 8, 2))
 
 
 @pytest.mark.parametrize("fsdp", [2, 4])

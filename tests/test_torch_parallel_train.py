@@ -10,8 +10,8 @@ parameters at 1e-5, except where JAX's gradient is at f32 noise (below
 within the learning rate.  Then a checkpoint written at world 2 with
 sharded state and restored at world 1 bit for bit, SIGTERM to one rank
 of ``pretrain_clip.main`` (both ranks checkpoint the same step and exit
-0), and the four other entries refusing ``mesh.sp``; the eval encoders'
-rows split over ranks.  Each group runs in spawned
+0); the eval encoders' rows split over ranks.  (The other entries at
+``mesh.sp``: ``test_torch_parallel_sp_entries``.)  Each group runs in spawned
 processes with a limit of 60 s (``tests/torch_dist.py``)."""
 
 import io
@@ -79,9 +79,9 @@ def jax_setup():
 
 
 def _jax_step(jm, params, batch, data, fsdp, update_freq=1, sp=1,
-              loss_type="clip"):
-    mesh = jax_make_mesh(data=data, fsdp=fsdp, tensor=1, sp=sp,
-                         devices=jax.devices()[:data * fsdp * sp])
+              loss_type="clip", tensor=1):
+    mesh = jax_make_mesh(data=data, fsdp=fsdp, tensor=tensor, sp=sp,
+                         devices=jax.devices()[:data * fsdp * sp * tensor])
     tx, _ = jax_build_optimizer(JaxOptimConfig(**OPT), params, NITER)
     with jax.set_mesh(mesh):
         state = JaxTrainState.create(
@@ -313,17 +313,3 @@ def test_sigterm_to_one_rank_checkpoints_both(tiny_ego4d, tmp_path):
     # one writer: one log, of rank 0's steps
     with open(osp.join(out, "log.jsonl")) as f:
         assert sum("train/loss" in line for line in f) == 1
-
-
-@pytest.mark.parametrize("entry", ["finetune_mir", "finetune_cls",
-                                   "videomae_pretrain", "videomae_finetune"])
-def test_entries_refuse_sequence_parallel(entry, tmp_path):
-    """The four entries train over data and fsdp; ``mesh.sp`` raises before
-    any group is joined, naming the ROADMAP item that ports it."""
-    import importlib
-
-    main = importlib.import_module(f"avion_tpu_torch.train.{entry}").main
-    with pytest.raises(NotImplementedError,
-                       match=rf"mesh.sp=2: {entry} .*Queue 1 item 12"):
-        main(["mesh.sp=2", f"output_dir={tmp_path}", "--device", "cpu"])
-    assert not os.listdir(tmp_path)

@@ -101,8 +101,9 @@ def test_main_needs_cuda_unless_told_the_cpu(tiny_ego4d, tmp_path):
     assert not osp.exists(out)
 
 
-# data, fsdp and sp are ported; tensor (like pp and ep) comes later
-@pytest.mark.parametrize("extra", [["mesh.tensor=2"]], ids=["mesh"])
+# data, fsdp, sp, tensor and dcn_data are ported; pp and ep come later
+@pytest.mark.parametrize("extra", [["mesh.pp=2"], ["mesh.ep=2"]],
+                         ids=["mesh", "mesh_ep"])
 def test_main_raises_on_later_slices(tiny_ego4d, tmp_path, extra):
     root, meta = tiny_ego4d
     with pytest.raises(NotImplementedError, match="slice"):

@@ -209,6 +209,7 @@ def _get(url, path):
     (["--weights", "int8"], 1),
     (["--weights", "int8", "--mesh", "mesh.data=2"], 2),
     (["--mesh", "mesh.data=2", "mesh.fsdp=2"], 4),
+    (["--mesh", "mesh.data=2", "mesh.sp=2", "mesh.tensor=2"], 2),
 ])
 def test_main_int8_and_mesh_cpu(weights, tmp_path, extra, replicas):
     """``main`` with ``--weights int8`` and / or ``--mesh`` on the CPU:
@@ -302,10 +303,27 @@ def test_replica_devices_cuda(monkeypatch, mesh, count, want):
     assert got == [torch.device("cuda", i) for i in range(want)]
 
 
+@pytest.mark.parametrize("mesh,device,count,want", [
+    (dict(data=-1, tensor=2), "cuda", 4, 2),
+    (dict(data=2, sp=2), "cpu", 0, 2),
+    (dict(data=-1, dcn_data=2), "cuda", 4, 4),
+    (dict(data=-1, fsdp=2, sp=2, dcn_data=1), "cuda", 8, 4),
+    (dict(data=2, tensor=2, dcn_data=2), "cuda", 4, 2),
+])
+def test_replica_devices_other_axes(monkeypatch, mesh, device, count, want):
+    """``tensor``, ``sp`` and ``dcn_data``: ``data x fsdp`` replicas, the
+    JAX encoders' batch shards, with ``data=-1`` resolved over ``fsdp x sp
+    x tensor`` of the cards."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    got = port_server.replica_devices(MeshConfig(**mesh),
+                                      torch.device(device))
+    one = torch.device("cpu") if device == "cpu" else None
+    assert got == [one or torch.device("cuda", i) for i in range(want)]
+
+
 @pytest.mark.parametrize("mesh,device,error,match", [
-    (dict(tensor=2), "cuda", NotImplementedError, "item 12"),
-    (dict(sp=2), "cpu", NotImplementedError, "item 12"),
-    (dict(dcn_data=2), "cuda", NotImplementedError, "item 12"),
+    (dict(data=4, tensor=2), "cuda", ValueError, "asks for 8 cards"),
+    (dict(data=-1, dcn_data=3), "cuda", ValueError, "multiple of dcn_data"),
     (dict(pp=2), "cuda", NotImplementedError, "item 13"),
     (dict(ep=2), "cuda", NotImplementedError, "item 13"),
     (dict(data=8), "cuda", ValueError, "4 cards"),

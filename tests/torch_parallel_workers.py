@@ -205,8 +205,33 @@ def encode(rank, world, sd, videos, texts, batch):
     return enc.encode_images(videos), enc.encode_texts(texts)
 
 
+def _gathered(state):
+    """The whole parameters (and EMA) of ``state`` as numpy, gathered over
+    fsdp and tensor (every rank calls it)."""
+    from avion_tpu_torch.parallel.sharding import full_tensor
+
+    whole = state.state_dict()
+    return ({k: full_tensor(v).numpy() for k, v in whole["model"].items()},
+            {k: full_tensor(v).numpy() for k, v in whole["ema"].items()}
+            if whole.get("ema") is not None else None)
+
+
+def _gathered_grads(model):
+    from avion_tpu_torch.parallel.sharding import full_tensor
+    from avion_tpu_torch.parallel.tensor_parallel import tensor_layout
+
+    layout = tensor_layout(model)
+    out = {}
+    for k, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        g = full_tensor(p.grad)
+        out[k] = (g if layout is None else layout.gather(k, g)).numpy()
+    return out
+
+
 def train_step(rank, world, sd, opt, batch, data, fsdp, update_freq,
-               loss_type="clip", sp=1):
+               loss_type="clip", sp=1, tensor=1, steps=1):
     """One CLIP_TINY step over a data x fsdp x sp mesh (FSDP2 when fsdp >
     1, DDP otherwise; with sp > 1 the sequence-parallel visual tower, gap
     pooling) on this rank's rows of ``batch`` (microbatch-major [M, B / M,
@@ -224,7 +249,7 @@ def train_step(rank, world, sd, opt, batch, data, fsdp, update_freq,
                                              make_clip_train_step)
 
     model = _clip_tiny(sd, loss_type == "siglip", sequence_parallel=sp > 1)
-    mesh = make_mesh(data=data, fsdp=fsdp, sp=sp)
+    mesh = make_mesh(data=data, fsdp=fsdp, sp=sp, tensor=tensor)
     shard_model(model, mesh)
     cfg = OptimConfig(**opt, update_freq=update_freq, accum="cached")
     optimizer, _ = build_optimizer(cfg, model, NITER)
@@ -237,25 +262,28 @@ def train_step(rank, world, sd, opt, batch, data, fsdp, update_freq,
                 make_clip_train_step(model, loss_type=loss_type))
         local = make_global_batch(mesh, {k: _t(v) for k, v in batch.items()},
                                   batch_dim=1 if update_freq > 1 else 0)
-        state, metrics = step(state, local)
+        for _ in range(steps):
+            state, metrics = step(state, local)
     sharded = {n: is_dtensor(p) for n, p in model.named_parameters()}
     moments_sharded = all(
         is_dtensor(m) == is_dtensor(p)
         for p, s in optimizer.inner.state.items() for m in s.values())
-    whole = {k: full_tensor(v.detach()).numpy()
-             for k, v in model.state_dict().items()}
     # the step's (clipped) gradients, still on the parameters
-    grads = {k: full_tensor(p.grad).numpy()
-             for k, p in model.named_parameters() if p.grad is not None}
+    grads = _gathered_grads(model)
+    whole, _ = _gathered(state)
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "params": whole if rank == 0 else None,
             "grads": grads if rank == 0 else None, "sharded": sharded,
-            "moments_sharded": moments_sharded}
+            "moments_sharded": moments_sharded,
+            "local": {n: full_tensor(p.detach()).numpy()
+                      for n, p in model.named_parameters()},
+            "tensor": mesh.coords["tensor"]}
 
 
-def save_after_step(rank, world, sd, opt, batch, out_dir):
-    """One step at fsdp = world (sharded state), then a checkpoint; returns
-    the gathered state rank 0 wrote, serialized by ``torch.save``."""
+def save_after_step(rank, world, sd, opt, batch, out_dir, tensor=1):
+    """One step at fsdp = world / tensor (sharded state) and ``tensor``,
+    then a checkpoint; returns the gathered state rank 0 wrote, serialized
+    by ``torch.save``."""
     from avion_tpu_torch.core.checkpoint import Checkpointer, _to_cpu
     from avion_tpu_torch.core.config import OptimConfig
     from avion_tpu_torch.core.train_state import TrainState
@@ -267,7 +295,7 @@ def save_after_step(rank, world, sd, opt, batch, out_dir):
     from avion_tpu_torch.train.steps import make_clip_train_step
 
     model = _clip_tiny(sd)
-    mesh = make_mesh(data=1, fsdp=world)
+    mesh = make_mesh(data=1, fsdp=world // tensor, tensor=tensor)
     shard_model(model, mesh)
     optimizer, _ = build_optimizer(OptimConfig(**opt), model, NITER)
     state = TrainState.create(model, optimizer,
@@ -353,7 +381,7 @@ def entry_model(kind):
 
 
 def entry_step(rank, world, kind, sd, opt, batch, data, fsdp, ema_decay=None,
-               label_smoothing=0.0):
+               label_smoothing=0.0, tensor=1, sp=1):
     """One step of an entry's train step (``kind`` as :func:`entry_model`)
     over a data x fsdp mesh (FSDP2 when fsdp > 1, DDP otherwise) on this
     rank's rows of ``batch``, with layer decay over 2 layers and, given
@@ -372,7 +400,7 @@ def entry_step(rank, world, kind, sd, opt, batch, data, fsdp, ema_decay=None,
 
     model = entry_model(kind)
     model.load_state_dict(sd, strict=True)
-    mesh = make_mesh(data=data, fsdp=fsdp)
+    mesh = make_mesh(data=data, fsdp=fsdp, tensor=tensor, sp=sp)
     shard_model(model, mesh)
     optimizer, _ = build_optimizer(OptimConfig(**opt), model, NITER,
                                    num_layers=2)
@@ -396,10 +424,7 @@ def entry_step(rank, world, kind, sd, opt, batch, data, fsdp, ema_decay=None,
     names = {id(p): n for n, p in model.named_parameters()}
     scales = {names[id(p)]: g["lr_scale"]
               for g in optimizer.inner.param_groups for p in g["params"]}
-    whole = {k: full_tensor(v.detach()).numpy()
-             for k, v in model.state_dict().items()}
-    ema = ({k: full_tensor(v).numpy() for k, v in state.ema.items()}
-           if state.ema is not None else None)
+    whole, ema = _gathered(state)
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "params": whole if rank == 0 else None,
             "ema": ema if rank == 0 else None,
@@ -530,3 +555,116 @@ def ema_checkpoint(rank, world, sd, opt, batch, out_dir):
     Checkpointer(out_dir).save(state.step, state)
     return ({k: full_tensor(v).numpy() for k, v in state.ema.items()},
             any(is_dtensor(v) for v in state.ema.values()))
+
+
+def restore_parts(rank, world, sd, opt, ckpt_dir, tensor):
+    """A CLIP_TINY train state at tensor = world restored from
+    ``ckpt_dir``: the step, and this rank's parts of the parameters and
+    of AdamW's first moments, by parameter name."""
+    from avion_tpu_torch.core.checkpoint import Checkpointer
+    from avion_tpu_torch.core.config import OptimConfig
+    from avion_tpu_torch.core.train_state import TrainState
+    from avion_tpu_torch.optim.factory import build_optimizer
+    from avion_tpu_torch.parallel.mesh import make_mesh
+    from avion_tpu_torch.parallel.sharding import shard_model
+
+    model = _clip_tiny(sd)
+    shard_model(model, make_mesh(data=world // tensor, tensor=tensor))
+    optimizer, _ = build_optimizer(OptimConfig(**opt), model, NITER)
+    state = TrainState.create(model, optimizer)
+    Checkpointer(ckpt_dir).restore(state)
+    mu = {n: optimizer.inner.state[p]["exp_avg"].numpy()
+          for n, p in zip(optimizer.names, optimizer.params)
+          if "exp_avg" in optimizer.inner.state[p]}
+    return {"step": state.step, "mu": mu,
+            "params": {n: p.detach().numpy()
+                       for n, p in model.named_parameters()},
+            "held": sorted(model.tensor_layout.leaves)}
+
+
+def tensor_block(rank, world, kind, sd, x, g, causal=False):
+    """A block cut over a world of tensor ranks (``layers.Block`` of width
+    ``x.shape[-1]``, or the narrator's ``CrossAttention`` over a visual
+    input that is ``x`` itself), forward on ``x`` and backward of
+    ``sum(out * g)``: the output, the input's gradient, and every
+    parameter's whole gradient (gathered over the group)."""
+    from avion_tpu_torch.models.layers import Block
+    from avion_tpu_torch.models.narrator import CrossAttention
+    from avion_tpu_torch.parallel.mesh import make_mesh
+    from avion_tpu_torch.parallel.tensor_parallel import tensor_parallelize
+
+    width = x.shape[-1]
+    heads = width // 32
+    if kind == "block":
+        model = Block(width, heads, dtype=torch.float32, causal=causal)
+    else:
+        model = CrossAttention(width, heads)
+    model.load_state_dict(sd, strict=True)
+    tensor_parallelize(model, make_mesh(data=1, tensor=world))
+    xt = _t(x).requires_grad_()
+    out = model(xt) if kind == "block" else model(xt, xt)
+    (out * _t(g)).sum().backward()
+    layout = model.tensor_layout
+    return {"out": out.detach().numpy(), "dx": xt.grad.numpy(),
+            "grads": {n: layout.gather(n, p.grad).numpy()
+                      for n, p in model.named_parameters()},
+            "held": sorted(layout.leaves),
+            "gathered": sorted(n for n, m in model.named_modules()
+                               if getattr(m, "tensor", None) is not None
+                               and m.tensor.gathered)}
+
+
+def tensor_draws(rank, world, data, tensor, seed, step):
+    """The random draws of a training step over a data x tensor mesh:
+    this rank's seed (``steps._parallel_parts``) and, from its step
+    generator, patch dropout's kept tokens, DropPath's keep masks, the
+    device tube masks and mixup's draws."""
+    from types import SimpleNamespace
+
+    from avion_tpu_torch.data.transforms import tube_mask_device
+    from avion_tpu_torch.models.layers import Transformer, patch_dropout
+    from avion_tpu_torch.parallel.mesh import make_mesh
+    from avion_tpu_torch.parallel.sharding import Parallel, shard_model
+    from avion_tpu_torch.train import augment_device as ad
+    from avion_tpu_torch.train.steps import _parallel_parts, _step_generator
+
+    model = Transformer(64, 2, 2, dtype=torch.float32, drop_path_rate=0.5)
+    mesh = make_mesh(data=data, tensor=tensor)
+    shard_model(model, mesh)
+    state = SimpleNamespace(parallel=Parallel(mesh, model))
+    _, module, _, rank_seed = _parallel_parts(state, seed)
+    gen = _step_generator(module, rank_seed, step)
+    x = torch.arange(2 * 9 * 4, dtype=torch.float32).reshape(2, 9, 4)
+    kept = patch_dropout(x, 0.5, gen)
+    keep = module.draw_drop_path(2, gen, "cpu")
+    tubes = tube_mask_device(gen, 2, 2, 2, 2, 0.5)
+    video = torch.rand(2, 2, 4, 4, 3, generator=gen)
+    mixed, target = ad.mixup_cutmix(gen, video, torch.tensor([0, 1]), 3,
+                                    group=mesh.batch_group)
+    return {"seed": rank_seed, "tensor": mesh.coords["tensor"],
+            "batch": mesh.batch_index, "kept": kept.numpy(),
+            "drop_path": keep.numpy(), "tubes": tubes.numpy(),
+            "mixed": mixed.numpy(), "target": target.numpy()}
+
+
+def tensor_whole_model(rank, world, sd, fsdp):
+    """``train.common.whole_model`` of CLIP_TINY cut over tensor = world /
+    fsdp (and sharded over ``fsdp``): the copy's state dict, and whether
+    the copy is a whole model (no tensor layout, no sharded tensor)."""
+    from avion_tpu_torch.models.registry import create_model
+    from avion_tpu_torch.parallel.mesh import make_mesh
+    from avion_tpu_torch.parallel.sharding import is_dtensor, shard_model
+    from avion_tpu_torch.parallel.tensor_parallel import tensor_layout
+    from avion_tpu_torch.train.common import whole_model
+
+    def build():
+        with torch.device("meta"):
+            return create_model("CLIP_TINY", num_frames=CLIP_TINY_FRAMES)
+
+    model = _clip_tiny(sd)
+    shard_model(model, make_mesh(data=1, fsdp=fsdp, tensor=world // fsdp))
+    copy = whole_model(model, build)
+    state = copy.state_dict()
+    return ({k: v.numpy() for k, v in state.items()},
+            tensor_layout(copy) is None
+            and not any(is_dtensor(v) for v in state.values()))
