@@ -16,7 +16,9 @@ checkpoint (``core.checkpoint``) holds them whole, and :meth:`TrainState.
 load_state_dict` cuts each back to this rank's shard, so a state saved at
 one world size restores at any other.  Under ``mesh.tensor`` the parts a
 rank holds (``parallel.tensor_parallel``) are gathered and cut the same
-way, so the checkpoint keeps the one-process layout."""
+way, as are an expert-parallel MoE layer's experts (``ep``) and a
+pipeline's stage leaves (``pp``), so the checkpoint keeps the one-process
+layout."""
 
 from __future__ import annotations
 
@@ -98,7 +100,7 @@ def _over_parts(state: dict, optimizer: Optimizer, fn) -> dict:
     core = dict(opt[optimizer.name])
     names = optimizer.names
     core["state"] = {i: {k: fn(names[int(i)], v)
-                         if torch.is_tensor(v) and v.dim() else v
+                         if torch.is_tensor(v) else v
                          for k, v in moments.items()}
                      for i, moments in core["state"].items()}
     opt[optimizer.name] = core

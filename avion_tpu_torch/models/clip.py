@@ -43,7 +43,8 @@ class CLIP(nn.Module):
                  freeze_temperature: bool = False, pooling: str = "cls",
                  use_logit_bias: bool = False,
                  logit_bias_init: float = -10.0,
-                 sequence_parallel: bool = False):
+                 sequence_parallel: bool = False, moe_experts: int = 0,
+                 pipeline: bool = False, pipeline_microbatches: int = 8):
         super().__init__()
         act = quick_gelu if use_quick_gelu else gelu
         self.dtype = dtype
@@ -57,7 +58,9 @@ class CLIP(nn.Module):
         self.visual = VisionTransformer(
             image_size, patch_size, num_frames, vision_width, vision_layers,
             vision_heads, act, dtype, patch_dropout, remat, remat_policy,
-            input_norm, pooling, sequence_parallel=sequence_parallel)
+            input_norm, pooling, sequence_parallel=sequence_parallel,
+            moe_experts=moe_experts, pipeline=pipeline,
+            pipeline_microbatches=pipeline_microbatches)
         self.textual = TextTransformer(context_length, vocab_size, text_width,
                                        text_heads, text_layers, act, dtype,
                                        remat, remat_policy)
@@ -135,8 +138,16 @@ def _init_modules_(module: nn.Module,
     """Dense and patchify kernels lecun-normal (truncated) with zero
     biases, LayerNorm ones and zeros, LayerScale its initial value, token
     embeddings normal(width ** -0.5), in module order."""
+    from avion_tpu_torch.ops.moe import MoEMlp
+
+    moe = [m for m in module.modules() if isinstance(m, MoEMlp)]
+    routers = {id(m.router) for m in moe}
     for m in module.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, MoEMlp):
+            m.init_weights(generator)
+        elif isinstance(m, nn.Linear) and id(m) in routers:
+            continue  # drawn with its MoE layer
+        elif isinstance(m, nn.Linear):
             lecun_normal_(m.weight, m.in_features, generator)
             m.bias.zero_()
         elif isinstance(m, PatchEmbed):

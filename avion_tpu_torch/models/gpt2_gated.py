@@ -25,6 +25,10 @@ cross-attention sub-block that runs BEFORE the self-attention::
 - Cached decoding: :meth:`GatedGPT2LMHead.precompute_cross`,
   :meth:`~GatedGPT2LMHead.decode_one` and :func:`make_decode_cache`, with
   ``ops.attention.cached_decode_attention`` against the caches.
+- ``pipeline``: ``transformer.h`` is ``parallel.pipeline_gated.
+  PipelinedGatedDecoder`` (cross position ``"pre"``, the same blocks and
+  names) over ``mesh.pp``; teacher-forced only (cached decoding raises),
+  and the gated variant only, as in JAX.
 """
 
 from __future__ import annotations
@@ -203,13 +207,25 @@ class _GPT2Body(nn.Module):
 
     def __init__(self, vocab_size: int, max_positions: int, width: int,
                  layers: int, heads: int, cross_freq: int, gated: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, pipeline: bool = False,
+                 pipeline_microbatches: int = 8,
+                 pipeline_remat: bool = False):
         super().__init__()
         self.wte = nn.Embedding(vocab_size, width)
         self.wpe = nn.Embedding(max_positions, width)
-        self.h = nn.ModuleList(
-            GatedGPT2Block(width, heads, has_cross=(i % cross_freq == 0),
-                           gated=gated, dtype=dtype) for i in range(layers))
+        if pipeline:
+            from avion_tpu_torch.parallel.pipeline_gated import (
+                PipelinedGatedDecoder)
+
+            self.h = PipelinedGatedDecoder(
+                width, layers, heads, cross_freq, "pre", dtype,
+                num_microbatches=pipeline_microbatches,
+                remat=pipeline_remat, gated=gated)
+        else:
+            self.h = nn.ModuleList(
+                GatedGPT2Block(width, heads, has_cross=(i % cross_freq == 0),
+                               gated=gated, dtype=dtype)
+                for i in range(layers))
         self.ln_f = _ln(width)
 
 
@@ -221,11 +237,16 @@ class GatedGPT2LMHead(nn.Module):
     def __init__(self, vocab_size: int = 50257, max_positions: int = 1024,
                  width: int = 1600, layers: int = 48, heads: int = 25,
                  cross_freq: int = 3, gated: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, pipeline: bool = False,
+                 pipeline_microbatches: int = 8,
+                 pipeline_remat: bool = False):
         super().__init__()
         self.width, self.layers, self.dtype = width, layers, dtype
+        self.pipeline = pipeline
         self.transformer = _GPT2Body(vocab_size, max_positions, width, layers,
-                                     heads, cross_freq, gated, dtype)
+                                     heads, cross_freq, gated, dtype,
+                                     pipeline, pipeline_microbatches,
+                                     pipeline_remat)
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None
@@ -247,6 +268,13 @@ class GatedGPT2LMHead(nn.Module):
         self.transformer.wpe.weight.normal_(0.0, 0.01, generator=generator)
         return self
 
+    def _sequential_only(self) -> None:
+        if self.pipeline:
+            raise RuntimeError(
+                "KV-cached decoding needs the sequential block layout; load "
+                "the checkpoint (the same names) into the model with "
+                "pipeline=False")
+
     def _embed(self, tokens: torch.Tensor, start: int = 0) -> torch.Tensor:
         t = self.transformer
         s = tokens.shape[1]
@@ -262,6 +290,10 @@ class GatedGPT2LMHead(nn.Module):
         """tokens [B, S]; enc [B, M, width] visual tokens.  Returns logits
         [B, S, vocab] in f32."""
         x = self._embed(tokens)
+        if self.pipeline:
+            if enc is None:
+                raise ValueError("pipelined GPT-2 requires visual tokens")
+            return self._head(self.transformer.h(x, enc))
         for blk in self.transformer.h:
             x = blk(x, enc)
         return self._head(x)
@@ -269,6 +301,7 @@ class GatedGPT2LMHead(nn.Module):
     def precompute_cross(self, enc: torch.Tensor) -> tuple:
         """Per-block cross-attention (k, v) of the visual tokens (None for
         the blocks without cross-attention)."""
+        self._sequential_only()
         return tuple(blk.cross_kv(enc) for blk in self.transformer.h)
 
     def decode_one(self, tok: torch.Tensor, pos: int, kv, cross):
@@ -276,6 +309,7 @@ class GatedGPT2LMHead(nn.Module):
         ``kv`` the per-layer caches (:func:`make_decode_cache`, written in
         place); ``cross`` from :meth:`precompute_cross`.  Returns
         (next-token logits [B, vocab], kv)."""
+        self._sequential_only()
         x = self._embed(tok, pos)
         new_kv = []
         for blk, kvi, ci in zip(self.transformer.h, kv, cross):

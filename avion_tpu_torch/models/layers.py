@@ -20,7 +20,9 @@ the same mask in its recompute.  LayerScale (``ls_init_value``; no registry
 configuration sets it) scales each residual branch before its DropPath and
 is recomputed with the rest of the block.  With ``sequence_parallel`` the
 attention runs the ring of ``ops.ring_attention`` over the current mesh's
-``sp`` group, on this rank's shard of the tokens.  MoE is not ported yet.
+``sp`` group, on this rank's shard of the tokens.  ``moe_experts`` > 0
+swaps a block's MLP for ``ops.moe.MoEMlp`` (``moe_mlp``, no ``mlp``), as
+the JAX block does.
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ from avion_tpu_torch.ops.attention import cached_decode_attention
 from avion_tpu_torch.ops.flash_attention import (FWD_LSE_OP, HOP_FWD_OP,
                                                  flash_attention_fused_qkv)
 from avion_tpu_torch.ops.ring_attention import ring_flash_attention_packed
-from avion_tpu_torch.parallel.tensor_parallel import column, local_heads, row
+from avion_tpu_torch.parallel.tensor_parallel import (column, gather_qkv,
+                                                      local_heads, own_columns,
+                                                      row)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -124,7 +128,9 @@ class SelfAttention(nn.Module):
     ``[q_all | k_all | v_all]``; the attention reads them in place, on
     CUDA through the flash kernel (no padding of the token dim).  Under
     ``mesh.tensor`` (``tensor``, set by ``parallel.tensor_parallel``) each
-    rank computes its heads' lanes and attention (the ring's too)."""
+    rank computes its heads' lanes and attention (the ring's too), or,
+    where ``tensor`` does not divide the heads, its block of the lanes,
+    gathered whole for the attention."""
 
     def __init__(self, width: int, heads: int, causal: bool = False,
                  sequence_parallel: bool = False):
@@ -137,7 +143,8 @@ class SelfAttention(nn.Module):
         self.tensor = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qkv = column(x, self.Wqkv, self.tensor, "Wqkv")
+        qkv = gather_qkv(column(x, self.Wqkv, self.tensor, "Wqkv"),
+                         self.tensor)
         heads = local_heads(self.heads, self.tensor)
         if self.sequence_parallel:
             w = qkv.shape[-1] // 3
@@ -147,7 +154,8 @@ class SelfAttention(nn.Module):
         else:
             o = flash_attention_fused_qkv(qkv, heads, x.shape[1],
                                           causal=self.causal)
-        return row(o, self.out_proj, self.tensor, "out_proj")
+        return row(own_columns(o, self.tensor), self.out_proj, self.tensor,
+                   "out_proj")
 
     def decode_step(self, x1: torch.Tensor, pos: int, k_cache: torch.Tensor,
                     v_cache: torch.Tensor):
@@ -191,18 +199,25 @@ class LayerScale(nn.Module):
 class Block(nn.Module):
     """Pre-LN residual attention block; ``drop_path`` is the rate of both
     residual branches; with ``ls_init_value`` each branch is scaled by a
-    :class:`LayerScale` (``ls_1``, ``ls_2``) before its DropPath."""
+    :class:`LayerScale` (``ls_1``, ``ls_2``) before its DropPath; with
+    ``moe_experts`` > 0 the MLP is ``ops.moe.MoEMlp`` (``moe_mlp``)."""
 
     def __init__(self, width: int, heads: int, act=gelu,
                  dtype: torch.dtype = torch.bfloat16, causal: bool = False,
                  drop_path: float = 0.0,
                  ls_init_value: Optional[float] = None,
-                 sequence_parallel: bool = False):
+                 sequence_parallel: bool = False, moe_experts: int = 0):
         super().__init__()
         self.ln_1 = LayerNorm(width, dtype)
         self.attn = SelfAttention(width, heads, causal, sequence_parallel)
         self.ln_2 = LayerNorm(width, dtype)
-        self.mlp = Mlp(width, act)
+        if moe_experts > 0:
+            from avion_tpu_torch.ops.moe import MoEMlp
+
+            self.moe_mlp = MoEMlp(width, experts=moe_experts, act=act,
+                                  dtype=dtype)
+        else:
+            self.mlp = Mlp(width, act)
         self.drop_path = drop_path
         self.ls_1, self.ls_2 = (
             (LayerScale(width, ls_init_value), LayerScale(width, ls_init_value))
@@ -215,7 +230,8 @@ class Block(nn.Module):
         k1, k2 = (None, None) if keep is None else keep
         x = x + drop_path(self.ls_1(self.attn(self.ln_1(x))), k1,
                           self.drop_path)
-        return x + drop_path(self.ls_2(self.mlp(self.ln_2(x))), k2,
+        mlp = self.moe_mlp if hasattr(self, "moe_mlp") else self.mlp
+        return x + drop_path(self.ls_2(mlp(self.ln_2(x))), k2,
                              self.drop_path)
 
 
@@ -253,14 +269,14 @@ class Transformer(nn.Module):
                  remat: bool = False, remat_policy: str = "save_attn",
                  drop_path_rate: float = 0.0,
                  ls_init_value: Optional[float] = None,
-                 sequence_parallel: bool = False):
+                 sequence_parallel: bool = False, moe_experts: int = 0):
         super().__init__()
         # layer i drops at rate * i / (layers - 1), as the JAX stack
         self.drop_rates = [drop_path_rate * i / max(1, layers - 1)
                            for i in range(layers)]
         self.resblocks = nn.ModuleList(
             Block(width, heads, act, dtype, causal, rate, ls_init_value,
-                  sequence_parallel)
+                  sequence_parallel, moe_experts)
             for rate in self.drop_rates)
         self.remat = remat
         self.save_k = saved_attn_layers(remat_policy, layers) if remat else 0

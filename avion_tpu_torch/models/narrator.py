@@ -22,6 +22,11 @@ language model is unperturbed at the start), fed by the port's
 - Parameter names follow the flax module's (``blocks.{i}`` for
   ``block_{i}``, ``pos_embed``, ``attn_gate`` / ``mlp_gate``), so the
   optimizer's weight-decay mask and layer ids are the JAX package's.
+- ``pipeline``: the decoder stack is ``parallel.pipeline_gated.
+  PipelinedGatedDecoder`` over ``mesh.pp`` (the same blocks and names,
+  ``pipeline_microbatches`` microbatches, ``pipeline_remat`` checkpoints
+  each cross-attention group).  Cached decoding needs the sequential
+  stack and raises on it, as in JAX.
 """
 
 from __future__ import annotations
@@ -132,7 +137,9 @@ class VCLM(nn.Module):
                  patch_size: int = 16, num_frames: int = 4,
                  vision_width: int = 768, vision_layers: int = 12,
                  vision_heads: int = 12,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, pipeline: bool = False,
+                 pipeline_microbatches: int = 8,
+                 pipeline_remat: bool = False):
         super().__init__()
         self.vocab_size, self.context_length = vocab_size, context_length
         self.width, self.layers, self.heads = width, layers, heads
@@ -145,10 +152,20 @@ class VCLM(nn.Module):
         self.visual_proj = nn.Linear(vision_width, width)
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.pos_embed = nn.Parameter(torch.zeros(context_length, width))
-        self.blocks = nn.ModuleList(
-            GatedDecoderBlock(width, heads, dtype,
-                              cross_attend=(i % cross_every == 0))
-            for i in range(layers))
+        self.pipeline = pipeline
+        if pipeline:
+            from avion_tpu_torch.parallel.pipeline_gated import (
+                PipelinedGatedDecoder)
+
+            self.blocks = PipelinedGatedDecoder(
+                width, layers, heads, cross_every, "mid", dtype,
+                num_microbatches=pipeline_microbatches,
+                remat=pipeline_remat)
+        else:
+            self.blocks = nn.ModuleList(
+                GatedDecoderBlock(width, heads, dtype,
+                                  cross_attend=(i % cross_every == 0))
+                for i in range(layers))
         self.ln_f = LayerNorm(width, dtype)
 
     @torch.no_grad()
@@ -186,6 +203,8 @@ class VCLM(nn.Module):
     def decode(self, tokens: torch.Tensor,
                visual: torch.Tensor) -> torch.Tensor:
         x = self._embed(tokens)
+        if self.pipeline:
+            return self._head(self.blocks(x, visual))
         for blk in self.blocks:
             x = blk(x, visual)
         return self._head(x)
@@ -198,6 +217,7 @@ class VCLM(nn.Module):
 
     def precompute_cross(self, visual: torch.Tensor) -> tuple:
         """Per-block cross-attention (k, v) (None for non-cross blocks)."""
+        _sequential_only(self.pipeline)
         return tuple(blk.cross_kv(visual) for blk in self.blocks)
 
     def decode_one(self, tok: torch.Tensor, pos: int, kv, cross):
@@ -205,12 +225,20 @@ class VCLM(nn.Module):
         ``kv`` per-layer (k, v) caches (:func:`make_decode_cache`, written
         in place); ``cross`` from :meth:`precompute_cross`.  Returns
         (logits [B, vocab] f32, kv)."""
+        _sequential_only(self.pipeline)
         x = self._embed(tok, pos)
         new_kv = []
         for blk, kvi, ci in zip(self.blocks, kv, cross):
             x, kvi = blk.decode_step(x, pos, kvi, ci)
             new_kv.append(kvi)
         return self._head(x)[:, 0], tuple(new_kv)
+
+
+def _sequential_only(pipeline: bool) -> None:
+    if pipeline:
+        raise RuntimeError(
+            "KV-cached decoding needs the sequential block layout; load the "
+            "checkpoint (the same names) into the model with pipeline=False")
 
 
 def caption_loss(logits: torch.Tensor, tokens: torch.Tensor,

@@ -37,6 +37,9 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from avion_tpu_torch.parallel.pipeline import unstack_block_params
+from avion_tpu_torch.parallel.pipeline_gated import unstack_gated_params
+
 
 def load_pt_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """Unwrap ``state_dict`` / ``model`` / ``module`` and strip the DDP
@@ -179,6 +182,14 @@ def _raw(x) -> torch.Tensor:
 
 def _block_param(pre: str, tail, val, sd: Dict[str, torch.Tensor]) -> None:
     """One flax block leaf (``tail`` below ``resblocks_i``) into ``sd``."""
+    if tail[0] == "moe_mlp":  # the expert leaves keep the flax [E, in, out]
+        if tail[1] == "router":
+            raw = _raw(val)
+            sd[f"{pre}.moe_mlp.router.{'weight' if tail[2] == 'kernel' else 'bias'}"] = (  # noqa: E501
+                raw.T.contiguous() if tail[2] == "kernel" else raw)
+        else:
+            sd[f"{pre}.moe_mlp.{tail[1]}"] = _raw(val)
+        return
     if tail[0] in ("ls_1", "ls_2"):
         sd[f"{pre}.{tail[0]}.gamma"] = _raw(val)
         return
@@ -210,6 +221,29 @@ def _videomae_param(parts, val, sd: Dict[str, torch.Tensor]) -> None:
         sd[f"{top}.bias"] = _raw(val)
 
 
+def _sequential_tree(tree):
+    """``tree`` with the JAX package's pipelined layouts turned back into its
+    sequential ones (the port's pipelined modules keep the sequential
+    names): a stacked ``[L, ...]`` tower (``qkv_kernel`` leaves) into
+    ``resblocks_{i}``, a group-stacked gated ``blocks`` tree into
+    ``block_{i}`` (VCLM) or ``h_{i}`` (beside GPT-2's ``wte``)."""
+    if not isinstance(tree, Mapping):
+        return tree
+    blocks = tree.get("blocks")
+    gated = isinstance(blocks, Mapping) and "gate_attn" in blocks
+    out = {}
+    for k, v in tree.items():
+        if gated and k == "blocks":
+            continue
+        v = _sequential_tree(v)
+        out[k] = (unstack_block_params(v)
+                  if isinstance(v, Mapping) and "qkv_kernel" in v else v)
+    if gated:
+        out.update(unstack_gated_params(
+            blocks, prefix="h_" if "wte" in tree else "block_"))
+    return out
+
+
 def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A flax CLIP, VideoMAE, ``VideoClassifier``, ``VCLM``,
     ``LavilaNarrator``, ``VSLNet`` or ``FrozenInTime`` parameter tree
@@ -220,8 +254,11 @@ def params_from_jax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     embed stays a dense weight); the classifier's ``vision`` tower becomes
     ``visual``.  The narrators go through :func:`_vclm_from_jax` and
     :func:`_lavila_from_jax`.  Every leaf is carried (``logit_scale``,
-    ``logit_bias``, LayerScale's ``gamma``); one it does not know raises
-    ``KeyError``."""
+    ``logit_bias``, LayerScale's ``gamma``, a MoE block's ``moe_mlp``
+    leaves); one it does not know raises ``KeyError``.  A pipelined
+    model's stacked trees are unstacked first (:func:`_sequential_tree`):
+    the port's pipelined modules hold the sequential names."""
+    flax_params = _sequential_tree(flax_params)
     if "text_decoder" in flax_params:
         return _lavila_from_jax(flax_params)
     if "visual_proj" in flax_params:

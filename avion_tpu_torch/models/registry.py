@@ -5,8 +5,9 @@ names and factory keyword arguments.  The VideoMAE factories, as the JAX ones, t
 and ignore keywords they have no use for.  ``use_flash_attn`` is accepted and ignored: attention
 always goes through ``ops.flash_attention``, which runs the CUDA kernels
 for CUDA tensors.  ``sequence_parallel`` builds the ring-attention visual
-tower (``models.vit``); machinery of later slices (MoE, pipelining) raises
-when it is asked for.
+tower (``models.vit``), ``moe_experts`` its mixture-of-experts blocks
+(``ops.moe``), ``pipeline`` its GPipe stack (``parallel.pipeline``; the
+VCLM's decoder through ``parallel.pipeline_gated``).
 ``CLIP.init_weights`` draws the flax initializers' distributions; the
 constructors' own draws are placeholders.
 """
@@ -43,9 +44,6 @@ def create_model(name: str, **kwargs):
     return _REGISTRY[name](**kwargs)
 
 
-_LATER = {"moe_experts": 0, "pipeline": False}
-
-
 def _training_kwargs(pooling: str = "cls", use_grad_checkpointing=False,
                      remat_policy: str = "save_attn",
                      patch_dropout: float = 0.0, input_norm: str = "none",
@@ -53,21 +51,18 @@ def _training_kwargs(pooling: str = "cls", use_grad_checkpointing=False,
                      use_logit_bias: bool = False,
                      use_flash_attn: bool = True,
                      pipeline_microbatches: int = 8,
-                     sequence_parallel: bool = False, **later) -> dict:
+                     sequence_parallel: bool = False, moe_experts: int = 0,
+                     pipeline: bool = False) -> dict:
     """The CLIP keywords the train entry passes, checked (the visual
     tower refuses a pooling other than cls, gap or none)."""
-    del use_flash_attn, pipeline_microbatches
-    for key, value in later.items():
-        if key not in _LATER:
-            raise TypeError(f"unexpected model keyword {key!r}")
-        if value != _LATER[key]:
-            raise NotImplementedError(
-                f"{key}={value!r} is not in the PyTorch port yet")
+    del use_flash_attn
     return dict(remat=bool(use_grad_checkpointing), remat_policy=remat_policy,
                 patch_dropout=patch_dropout, input_norm=input_norm,
                 freeze_temperature=freeze_temperature, pooling=pooling,
                 use_logit_bias=use_logit_bias,
-                sequence_parallel=bool(sequence_parallel))
+                sequence_parallel=bool(sequence_parallel),
+                moe_experts=int(moe_experts), pipeline=bool(pipeline),
+                pipeline_microbatches=int(pipeline_microbatches))
 
 
 def _clip_factory(*, patch_size, vision_width, vision_layers, vision_heads,
@@ -114,7 +109,8 @@ register_model("CLIP_VITL14_336PX")(
 @register_model("CLIP_TINY")
 def _clip_tiny(num_frames: int = 2, project_embed_dim: int = 32,
                use_quick_gelu: bool = True, temperature_init: float = 0.07,
-               dtype: Optional[torch.dtype] = None, **kwargs):
+               dtype: Optional[torch.dtype] = None,
+               pipeline_microbatches: int = 2, **kwargs):
     """Miniature CLIP for smoke tests (not in the reference)."""
     return CLIP(
         embed_dim=project_embed_dim, image_size=32, patch_size=16,
@@ -123,7 +119,8 @@ def _clip_tiny(num_frames: int = 2, project_embed_dim: int = 32,
         text_heads=2, text_layers=2, use_quick_gelu=use_quick_gelu,
         temperature_init=temperature_init,
         dtype=dtype if dtype is not None else torch.float32,
-        **_training_kwargs(**kwargs))
+        **_training_kwargs(pipeline_microbatches=pipeline_microbatches,
+                           **kwargs))
 
 
 @register_model("VIDEOMAE_TINY")
@@ -196,17 +193,17 @@ def _vclm_vitb16(num_frames: int = 4, use_flash_attn: bool = True,
     """Narrator VCLM: ViT-B/16 video tokens and a gated-cross-attention
     causal decoder (12 x 512, 8 heads).  ``vision_heads`` / ``heads`` give
     the head_dim-128 geometry (6 / 4) for narrators trained from scratch.
-    The pipelined decoder raises."""
-    del use_flash_attn, pipeline_microbatches, pipeline_remat
-    if pipeline:
-        raise NotImplementedError(
-            "pipeline=True is not in the PyTorch port yet (ROADMAP.md, "
-            "Queue 1 item 13)")
+    ``pipeline`` pipelines the decoder over ``mesh.pp``
+    (``parallel.pipeline_gated``; 6 groups)."""
+    del use_flash_attn
     return VCLM(vocab_size=49408, context_length=77, width=512, layers=12,
                 heads=heads, cross_every=cross_every, image_size=224,
                 patch_size=16, num_frames=num_frames, vision_width=768,
                 vision_layers=12, vision_heads=vision_heads,
-                dtype=dtype if dtype is not None else torch.bfloat16)
+                dtype=dtype if dtype is not None else torch.bfloat16,
+                pipeline=pipeline,
+                pipeline_microbatches=pipeline_microbatches,
+                pipeline_remat=pipeline_remat)
 
 
 @register_model("VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL")

@@ -27,6 +27,13 @@
   embedding, attention runs the ring, and gap pooling sums the shards'
   token sums by an all-reduce whose backward sums too, so that the average
   of the ranks' gradients is the gradient of the whole sequence.
+- ``moe_experts`` > 0: every block's MLP is a mixture of experts
+  (``ops.moe``).
+- ``pipeline``: the layer stack is ``parallel.pipeline.
+  PipelinedTransformer`` over ``mesh.pp`` (``pipeline_microbatches``
+  microbatches; ``remat`` checkpoints each block under ``save_attn``, the
+  JAX pipeline's policy), without MoE, sequence parallelism, LayerScale or
+  DropPath, as the JAX tower asserts.
 """
 
 from __future__ import annotations
@@ -80,7 +87,8 @@ class VisionTransformer(nn.Module):
                  remat_policy: str = "save_attn", input_norm: str = "none",
                  pooling: str = "cls", drop_path_rate: float = 0.0,
                  ls_init_value: Optional[float] = None,
-                 sequence_parallel: bool = False):
+                 sequence_parallel: bool = False, moe_experts: int = 0,
+                 pipeline: bool = False, pipeline_microbatches: int = 8):
         super().__init__()
         if input_norm not in INPUT_NORMS:
             raise ValueError(f"input_norm must be none|openai|imagenet, "
@@ -90,6 +98,10 @@ class VisionTransformer(nn.Module):
         if sequence_parallel and (pooling == "cls" or patch_dropout):
             raise ValueError("sequence_parallel needs gap or none pooling "
                              "(no CLS token) and no patch dropout")
+        if sequence_parallel and moe_experts:
+            # the MoE layer routes whole rows of the global batch
+            raise NotImplementedError("moe_experts in a sequence-parallel "
+                                      "tower is not in the PyTorch port")
         self.pooling = pooling
         self.width = width
         self.sequence_parallel = sequence_parallel
@@ -108,12 +120,25 @@ class VisionTransformer(nn.Module):
             nn.Parameter(torch.zeros(num_frames, width)) if num_frames > 1
             else None)
         self.ln_pre = LayerNorm(width, dtype)
-        self.transformer = Transformer(width, layers, heads, act, dtype,
-                                       causal=False, remat=remat,
-                                       remat_policy=remat_policy,
-                                       drop_path_rate=drop_path_rate,
-                                       ls_init_value=ls_init_value,
-                                       sequence_parallel=sequence_parallel)
+        if pipeline:
+            if moe_experts or sequence_parallel:
+                raise ValueError("pipeline excludes moe/sequence_parallel in "
+                                 "the same tower")
+            if ls_init_value is not None or drop_path_rate:
+                raise ValueError("a pipelined tower has no LayerScale or "
+                                 "DropPath")
+            from avion_tpu_torch.parallel.pipeline import (
+                PipelinedTransformer)
+
+            self.transformer = PipelinedTransformer(
+                width, layers, heads, act, dtype,
+                num_microbatches=pipeline_microbatches, remat=remat)
+        else:
+            self.transformer = Transformer(
+                width, layers, heads, act, dtype, causal=False, remat=remat,
+                remat_policy=remat_policy, drop_path_rate=drop_path_rate,
+                ls_init_value=ls_init_value,
+                sequence_parallel=sequence_parallel, moe_experts=moe_experts)
         self.ln_post = LayerNorm(width, dtype)
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:

@@ -274,11 +274,13 @@ class Optimizer:
         self.params = [p for ps in groups.values() for p in ps]
         names = {id(p): n for n, p in named_params}
         self.names = [names[id(p)] for p in self.params]
-        # under mesh.tensor, the parameters each rank holds a part of
+        # under mesh.tensor, ep or pp, the parameters each rank holds a
+        # part of, by the mesh axis of their part
         self.tensor_layout = tensor_layout
-        self.tensor_held = ({id(p) for n, p in zip(self.names, self.params)
+        self.tensor_held = ({id(p): tensor_layout.leaves[n].axis
+                             for n, p in zip(self.names, self.params)
                              if n in tensor_layout.leaves}
-                            if tensor_layout is not None else set())
+                            if tensor_layout is not None else {})
         self.schedule = schedule
         self.wd_schedule = wd_schedule
         self.grad_clip_norm = cfg.grad_clip_norm
@@ -308,11 +310,17 @@ class Optimizer:
     def global_norm(self) -> torch.Tensor:
         """L2 norm of all gradients (``optax.global_norm``), on device;
         sharded gradients' squared norms are summed over their shards
-        (FSDP2's over ``fsdp``, then the tensor parts' over ``tensor``)."""
-        whole, held = [], []
+        (FSDP2's over ``fsdp``, then the parts' over their axis: ``tensor``,
+        ``ep``, or ``pp`` for the stage leaves, which one rank holds)."""
+        whole = []
+        held: Dict[str, List[torch.Tensor]] = {}
         for p in self.params:
-            if p.grad is not None:
-                (held if id(p) in self.tensor_held else whole).append(p.grad)
+            if p.grad is None:
+                continue
+            if id(p) in self.tensor_held:
+                held.setdefault(self.tensor_held[id(p)], []).append(p.grad)
+            else:
+                whole.append(p.grad)
 
         def sharded_squares(grads):
             """The squared norm of FSDP2-sharded gradients, summed over
@@ -330,14 +338,17 @@ class Optimizer:
         sharded = [g for g in whole if is_dtensor(g)]
         if sharded:
             extra.append(sharded_squares(sharded))
-        if held:
+        # every rank of an axis's group reduces, with or without gradients
+        for axis, group in (self.tensor_layout.axes()
+                            if self.tensor_layout is not None else []):
+            grads = held.get(axis, [])
             parts = [torch.linalg.vector_norm(g.float()) ** 2
-                     for g in held if not is_dtensor(g)]
+                     for g in grads if not is_dtensor(g)]
             sq = torch.stack(parts).sum() if parts else norm.new_zeros(())
-            sharded = [g for g in held if is_dtensor(g)]
+            sharded = [g for g in grads if is_dtensor(g)]
             if sharded:
                 sq = sq + sharded_squares(sharded)
-            dist.all_reduce(sq, group=self.tensor_layout.group)
+            dist.all_reduce(sq, group=group)
             extra.append(sq)
         if not extra:
             return norm

@@ -10,7 +10,9 @@ tensor shard.
 - ``data`` and ``fsdp`` are the batch axes: the global batch is cut into
   ``data * fsdp`` batch groups (:attr:`Mesh.n_batch_shards`), and the losses
   gather over the ranks of one ``(sp, tensor)`` index
-  (:attr:`Mesh.batch_group`).
+  (:attr:`Mesh.batch_group`) over the ranks of one ``(pp, sp, ep,
+  tensor)`` index.  The ``pp`` and ``ep`` ranks of a batch group hold the
+  same rows, as the JAX package's ``BATCH_AXES`` are ``(data, fsdp)``.
 - ``sp`` cuts the sequence-parallel visual tower's tokens: the ranks of one
   ``(data, fsdp, tensor)`` index form the ring of ``ops.ring_attention``
   (:attr:`Mesh.sp_group`) and read the same clips.  In a model without a
@@ -18,9 +20,19 @@ tensor shard.
   the JAX devices of that axis do.
 - ``tensor`` splits the blocks' heads and MLP columns (Megatron's layout,
   ``parallel.tensor_parallel``) over the ranks of one ``(data, fsdp, sp)``
-  index (:attr:`Mesh.tensor_group`); they read the same rows, and the
-  gradients are averaged over the ranks of one ``tensor`` index
-  (:attr:`Mesh.replica_group`).
+  index (:attr:`Mesh.tensor_group`); they read the same rows.  The
+  gradients are averaged over the ranks of one ``(pp, ep, tensor)`` index
+  (:attr:`Mesh.replica_group`), which hold the same parameters.
+- ``pp`` cuts a pipelined tower's or decoder's layers into stages
+  (``parallel.pipeline``, ``parallel.pipeline_gated``): the ranks of one
+  ``(data, fsdp, sp, ep, tensor)`` index form the pipeline
+  (:attr:`Mesh.pp_group`, in stage order :attr:`Mesh.pp_ranks`) and read
+  the same rows.
+- ``ep`` cuts the experts of a mixture-of-experts MLP (``ops.moe``): the
+  ranks of one ``(data, fsdp, pp, sp, tensor)`` index
+  (:attr:`Mesh.ep_group`) read the same rows and each runs E / ep experts.
+- Without a pipelined or MoE model, ``pp`` and ``ep`` ranks hold replicas
+  and compute the same step, as the JAX devices of those axes do.
 - ``fsdp`` also shards parameters and optimizer state
   (``parallel.sharding``).
 - ``dcn_data`` places whole nodes as the outer blocks of ``data``
@@ -28,8 +40,6 @@ tensor shard.
   node for a slice): every collective but the gradient reduction stays
   inside a node.  torchrun numbers a node's ranks contiguously, so the
   layout is the plain one; the checks are JAX's.
-- ``pp`` and ``ep`` above 1 raise :class:`NotImplementedError`: they come
-  with a later slice.
 
 :func:`use_mesh` makes a mesh current (the JAX package's ``jax.set_mesh``);
 the sequence-parallel layers read the current one's ``sp`` group.
@@ -49,9 +59,9 @@ import torch.distributed as dist
 DATA_AXIS, FSDP_AXIS, PP_AXIS, SP_AXIS, EP_AXIS, TENSOR_AXIS = (
     "data", "fsdp", "pp", "sp", "ep", "tensor")
 MESH_AXES = (DATA_AXIS, FSDP_AXIS, PP_AXIS, SP_AXIS, EP_AXIS, TENSOR_AXIS)
-# axes of a later slice: the port raises on either above 1
-LATER_AXES = {"pp": "the pipeline slice", "ep": "the mixture-of-experts "
-              "slice"}
+# the axes whose ranks hold different parameters: the gradients are averaged
+# over the ranks of one index of them
+MODEL_AXES = (PP_AXIS, EP_AXIS, TENSOR_AXIS)
 
 
 def mesh_coords(rank: int, shape: Dict[str, int]) -> Dict[str, int]:
@@ -158,11 +168,16 @@ def rank_devices(world: int) -> list:
 @dataclass
 class Mesh:
     """This rank's place in the mesh and its process groups: the losses'
-    ``batch_group`` (the ranks of its ``(sp, tensor)`` index), the ring's
-    ``sp_group`` (of its ``(data, fsdp, tensor)`` index), the
-    ``tensor_group`` (of its ``(data, fsdp, sp)`` index) and the
-    gradients' ``replica_group`` (of its ``tensor`` index; None while
-    ``tensor`` is 1, where it is the world).  None in a world of one
+    ``batch_group`` (the ranks of its ``(pp, sp, ep, tensor)`` index), the
+    ring's ``sp_group`` (of its ``(data, fsdp, pp, ep, tensor)`` index),
+    the ``tensor_group`` (of its ``(data, fsdp, pp, sp, ep)`` index), the
+    pipeline's ``pp_group`` (of its ``(data, fsdp, sp, ep, tensor)``
+    index; ``pp_ranks`` its global ranks by stage), the experts'
+    ``ep_group`` (of its ``(data, fsdp, pp, sp, tensor)`` index) and the
+    gradients' ``replica_group`` (of its ``(pp, ep, tensor)`` index; None
+    while those are 1, where it is the world) and the ``row_group`` of the
+    ranks that read its rows (of its ``(data, fsdp)`` index; None while
+    ``pp``, ``sp``, ``ep`` and ``tensor`` are 1).  None in a world of one
     process, where every collective is the identity.  ``layout`` holds
     each position's rank."""
 
@@ -173,6 +188,9 @@ class Mesh:
     sp_group: Optional[object] = None
     tensor_group: Optional[object] = None
     replica_group: Optional[object] = None
+    pp_group: Optional[object] = None
+    ep_group: Optional[object] = None
+    row_group: Optional[object] = None
     layout: Optional[np.ndarray] = None
 
     def __post_init__(self):
@@ -208,6 +226,15 @@ class Mesh:
         index = tuple(fixed.get(a, slice(None)) for a in MESH_AXES)
         return sorted(int(r) for r in np.asarray(self.layout[index]).flat)
 
+    @property
+    def pp_ranks(self) -> list:
+        """The global ranks of this rank's pipeline, stage 0 first."""
+        return [self.rank_at(**dict(self.coords, pp=i))
+                for i in range(self.shape[PP_AXIS])]
+
+    def rank_at(self, **coords: int) -> int:
+        return int(self.layout[tuple(coords[a] for a in MESH_AXES)])
+
 
 def _make_groups(mesh: Mesh, fixed: Sequence[str]):
     """One process group for every index of the ``fixed`` axes (row-major,
@@ -228,12 +255,6 @@ def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1, sp: int = 1,
     """The mesh over the initialized process group (or ``world`` ranks,
     this one ``rank``, without one).  Every rank must call it, in the same
     order, since it creates the groups."""
-    for axis, size in (("pp", pp), ("ep", ep)):
-        if size != 1:
-            raise NotImplementedError(
-                f"mesh.{axis}={size}: the PyTorch port parallelizes data, "
-                f"fsdp, sp, tensor and dcn_data; {axis} comes with "
-                f"{LATER_AXES[axis]}")
     initialized = dist.is_available() and dist.is_initialized()
     if world is None:
         world = dist.get_world_size() if initialized else 1
@@ -253,14 +274,24 @@ def make_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1, sp: int = 1,
     mesh = Mesh(shape, rank, layout=layout)
     if initialized and world > 1:
         # every rank creates every group, in one order
-        mesh.batch_group = _make_groups(mesh, (SP_AXIS, TENSOR_AXIS))
-        mesh.sp_group = _make_groups(mesh, (DATA_AXIS, FSDP_AXIS,
-                                            TENSOR_AXIS))
+        mesh.batch_group = _make_groups(mesh, (PP_AXIS, SP_AXIS, EP_AXIS,
+                                               TENSOR_AXIS))
+        mesh.sp_group = _make_groups(mesh, _others(SP_AXIS))
         if shape[TENSOR_AXIS] > 1:
-            mesh.tensor_group = _make_groups(mesh, (DATA_AXIS, FSDP_AXIS,
-                                                    SP_AXIS))
-            mesh.replica_group = _make_groups(mesh, (TENSOR_AXIS,))
+            mesh.tensor_group = _make_groups(mesh, _others(TENSOR_AXIS))
+        if shape[PP_AXIS] > 1:
+            mesh.pp_group = _make_groups(mesh, _others(PP_AXIS))
+        if shape[EP_AXIS] > 1:
+            mesh.ep_group = _make_groups(mesh, _others(EP_AXIS))
+        if any(shape[a] > 1 for a in MODEL_AXES):
+            mesh.replica_group = _make_groups(mesh, MODEL_AXES)
+        if shape[SP_AXIS] > 1 or any(shape[a] > 1 for a in MODEL_AXES):
+            mesh.row_group = _make_groups(mesh, (DATA_AXIS, FSDP_AXIS))
     return mesh
+
+
+def _others(axis: str) -> tuple:
+    return tuple(a for a in MESH_AXES if a != axis)
 
 
 def mesh_from_config(cfg, world: Optional[int] = None,

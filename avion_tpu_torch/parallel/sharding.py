@@ -8,11 +8,19 @@
   A tensor that rule replicates (ndim <= 1, or no dim of 128 or more) is
   left out of FSDP and its gradient all-reduced by :class:`Parallel`.
 - Without ``fsdp``, DDP averages the gradients over the world, or under
-  ``tensor`` over the ranks of one tensor index (``Mesh.replica_group``),
-  which hold the same parts.
+  ``pp``, ``ep`` or ``tensor`` over the ranks of one index of those
+  (``Mesh.replica_group``), which hold the same parts.
 - ``tensor`` cuts the blocks first (``parallel.tensor_parallel``); FSDP2
   then shards each rank's part along the dim the JAX rule gives ``fsdp``
   on the whole parameter (the largest other than the tensor dim).
+- ``ep`` cuts a MoE layer's expert leaves along dim 0 (the JAX rule:
+  ``expert`` leaves ``[E, ...]`` shard dim 0 over ``ep``), and ``fsdp``
+  takes its usual dim of the rest; ``pp`` keeps a pipelined stack's stage
+  leaves on their stage (``parallel.pipeline``).  Every leaf JAX
+  replicates over ``pp`` or ``ep`` gets the same gradient on each of those
+  ranks (the pipeline broadcasts its input's gradient, the MoE layer
+  computes its router alike on every ``ep`` rank), so the batch group's
+  DDP or FSDP2 at one ``(pp, ep, tensor)`` index finishes every leaf.
 - The world average is the gradient of the global loss because the
   losses gather with a summing backward and the sequence-parallel pooling
   sums its cotangents (``losses.losses``, ``models.vit``).
@@ -30,10 +38,14 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from avion_tpu_torch.parallel.mesh import (DATA_AXIS, FSDP_AXIS, SP_AXIS,
-                                           TENSOR_AXIS, Mesh,
-                                           local_batch_slice)
-from avion_tpu_torch.parallel.tensor_parallel import (tensor_layout,
+from avion_tpu_torch.parallel.mesh import (DATA_AXIS, EP_AXIS, FSDP_AXIS,
+                                           PP_AXIS, SP_AXIS, TENSOR_AXIS,
+                                           Mesh, local_batch_slice)
+from avion_tpu_torch.parallel.pipeline import (pipeline_parallelize,
+                                               placeholder_names)
+from avion_tpu_torch.parallel.tensor_parallel import (TensorLeaf,
+                                                      _blocks, ensure_layout,
+                                                      tensor_layout,
                                                       tensor_parallelize)
 
 
@@ -83,6 +95,26 @@ def make_global_batch(mesh: Mesh, batch: Dict[str, torch.Tensor],
             for k, v in batch.items()}
 
 
+def share_rows(mesh: Mesh, batch: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+    """``batch`` as the first rank of this rank's batch group has it,
+    broadcast over the ranks that read the same rows (``Mesh.row_group``:
+    its ``pp``, ``sp``, ``ep`` and ``tensor`` ranks).  Each rank's loader
+    decodes those rows, but host augmentation draws differ between
+    processes, and the ranks of a pipeline, an expert group or a tensor
+    group must compute on one batch, as the devices of one JAX host do."""
+    if mesh.row_group is None:
+        return batch
+    src = mesh.rank_at(**dict(mesh.coords, pp=0, sp=0, ep=0, tensor=0))
+    out = {}
+    for k, v in batch.items():
+        if torch.is_tensor(v):
+            v = v.contiguous()
+            dist.broadcast(v, src=src, group=mesh.row_group)
+        out[k] = v
+    return out
+
+
 def _start_len(mesh: Mesh, n: int) -> tuple:
     rows = local_batch_slice(mesh, n)
     return rows.start, rows.stop - rows.start
@@ -91,14 +123,15 @@ def _start_len(mesh: Mesh, n: int) -> tuple:
 def _device_mesh(mesh: Mesh, device: torch.device):
     """FSDP2's mesh: ``(shard,)`` over fsdp, or ``(replicate, shard)`` with
     the data and sp ranks replicating; rank r at the coordinates it has in
-    :class:`Mesh`.  Under ``tensor`` it is the sub-mesh of this rank's
-    tensor index (the ranks that hold the same parts)."""
+    :class:`Mesh`.  Under ``pp``, ``ep`` or ``tensor`` it is the sub-mesh of
+    this rank's index of those (the ranks that hold the same parts)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    d, f, sp, t = (mesh.shape[a] for a in (DATA_AXIS, FSDP_AXIS, SP_AXIS,
-                                           TENSOR_AXIS))
-    ranks = torch.as_tensor(mesh.layout).reshape(d, f, sp, t).permute(
-        0, 2, 1, 3)
+    d, f, pp, sp, ep, t = (mesh.shape[a] for a in (
+        DATA_AXIS, FSDP_AXIS, PP_AXIS, SP_AXIS, EP_AXIS, TENSOR_AXIS))
+    ranks = torch.as_tensor(mesh.layout).reshape(d, f, pp, sp, ep, t).permute(
+        0, 3, 1, 2, 4, 5).reshape(d, sp, f, pp * ep * t)
+    t = pp * ep * t
     if t == 1:
         if d * sp == 1:
             return DeviceMesh(device.type, ranks.reshape(f),
@@ -118,11 +151,52 @@ def replicated_params(model: torch.nn.Module, fsdp: int) -> list:
     return [p for n, p in model.named_parameters() if dims[n] is None]
 
 
+def expert_parallelize(model: torch.nn.Module, mesh: Mesh
+                       ) -> torch.nn.Module:
+    """Give each MoE layer its routing group (the batch group: JAX routes
+    the global batch) and, over ``ep``, hold its E / ep experts (dim 0 of
+    every ``expert`` leaf) and list them in the model's layout."""
+    from avion_tpu_torch.ops.moe import MoEMlp
+
+    layers = [(n, m) for n, m in model.named_modules()
+              if isinstance(m, MoEMlp)]
+    if not layers:
+        return model
+    ep, group = mesh.shape[EP_AXIS], mesh.ep_group
+    rank = mesh.coords[EP_AXIS]
+    leaves = {}
+    for name, moe in layers:
+        if mesh.n_batch_shards > 1:
+            moe.batch_group = mesh.batch_group
+        if ep == 1:
+            continue
+        if moe.experts % ep:
+            raise ValueError(f"mesh.ep={ep} does not divide the "
+                             f"{moe.experts} experts of {name}")
+        blocks = _blocks(moe.experts, ep)
+        for leaf in ("expert_fc1", "expert_fc1_bias", "expert_fc2",
+                     "expert_fc2_bias"):
+            p = getattr(moe, leaf)
+            part = p.detach()[blocks[rank]].contiguous()
+            setattr(moe, leaf, torch.nn.Parameter(
+                part, requires_grad=p.requires_grad))
+            leaves[f"{name}.{leaf}" if name else leaf] = TensorLeaf(
+                0, moe.experts, blocks, group, rank, EP_AXIS)
+        moe.ep = (group, rank, ep)
+    if leaves:
+        ensure_layout(model).leaves.update(leaves)
+    return model
+
+
 def shard_model(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
-    """Cut ``model`` in place over ``tensor`` (``parallel.tensor_parallel``)
-    and shard it over ``fsdp`` (FSDP2) where the mesh has them; build the
-    optimizer after this, over the sharded parameters."""
+    """Cut ``model`` in place over ``tensor`` (``parallel.tensor_parallel``),
+    ``ep`` (:func:`expert_parallelize`) and ``pp``
+    (``parallel.pipeline.pipeline_parallelize``) and shard it over ``fsdp``
+    (FSDP2) where the mesh has them; build the optimizer after this, over
+    the sharded parameters."""
     tensor_parallelize(model, mesh)
+    expert_parallelize(model, mesh)
+    pipeline_parallelize(model, mesh)
     fsdp = mesh.shape[FSDP_AXIS]
     if fsdp == 1:
         return model
@@ -132,9 +206,12 @@ def shard_model(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     dims = fsdp_dims(model, fsdp)
     by_id = {id(p): dims[n] for n, p in model.named_parameters()}
     device = next(model.parameters()).device
+    params = dict(model.named_parameters())
+    ignored = set(replicated_params(model, fsdp)) | {
+        params[n] for n in placeholder_names(model)}
     fully_shard(model, mesh=_device_mesh(mesh, device),
                 shard_placement_fn=lambda p: Shard(by_id[id(p)]),
-                ignored_params=set(replicated_params(model, fsdp)))
+                ignored_params=ignored)
     return model
 
 
@@ -149,13 +226,20 @@ class Parallel:
                  find_unused: bool = False):
         self.mesh, self.module = mesh, module
         self.fsdp = mesh.shape[FSDP_AXIS] > 1
-        self.replicated = (replicated_params(module, mesh.shape[FSDP_AXIS])
-                           if self.fsdp else [])
+        params = dict(module.named_parameters())
+        # the stage leaves this rank holds as placeholders (other pp stages)
+        self.placeholders = [params[n] for n in placeholder_names(module)]
+        held = {id(p) for p in self.placeholders}
+        self.replicated = ([p for p in replicated_params(
+            module, mesh.shape[FSDP_AXIS]) if id(p) not in held]
+            if self.fsdp else [])
         if self.fsdp or not dist.is_initialized():
             self.model = module
         else:
             from torch.nn.parallel import DistributedDataParallel
 
+            DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
+                module, placeholder_names(module))
             device = next(module.parameters()).device
             self.model = DistributedDataParallel(
                 module, device_ids=[device] if device.type == "cuda" else None,
@@ -183,7 +267,12 @@ class Parallel:
         agree on which of them have a gradient: one that has none here but
         has one on another rank counts as zeros (as DDP counts it), one
         that has none anywhere keeps none (the MIR loss leaves the logit
-        scale without one)."""
+        scale without one).  The placeholders of other stages' leaves get
+        zero gradients, so every rank's optimizer state has the same
+        entries."""
+        for p in self.placeholders:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if not self.replicated:
             return
         params = self.replicated

@@ -23,7 +23,13 @@ from that:
   heads ``[r H / t, (r + 1) H / t)``, so the attention kernel runs on a
   local ``[B, S, 3 W / t]`` buffer with ``H / t`` heads.  (JAX cuts the
   ``3 W`` columns into ``t`` contiguous blocks and lets XLA reshard; the
-  bytes a rank holds are the same share.)  ``H % t != 0`` raises.
+  bytes a rank holds are the same share.)  Where ``t`` does not divide the
+  heads, the port holds JAX's blocks: rank r computes its contiguous
+  ``3 W / t`` rows of the projection, the rows are gathered whole
+  (:class:`_GatherLastDim`, whose backward sums the ranks' gradients and
+  keeps this rank's block), the kernel runs on all ``H`` heads, and each
+  rank multiplies its ``W / t`` columns of the attention output by its
+  block of the row-cut ``out_proj``.
 - A matrix held in part whose block is not split (the narrator's
   cross-attention ``out_proj``: JAX shards it, not its ``q`` / ``kv``) is
   gathered whole on use (:class:`_GatherOnUse`: all-gather forward; the
@@ -34,7 +40,11 @@ The numbers are the whole model's; only where the bytes live changes.  The
 model's :class:`TensorLayout` (``model.tensor_layout``) lists the parameters
 held in part, and gathers and cuts them for checkpoints and whole copies
 (``core.train_state``, ``train.common.whole_model``), which keep the one-
-process layout.
+process layout.  The same layout lists the parts of the other model axes:
+a mixture-of-experts MLP's expert leaves cut along dim 0 over ``ep``
+(:class:`TensorLeaf` over the ``ep`` group, ``ops.moe``) and a pipeline's
+stage leaves, held whole by their ``pp`` stage and as empty placeholders
+elsewhere (:class:`StageLeaf`, ``parallel.pipeline``).
 """
 
 from __future__ import annotations
@@ -138,16 +148,102 @@ class _GatherOnUse(torch.autograd.Function):
         return block.contiguous(), None, None
 
 
+class _GatherLastDim(torch.autograd.Function):
+    """The whole of an activation held in contiguous blocks along its last
+    dim; the backward sums the whole gradient over the group (each rank's
+    is partial) and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(
+            group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        n = dist.get_world_size(ctx.group)
+        return g.chunk(n, -1)[dist.get_rank(ctx.group)].contiguous(), None
+
+
 # ----------------------------------------------------------------- layout
 
 @dataclass
 class TensorLeaf:
-    """A parameter held in part: the dim it is cut along, its whole size
-    there, and each rank's indices along it."""
+    """A parameter held in part over ``group`` (this rank ``rank`` of it):
+    the dim it is cut along, its whole size there, and each rank's
+    indices along it; ``axis`` the mesh axis of ``group``."""
 
     dim: int
     size: int
     indices: List[torch.Tensor]
+    group: object = None
+    rank: int = 0
+    axis: str = "tensor"
+
+    def gather(self, value: torch.Tensor) -> torch.Tensor:
+        value = value.contiguous()
+        parts = [torch.empty_like(value) for _ in self.indices]
+        dist.all_gather(parts, value, group=self.group)
+        shape = list(value.shape)
+        shape[self.dim] = self.size
+        whole = value.new_empty(shape)
+        for idx, part in zip(self.indices, parts):
+            whole.index_copy_(self.dim, idx.to(value.device), part)
+        return whole
+
+    def cut(self, whole: torch.Tensor) -> torch.Tensor:
+        return whole.index_select(
+            self.dim, self.indices[self.rank].to(whole.device)).contiguous()
+
+    def global_shape(self, shape: Sequence[int]) -> tuple:
+        shape = list(shape)
+        shape[self.dim] = self.size
+        return tuple(shape)
+
+
+def placeholder(whole: torch.Tensor) -> torch.Tensor:
+    """What a rank that does not hold ``whole`` keeps in its place: empty
+    along dim 0 (the same ndim, so the same optimizer groups); a scalar
+    is kept whole and unused."""
+    if whole.dim() == 0:
+        return whole
+    return whole.new_empty((0,) + tuple(whole.shape[1:]))
+
+
+@dataclass
+class StageLeaf:
+    """A parameter held whole by one rank of ``group`` (``owner``, the
+    pipeline stage that runs it) and as a :func:`placeholder` by the
+    others; ``shape`` is the whole shape, ``src`` the owner's global
+    rank."""
+
+    shape: tuple
+    owner: int
+    src: int
+    group: object = None
+    rank: int = 0
+    axis: str = "pp"
+    dim = None
+
+    @property
+    def held(self) -> bool:
+        return self.rank == self.owner
+
+    def gather(self, value: torch.Tensor) -> torch.Tensor:
+        buf = (value.contiguous().clone() if self.held
+               else value.new_empty(self.shape))
+        dist.broadcast(buf, src=self.src, group=self.group)
+        return buf
+
+    def cut(self, whole: torch.Tensor) -> torch.Tensor:
+        return whole if self.held else placeholder(whole)
+
+    def global_shape(self, shape: Sequence[int]) -> tuple:
+        return tuple(self.shape)
 
 
 @dataclass
@@ -157,7 +253,9 @@ class TensorSplit:
     column matrix, ``row_index`` its columns of the row matrix,
     ``row_held`` whether the row matrix is held in part (else whole and
     sliced on use); ``gathered`` the names (in the block) of matrices held
-    in part and gathered on use."""
+    in part and gathered on use; ``gather_qkv`` whether an attention's
+    heads are not cut (``t`` does not divide them): its ``Wqkv`` rows are
+    JAX's contiguous blocks and the projection is gathered whole."""
 
     group: object
     size: int
@@ -166,49 +264,45 @@ class TensorSplit:
     row_index: Optional[torch.Tensor] = None
     row_held: bool = False
     gathered: Dict[str, int] = field(default_factory=dict)
+    gather_qkv: bool = False
 
 
 @dataclass
 class TensorLayout:
-    """The parameters a model holds in part over its tensor group, by
-    name."""
+    """The parameters a model holds in part, by name (a
+    :class:`TensorLeaf` over the ``tensor`` or ``ep`` group, or a
+    :class:`StageLeaf` over ``pp``)."""
 
-    group: object
-    rank: int
-    size: int
-    leaves: Dict[str, TensorLeaf]
+    leaves: Dict[str, object] = field(default_factory=dict)
 
     def gather(self, name: str, value: torch.Tensor) -> torch.Tensor:
         """The whole of ``name`` from this rank's part (a collective over
-        the tensor group); any other name's value itself."""
+        its leaf's group); any other name's value itself."""
         leaf = self.leaves.get(name)
-        if leaf is None:
-            return value
-        value = value.contiguous()
-        parts = [torch.empty_like(value) for _ in range(self.size)]
-        dist.all_gather(parts, value, group=self.group)
-        shape = list(value.shape)
-        shape[leaf.dim] = leaf.size
-        whole = value.new_empty(shape)
-        for idx, part in zip(leaf.indices, parts):
-            whole.index_copy_(leaf.dim, idx.to(value.device), part)
-        return whole
+        return value if leaf is None else leaf.gather(value)
 
     def cut(self, name: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's part of ``name``'s whole value; any other name's
         value itself."""
         leaf = self.leaves.get(name)
-        if leaf is None:
-            return whole
-        return whole.index_select(
-            leaf.dim, leaf.indices[self.rank].to(whole.device)).contiguous()
+        return whole if leaf is None else leaf.cut(whole)
 
     def global_shape(self, name: str, shape: Sequence[int]) -> tuple:
         leaf = self.leaves.get(name)
-        shape = list(shape)
-        if leaf is not None:
-            shape[leaf.dim] = leaf.size
-        return tuple(shape)
+        return tuple(shape) if leaf is None else leaf.global_shape(shape)
+
+    def axes(self) -> List[tuple]:
+        """``(axis, group)`` of every axis with leaves, in one order on
+        every rank."""
+        found = {leaf.axis: leaf.group for leaf in self.leaves.values()}
+        return [(a, found[a]) for a in ("pp", "ep", "tensor") if a in found]
+
+
+def ensure_layout(model: torch.nn.Module) -> TensorLayout:
+    """``model``'s layout, made empty if it has none yet."""
+    if getattr(model, "tensor_layout", None) is None:
+        model.tensor_layout = TensorLayout()
+    return model.tensor_layout
 
 
 def tensor_layout(model: torch.nn.Module) -> Optional[TensorLayout]:
@@ -267,19 +361,15 @@ def tensor_parallelize(model: torch.nn.Module, mesh) -> torch.nn.Module:
             row_dim = rule(f"{name}{row_name}", row)
             ts = TensorSplit(group, t)
             if col_dim is not None:
-                if attn and module.heads % t:
-                    tower = name.split(".resblocks")[0].rstrip(".")
-                    raise ValueError(
-                        f"mesh.tensor={t} does not divide the {module.heads} "
-                        f"heads of {tower}: the port cuts Wqkv by heads "
-                        f"(ROADMAP.md Queue 3, documented differences)")
+                ts.gather_qkv = attn and module.heads % t != 0
                 inner = col.weight.shape[0]
-                rows = (_head_rows(inner // 3, t) if attn
+                rows = (_head_rows(inner // 3, t)
+                        if attn and not ts.gather_qkv
                         else _blocks(inner, t))
                 cols = _blocks(row.weight.shape[1], t)
                 _hold(col, "weight", 0, rows[rank])
-                leaves[f"{name}{col_name}.weight"] = TensorLeaf(0, inner,
-                                                                 rows)
+                leaves[f"{name}{col_name}.weight"] = TensorLeaf(
+                    0, inner, rows, group, rank)
                 device = col.weight.device
                 ts.split = True
                 ts.inner = rows[rank].to(device)
@@ -287,7 +377,7 @@ def tensor_parallelize(model: torch.nn.Module, mesh) -> torch.nn.Module:
                 if row_dim is not None:
                     _hold(row, "weight", 1, cols[rank])
                     leaves[f"{name}{row_name}.weight"] = TensorLeaf(
-                        1, row.weight.shape[1] * t, cols)
+                        1, row.weight.shape[1] * t, cols, group, rank)
                     ts.row_held = True
             elif row_dim is not None:
                 ts.gathered[row_name] = row_dim
@@ -305,10 +395,11 @@ def tensor_parallelize(model: torch.nn.Module, mesh) -> torch.nn.Module:
             size = layer.weight.shape[dim]
             blocks = _blocks(size, t)
             _hold(layer, "weight", dim, blocks[rank])
-            leaves[f"{name}{lname}.weight"] = TensorLeaf(dim, size, blocks)
+            leaves[f"{name}{lname}.weight"] = TensorLeaf(dim, size, blocks,
+                                                         group, rank)
         if ts.split or ts.gathered:
             module.tensor = ts
-    model.tensor_layout = TensorLayout(group, rank, t, leaves)
+    ensure_layout(model).leaves.update(leaves)
     return model
 
 
@@ -355,7 +446,27 @@ def row(x: torch.Tensor, layer, ts: Optional[TensorSplit],
 
 
 def local_heads(heads: int, ts: Optional[TensorSplit]) -> int:
-    return heads // ts.size if ts is not None and ts.split else heads
+    if ts is None or not ts.split or ts.gather_qkv:
+        return heads
+    return heads // ts.size
+
+
+def gather_qkv(qkv: torch.Tensor, ts: Optional[TensorSplit]) -> torch.Tensor:
+    """The whole ``[q | k | v]`` projection of an attention whose heads are
+    not cut (its ranks' contiguous blocks gathered); else ``qkv``."""
+    if ts is None or not ts.gather_qkv:
+        return qkv
+    return _GatherLastDim.apply(qkv, ts.group)
+
+
+def own_columns(o: torch.Tensor, ts: Optional[TensorSplit]) -> torch.Tensor:
+    """This rank's columns of a whole attention output (the input of its
+    block of the row-cut ``out_proj``) where the heads are not cut; else
+    ``o``."""
+    if ts is None or not ts.gather_qkv:
+        return o
+    per = o.shape[-1] // ts.size
+    return o.narrow(-1, int(ts.row_index[0]), per)
 
 
 # ------------------------------------------------------- one-process play

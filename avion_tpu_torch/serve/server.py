@@ -71,9 +71,6 @@ import torch
 from avion_tpu_torch.parallel.launch import resolve_device
 from avion_tpu_torch.serve.batcher import MicroBatcher
 
-# mesh axes a replica cannot take yet, and where the queue lists them
-_LATER_AXES = {"pp": 13, "ep": 13}
-
 
 def decode_clip(path: str, clip_length: int, size: int,
                 start: Optional[float] = None,
@@ -148,24 +145,20 @@ def replica_devices(mesh, device: torch.device) -> List[torch.device]:
     """The devices of ``--mesh``'s replicas: ``mesh.data`` x ``mesh.fsdp``
     of them, ``cuda:0..R-1`` on CUDA or R CPU replicas with ``--device
     cpu``, where ``mesh.data`` must be given.  ``mesh.data=-1`` takes what
-    ``fsdp x sp x tensor`` leave of the visible cards
+    ``fsdp x pp x sp x ep x tensor`` leave of the visible cards
     (``parallel.mesh.axis_sizes``).  As in the JAX encoders, which shard
-    only the batch, the ``sp`` and ``tensor`` devices of a replica would
-    hold whole copies of the same rows: the replica's one card does their
-    work, and they count only towards the cards the mesh needs.
-    ``dcn_data`` must divide ``data``.  ``pp`` and ``ep`` raise; so do more
-    cards than the host has."""
+    only the batch, the ``pp``, ``sp``, ``ep`` and ``tensor`` devices of a
+    replica would hold whole copies of the same rows: the replica's one
+    card does their work, and they count only towards the cards the mesh
+    needs.  ``dcn_data`` must divide ``data``; more cards than the host has
+    raise."""
     from avion_tpu_torch.parallel.mesh import axis_sizes
 
-    for axis, item in _LATER_AXES.items():
-        if getattr(mesh, axis) > 1:
-            raise NotImplementedError(
-                f"--mesh with mesh.{axis}={getattr(mesh, axis)} is not in "
-                f"the PyTorch port yet (ROADMAP.md Queue 1 item {item})")
     if device.index is not None:
         raise ValueError(f"--mesh places its replicas on cuda:0..R-1; "
                          f"give --device cuda or cpu, not {device}")
-    per = mesh.sp * mesh.tensor  # the cards of one replica's rows
+    # the cards of one replica's rows
+    per = mesh.pp * mesh.sp * mesh.ep * mesh.tensor
     if device.type == "cpu":
         if mesh.data == -1:
             raise ValueError("--mesh with --device cpu needs mesh.data")
@@ -174,7 +167,8 @@ def replica_devices(mesh, device: torch.device) -> List[torch.device]:
         count = torch.cuda.device_count()
     sizes = axis_sizes(
         count if mesh.data == -1 else mesh.data * mesh.fsdp * per,
-        data=mesh.data, fsdp=mesh.fsdp, sp=mesh.sp, tensor=mesh.tensor)
+        data=mesh.data, fsdp=mesh.fsdp, pp=mesh.pp, sp=mesh.sp, ep=mesh.ep,
+        tensor=mesh.tensor)
     if sizes["data"] % mesh.dcn_data:
         raise ValueError(f"data axis {sizes['data']} must be a multiple of "
                          f"dcn_data {mesh.dcn_data}")
@@ -458,7 +452,7 @@ def main(argv=None,
         m.name, num_frames=cfg.data.clip_length,
         project_embed_dim=m.project_embed_dim,
         use_quick_gelu=m.use_quick_gelu, pooling=m.pooling,
-        temperature_init=m.temperature_init)
+        temperature_init=m.temperature_init, moe_experts=m.moe_experts)
     devices = replica_devices(cfg.mesh, device) if use_mesh else [device]
     load_clip_checkpoint(model, cfg.pretrain_model)
     service = ClipService(model, batch=cfg.data.val_batch_size,

@@ -36,7 +36,8 @@ def whole_model(model: torch.nn.Module, build: Callable[[], torch.nn.Module],
                 params: Optional[Dict[str, torch.Tensor]] = None
                 ) -> torch.nn.Module:
     """``model`` itself, or, when it is sharded (FSDP2, or cut over
-    ``mesh.tensor``) or ``params`` (e.g. an EMA, by name) stand in for its
+    ``mesh.tensor``, ``ep`` or ``pp``), routes its MoE layers over the ranks,
+    or ``params`` (e.g. an EMA, by name) stand in for its
     parameters, a new unsharded module of ``build()`` (on the meta device)
     holding the whole weights,
     on ``model``'s device.  Every rank calls it: the gathers are
@@ -44,7 +45,8 @@ def whole_model(model: torch.nn.Module, build: Callable[[], torch.nn.Module],
     state = model.state_dict()
     layout = tensor_layout(model)
     if params is None and layout is None and not any(
-            is_dtensor(v) for v in state.values()):
+            is_dtensor(v) for v in state.values()) and not _routes_over_ranks(
+                model):
         return model
 
     def gather(name, value):
@@ -60,6 +62,15 @@ def whole_model(model: torch.nn.Module, build: Callable[[], torch.nn.Module],
         for name, buf in model.named_buffers():
             copy.get_buffer(name).copy_(buf)
     return copy
+
+
+def _routes_over_ranks(model: torch.nn.Module) -> bool:
+    """Whether a MoE layer of ``model`` routes the batch group's global
+    batch (its copy routes each rank's rows alone, so its ranks need not
+    call it in step)."""
+    from avion_tpu_torch.ops.moe import moe_outputs
+
+    return any(m.batch_group is not None for m in moe_outputs(model))
 
 
 def load_pretrained_params(path: str, model: torch.nn.Module, *,

@@ -35,7 +35,7 @@ from avion_tpu_torch.core.train_state import TrainState
 from avion_tpu_torch.data.loader import device_prefetch, echo_batches
 from avion_tpu_torch.parallel.launch import agree, is_main, preempted
 from avion_tpu_torch.parallel.mesh import Mesh, mesh_from_config
-from avion_tpu_torch.parallel.sharding import Parallel
+from avion_tpu_torch.parallel.sharding import Parallel, share_rows
 
 
 @dataclass
@@ -145,6 +145,8 @@ def train_one_epoch(run: Run, loader, epoch: int) -> Dict[str, float]:
             batch = next(it)
         except StopIteration:
             break
+        if run.state.parallel is not None:
+            batch = share_rows(run.state.parallel.mesh, batch)
         timer.data_time.update(time.perf_counter() - t_fetch)
         i += 1
         # every rank asks, so a signal that reached one rank stops all

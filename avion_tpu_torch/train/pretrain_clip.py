@@ -36,17 +36,21 @@ Over N ranks, one card each (gloo with ``--device cpu``)::
 
     torchrun --nproc_per_node=N -m avion_tpu_torch.train.pretrain_clip \
         data.batch_size=$((256 * N)) mesh.data=... mesh.fsdp=... \
-        mesh.sp=... mesh.tensor=... mesh.dcn_data=... \
-        [model.sequence_parallel=true model.pooling=gap] ...
+        mesh.sp=... mesh.tensor=... mesh.pp=... mesh.ep=... \
+        mesh.dcn_data=... [model.sequence_parallel=true model.pooling=gap] \
+        [model.moe_experts=8] [model.pipeline=true] ...
 
 ``data.batch_size`` is the global batch, cut into ``mesh.data *
 mesh.fsdp`` batch groups (``parallel.mesh``); ``mesh.fsdp`` shards
 parameters and optimizer state (FSDP2), ``mesh.data`` replicates them
 (DDP), ``mesh.sp`` with ``model.sequence_parallel=true`` splits the
-visual tower's tokens over the ring, and ``mesh.tensor`` cuts the blocks'
+visual tower's tokens over the ring, ``mesh.tensor`` cuts the blocks'
 heads and MLP columns (``parallel.tensor_parallel``; the ring's hops then
-run on H / t heads).  Only rank 0 logs and writes; the losses see the
-global batch.
+run on H / t heads), ``mesh.ep`` with ``model.moe_experts=N`` cuts the
+mixture-of-experts blocks' experts (``ops.moe``) and ``mesh.pp`` with
+``model.pipeline=true`` the visual tower's layers into GPipe stages
+(``parallel.pipeline``).  Only rank 0 logs and writes; the losses see
+the global batch.
 """
 
 from __future__ import annotations
@@ -196,7 +200,9 @@ def make_step(cfg: TrainConfig, model: torch.nn.Module):
     from (``seed + 1``, step), as the JAX entry's step key."""
     common = dict(label_smoothing=cfg.label_smoothing,
                   crop_size=cfg.data.crop_size, seed=cfg.seed + 1,
-                  loss_type=cfg.loss, siglip_chunked=cfg.siglip_chunked)
+                  loss_type=cfg.loss, siglip_chunked=cfg.siglip_chunked,
+                  moe_aux_weight=cfg.model.moe_aux_weight,
+                  moe_zloss_weight=cfg.model.moe_zloss_weight)
     if cfg.optim.update_freq > 1 and cfg.optim.accum == "cached":
         if cfg.data.batch_size % cfg.optim.update_freq:
             raise ValueError(

@@ -49,6 +49,7 @@ from avion_tpu_torch.losses.losses import (clip_loss, gather_batch,
                                            softmax_cross_entropy,
                                            videomae_loss)
 from avion_tpu_torch.ops.fused_input import crop_resize_flip_normalize
+from avion_tpu_torch.ops.moe import moe_metrics
 
 LOGIT_SCALE_MAX = 4.6052  # ln(100); scripts/main_lavila_pretrain.py:880
 
@@ -179,11 +180,30 @@ def _finish_clip_step(state: TrainState, metrics: dict) -> dict:
     return metrics
 
 
+def _add_moe(model: torch.nn.Module, metrics: dict, aux_weight: float,
+             zloss_weight: float, scale: float = 1.0) -> torch.Tensor:
+    """The router losses of a MoE tower's last forward added to
+    ``metrics["loss"]`` (and their metrics to ``metrics``, as the JAX step
+    reads its collections); returns the objective to differentiate, where
+    the router terms count ``scale`` times (1 / M in each of the cached
+    accumulation's M passes)."""
+    moe = moe_metrics(model, aux_weight, zloss_weight)
+    if moe is None:
+        return metrics["loss"]
+    objective = moe.pop("objective")
+    obj = metrics["loss"] + scale * objective
+    metrics["loss"] = metrics["loss"] + objective
+    metrics.update(moe)
+    return obj
+
+
 def make_clip_train_step(model: torch.nn.Module,
                          label_smoothing: float = 0.0,
                          crop_size: Optional[int] = None,
                          seed: int = 1, loss_type: str = "clip",
-                         siglip_chunked: bool = True) -> Callable:
+                         siglip_chunked: bool = True,
+                         moe_aux_weight: float = 0.01,
+                         moe_zloss_weight: float = 0.0) -> Callable:
     """Returns ``step(state, batch) -> (state, metrics)``.
     ``batch``: ``video`` [B, T, H, W, 3] (uint8 or normalized float) and
     ``text`` [B, L] token ids on the model's device (with ``crop`` /
@@ -196,7 +216,11 @@ def make_clip_train_step(model: torch.nn.Module,
     on one process is the dense loss).  Metrics: ``loss``, ``clip_acc``,
     ``logit_scale`` and ``grad_norm`` as device tensors, ``step_ok`` as a
     float.  The update is the state's optimizer's (the JAX package's step
-    takes it as ``tx``)."""
+    takes it as ``tx``).  A MoE tower's router losses join the loss,
+    ``moe_aux_weight * moe_aux`` and, with ``moe_zloss_weight`` > 0,
+    ``moe_zloss_weight * moe_zloss``, and the metrics add ``moe_aux``
+    (``moe_zloss``), ``moe_load_max``, ``moe_load_min`` and
+    ``moe_overflow`` (``ops.moe.moe_metrics``)."""
     dtype = getattr(model, "dtype", torch.bfloat16)
     loss_fn = _contrastive_loss(model, loss_type, label_smoothing,
                                 siglip_chunked)
@@ -212,8 +236,9 @@ def make_clip_train_step(model: torch.nn.Module,
         metrics = loss_fn(out["image_embed"], out["text_embed"],
                           out["logit_scale"], out.get("logit_bias"), group)
         metrics["logit_scale"] = out["logit_scale"]
+        obj = _add_moe(model, metrics, moe_aux_weight, moe_zloss_weight)
         opt.zero_grad()
-        metrics["loss"].backward()
+        obj.backward()
         _finish_backward(state)
         return state, _finish_clip_step(state, metrics)
 
@@ -224,7 +249,9 @@ def make_clip_accum_train_step(model: torch.nn.Module, update_freq: int,
                                label_smoothing: float = 0.0,
                                crop_size: Optional[int] = None,
                                seed: int = 1, loss_type: str = "clip",
-                               siglip_chunked: bool = True) -> Callable:
+                               siglip_chunked: bool = True,
+                               moe_aux_weight: float = 0.01,
+                               moe_zloss_weight: float = 0.0) -> Callable:
     """Cached gradient accumulation (``avion_tpu.train.steps.
     make_clip_accum_train_step``): the contrastive loss of the whole batch
     at one microbatch's activation memory, for one extra forward.
@@ -251,7 +278,10 @@ def make_clip_accum_train_step(model: torch.nn.Module, update_freq: int,
     - Metrics (``loss``, ``clip_acc``, ``logit_scale``) are the mean over
       the passes, ``grad_norm`` the norm of the accumulated gradient; one
       update (or its skip) and one host read a call, as
-      :func:`make_clip_train_step`."""
+      :func:`make_clip_train_step`.
+    - A MoE tower's router losses of pass m count 1 / M in its objective,
+      so the accumulated gradient is the one-shot step's; the reported
+      loss carries them whole (the JAX step's rule)."""
     micro = int(update_freq)
     dtype = getattr(model, "dtype", torch.bfloat16)
     loss_fn = _contrastive_loss(model, loss_type, label_smoothing,
@@ -297,9 +327,12 @@ def make_clip_accum_train_step(model: torch.nn.Module, update_freq: int,
                     bias = None if bias is None else bias.detach()
                 # the cache is the global batch already
                 metrics = loss_fn(zi_m, zt_m, scale, bias, None)
-                metrics["loss"].backward()
+                obj = _add_moe(model, metrics, moe_aux_weight,
+                               moe_zloss_weight, 1.0 / micro)
+                obj.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["logit_scale"] = out["logit_scale"].detach()
+            del obj
             total = metrics if total is None else {
                 k: total[k] + v for k, v in metrics.items()}
             del out, zi_m, zt_m

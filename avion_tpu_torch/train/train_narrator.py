@@ -30,7 +30,11 @@ batch groups; ``mesh.fsdp`` shards parameters and optimizer state (FSDP2),
 batch's non-padding tokens, as the JAX step's, and only rank 0 logs and
 writes.  ``mesh.sp`` ranks hold replicas of their batch group's step, as in
 JAX; ``mesh.tensor`` cuts the blocks' heads and MLP columns
-(``parallel.tensor_parallel``).
+(``parallel.tensor_parallel``); ``mesh.pp`` with ``model.pipeline=true``
+cuts the decoder's cross-attention groups into GPipe stages
+(``parallel.pipeline_gated``; ``model.pipeline_microbatches``, and
+``model.use_grad_checkpointing`` recomputes each group, as JAX's
+``pipeline_remat``), else its ranks hold replicas, as ``mesh.ep``'s do.
 """
 
 from __future__ import annotations

@@ -10,8 +10,9 @@ run and serve the narrators (the VCLM and LaViLa's), extract EgoNLQ
 features from a long video and train VSLNet on them, and convert
 checkpoints, serve decoded ``paths`` with int8 weights over one replica per
 card and profile a train step through the port's tools, run the
-convergence drill (train, preempt, resume, evaluate) and play the ranks of
-tensor-parallel blocks on the card.
+convergence drill (train, preempt, resume, evaluate), play the ranks of
+tensor-parallel blocks on the card, train the mixture-of-experts tower
+and play the pipelines' stages and the experts' ranks.
 
     python3 chip_smoke.py
 
@@ -262,7 +263,20 @@ Phases (each raises on failure; the script then exits non-zero):
    split block's, the whole block's, a shard's attention and the whole
    attention's ms.  Phase 12 (d) passes ``mesh.tensor=1
    mesh.dcn_data=1``, so the new mesh and group code runs there, alone
-   and under the one-rank NCCL group.
+   and under the one-rank NCCL group;
+18. experts and pipeline: (a) ``pretrain_clip.main`` with
+   ``model.moe_experts=8`` (CLIP_VITB16, batch 32, 2 steps on the data
+   phase's layout, a one-rank NCCL group, no checkpoint written): 24
+   forward-with-lse and 24 combined launches a step, finite loss,
+   ``moe_aux`` and ``moe_overflow``, ``moe_load_max`` at most 1; the MoE
+   layer's router, dispatch, expert products and combine timed beside
+   their bounds; (b) ``ops.moe.run_experts_local`` at ep = 2, 4, (c)
+   CLIP_VITB16's pipelined tower at pp = 2, 4 (M = 8, with and without
+   remat), (d) VCLM_VITB16's pipelined decoder at pp = 2, 3 (pp = 4
+   refused) and (e) LaViLa's gated GPT-2 at XL width, 6 layers, pp = 2,
+   their ranks played on the card (``parallel.pipeline.
+   run_stages_local``) against the whole module: output and gradients
+   (phase 17's bounds), the launches.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -5444,6 +5458,304 @@ def phase_tensor() -> dict:
     return {"rows": kernel_rows, "blocks": blocks}
 
 
+# phase 18: the mixture-of-experts tower and the pipelines
+XP_EXPERTS, XP_BATCH, XP_STEPS = 8, 32, 2
+XP_EP = (2, 4)  # the expert ranks played on the card
+XP_PP = (2, 4)  # the tower's stages played
+XP_MICRO = 8  # pipeline_microbatches' default
+# CLIP_VITB16's visual tower at 4 frames: (32, 785, 768), 12 heads
+XP_TOWER = dict(batch=32, tokens=785, width=768, heads=12, layers=LAYERS)
+XP_NR_PP, XP_NR_BATCH = (2, 3), 16  # VCLM_VITB16's 6 groups
+XP_NR = dict(width=512, layers=12, heads=8, cross_every=2)
+# LaViLa's gated GPT-2 XL at its widths; depth cut from 48 to 6 (two groups
+# of cross_freq 3, the released weights are not in the repository)
+XP_GPT2 = dict(width=1600, layers=6, heads=25, cross_every=3)
+XP_GPT2_BATCH, XP_GPT2_MICRO, XP_GPT2_TOKENS = 8, 4, 256
+XP_DEVICE = "cuda"
+H100_F32_FLOPS = 67e12  # outside the tensor cores, H100 SXM data sheet
+
+
+def _played_check(name: str, run_played, run_whole, params, inputs: list,
+                  check, out_tol=REL_TOL) -> dict:
+    """One played run against the whole one on the same weights: output
+    and the gradients of the inputs and of every parameter (scaled errors,
+    phase 17's bounds), the played run's launches."""
+    def run(fn):
+        for p in params:
+            p.grad = None
+        xs = [x.detach().requires_grad_() for x in inputs]
+        out = fn(*xs)
+        g = torch.randn(out.shape, generator=torch.Generator(
+            device=out.device).manual_seed(18), device=out.device)
+        (out.float() * g).sum().backward()
+        return (out.detach(), [x.grad for x in xs],
+                [p.grad.detach().clone() for p in params])
+
+    whole = run(run_whole)
+    fa.reset_launches()
+    played = run(run_played)
+    launches = dict(fa.launches)
+    errs = {"out": (_scaled_errors(played[0], whole[0]), out_tol)}
+    errs.update({f"d_in{i}": (_scaled_errors(a, b), BWD_REL_TOL)
+                 for i, (a, b) in enumerate(zip(played[1], whole[1]))})
+    # each matrix alone; the vectors and scalars (biases, LayerNorms, the
+    # gates: sums over B x S rows in bf16) as one
+    mats = [(a, b) for a, b in zip(played[2], whole[2]) if a.dim() > 1]
+    vecs = [(a.reshape(-1), b.reshape(-1))
+            for a, b in zip(played[2], whole[2]) if a.dim() <= 1]
+    if vecs:
+        mats.append((torch.cat([a for a, _ in vecs]),
+                     torch.cat([b for _, b in vecs])))
+    grad = max((_scaled_errors(a, b) for a, b in mats), key=lambda e: e[1])
+    errs["params"] = (grad, BWD_REL_TOL)
+    for key, ((err, rel), rel_tol) in errs.items():
+        check(name, key, scaled_max_abs_err=(err, TOL),
+              rel_rms_err=(rel, rel_tol))
+    row = {"what": name, "launches": launches,
+           "max_abs_err": max(e[0][0] for e in errs.values()),
+           "out_rel_rms_err": errs["out"][0][1],
+           "grad_rel_rms_err": max(e[0][1] for k, e in errs.items()
+                                   if k != "out")}
+    log(f"played ({card_line()}) " + json.dumps(row))
+    return row
+
+
+def _moe_layer_times(gen) -> dict:
+    """The MoE layer of (a)'s visual block, forward, by part (ms, CUDA
+    events) beside its bound: the router and the masks, the dispatch and
+    combine products (f32), the two expert products (bf16)."""
+    from avion_tpu_torch.models.layers import quick_gelu
+    from avion_tpu_torch.ops.moe import MoEMlp
+
+    w, e, tokens = XP_TOWER["width"], XP_EXPERTS, XP_TOWER["tokens"]
+    moe = MoEMlp(w, experts=e, act=quick_gelu).to(XP_DEVICE)
+    moe.init_weights(torch.Generator(device=XP_DEVICE).manual_seed(18))
+    x = torch.randn(XP_BATCH, tokens, w, generator=gen, device=XP_DEVICE,
+                    dtype=torch.bfloat16)
+    with torch.no_grad():
+        xs, dispatch, combine, places, *_ = moe.route(x)
+        expert_in = torch.einsum("ngw,ngec->encw", xs.float(),
+                                 dispatch).to(moe.dtype)
+        out = moe.experts_forward(expert_in)
+        n, g, _, c = dispatch.shape
+        t, hid = n * g, moe.expert_fc1.shape[-1]
+        parts = {
+            "router_and_masks": (lambda: moe.route(x), 2 * t * w * e,
+                                 x.numel() * 2 + 2 * dispatch.numel() * 4,
+                                 H100_F32_FLOPS),
+            "dispatch": (lambda: torch.einsum(
+                "ngw,ngec->encw", xs.float(), dispatch).to(moe.dtype),
+                2 * t * w * e * c, t * w * 4 + dispatch.numel() * 4
+                + expert_in.numel() * 2, H100_F32_FLOPS),
+            "experts": (lambda: moe.experts_forward(expert_in),
+                        4 * e * n * c * w * hid, expert_in.numel() * 2
+                        + 2 * e * w * hid * 4 + out.numel() * 2,
+                        H100_BF16_FLOPS),
+            "combine": (lambda: moe.combine(out, combine, places, x.shape),
+                        2 * t * w * e * c, out.numel() * 2
+                        + combine.numel() * 4 + x.numel() * 4,
+                        H100_F32_FLOPS)}
+        times = {}
+        for name, (fn, flops, nbytes, peak) in parts.items():
+            t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
+            times[name] = {"ms": cuda_ms(fn, iters=10),
+                           "bound_ms": max(t_ops, t_bytes) * 1e3,
+                           "bound_by": ("operations" if t_ops > t_bytes
+                                        else "bytes")}
+    log(f"MoE layer parts at ({XP_BATCH} x {tokens} tokens, W {w}, E {e}, "
+        f"groups {n} x {g}, capacity {c}) ({card_line()}) "
+        + json.dumps(times))
+    del moe, x, xs, dispatch, combine, expert_in, out
+    torch.cuda.empty_cache()
+    return times
+
+
+def _xp_moe_main(tmp: str, fixture: tuple) -> dict:
+    """(a) ``pretrain_clip.main`` with ``model.moe_experts`` at CLIP_VITB16,
+    batch XP_BATCH, XP_STEPS steps on the data phase's layout, under a
+    one-rank NCCL group; its checkpoint is not written (about 10 GB of
+    parameters and AdamW state at 8 experts)."""
+    from avion_tpu_torch.core.checkpoint import Checkpointer
+    from avion_tpu_torch.train import pretrain_clip
+
+    root, meta = fixture
+    out = os.path.join(tmp, "moe")
+    args = _data_args(out, root, meta, True,
+                      f"data.batch_size={XP_BATCH}",
+                      "data.subsample_stride="
+                      f"{DATA_ROWS // (XP_BATCH * XP_STEPS)}",
+                      "eval_freq=0", f"model.moe_experts={XP_EXPERTS}",
+                      "mesh.data=1")
+    group_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
+    save = Checkpointer.save
+    os.environ.update(group_env)
+    Checkpointer.save = lambda self, step, state, extra=None: None
+    try:
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        res = pretrain_clip.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Checkpointer.save = save
+        for k in group_env:
+            os.environ.pop(k, None)
+    launches = dict(fa.launches)
+    logs = [r for r in _train_log(out) if "train/loss" in r]
+    want = {"flash_fwd_lse": XP_STEPS * 2 * LAYERS,
+            "flash_bwd_combined": XP_STEPS * 2 * LAYERS}
+    keys = ("loss", "moe_aux", "moe_overflow", "moe_load_max",
+            "moe_load_min")
+    per_step = [{k: r[k if k == "train/loss" else f"train/{k}"]
+                 for k in ("train/loss", *keys[1:])} for r in logs]
+    log(f"(a) MoE pretrain_clip.main ({card_line()}): {res['steps']} steps "
+        f"at batch {XP_BATCH}, {XP_EXPERTS} experts, launches {launches}, "
+        f"per step {per_step}, step ms "
+        f"{[round(r.get('perf/step_time_win', 0) * 1e3, 3) for r in logs]}, "
+        f"wall {wall:.2f} s")
+    ok = (res["steps"] == XP_STEPS and launches == want and all(
+        np.isfinite(list(s.values())).all() and s["moe_load_max"] <= 1.0
+        for s in per_step))
+    if not ok:
+        raise RuntimeError(f"(a) MoE main: {res['steps']} steps, launches "
+                           f"{launches} (want {want}), {per_step}")
+    return {"launches": launches, "per_step": per_step, "wall_s": wall}
+
+
+def phase_experts_pipeline(tmp: str, fixture: tuple) -> dict:
+    """18. (a) :func:`_xp_moe_main`; the MoE layer's parts timed beside
+    their bounds; (b) ``ops.moe.run_experts_local`` at ep = 2, 4 against
+    the whole MoEMlp (W 768, 8 experts, XP_BATCH x 785 tokens, bf16):
+    output and the gradients of x, the router and the experts; (c)
+    CLIP_VITB16's pipelined tower (12 blocks, M = XP_MICRO microbatches)
+    with its pp = 2, 4 stages played (``parallel.pipeline.
+    run_stages_local``), with and without remat, against the same blocks
+    in sequence: output and gradients, launches (12 x M each kernel);
+    (d) VCLM_VITB16's pipelined decoder (6 groups) at pp = 2, 3 with its
+    visual tokens' gradient, pp = 4 refused; (e) LaViLa's gated GPT-2 at
+    XL width, 6 layers, pp = 2 (plain attention, no kernel)."""
+    from avion_tpu_torch.models.layers import quick_gelu
+    from avion_tpu_torch.ops.moe import MoEMlp, run_experts_local
+    from avion_tpu_torch.parallel.pipeline import (PipelinedTransformer,
+                                                   run_stages_local)
+    from avion_tpu_torch.parallel.pipeline_gated import (
+        PipelinedGatedDecoder)
+
+    log("== experts and pipeline")
+    t_phase = time.perf_counter()
+    paths = {}
+    moe_main = _xp_moe_main(tmp, fixture)
+    paths["moe_pretrain_main"] = moe_main["launches"]
+    log(f"(a) wall {time.perf_counter() - t_phase:.1f} s")
+    gen = torch.Generator(device=XP_DEVICE).manual_seed(18)
+    bad, played = [], []
+
+    def check(name, what, **errs):
+        for key, (err, limit) in errs.items():
+            if not err <= limit:  # NaN fails too
+                bad.append(f"{name} {what}: {key} {err} > {limit}")
+
+    parts = _moe_layer_times(gen)
+
+    def randomize(module, std=0.02):
+        with torch.no_grad():
+            for p in module.parameters():
+                if p.dim() > 1:
+                    p.normal_(0.0, std, generator=gen)
+        return module
+
+    # (b) the expert ranks played
+    tw = XP_TOWER
+    moe = MoEMlp(tw["width"], experts=XP_EXPERTS, act=quick_gelu).to(
+        XP_DEVICE)
+    moe.init_weights(torch.Generator(device=XP_DEVICE).manual_seed(19))
+    x = torch.randn(XP_BATCH, tw["tokens"], tw["width"], generator=gen,
+                    device=XP_DEVICE, dtype=torch.bfloat16)
+    for ep in XP_EP:
+        played.append(_played_check(
+            f"(b) MoE ep={ep}", lambda xi: run_experts_local(moe, xi, ep),
+            moe, list(moe.parameters()), [x], check))
+    del moe, x
+    # (c) the pipelined tower's stages played
+    tower = randomize(PipelinedTransformer(
+        tw["width"], tw["layers"], tw["heads"], act=quick_gelu,
+        num_microbatches=XP_MICRO).to(XP_DEVICE))
+    x = torch.randn(tw["batch"], tw["tokens"], tw["width"], generator=gen,
+                    device=XP_DEVICE, dtype=torch.bfloat16)
+    for remat in (False, True):
+        tower.remat = remat
+        for pp in XP_PP:
+            name = f"(c) tower pp={pp}" + (" remat" if remat else "")
+            row = _played_check(
+                name, lambda xi: run_stages_local(tower, xi, pp),
+                lambda xi: tower.run_units(tower.units(), xi),
+                list(tower.parameters()), [x], check)
+            want = {"flash_fwd_lse": tw["layers"] * XP_MICRO,
+                    "flash_bwd_combined": tw["layers"] * XP_MICRO}
+            if row["launches"] != want:
+                bad.append(f"{name}: launches {row['launches']}")
+            paths[f"pipeline_tower_pp{pp}" + ("_remat" if remat else "")] \
+                = row["launches"]
+            played.append(row)
+    del tower, x
+    # (d) the VCLM decoder's stages played, the visual tokens' gradient
+    decoder = randomize(PipelinedGatedDecoder(
+        **XP_NR, cross_position="mid", num_microbatches=XP_MICRO).to(
+            XP_DEVICE))
+    _open_gates(decoder)
+    nw = XP_NR["width"]
+    x = torch.randn(XP_NR_BATCH, 77, nw, generator=gen, device=XP_DEVICE,
+                    dtype=torch.bfloat16)
+    enc = torch.randn(XP_NR_BATCH, tw["tokens"], nw, generator=gen,
+                      device=XP_DEVICE, dtype=torch.bfloat16)
+    for pp in XP_NR_PP:
+        name = f"(d) VCLM decoder pp={pp}"
+        row = _played_check(
+            name, lambda xi, ei: run_stages_local(decoder, xi, pp, ei),
+            lambda xi, ei: decoder.run_units(decoder.units(), xi, ei),
+            list(decoder.parameters()), [x, enc], check)
+        want = {"flash_fwd_lse": XP_NR["layers"] * XP_MICRO,
+                "flash_bwd_combined": XP_NR["layers"] * XP_MICRO}
+        if row["launches"] != want:
+            bad.append(f"{name}: launches {row['launches']}")
+        paths[f"pipeline_vclm_pp{pp}"] = row["launches"]
+        played.append(row)
+    try:
+        run_stages_local(decoder, x, 4, enc)
+        bad.append("(d) pp=4 over 6 groups did not raise")
+    except ValueError as err:
+        log(f"(d) pp=4 refused: {err}")
+    del decoder, x, enc
+    # (e) LaViLa's GPT-2 at XL width
+    gpt2 = randomize(PipelinedGatedDecoder(
+        **XP_GPT2, cross_position="pre", num_microbatches=XP_GPT2_MICRO)
+        .to(XP_DEVICE))
+    _open_gates(gpt2)
+    w = XP_GPT2["width"]
+    x = torch.randn(XP_GPT2_BATCH, 77, w, generator=gen, device=XP_DEVICE,
+                    dtype=torch.bfloat16)
+    enc = torch.randn(XP_GPT2_BATCH, XP_GPT2_TOKENS, w, generator=gen,
+                      device=XP_DEVICE, dtype=torch.bfloat16)
+    row = _played_check(
+        "(e) GPT-2 XL width, 6 layers, pp=2",
+        lambda xi, ei: run_stages_local(gpt2, xi, 2, ei),
+        lambda xi, ei: gpt2.run_units(gpt2.units(), xi, ei),
+        list(gpt2.parameters()), [x, enc], check)
+    if row["launches"]:
+        bad.append(f"(e) GPT-2 launched kernels: {row['launches']}")
+    played.append(row)
+    del gpt2, x, enc
+    torch.cuda.empty_cache()
+    if bad:
+        raise RuntimeError("experts and pipeline: " + "; ".join(bad))
+    log(f"experts and pipeline phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"paths": paths, "moe_main": moe_main, "moe_parts": parts,
+            "played": played}
+
+
 KERNEL_SOURCES = {
     "flash_fwd": ("flash_fwd.cu", 134), "flash_fwd_lse": ("flash_fwd.cu", 91),
     "flash_bwd_combined": ("flash_bwd.cu", 494),
@@ -5484,6 +5796,7 @@ def main() -> int:
         tools = phase_serve_tools(tmp, data["fixture"], serve)
         drill = phase_drill(tmp)
         tensor = phase_tensor()
+        xp = phase_experts_pipeline(tmp, data["fixture"])
     # each kernel's launches from the path that drives it: serving, the
     # data-fed 4-frame main path (run A), and the data-fed MIR finetune at
     # 16 frames for the split kernels; every path's counts beside them
@@ -5502,7 +5815,7 @@ def main() -> int:
                **{f"parallel_entry_{name}": counts
                   for name, counts in par["entries"].items()},
                **nar["paths"], **nlq["paths"], **tools["paths"],
-               **drill["paths"]}
+               **drill["paths"], **xp["paths"]}
     rows["flash_fwd"] += evals["checks"]
     for name in rows:
         rows[name] += vmae["rows"][name] + ft["rows"][name] + \

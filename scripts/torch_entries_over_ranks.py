@@ -1,16 +1,24 @@
 """Run the training entries on N cards (or N gloo processes) and hold each
 against one process on the same global batch: ``finetune_mir``,
 ``finetune_cls``, ``videomae_pretrain`` and ``videomae_finetune`` at
-ViT-B/16, 16 frames, and ``pretrain_clip`` at ViT-B/16, 4 frames, each at
-global batch 8 for 2 steps, on synthetic Ego4D, EK100 and Kinetics
-layouts and random checkpoints (``chip_smoke``'s writers), over any mesh
-(``mesh.data``, ``mesh.fsdp``, ``mesh.sp``, ``mesh.tensor``).
+ViT-B/16, 16 frames, ``pretrain_clip`` at ViT-B/16, 4 frames, and
+``train_narrator`` (VCLM_VITB16, 4 frames), each at global batch 8 for 2
+steps, on synthetic Ego4D, EK100 and Kinetics layouts and random
+checkpoints (``chip_smoke``'s writers), over any mesh (``mesh.data``,
+``mesh.fsdp``, ``mesh.pp``, ``mesh.sp``, ``mesh.ep``, ``mesh.tensor``).
 
     python scripts/torch_entries_over_ranks.py prepare DIR [ENTRY ...]
     torchrun --nproc_per_node=4 scripts/torch_entries_over_ranks.py \\
         run DIR ENTRY mesh.data=2 mesh.fsdp=2        # each ENTRY and mesh
     python scripts/torch_entries_over_ranks.py run DIR ENTRY   # reference
     python scripts/torch_entries_over_ranks.py compare DIR
+
+``model.*`` arguments of a run pick its model, and the mesh run is held
+against the one-process run with the same ones: e.g. ``pretrain_clip
+mesh.data=2 mesh.ep=2 model.moe_experts=8`` against ``pretrain_clip
+model.moe_experts=8``, ``pretrain_clip mesh.data=2 mesh.pp=2
+model.pipeline=true model.pipeline_microbatches=2`` and
+``train_narrator`` with the same pipeline arguments against theirs.
 
 Every item draws its augmentation from seed 0 and mixup, DropPath and
 patch dropout are off, so both runs see the same global rows (the mesh
@@ -28,6 +36,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import subprocess
 import sys
 
@@ -37,7 +46,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 ENTRIES = ("finetune_mir", "finetune_cls", "videomae_pretrain",
-           "videomae_finetune", "pretrain_clip")
+           "videomae_finetune", "pretrain_clip", "train_narrator")
+# the --tiny narrator: 4 decoder blocks, cross-attention every 2nd (2
+# groups, so pp = 2 splits it)
+TINY_VCLM = dict(vocab_size=49408, context_length=77, width=32, layers=4,
+                 heads=2, cross_every=2, image_size=32, patch_size=16,
+                 vision_width=64, vision_layers=2, vision_heads=2)
 BATCH, STEPS = 8, 2
 LIMITS = (5e-3, 2e-2)  # relative loss gap: step 1, step 2
 
@@ -51,11 +65,17 @@ def prepare(root: str, entries=ENTRIES) -> None:
     import chip_smoke as cs
     import torch
 
-    if "pretrain_clip" in entries:
+    if {"pretrain_clip", "train_narrator"} & set(entries):
         if _tiny():
             cs.DATA_W, cs.DATA_H, cs.DATA_ROWS = 64, 48, 64
-        cs.write_ego4d_fixture(os.path.join(root, "ego4d"))
-    if set(entries) <= {"pretrain_clip"}:
+        meta = cs.write_ego4d_fixture(os.path.join(root, "ego4d"))
+        # the narrator reads the first STEPS batches' rows (its loader
+        # takes no subsample_stride)
+        with open(meta, "rb") as f:
+            rows = pickle.load(f)[:BATCH * STEPS]
+        with open(os.path.join(root, "ego4d", "narrator.pkl"), "wb") as f:
+            pickle.dump(rows, f)
+    if set(entries) <= {"pretrain_clip", "train_narrator"}:
         return
     tiny = dict(w=64, h=48, fps=10) if _tiny() else {}
     cs.write_ek100_fixture(os.path.join(root, "ek100"),
@@ -115,6 +135,9 @@ def entry_args(root: str, entry: str) -> list:
                           f"data.train_metadata={eg}/train.pkl",
                           "data.dataset=ego4d", "eval_freq=0",
                           f"data.subsample_stride={rows // (BATCH * STEPS)}"],
+        "train_narrator": [*cs.NR_RECIPE, f"data.root={eg}",
+                           f"data.train_metadata={eg}/narrator.pkl",
+                           "optim.update_freq=1"],
     }[entry] + common
     if _tiny():
         args += {"finetune_mir": tiny_clip, "finetune_cls": tiny_clip,
@@ -124,23 +147,44 @@ def entry_args(root: str, entry: str) -> list:
                                        "data.clip_length=4",
                                        "model.num_classes=10"],
                  "pretrain_clip": [*tiny_clip, "data.decode_size=40",
-                                   "data.chunk_len=15"]}[entry]
+                                   "data.chunk_len=15"],
+                 "train_narrator": ["model.name=VCLM_TINY_SCRIPT",
+                                    "data.clip_length=2", "data.crop_size=32",
+                                    "data.decode_size=40",
+                                    "data.chunk_len=15"]}[entry]
         args += ["--device", "cpu"]
     return args
+
+
+def _register_tiny_vclm() -> None:
+    import torch
+
+    from avion_tpu_torch.models.narrator import VCLM
+    from avion_tpu_torch.models.registry import register_model
+
+    @register_model("VCLM_TINY_SCRIPT")
+    def _tiny(num_frames=2, pipeline=False, pipeline_microbatches=8,
+              pipeline_remat=False, dtype=None, **_):
+        return VCLM(**TINY_VCLM, num_frames=num_frames, pipeline=pipeline,
+                    pipeline_microbatches=pipeline_microbatches,
+                    pipeline_remat=pipeline_remat,
+                    dtype=dtype or torch.float32)
 
 
 def run(root: str, entry: str, mesh: list) -> None:
     """``entry``'s ``main`` on this process (and its group, under
     torchrun); rank 0 writes the logged losses and the validation to
-    ``<root>/<entry>_<world>[_<mesh>].json``."""
+    ``<root>/<entry>_<world>[_<mesh and model arguments>].json``."""
     import importlib
 
+    if _tiny():
+        _register_tiny_vclm()
     orig = np.random.RandomState
     np.random.RandomState = lambda seed=None: orig(0 if seed is None
                                                     else seed)
     world = int(os.environ.get("WORLD_SIZE", 1))
     tag = "_".join([f"{entry}_{world}", *(m.replace("mesh.", "").replace(
-        "=", "") for m in mesh)])
+        "model.", "").replace("=", "") for m in mesh)])
     out = os.path.join(root, "runs", tag)
     main = importlib.import_module(f"avion_tpu_torch.train.{entry}").main
     res = main([*entry_args(root, entry), *mesh, f"output_dir={out}"])
@@ -173,16 +217,22 @@ def compare(root: str) -> int:
             if name.startswith(entry + "_") and name.endswith(".json"):
                 with open(os.path.join(root, name)) as f:
                     runs[name[:-len(".json")]] = json.load(f)
-        alone = runs.pop(f"{entry}_1", None)
-        if alone is None:
-            continue
+        # the one-process run of each model (its model.* arguments)
+        models = lambda r: sorted(a for a in r["mesh"]  # noqa: E731
+                                  if a.startswith("model."))
+        refs = {tuple(models(r)): r for r in runs.values()
+                if r["world"] == 1}
         for tag, wide in runs.items():
+            alone = refs.get(tuple(models(wide)))
+            if wide["world"] == 1 or alone is None:
+                continue
             gaps = [abs(a - b) / abs(b) for a, b in zip(wide["losses"],
                                                        alone["losses"])]
             good = (wide["steps"] == alone["steps"] == STEPS
                     and len(gaps) == STEPS
                     and all(g <= lim for g, lim in zip(gaps, LIMITS))
-                    and (entry in ("videomae_pretrain", "pretrain_clip")
+                    and (entry in ("videomae_pretrain", "pretrain_clip",
+                                   "train_narrator")
                          or bool(wide["eval"])))
             ok &= good
             report[tag] = {"world": wide["world"], "mesh": wide["mesh"],

@@ -75,7 +75,8 @@ def test_port_imports_nothing_of_jax():
                 "tools.alignment_ablation", "tools.refinement_eval",
                 "tools.dataset_tools", "tools.narration_refinement",
                 "tools.metrics_extractor", "tools.plots",
-                "tools.e2e_convergence"):
+                "tools.e2e_convergence", "ops.moe", "parallel.pipeline",
+                "parallel.pipeline_gated"):
         assert f"avion_tpu_torch.{mod}" in modules
     script = _SCRIPT.format(blocked=BLOCKED, modules=modules, root=ROOT)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

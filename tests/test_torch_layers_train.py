@@ -104,8 +104,6 @@ def test_init_weights_follow_flax_distributions():
 
 
 def test_registry_refuses_later_slices():
-    with pytest.raises(NotImplementedError):
-        create_model("CLIP_TINY", moe_experts=4)
     with pytest.raises(ValueError):
         create_model("CLIP_TINY", pooling="bogus")
     with pytest.raises(ValueError):

@@ -221,8 +221,17 @@ def test_registry_and_pipeline_refusal():
     assert m.blocks[0].attn.heads == 4 and m.dtype == torch.bfloat16
     assert [b.cross_attend for b in m.blocks] == [i % 2 == 0
                                                   for i in range(12)]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        create_model("VCLM_VITB16", pipeline=True)
+    # the pipelined decoder keeps the sequential names; cached decoding
+    # needs the sequential stack and refuses, with JAX's advice
+    with torch.device("meta"):
+        p = create_model("VCLM_VITB16", pipeline=True,
+                         pipeline_microbatches=4, pipeline_remat=True)
+        seq = create_model("VCLM_VITB16")
+    assert p.state_dict().keys() == seq.state_dict().keys()
+    assert len(p.blocks.units()) == 6 and p.blocks.num_microbatches == 4
+    assert p.blocks.remat
+    with pytest.raises(RuntimeError, match="sequential block layout"):
+        p.precompute_cross(torch.zeros(1, 4, 512, device="meta"))
 
 
 # -- the entry ----------------------------------------------------------------

@@ -48,9 +48,31 @@ def test_batch_groups_and_rows():
         assert local_batch_slice(m, 16) == slice(8 * (rank // 4),
                                                  8 * (rank // 4) + 8)
         assert m.ranks(sp=rank % 4) == [rank % 4, 4 + rank % 4]
-    for axis in ("pp", "ep"):
-        with pytest.raises(NotImplementedError, match=f"mesh.{axis}=2"):
-            make_mesh(data=4, world=8, rank=0, **{axis: 2})
+
+
+@pytest.mark.parametrize("sizes", [
+    dict(data=2, pp=2, ep=2), dict(data=2, pp=4), dict(data=2, fsdp=2, pp=2),
+    dict(data=2, ep=4), dict(data=1, pp=2, sp=2, ep=2)],
+    ids=["d2-pp2-ep2", "d2-pp4", "d2-f2-pp2", "d2-ep4", "pp2-sp2-ep2"])
+def test_pp_and_ep_ranks_match_jax_devices(sizes):
+    """``pp`` and ``ep`` in JAX's axis order: rank r at JAX device r's
+    coordinates; a pipeline's ranks in stage order; the ``pp`` and ``ep``
+    ranks of a batch group read the same rows (JAX's ``BATCH_AXES`` are
+    ``(data, fsdp)``)."""
+    mesh = jax_make_mesh(**{"tensor": 1, **sizes})
+    devices = np.vectorize(lambda d: d.id)(mesh.devices)
+    for rank in range(8):
+        m = make_mesh(**sizes, world=8, rank=rank)
+        where = np.argwhere(devices == rank)[0]
+        assert m.coords == dict(zip(MESH_AXES, (int(i) for i in where)))
+        stages = devices[tuple(m.coords[a] if a != "pp" else slice(None)
+                               for a in MESH_AXES)]
+        assert m.pp_ranks == [int(r) for r in stages]
+        assert m.batch_index == (m.coords["data"] * m.shape["fsdp"]
+                                 + m.coords["fsdp"])
+        per = 16 // m.n_batch_shards
+        assert local_batch_slice(m, 16) == slice(per * m.batch_index,
+                                                 per * (m.batch_index + 1))
 
 
 def test_tensor_groups_and_rows():

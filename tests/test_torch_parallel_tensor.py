@@ -6,8 +6,8 @@ JAX package's rule (``avion_tpu.parallel.sharding._spec_for_param``):
   its text tower, VideoMAE pretraining and finetuning, the classifier, the
   VCLM): by name at width 128 (the names carried by ``params_from_jax``),
   by shape and dim at full size;
-- the fused ``Wqkv`` cut by heads, and a head count that ``tensor`` does
-  not divide refused with the tower's name;
+- the fused ``Wqkv`` cut by heads, and, where ``tensor`` does not divide
+  the heads, held in JAX's contiguous blocks of its columns;
 - the leaves without a partner (gathered on use) listed for each family;
 - a block and the narrator's cross-attention cut over 2 and 4 gloo ranks
   against the whole module (f32: output and gradients at 1e-5);
@@ -220,20 +220,33 @@ def test_wqkv_rows_are_the_heads_of_the_rank():
             assert attn.Wqkv.bias.shape == (768,)  # the bias stays whole
 
 
-def test_heads_that_do_not_divide_raise():
-    """VIDEOMAE_VITB16_H128's decoder has 3 heads of 128: JAX shards its
-    qkv at tensor=2 (1152 columns divide), the port cannot cut 3 heads."""
-    model = _meta("VIDEOMAE_VITB16_H128", num_frames=16)
-    with pytest.raises(ValueError, match=r"mesh.tensor=2 does not divide "
-                       r"the 3 heads of decoder"):
-        _held(model, 2)
+def test_heads_that_do_not_divide_hold_jax_blocks():
+    """VIDEOMAE_VITB16_H128's decoder has 3 heads of 128: at tensor=2 JAX
+    shards its qkv's 1152 columns into 2 contiguous blocks.  The port
+    holds those blocks (not heads), so its held set is JAX's at full size;
+    the decoder's attention gathers the projection whole
+    (``gather_qkv``).  Its step against JAX's:
+    ``test_torch_parallel_tensor_videomae``."""
     jm = jax_create_model("VIDEOMAE_VITB16_H128", num_frames=16,
                           use_flash_attn=False)
     shapes = jax.eval_shape(lambda: jm.init(
         jax.random.PRNGKey(0), jnp.zeros((1, 16, 224, 224, 3)),
         _mask(1568, 157)))["params"]
-    assert any(n.startswith("decoder") and "qkv" in n
-               for n in _jax_tensor_leaves(shapes, 2))
+    jax_held = _jax_tensor_leaves(shapes, 2)
+    assert any(n.startswith("decoder") and "qkv" in n for n in jax_held)
+    model = _meta("VIDEOMAE_VITB16_H128", num_frames=16)
+    whole = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    held = _held(model, 2)
+    want = sorted((s[::-1], 1 - d) for s, d in jax_held.values())
+    assert sorted((whole[n], d) for n, d in held.items()) == want
+    attn = model.decoder.resblocks[0].attn
+    assert attn.tensor.gather_qkv and tuple(attn.Wqkv.weight.shape) == (
+        576, 384)
+    leaf = model.tensor_layout.leaves["decoder.resblocks.0.attn.Wqkv.weight"]
+    for r, idx in enumerate(leaf.indices):
+        assert torch.equal(idx, torch.arange(r * 576, (r + 1) * 576))
+    enc = model.encoder.resblocks[0].attn  # 6 heads: cut by heads
+    assert enc.tensor.split and not enc.tensor.gather_qkv
 
 
 @pytest.mark.parametrize("kind,width,world,causal", [

@@ -1,8 +1,9 @@
 """The port's training entry on the CPU (``--device cpu``): ``main`` trains
 ``CLIP_TINY`` (2 frames, 32 px, batch 8) on a tiny chunked ego4d tree with
 host and with device crop, writes ``config.json``, ``log.jsonl`` and a
-checkpoint, and resumes; it raises without CUDA unless told the CPU, and
-on what later slices bring.  One step on a decoded device-crop batch
+checkpoint, and resumes; it raises without CUDA unless told the CPU; over
+2 gloo ranks at ``mesh.pp=2`` (pipelined tower) and ``mesh.ep=2`` (MoE
+tower) it writes the one-process checkpoint layout.  One step on a decoded device-crop batch
 matches the JAX step on the same weights."""
 
 import json
@@ -101,14 +102,44 @@ def test_main_needs_cuda_unless_told_the_cpu(tiny_ego4d, tmp_path):
     assert not osp.exists(out)
 
 
-# data, fsdp, sp, tensor and dcn_data are ported; pp and ep come later
-@pytest.mark.parametrize("extra", [["mesh.pp=2"], ["mesh.ep=2"]],
-                         ids=["mesh", "mesh_ep"])
-def test_main_raises_on_later_slices(tiny_ego4d, tmp_path, extra):
+@pytest.mark.parametrize("extra", [
+    ["mesh.pp=2", "model.pipeline=true"],
+    ["mesh.ep=2", "model.moe_experts=4"]], ids=["pp", "ep"])
+def test_main_over_pp_and_ep_then_resumed_alone(tiny_ego4d, tmp_path,
+                                                extra):
+    """``main`` over 2 gloo ranks with the pipelined tower at ``mesh.pp=2``
+    or the MoE tower at ``mesh.ep=2`` for an epoch: both ranks train on
+    the same batches (the same loss and gradient norm), its checkpoint
+    holds the one-process layout (the stage or expert leaves gathered
+    whole; the pipelined tower's loads into the sequential one), and
+    ``main`` alone resumes from it for a second epoch.  Each step against
+    the JAX step: ``test_torch_parallel_moe_pp``."""
+    import torch_parallel_workers as workers
+    from torch_dist import run_ranks
+
+    from avion_tpu_torch.models.registry import create_model
+    from avion_tpu_torch.train.common import latest_model_state
+
     root, meta = tiny_ego4d
-    with pytest.raises(NotImplementedError, match="slice"):
-        pretrain_clip.main(_args(root, meta, str(tmp_path / "run"), "true",
-                                 *extra, "--device", "cpu"))
+    out = str(tmp_path / "run")
+    model = [e for e in extra if e.startswith("model.")]
+    ranks = run_ranks(workers.entry_main, 2, "pretrain_clip",
+                      _args(root, meta, out, "true", *extra, "--device",
+                            "cpu"), timeout=120)
+    assert [r["step"] for r in ranks] == [2, 2]
+    a, b = (r["epochs"][0] for r in ranks)
+    for key in ("loss", "grad_norm", "clip_acc"):
+        assert a[key] == b[key], key
+    if "model.moe_experts=4" in model:
+        assert np.isfinite(a["moe_aux"]) and 0 <= a["moe_overflow"] <= 1
+    state = latest_model_state(osp.join(out, "ckpt"))
+    kw = {"moe_experts": 4} if "model.moe_experts=4" in model else {}
+    whole = create_model("CLIP_TINY", num_frames=2, project_embed_dim=512,
+                         **kw)
+    whole.load_state_dict(state, strict=True)  # pipelined -> sequential
+    res = pretrain_clip.main(_args(root, meta, out, "true", *model,
+                                   "optim.epochs=2", "--device", "cpu"))
+    assert res["step"] == 4 and res["steps"] == 2
 
 
 def test_zero_shot_suites_follow_the_jax_activation_rules(tmp_path):

@@ -34,10 +34,9 @@ TEXTS = ["a person chops vegetables", "#C C opens the drawer",
          "pets the dog", "washes a cup", "closes the fridge"]
 
 
-@pytest.fixture(scope="module")
-def weights():
+def _jax_weights(**kw):
     jm = jax_create_model("CLIP_TINY", num_frames=FRAMES,
-                          project_embed_dim=32)
+                          project_embed_dim=32, **kw)
     params = jax.jit(jm.init)(
         jax.random.PRNGKey(0), jnp.zeros((1, FRAMES, 32, 32, 3)),
         jnp.zeros((1, 77), jnp.int32))["params"]
@@ -48,8 +47,14 @@ def weights():
     return jm, params, params_from_jax(params)
 
 
-def _port_model(sd):
-    pm = create_model("CLIP_TINY", num_frames=FRAMES, project_embed_dim=32)
+@pytest.fixture(scope="module")
+def weights():
+    return _jax_weights()
+
+
+def _port_model(sd, **kw):
+    pm = create_model("CLIP_TINY", num_frames=FRAMES, project_embed_dim=32,
+                      **kw)
     pm.load_state_dict(sd, strict=True)
     return pm
 
@@ -74,7 +79,21 @@ def test_int8_values_and_scales_equal_jax(weights):
     (and every other leaf by NaN) goes through ``params_from_jax``: the
     port must quantize exactly the finite names, to the same values, with
     the same scales channel for channel."""
-    jm, params, sd = weights
+    _check_int8_equal_jax(*weights)
+
+
+def test_int8_moe_leaves_equal_jax():
+    """The same with MoE blocks: the stacked ``[E, ...]`` expert leaves
+    (and their ``[E, H]`` biases) quantize per last-axis channel over the
+    experts, as JAX's; the router stays f32."""
+    jm, params, sd = _jax_weights(moe_experts=4)
+    got = _check_int8_equal_jax(jm, params, sd, moe_experts=4)
+    assert "visual.transformer.resblocks.0.moe_mlp.expert_fc1" in got
+    assert "visual.transformer.resblocks.0.moe_mlp.expert_fc2_bias" in got
+    assert not any("router" in k for k in got)
+
+
+def _check_int8_equal_jax(jm, params, sd, **model_kw):
     leaves, scales, treedef = jax_quantize(params, jm)
     paths = [tuple(str(getattr(k, "key", k)) for k in p) for p, _ in
              jax.tree_util.tree_flatten_with_path(params)[0]]
@@ -90,7 +109,7 @@ def test_int8_values_and_scales_equal_jax(weights):
     assert all(not torch.isfinite(v).any() for k, v in q_port_layout.items()
                if k not in want)
 
-    pm = _port_model(sd)
+    pm = _port_model(sd, **model_kw)
     got = runners.quantize_inference_params(pm)
     assert set(got) == want
     skipped = {k for k in sd if k not in got}
@@ -115,6 +134,7 @@ def test_int8_values_and_scales_equal_jax(weights):
     for name, s in by_port.items():
         np.testing.assert_array_equal(got[name][1].reshape(-1).numpy(), s,
                                       err_msg=name)
+    return got
 
 
 def test_int8_model_keeps_int8_and_scales_only(weights):
@@ -309,11 +329,13 @@ def test_replica_devices_cuda(monkeypatch, mesh, count, want):
     (dict(data=-1, dcn_data=2), "cuda", 4, 4),
     (dict(data=-1, fsdp=2, sp=2, dcn_data=1), "cuda", 8, 4),
     (dict(data=2, tensor=2, dcn_data=2), "cuda", 4, 2),
+    (dict(data=-1, pp=2), "cuda", 4, 2),
+    (dict(data=2, ep=2), "cpu", 0, 2),
 ])
 def test_replica_devices_other_axes(monkeypatch, mesh, device, count, want):
-    """``tensor``, ``sp`` and ``dcn_data``: ``data x fsdp`` replicas, the
-    JAX encoders' batch shards, with ``data=-1`` resolved over ``fsdp x sp
-    x tensor`` of the cards."""
+    """``tensor``, ``sp``, ``pp``, ``ep`` and ``dcn_data``: ``data x fsdp``
+    replicas, the JAX encoders' batch shards, with ``data=-1`` resolved
+    over ``fsdp x pp x sp x ep x tensor`` of the cards."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
     got = port_server.replica_devices(MeshConfig(**mesh),
                                       torch.device(device))
@@ -324,8 +346,6 @@ def test_replica_devices_other_axes(monkeypatch, mesh, device, count, want):
 @pytest.mark.parametrize("mesh,device,error,match", [
     (dict(data=4, tensor=2), "cuda", ValueError, "asks for 8 cards"),
     (dict(data=-1, dcn_data=3), "cuda", ValueError, "multiple of dcn_data"),
-    (dict(pp=2), "cuda", NotImplementedError, "item 13"),
-    (dict(ep=2), "cuda", NotImplementedError, "item 13"),
     (dict(data=8), "cuda", ValueError, "4 cards"),
     (dict(data=-1, fsdp=3), "cuda", ValueError, "divide"),
     (dict(data=-1), "cpu", ValueError, "needs mesh.data"),

@@ -184,13 +184,15 @@ def vit_sp(rank, world, state, video, data, sp, remat=False):
             "plain_calls": dict(fa.plain_calls)}
 
 
-def _clip_tiny(sd, use_logit_bias=False, sequence_parallel=False):
+def _clip_tiny(sd, use_logit_bias=False, sequence_parallel=False,
+               **model_kw):
     from avion_tpu_torch.models.registry import create_model
 
     model = create_model("CLIP_TINY", num_frames=CLIP_TINY_FRAMES,
                          use_logit_bias=use_logit_bias,
                          sequence_parallel=sequence_parallel,
-                         pooling="gap" if sequence_parallel else "cls")
+                         pooling="gap" if sequence_parallel else "cls",
+                         **model_kw)
     model.load_state_dict(sd, strict=True)
     return model
 
@@ -231,11 +233,13 @@ def _gathered_grads(model):
 
 
 def train_step(rank, world, sd, opt, batch, data, fsdp, update_freq,
-               loss_type="clip", sp=1, tensor=1, steps=1):
-    """One CLIP_TINY step over a data x fsdp x sp mesh (FSDP2 when fsdp >
-    1, DDP otherwise; with sp > 1 the sequence-parallel visual tower, gap
-    pooling) on this rank's rows of ``batch`` (microbatch-major [M, B / M,
-    ...] when ``update_freq`` > 1).  Returns the metrics, the whole updated
+               loss_type="clip", sp=1, tensor=1, steps=1, pp=1, ep=1,
+               model_kw=None):
+    """One CLIP_TINY step over a data x fsdp x pp x sp x ep mesh (FSDP2
+    when fsdp > 1, DDP otherwise; with sp > 1 the sequence-parallel visual
+    tower, gap pooling; ``model_kw`` e.g. ``moe_experts`` or ``pipeline``)
+    on this rank's rows of ``batch`` (microbatch-major [M, B / M, ...] when
+    ``update_freq`` > 1).  Returns the metrics, the whole updated
     parameters and whether they are sharded at rest."""
     from avion_tpu_torch.core.config import OptimConfig
     from avion_tpu_torch.core.train_state import TrainState
@@ -248,8 +252,10 @@ def train_step(rank, world, sd, opt, batch, data, fsdp, update_freq,
     from avion_tpu_torch.train.steps import (make_clip_accum_train_step,
                                              make_clip_train_step)
 
-    model = _clip_tiny(sd, loss_type == "siglip", sequence_parallel=sp > 1)
-    mesh = make_mesh(data=data, fsdp=fsdp, sp=sp, tensor=tensor)
+    model = _clip_tiny(sd, loss_type == "siglip", sequence_parallel=sp > 1,
+                       **(model_kw or {}))
+    mesh = make_mesh(data=data, fsdp=fsdp, sp=sp, tensor=tensor, pp=pp,
+                     ep=ep)
     shard_model(model, mesh)
     cfg = OptimConfig(**opt, update_freq=update_freq, accum="cached")
     optimizer, _ = build_optimizer(cfg, model, NITER)
@@ -280,10 +286,12 @@ def train_step(rank, world, sd, opt, batch, data, fsdp, update_freq,
             "tensor": mesh.coords["tensor"]}
 
 
-def save_after_step(rank, world, sd, opt, batch, out_dir, tensor=1):
-    """One step at fsdp = world / tensor (sharded state) and ``tensor``,
-    then a checkpoint; returns the gathered state rank 0 wrote, serialized
-    by ``torch.save``."""
+def save_after_step(rank, world, sd, opt, batch, out_dir, tensor=1, pp=1,
+                    ep=1, model_kw=None):
+    """One step at fsdp = world / (tensor pp ep) (sharded state), ``tensor``,
+    ``pp`` and ``ep`` (``model_kw``: CLIP_TINY's ``pipeline`` or
+    ``moe_experts``), then a checkpoint; returns the gathered state rank 0
+    wrote, serialized by ``torch.save``."""
     from avion_tpu_torch.core.checkpoint import Checkpointer, _to_cpu
     from avion_tpu_torch.core.config import OptimConfig
     from avion_tpu_torch.core.train_state import TrainState
@@ -294,8 +302,9 @@ def save_after_step(rank, world, sd, opt, batch, out_dir, tensor=1):
                                                    shard_model)
     from avion_tpu_torch.train.steps import make_clip_train_step
 
-    model = _clip_tiny(sd)
-    mesh = make_mesh(data=1, fsdp=world // tensor, tensor=tensor)
+    model = _clip_tiny(sd, **(model_kw or {}))
+    mesh = make_mesh(data=1, fsdp=world // (tensor * pp * ep), tensor=tensor,
+                     pp=pp, ep=ep)
     shard_model(model, mesh)
     optimizer, _ = build_optimizer(OptimConfig(**opt), model, NITER)
     state = TrainState.create(model, optimizer,
@@ -346,6 +355,8 @@ VMAE_PRETRAIN = dict(VMAE_GEOMETRY, encoder_width=64, encoder_layers=2,
                      decoder_heads=2, mask_ratio=0.5)
 VMAE_FINETUNE = dict(VMAE_GEOMETRY, width=64, layers=2, heads=2,
                      num_classes=5)
+# a decoder of 3 heads, which tensor=2 does not divide (JAX's column blocks)
+VMAE_PRETRAIN_H3 = dict(VMAE_PRETRAIN, decoder_width=96, decoder_heads=3)
 # the narrator's VCLM: CLIP's vocabulary, so the embedding shards
 VCLM_TINY = dict(vocab_size=49408, context_length=16, width=32, layers=2,
                  heads=2, cross_every=1, image_size=32, patch_size=16,
@@ -376,12 +387,14 @@ def entry_model(kind):
             pooling="cls"), num_classes=5)
     if kind == "vmae_pretrain":
         return vm.PretrainVideoMAE(**VMAE_PRETRAIN, dtype=torch.float32)
+    if kind == "vmae_pretrain_h3":
+        return vm.PretrainVideoMAE(**VMAE_PRETRAIN_H3, dtype=torch.float32)
     return vm.FinetuneVideoMAE(**VMAE_FINETUNE, dtype=torch.float32,
                                drop_path_rate=0.0)
 
 
 def entry_step(rank, world, kind, sd, opt, batch, data, fsdp, ema_decay=None,
-               label_smoothing=0.0, tensor=1, sp=1):
+               label_smoothing=0.0, tensor=1, sp=1, pp=1, ep=1):
     """One step of an entry's train step (``kind`` as :func:`entry_model`)
     over a data x fsdp mesh (FSDP2 when fsdp > 1, DDP otherwise) on this
     rank's rows of ``batch``, with layer decay over 2 layers and, given
@@ -400,7 +413,8 @@ def entry_step(rank, world, kind, sd, opt, batch, data, fsdp, ema_decay=None,
 
     model = entry_model(kind)
     model.load_state_dict(sd, strict=True)
-    mesh = make_mesh(data=data, fsdp=fsdp, tensor=tensor, sp=sp)
+    mesh = make_mesh(data=data, fsdp=fsdp, tensor=tensor, sp=sp, pp=pp,
+                     ep=ep)
     shard_model(model, mesh)
     optimizer, _ = build_optimizer(OptimConfig(**opt), model, NITER,
                                    num_layers=2)
@@ -413,7 +427,7 @@ def entry_step(rank, world, kind, sd, opt, batch, data, fsdp, ema_decay=None,
         from avion_tpu_torch.train.train_narrator import make_narrator_step
 
         step = make_narrator_step(model)
-    elif kind == "vmae_pretrain":
+    elif kind.startswith("vmae_pretrain"):
         step = steps.make_videomae_train_step(model)
     else:
         step = steps.make_cls_train_step(model, label_smoothing,
@@ -557,8 +571,9 @@ def ema_checkpoint(rank, world, sd, opt, batch, out_dir):
             any(is_dtensor(v) for v in state.ema.values()))
 
 
-def restore_parts(rank, world, sd, opt, ckpt_dir, tensor):
-    """A CLIP_TINY train state at tensor = world restored from
+def restore_parts(rank, world, sd, opt, ckpt_dir, tensor, pp=1, ep=1,
+                  model_kw=None):
+    """A CLIP_TINY train state at tensor x pp x ep = world restored from
     ``ckpt_dir``: the step, and this rank's parts of the parameters and
     of AdamW's first moments, by parameter name."""
     from avion_tpu_torch.core.checkpoint import Checkpointer
@@ -568,8 +583,9 @@ def restore_parts(rank, world, sd, opt, ckpt_dir, tensor):
     from avion_tpu_torch.parallel.mesh import make_mesh
     from avion_tpu_torch.parallel.sharding import shard_model
 
-    model = _clip_tiny(sd)
-    shard_model(model, make_mesh(data=world // tensor, tensor=tensor))
+    model = _clip_tiny(sd, **(model_kw or {}))
+    shard_model(model, make_mesh(data=world // (tensor * pp * ep),
+                                 tensor=tensor, pp=pp, ep=ep))
     optimizer, _ = build_optimizer(OptimConfig(**opt), model, NITER)
     state = TrainState.create(model, optimizer)
     Checkpointer(ckpt_dir).restore(state)
@@ -668,3 +684,148 @@ def tensor_whole_model(rank, world, sd, fsdp):
     return ({k: v.numpy() for k, v in state.items()},
             tensor_layout(copy) is None
             and not any(is_dtensor(v) for v in state.values()))
+
+
+def _grads_whole(model):
+    """Every parameter's gradient, whole (gathered over fsdp and the
+    model's layout; every rank calls it)."""
+    from avion_tpu_torch.parallel.sharding import full_tensor
+    from avion_tpu_torch.parallel.tensor_parallel import tensor_layout
+
+    layout = tensor_layout(model)
+    out = {}
+    for k, p in model.named_parameters():
+        g = full_tensor(p.grad)
+        out[k] = (g if layout is None else layout.gather(k, g)).numpy()
+    return out
+
+
+def moe_layer(rank, world, kind, sd, x, c, data, ep, kw):
+    """``ops.moe.MoEMlp(**kw)`` (``kind`` "mlp") or a ``layers.Block`` with
+    ``moe_experts`` (``kind`` "block"), f32, over a data x ep mesh (DDP
+    over data) on this rank's rows of ``x``; objective ``sum(y * c)`` of
+    the batch group's gathered output plus 0.01 times the aux loss.
+    Returns the gathered output, the aux loss and stats, every parameter's
+    whole gradient, and the input's gradient (as the global objective's)."""
+    from avion_tpu_torch.losses.losses import gather_batch
+    from avion_tpu_torch.models.layers import Block
+    from avion_tpu_torch.ops.moe import MoEMlp, moe_outputs
+    from avion_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from avion_tpu_torch.parallel.sharding import (Parallel,
+                                                   make_global_batch,
+                                                   shard_model)
+
+    model = (MoEMlp(**kw, dtype=torch.float32) if kind == "mlp" else
+             Block(**kw, dtype=torch.float32))
+    model.load_state_dict(sd, strict=True)
+    mesh = make_mesh(data=data, ep=ep)
+    shard_model(model, mesh)
+    par = Parallel(mesh, model)
+    with use_mesh(mesh):
+        xl = make_global_batch(mesh, {"x": _t(x)})["x"].requires_grad_()
+        y = gather_batch(par.model(xl), mesh.batch_group)
+        moe = moe_outputs(model)[0]
+        ((y * _t(c)).sum() + 0.01 * moe.aux).backward()
+        par.finish_backward()
+    return {"out": y.detach().numpy(), "aux": float(moe.aux.detach()),
+            "zloss": float(moe.zloss.detach()), "load": moe.load.numpy(),
+            "overflow": float(moe.overflow), "grads": _grads_whole(model),
+            "dx": (xl.grad / mesh.n_batch_shards).numpy(),
+            "held": {n: tuple(p.shape) for n, p in model.named_parameters()}}
+
+
+def pipe_stack(rank, world, kind, sd, x, c, data, fsdp, pp, m, remat,
+               kw, enc=None):
+    """A pipelined stack in f32 over a data x fsdp x pp mesh: ``kind``
+    "tower" (``pipeline.PipelinedTransformer(**kw)``), "vclm" or "gpt2"
+    (``pipeline_gated.PipelinedGatedDecoder(**kw)``, cross position mid or
+    pre, on the visual tokens ``enc``), ``m`` microbatches, ``remat``;
+    objective ``sum(y * c)`` of the batch group's gathered output.
+    Returns the gathered output, every parameter's whole gradient, the
+    input's (and ``enc``'s) gradient as the global objective's, the shapes
+    this rank holds, and the plain attention calls."""
+    from avion_tpu_torch.losses.losses import gather_batch
+    from avion_tpu_torch.ops import flash_attention as fa
+    from avion_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from avion_tpu_torch.parallel.pipeline import PipelinedTransformer
+    from avion_tpu_torch.parallel.pipeline_gated import (
+        PipelinedGatedDecoder)
+    from avion_tpu_torch.parallel.sharding import (Parallel,
+                                                   make_global_batch,
+                                                   shard_model)
+
+    if kind == "tower":
+        model = PipelinedTransformer(**kw, dtype=torch.float32,
+                                     num_microbatches=m, remat=remat)
+    else:
+        model = PipelinedGatedDecoder(
+            **kw, cross_position="mid" if kind == "vclm" else "pre",
+            dtype=torch.float32, num_microbatches=m, remat=remat)
+    model.load_state_dict(sd, strict=True)
+    mesh = make_mesh(data=data, fsdp=fsdp, pp=pp)
+    shard_model(model, mesh)
+    par = Parallel(mesh, model)
+    fa.reset_launches()
+    with use_mesh(mesh):
+        rows = {"x": _t(x)} if enc is None else {"x": _t(x), "enc": _t(enc)}
+        local = {k: v.requires_grad_() for k, v in
+                 make_global_batch(mesh, rows).items()}
+        args = (local["x"],) if enc is None else (local["x"], local["enc"])
+        y = gather_batch(par.model(*args), mesh.batch_group)
+        (y * _t(c)).sum().backward()
+        par.finish_backward()
+    n = mesh.n_batch_shards
+    return {"out": y.detach().numpy(), "grads": _grads_whole(model),
+            "dx": (local["x"].grad / n).numpy(),
+            "denc": None if enc is None else (local["enc"].grad / n).numpy(),
+            "held": {k: tuple(p.shape) for k, p in model.named_parameters()},
+            "plain_calls": dict(fa.plain_calls)}
+
+
+def vclm_pipe(rank, world, sd, video, tokens, c, data, pp, m, kw):
+    """A VCLM (``kw``, f32) with its decoder pipelined (``m`` microbatches)
+    over a data x pp mesh, on this rank's rows of ``video`` / ``tokens``;
+    objective ``sum(logits * c)`` of the batch group's gathered logits.
+    Returns the gathered logits and every parameter's whole gradient."""
+    from avion_tpu_torch.losses.losses import gather_batch
+    from avion_tpu_torch.models.narrator import VCLM
+    from avion_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from avion_tpu_torch.parallel.sharding import (Parallel,
+                                                   make_global_batch,
+                                                   shard_model)
+
+    model = VCLM(**kw, dtype=torch.float32, pipeline=True,
+                 pipeline_microbatches=m)
+    model.load_state_dict(sd, strict=True)
+    mesh = make_mesh(data=data, pp=pp)
+    shard_model(model, mesh)
+    par = Parallel(mesh, model)
+    with use_mesh(mesh):
+        local = make_global_batch(mesh, {"video": _t(video),
+                                         "tokens": _t(tokens)})
+        logits = gather_batch(par.model(local["video"], local["tokens"]),
+                              mesh.batch_group)
+        (logits * _t(c)).sum().backward()
+        par.finish_backward()
+    return {"logits": logits.detach().numpy(), "grads": _grads_whole(model)}
+
+
+def narrator_main(rank, world, kw, args):
+    """``train_narrator.main(args)`` with ``VCLM_TINY_PP`` (a VCLM of
+    ``kw`` in f32, its pipeline options from the entry) registered; returns
+    the result's steps and epochs."""
+    from avion_tpu_torch.models.narrator import VCLM
+    from avion_tpu_torch.models.registry import register_model
+    from avion_tpu_torch.train import train_narrator
+
+    @register_model("VCLM_TINY_PP")
+    def _tiny_pp(num_frames=2, pipeline=False, pipeline_microbatches=8,
+                 pipeline_remat=False, dtype=None, **_):
+        return VCLM(**kw, num_frames=num_frames, pipeline=pipeline,
+                    pipeline_microbatches=pipeline_microbatches,
+                    pipeline_remat=pipeline_remat,
+                    dtype=dtype or torch.float32)
+
+    res = train_narrator.main(args)
+    return {"steps": res["steps"], "step": res["step"],
+            "epochs": res["epochs"]}
