@@ -215,7 +215,8 @@ class Block(nn.Module):
             from avion_tpu_torch.ops.moe import MoEMlp
 
             self.moe_mlp = MoEMlp(width, experts=moe_experts, act=act,
-                                  dtype=dtype)
+                                  dtype=dtype,
+                                  sequence_parallel=sequence_parallel)
         else:
             self.mlp = Mlp(width, act)
         self.drop_path = drop_path

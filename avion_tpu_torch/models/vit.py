@@ -28,7 +28,8 @@
   token sums by an all-reduce whose backward sums too, so that the average
   of the ranks' gradients is the gradient of the whole sequence.
 - ``moe_experts`` > 0: every block's MLP is a mixture of experts
-  (``ops.moe``).
+  (``ops.moe``); in a sequence-parallel tower it gathers its rows' tokens
+  over ``sp`` and routes them in JAX's global order.
 - ``pipeline``: the layer stack is ``parallel.pipeline.
   PipelinedTransformer`` over ``mesh.pp`` (``pipeline_microbatches``
   microbatches; ``remat`` checkpoints each block under ``save_attn``, the
@@ -98,10 +99,6 @@ class VisionTransformer(nn.Module):
         if sequence_parallel and (pooling == "cls" or patch_dropout):
             raise ValueError("sequence_parallel needs gap or none pooling "
                              "(no CLS token) and no patch dropout")
-        if sequence_parallel and moe_experts:
-            # the MoE layer routes whole rows of the global batch
-            raise NotImplementedError("moe_experts in a sequence-parallel "
-                                      "tower is not in the PyTorch port")
         self.pooling = pooling
         self.width = width
         self.sequence_parallel = sequence_parallel

@@ -60,6 +60,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from avion_tpu_torch.ops.ring_attention import group_rank_size, sp_group
 from avion_tpu_torch.parallel.tensor_parallel import _CopyToTensor
 
 
@@ -105,6 +106,27 @@ class _GatherExperts(torch.autograd.Function):
     def backward(ctx, g):
         n = dist.get_world_size(ctx.group)
         return g.chunk(n, 0)[dist.get_rank(ctx.group)].contiguous(), None
+
+
+class _GatherSequence(torch.autograd.Function):
+    """The ``sp`` ranks' token slices concatenated along dim 1 (sequence
+    order); the backward sums the gradient over the group and keeps this
+    rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(
+            group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        n = dist.get_world_size(ctx.group)
+        return g.chunk(n, 1)[dist.get_rank(ctx.group)].contiguous(), None
 
 
 class _Batch:
@@ -220,13 +242,15 @@ class MoEMlp(nn.Module):
     docstring).  ``ep`` (set by ``parallel.sharding``) is ``(group, rank,
     size)`` when the expert leaves hold this rank's E / ep experts;
     ``batch_group`` the data-parallel group whose global batch routes
-    together."""
+    together; with ``sequence_parallel`` the input is this rank's slice
+    of the current mesh's ``sp`` group's tokens."""
 
     def __init__(self, width: int, experts: int = 8,
                  hidden_mult: float = 4.0, top_k: int = 2,
                  capacity_factor: float = 1.25, group_size: int = 256,
                  zloss: bool = True, act: Optional[Callable] = None,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 sequence_parallel: bool = False):
         super().__init__()
         from avion_tpu_torch.models.layers import gelu
 
@@ -241,6 +265,7 @@ class MoEMlp(nn.Module):
         self.expert_fc1_bias = nn.Parameter(torch.zeros(experts, hid))
         self.expert_fc2 = nn.Parameter(torch.empty(experts, hid, width))
         self.expert_fc2_bias = nn.Parameter(torch.zeros(experts, width))
+        self.sequence_parallel = sequence_parallel
         self.ep = None
         self.batch_group = None
         self.aux = self.zloss = self.load = self.overflow = None
@@ -320,6 +345,16 @@ class MoEMlp(nn.Module):
         return y.reshape(-1, shape[-1])[places].reshape(shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = sp_group() if self.sequence_parallel else None
+        rank, n = group_rank_size(group)
+        if n == 1:
+            return self.forward_rows(x)
+        s = x.shape[1]
+        y = self.forward_rows(_GatherSequence.apply(x, group))
+        return y[:, rank * s:(rank + 1) * s]
+
+    def forward_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The layer on whole rows ``x`` [b, S, W] (every token of each)."""
         xs, dispatch, combine, places, aux, zloss, stats = self.route(x)
         self._record(aux, zloss, stats)
         expert_in = torch.einsum("ngw,ngec->encw", xs.float(),
@@ -385,3 +420,4 @@ def run_experts_local(moe: MoEMlp, x: torch.Tensor, ep: int) -> torch.Tensor:
                                          r * per, (r + 1) * per)
                      for r in range(ep)])
     return moe.combine(out, combine, places, x.shape).to(x.dtype)
+

@@ -40,6 +40,17 @@ A stage's parameters are held by its ``pp`` rank only
 the others keep empty placeholders, and the model's layout
 (``parallel.tensor_parallel.StageLeaf``) gathers them whole for
 checkpoints.  :func:`run_stages_local` plays the stages in one process.
+
+Under ``mesh.tensor`` a stage's blocks are whole on every ``tensor`` rank
+of it (JAX's ``shard_map`` over ``pp`` holds them whole inside the map;
+``parallel.tensor_parallel`` leaves the stack uncut), and the ``pp``
+group that exchanges activations is the ranks of one ``tensor``
+coordinate.  The tensor ranks of a stage so compute the same gradients,
+up to the order in which the combined backward kernel adds dq: the
+backward averages the stage's parameter gradients, the input's gradient
+and the side input's over the ``tensor`` group once, so the copies stay
+bit-equal, and DDP or FSDP2, whose groups hold one ``tensor`` index
+(``Mesh.replica_group``), reduce them over the batch ranks alone.
 """
 
 from __future__ import annotations
@@ -117,10 +128,23 @@ class _Pipe:
     stage: int
     ranks: List[int]
     carry: torch.dtype
+    tensor: Optional[object] = None  # the tensor group replicating a stage
 
     @property
     def size(self) -> int:
         return len(self.ranks)
+
+    def tensor_mean(self, grads: List[Optional[torch.Tensor]]) -> None:
+        """Average ``grads`` over the ``tensor`` group in place (one
+        flat all-reduce; None entries are skipped, alike on every rank)."""
+        held = [g for g in grads if g is not None]
+        if self.tensor is None or not held:
+            return
+        flat = torch.cat([g.reshape(-1) for g in held])
+        dist.all_reduce(flat, group=self.tensor)
+        flat /= dist.get_world_size(self.tensor)
+        for g, new in zip(held, flat.split([g.numel() for g in held])):
+            g.copy_(new.view_as(g))
 
 
 def current_pipe(carry: torch.dtype) -> Optional[_Pipe]:
@@ -130,7 +154,8 @@ def current_pipe(carry: torch.dtype) -> Optional[_Pipe]:
     mesh = current_mesh()
     if mesh is None or mesh.shape["pp"] == 1 or mesh.pp_group is None:
         return None
-    return _Pipe(mesh.pp_group, mesh.coords["pp"], mesh.pp_ranks, carry)
+    return _Pipe(mesh.pp_group, mesh.coords["pp"], mesh.pp_ranks, carry,
+                 mesh.tensor_group if mesh.shape["tensor"] > 1 else None)
 
 
 def stage_units(n_units: int, pp: int, stage: int) -> range:
@@ -261,12 +286,15 @@ class _GPipe(torch.autograd.Function):
                 pending = dinp.to(pipe.carry).contiguous()
             else:
                 dxs[mi] = dinp
-        dx = _broadcast_from(torch.cat(dxs).to(dtype) if i == 0 else None,
-                             shape, dtype, device, pipe.ranks[0], pipe.group)
+        dx = torch.cat(dxs).to(dtype) if i == 0 else None
+        pipe.tensor_mean(p_grads + [dx])
+        dx = _broadcast_from(dx, shape, dtype, device, pipe.ranks[0],
+                             pipe.group)
         d_side = None
         if ctx.has_side:
             d_side = torch.cat(d_sides).contiguous()
             dist.all_reduce(d_side, group=pipe.group)
+            pipe.tensor_mean([d_side])
         return (None, None, None, dx, d_side, *p_grads)
 
 
@@ -416,8 +444,9 @@ def pipeline_parallelize(model: nn.Module, mesh) -> nn.Module:
     place: a rank keeps its stage's parameters and an empty placeholder
     (``tensor_parallel.placeholder``) of every other one, and the model's
     layout lists them all (``tensor_parallel.StageLeaf``), so checkpoints
-    and whole copies gather them whole.  A mesh whose ``pp`` is 1 leaves
-    the model as it is."""
+    and whole copies gather them whole.  Under ``mesh.tensor`` every
+    tensor rank of a stage holds its units whole.  A mesh whose ``pp`` is
+    1 leaves the model as it is."""
     from avion_tpu_torch.parallel.tensor_parallel import (StageLeaf,
                                                           ensure_layout,
                                                           placeholder)
@@ -426,9 +455,6 @@ def pipeline_parallelize(model: nn.Module, mesh) -> nn.Module:
     stacks = pipelined_modules(model)
     if pp == 1 or not stacks:
         return model
-    if mesh.shape["tensor"] > 1:
-        raise NotImplementedError("a pipelined stack under mesh.tensor is "
-                                  "not in the PyTorch port")
     names = {id(m): n for n, m in model.named_modules()}
     layout = ensure_layout(model)
     stage = mesh.coords["pp"]

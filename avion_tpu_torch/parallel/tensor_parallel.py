@@ -44,7 +44,9 @@ process layout.  The same layout lists the parts of the other model axes:
 a mixture-of-experts MLP's expert leaves cut along dim 0 over ``ep``
 (:class:`TensorLeaf` over the ``ep`` group, ``ops.moe``) and a pipeline's
 stage leaves, held whole by their ``pp`` stage and as empty placeholders
-elsewhere (:class:`StageLeaf`, ``parallel.pipeline``).
+elsewhere (:class:`StageLeaf`, ``parallel.pipeline``).  Under ``pp`` a
+pipelined stack is not cut: each stage's blocks are whole on every tensor
+rank of it, as inside JAX's pipeline map.
 """
 
 from __future__ import annotations
@@ -346,12 +348,22 @@ def tensor_parallelize(model: torch.nn.Module, mesh) -> torch.nn.Module:
         return model
     group, rank = mesh.tensor_group, mesh.coords["tensor"]
     leaves: Dict[str, TensorLeaf] = {}
+    # a pipelined stack's stage is whole on every tensor rank (JAX's
+    # shard_map over pp holds its blocks whole inside the map)
+    staged = set()
+    if mesh.shape["pp"] > 1:
+        from avion_tpu_torch.parallel.pipeline import pipelined_modules
+
+        staged = {id(m) for stack in pipelined_modules(model)
+                  for m in stack.modules()}
 
     def rule(prefix, layer):
         return jax_tensor_dim(f"{prefix}.weight", layer.weight.shape, t)
 
     for name, module in model.named_modules():
         name = f"{name}." if name else ""
+        if id(module) in staged:
+            continue
         if isinstance(module, (SelfAttention, Mlp)):
             attn = isinstance(module, SelfAttention)
             col_name, row_name = (("Wqkv", "out_proj") if attn

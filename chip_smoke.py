@@ -12,7 +12,8 @@ checkpoints, serve decoded ``paths`` with int8 weights over one replica per
 card and profile a train step through the port's tools, run the
 convergence drill (train, preempt, resume, evaluate), play the ranks of
 tensor-parallel blocks on the card, train the mixture-of-experts tower
-and play the pipelines' stages and the experts' ranks.
+and play the pipelines' stages and the experts' ranks, and run each
+benchmark tool of the port at a small size.
 
     python3 chip_smoke.py
 
@@ -62,17 +63,17 @@ Phases (each raises on failure; the script then exits non-zero):
 7. data: cv2's video I/O, then a seeded synthetic Ego4D layout (15 s mp4v
    chunks at 512x288, 30 fps, 2048 narration rows) that
    ``avion_tpu_torch.train.pretrain_clip.main`` decodes in its
-   ``DataLoader`` workers and trains on at batch 256: 8 steps with host
-   crop (run A; per-step time and data wait from ``log.jsonl``, the idle
-   share of the last two steps with their batch waits, the gap to phase
-   5), 4
-   steps with device crop (run B), 24 + 24 launches a step and finite
+   ``DataLoader`` workers and trains on at batch 256: 4 steps with host
+   crop over every 2nd row (run A; per-step time and data wait from
+   ``log.jsonl``, the idle share of the last two steps with their batch
+   waits, the gap to phase 5), 2 steps with device crop over every 4th
+   row (run B), 24 + 24 launches a step and finite
    losses in both; ``crop_resize_flip_normalize`` on the card against the
    CPU in f32 on one decoded batch (max abs error 1e-3); and a second
    ``main`` on run A's output that restores and trains no step;
 8. eval: seeded synthetic layouts of the five zero-shot suites (EK100
-   MIR with 128 clips, EK100 CLS, EGTEA with 32, Charades-Ego with 16
-   videos, EgoMCQ with 32 items; mp4v at 512x288, 30 fps);
+   MIR with 32 clips, EK100 CLS, EGTEA with 16, Charades-Ego with 16
+   videos, EgoMCQ with 16 items; mp4v at 512x288, 30 fps);
    (a) ``pretrain_clip.main`` with ``eval_freq=1`` and
    the MIR suite, two one-step epochs on the data phase's layout: metrics
    before training and after each epoch, ``is_best`` on the MIR mAP, the
@@ -112,7 +113,8 @@ Phases (each raises on failure; the script then exits non-zero):
    (AdamW, remat) through ``finetune_mir.build_model_and_state`` and
    ``train.loop``: 8 steps on 3 seeded batches (24 forward-with-lse, 12
    combined, 12 dq and 12 dkv launches a step), a profiled step, a batch-2
-   step against the CPU in f32 and an exact resume; (c) the same for
+   step against the CPU in f32 on the first 8 frames of the clips (1569
+   tokens, still the split backward) and an exact resume; (c) the same for
    ``scripts/examples/finetune_cls_ek100.sh`` (SGD, lr x 64 / 128, mixup
    0.8, 3806 classes; 12 + 12 + 12 launches a step); (d) a synthetic EK100
    layout (train and test csvs, sentence csvs, relevancy pkls,
@@ -186,13 +188,14 @@ Phases (each raises on failure; the script then exits non-zero):
    cached logits against a teacher-forced ``decode`` of its tokens (the
    causal inference kernel; max abs error within 0.15 and RMS error
    within 0.02 of the logits' RMS); (d) ``train_narrator.main`` on the
-   layout's first 128 rows at batch 64, 2 steps (p50, data wait, decode
+   layout's first 64 rows at batch 32, 2 steps (p50, data wait, decode
    ms a clip), and a second ``main`` that restores and trains no step;
    (f) the LaViLa narrator ``VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL``
    at full width (2.45 B parameters, seeded random weights, gates
    opened, bf16 inference copy, an ids-only tokenizer) behind
    ``serve.server.make_server(..., narrate=NarrateService(...))``: one
-   ``/v1/narrate`` of a 336 px clip (latency, tokens a second, peak
+   ``/v1/narrate`` of a 336 px clip (3 samples of up to LV_MAX_LEN
+   tokens; latency, tokens a second, peak
    memory; no kernel launched), then a full-width twin with 2 vision
    blocks and 3 decoder layers, teacher-forced, against the CPU in f32
    (cosine >= 0.99);
@@ -276,7 +279,15 @@ Phases (each raises on failure; the script then exits non-zero):
    refused) and (e) LaViLa's gated GPT-2 at XL width, 6 layers, pp = 2,
    their ranks played on the card (``parallel.pipeline.
    run_stages_local``) against the whole module: output and gradients
-   (phase 17's bounds), the launches.
+   (phase 17's bounds), the launches;
+19. tools: each tool of ``avion_tpu_torch.tools`` that drives a path
+   through the kernels (``bench_attention``, ``mxu_roofline``,
+   ``bench_vitl``, ``bench_videomae``, ``bench_pipeline``,
+   ``bench_serve``, ``headdim_ablation``) and ``bench_narrator`` (plain
+   attention: no kernel), through its ``main`` at a small size, the
+   launch counters set to 0 before each and read after: each tool but
+   the narrator's launched every kernel of its path, and its JSON line
+   carries the JAX tool's keys.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -307,6 +318,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from avion_tpu_torch.core import profiling
+from avion_tpu_torch.core.flops import H100_BYTES_PER_S
+from avion_tpu_torch.core.flops import H100_PEAK_FLOPS as H100_BF16_FLOPS
+from avion_tpu_torch.core.flops import attention_bound as bound
+from avion_tpu_torch.core.flops import attn_flops
 from avion_tpu_torch.ops import _build
 from avion_tpu_torch.ops import flash_attention as fa
 
@@ -314,8 +330,6 @@ from avion_tpu_torch.ops import flash_attention as fa
 # a fixed workspace, set before its first use (H100's default size)
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
-H100_BYTES_PER_S = 3.35e12
 TOL = 3e-2  # max abs error, the JAX bf16 forward tolerance
 # RMS error over RMS output.  With randn q/k/v an output row averages ~S
 # rows of v, so a typical output is ~sqrt(e/S): 0.03 at S=3137, as large as
@@ -362,10 +376,7 @@ def log(msg: str) -> None:
 
 
 def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    return profiling.card_line(torch.device("cuda"))
 
 
 @contextlib.contextmanager
@@ -382,34 +393,7 @@ def deterministic():
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def attn_flops(b, s, h, d, causal, products):
-    """``products`` S x S x D products, 2 flops a multiply-add, halved when
-    causal."""
-    return 2 * products * b * h * s * s * d / (2 if causal else 1)
-
-
-def bound(b, s, h, d, causal, products=2, tensors=4, rows=0):
-    """Least time (ms): ``products`` S x S x D bf16 products (2 flops per
-    multiply-add, halved when causal) against ``tensors`` [B, S, H*D] bf16
-    tensors and ``rows`` [B, H, S] f32 rows, each read or written once."""
-    flops = attn_flops(b, s, h, d, causal, products)
-    nbytes = tensors * b * s * h * d * 2 + rows * b * h * s * 4
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
-                                       else "bytes")
+    return profiling.device_ms(fn, torch.device("cuda"), iters, warmup)
 
 
 def phase_environment() -> str:
@@ -1369,11 +1353,12 @@ def phase_train_long(tmp: str) -> dict:
 
 # the data slice: a synthetic Ego4D layout in AVION's cut (15 s chunks at a
 # 288 px short side, 30 fps), 8 videos of 2 chunks, and 2048 narration rows
-# of 1-4 s windows; run A trains on it with host crop for one 8-step epoch,
-# run B with device crop for 4 steps over every second row
+# of 1-4 s windows; run A trains on every 2nd row with host crop for one
+# 4-step epoch, run B with device crop for 2 steps over every 4th row
 DATA_VIDEOS, DATA_CHUNKS, DATA_ROWS = 8, 2, 2048
 DATA_W, DATA_H, DATA_FPS, DATA_CHUNK_S = 512, 288, 30, 15
-DATA_STEPS, DEVICE_CROP_STEPS = 8, 4
+# run A reads every 2nd of the layout's rows, run B every 4th
+DATA_STEPS, DEVICE_CROP_STEPS = 4, 2
 CROP_TOL = 1e-3  # card against CPU, f32, normalized values
 VERBS = ("opens", "closes", "picks up", "puts down", "cuts", "washes",
          "stirs", "pours", "holds", "moves")
@@ -1635,9 +1620,9 @@ def phase_data(tmp: str, echo_p50: float) -> dict:
         f"{os.cpu_count()}, /dev/shm free {shm_free_bytes() / 2**20:.1f} MiB")
 
     out_a = os.path.join(tmp, "data_host_crop")
-    args_a = _data_args(out_a, root, meta, True)
+    args_a = _data_args(out_a, root, meta, True, "data.subsample_stride=2")
     out_b = os.path.join(tmp, "data_device_crop")
-    args_b = _data_args(out_b, root, meta, False, "data.subsample_stride=2")
+    args_b = _data_args(out_b, root, meta, False, "data.subsample_stride=4")
     per_clip = {"host crop": _decode_ms_per_clip(args_a),
                 "device crop": _decode_ms_per_clip(args_b)}
     log("one item (decode, crop, tokenize) in one process, ms a clip: "
@@ -1686,8 +1671,8 @@ def phase_data(tmp: str, echo_p50: float) -> dict:
         "run B (device crop)", res_b, launches_b, DEVICE_CROP_STEPS, out_b)
     log(f"run B per-step ms {[round(x, 3) for x in batch_ms_b]}, data wait "
         f"ms {[round(x, 3) for x in data_ms_b]}; main() wall {wall_b:.2f} s; "
-        f"steps 3-{DEVICE_CROP_STEPS}: p50 step "
-        f"{float(np.median(batch_ms_b[2:])):.3f} ms")
+        f"steps 2-{DEVICE_CROP_STEPS}: p50 step "
+        f"{float(np.median(batch_ms_b[1:])):.3f} ms")
     crop = _check_device_crop(args_b)
 
     fa.reset_launches()
@@ -1705,8 +1690,11 @@ def phase_data(tmp: str, echo_p50: float) -> dict:
 # the eval slice: seeded synthetic layouts of the five zero-shot suites in
 # their datasets' formats, at the data phase's 512x288 and 30 fps
 # the suites' sizes keep the phase's host decode (most of its time) short
-EVAL_SIZES = dict(mir_clips=128, egtea_clips=32,
-                  charades_videos=16, charades_classes=24, mcq_items=32)
+# MIR's 32 clips (of the test split's 9668) are also the CLS suite's; with
+# 128 MIR clips and 32 of EGTEA and EgoMCQ the phase took 126-146 s of the
+# script's 1200
+EVAL_SIZES = dict(mir_clips=32, egtea_clips=16,
+                  charades_videos=16, charades_classes=24, mcq_items=16)
 EVAL_CLIP_S = 3  # seconds of each EGTEA clip and Charades-Ego video
 
 
@@ -2930,6 +2918,10 @@ FT_CHECK_BATCH, FT_REF_BATCH, FT_OPT_BATCH = 4, 2, 16
 # the CLS reference's batch: the CPU pass at 3137 tokens takes about 26 s
 # a clip; MIR's max-margin loss needs 2 rows
 FT_CLS_REF_BATCH = 1
+# the CPU references' clips: the first half of the 16 frames (1569 tokens,
+# still the split backward on the card); at 16 frames the two f32 CPU
+# steps took 76 s of the script's 1200
+FT_REF_FRAMES = 8
 FT_CLASSES = 3806  # EPIC-Kitchens-100's actions
 FT_MIR_RECIPE = [
     f"model.name={MODEL}", "model.use_grad_checkpointing=true",
@@ -2997,7 +2989,8 @@ def _ft_seeded(tmp: str, name: str, label: str) -> dict:
     """(b) MIR / (c) CLS: the recipe at batch FT_BATCH through the entry's
     ``build_model_and_state`` and ``train.loop``: FT_STEPS steps over 3
     seeded batches, a profiled step, a step against the CPU in f32 (batch
-    FT_REF_BATCH for MIR, FT_CLS_REF_BATCH for CLS), and an exact resume
+    FT_REF_BATCH for MIR, FT_CLS_REF_BATCH for CLS, FT_REF_FRAMES of the
+    clips' frames), and an exact resume
     into a model built from another seed."""
     from avion_tpu_torch.optim.factory import apply_batch_lr_scale
     from avion_tpu_torch.train import finetune_cls, finetune_mir
@@ -3043,9 +3036,11 @@ def _ft_seeded(tmp: str, name: str, label: str) -> dict:
     t0 = time.perf_counter()
     ref = FT_REF_BATCH if mir else FT_CLS_REF_BATCH
     _reference_grads(model, cpu.to_empty(device="cpu"),
-                     {k: v[:ref] for k, v in batches[1].items()},
+                     {k: v[:ref, :FT_REF_FRAMES] if k == "video" else v[:ref]
+                      for k, v in batches[1].items()},
                      _mir_loss if mir else _cls_loss,
-                     f"{label}: reference step at batch {ref}")
+                     f"{label}: reference step at batch {ref}, "
+                     f"{FT_REF_FRAMES} frames")
     log(f"{label}: the CPU reference took {time.perf_counter() - t0:.1f} s")
     del cpu
     save_epoch(run, 0, {})
@@ -3988,7 +3983,7 @@ NR_RECIPE = [f"model.name={NR_MODEL}", f"data.clip_length={FRAMES}",
              "optim.grad_clip_norm=1.0", "print_freq=1"]
 NR_GATE = 0.5  # tanh gates opened, so the video reaches the loss
 NR_REF_BATCH, NR_DET_BATCH, NR_DET_STEPS = 2, 32, 2
-NR_DATA_BATCH, NR_DATA_STEPS = 64, 2
+NR_DATA_BATCH, NR_DATA_STEPS = 32, 2
 NR_SAMPLES, NR_MAX_LEN, NR_WINDOW_S, NR_STRIDE_S = 3, 30, 4.0, 4.0
 # the cached decode's logits against a teacher-forced decode of the same
 # tokens, bf16: max abs and RMS error over the logits' RMS (0.046 and
@@ -3999,6 +3994,9 @@ NR_LOGIT_MAX_TOL, NR_LOGIT_RMS_TOL = 0.15, 0.02
 NR_SHAPES = [("decoder H128", 77, 4, 128, True)]
 NR_GEN_SHAPES = [("decoder, generation", NR_MAX_LEN, 8, 64, True)]
 LV_MODEL, LV_SIZE = "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL", 336
+# (f)'s tokens a sample (the captioner's default 77 took 34 s of host-bound
+# decoding for 3 samples)
+LV_MAX_LEN = 20
 LV_TWIN = dict(vision_layers=2, text_layers=3)  # the CPU reference's depth
 NR_DEVICE = "cuda"
 
@@ -4365,7 +4363,7 @@ def _lavila(tmp: str) -> dict:
     service = ClipService(clip.to(NR_DEVICE), batch=32)
     narrate = NarrateService(
         lavila_captioner(model=xl, tokenizer=_IdsTokenizer(),
-                         num_frames=FRAMES),
+                         num_frames=FRAMES, max_len=LV_MAX_LEN),
         clip_length=FRAMES, image_size=LV_SIZE)
     server = make_server(service, port=0, narrate=narrate)
     serve_forever_in_thread(server)
@@ -5756,6 +5754,86 @@ def phase_experts_pipeline(tmp: str, fixture: tuple) -> dict:
             "played": played}
 
 
+# phase 19: each tool's main at a small size, the kernels its path launches
+# and the keys of the JAX tool's JSON line (avion_tpu/tools/<tool>.py)
+_TRAIN = {"flash_fwd_lse", "flash_bwd_combined"}
+_SPLIT = _TRAIN | {"flash_bwd_dq", "flash_bwd_dkv"}
+TOOL_RUNS = {
+    "bench_attention": (["--iters", "5"], _SPLIT,
+                        {"metric", "split_ms", "combined_ms", "speedup"}),
+    "mxu_roofline": (["--iters", "3"], _TRAIN | {"flash_fwd"},
+                     {"metric", "shape", "12x64", "6x128",
+                      "fwd_12x64_over_6x128", "fwdbwd_12x64_over_6x128"}),
+    # ViT-L/14's 1025 visual tokens take the split backward
+    "bench_vitl": (["16"], _SPLIT,
+                   {"metric", "value", "unit", "mfu", "step_ms"}),
+    # the decoder's 1568 tokens take the split backward
+    "bench_videomae": (["32"], _SPLIT,
+                       {"metric", "value", "unit", "vs_baseline"}),
+    # 4 videos give 32 clips: batch 32
+    "bench_pipeline": (["--steps", "4", "--videos", "4", "--batch", "32"],
+                       _TRAIN, {"metric", "input_path", "value", "unit",
+                                "duty_cycle", "data_time_s", "step_time_s",
+                                "decode_clips_per_sec_per_core",
+                                "host_cores", "live_batch",
+                                "projected_duty_cycle_at_cores", "loss"}),
+    "bench_serve": (["--texts", "64", "--videos", "16"], {"flash_fwd"},
+                    {"metric", "text_embeds_per_sec",
+                     "video_embeds_per_sec", "unit", "text_mean_batch",
+                     "video_mean_batch", "text_p95_ms", "video_p95_ms",
+                     "device"}),
+    "bench_narrator": (["--batch", "4", "--max-len", "16"], set(),
+                       {"metric", "value", "unit", "tokens_per_sec",
+                        "batch_s", "samples_per_clip", "kv_cache"}),
+    "headdim_ablation": (["--steps", "20", "--batch", "16", "--concepts",
+                          "8"], _TRAIN | {"flash_fwd"},
+                         {"metric", "seed", "arms", "top1_delta_vs_first",
+                          "loss_delta_vs_first"}),
+}
+TOOL_DEVICE = "cuda"
+TOOL_COUNTS = "launches"  # the counters the checks read
+
+
+def phase_tools(tmp: str) -> dict:
+    """19. Each tool's ``main`` (``python -m avion_tpu_torch.tools.<tool>
+    ...``) at TOOL_RUNS' small size, the counters set to 0 just before it
+    and read just after: every kernel of the tool's path launched (none
+    for ``bench_narrator``: its attention is plain, as the JAX decoder's),
+    and its JSON line carries the JAX tool's keys.  Returns the launches
+    by tool and each tool's line."""
+    import importlib
+
+    log("== tools")
+    t_phase = time.perf_counter()
+    paths, lines, bad = {}, {}, []
+    for tool, (args, kernels, keys) in TOOL_RUNS.items():
+        mod = importlib.import_module(f"avion_tpu_torch.tools.{tool}")
+        argv = list(args) + ["--device", TOOL_DEVICE]
+        if tool == "bench_pipeline":
+            argv += ["--root", os.path.join(tmp, "bench_pipe")]
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in getattr(fa, TOOL_COUNTS).items() if n}
+        wall = time.perf_counter() - t0
+        paths[f"tool_{tool}"] = launched
+        lines[tool] = out
+        missing = kernels - set(launched)
+        if missing or (not kernels and launched):
+            bad.append(f"{tool}: launched {launched}, want {sorted(kernels)}")
+        if not keys <= set(out):
+            bad.append(f"{tool}: JSON line lacks {sorted(keys - set(out))}")
+        log(f"(19) {tool} {' '.join(argv)} ({card_line()}): launches "
+            f"{launched}, wall {wall:.1f} s, {json.dumps(out)}")
+        torch.cuda.empty_cache()
+    if bad:
+        raise RuntimeError("tools: " + "; ".join(bad))
+    log(f"tools phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"paths": paths, "lines": lines}
+
+
 KERNEL_SOURCES = {
     "flash_fwd": ("flash_fwd.cu", 134), "flash_fwd_lse": ("flash_fwd.cu", 91),
     "flash_bwd_combined": ("flash_bwd.cu", 494),
@@ -5797,6 +5875,7 @@ def main() -> int:
         drill = phase_drill(tmp)
         tensor = phase_tensor()
         xp = phase_experts_pipeline(tmp, data["fixture"])
+        tools19 = phase_tools(tmp)
     # each kernel's launches from the path that drives it: serving, the
     # data-fed 4-frame main path (run A), and the data-fed MIR finetune at
     # 16 frames for the split kernels; every path's counts beside them
@@ -5815,7 +5894,7 @@ def main() -> int:
                **{f"parallel_entry_{name}": counts
                   for name, counts in par["entries"].items()},
                **nar["paths"], **nlq["paths"], **tools["paths"],
-               **drill["paths"], **xp["paths"]}
+               **drill["paths"], **xp["paths"], **tools19["paths"]}
     rows["flash_fwd"] += evals["checks"]
     for name in rows:
         rows[name] += vmae["rows"][name] + ft["rows"][name] + \

@@ -368,7 +368,8 @@ def entry_model(kind):
     """The tiny f32 model of an entry: ``mir`` CLIP_TINY, ``cls`` the
     classifier on a 2-frame tower (5 classes), ``vmae_pretrain`` /
     ``vmae_finetune`` the VideoMAE pair of ``test_torch_videomae_model``,
-    ``narrator`` :data:`VCLM_TINY`."""
+    ``narrator`` :data:`VCLM_TINY` (``narrator_pp`` with its decoder
+    pipelined, 2 microbatches)."""
     from avion_tpu_torch.models import videomae as vm
     from avion_tpu_torch.models.clip import VideoClassifier
     from avion_tpu_torch.models.layers import quick_gelu
@@ -377,6 +378,9 @@ def entry_model(kind):
 
     if kind == "narrator":
         return VCLM(**VCLM_TINY, dtype=torch.float32)
+    if kind == "narrator_pp":
+        return VCLM(**VCLM_TINY, dtype=torch.float32, pipeline=True,
+                    pipeline_microbatches=2)
     if kind == "mir":
         from avion_tpu_torch.models.registry import create_model
 
@@ -423,7 +427,7 @@ def entry_step(rank, world, kind, sd, opt, batch, data, fsdp, ema_decay=None,
                                                 find_unused=kind == "mir"))
     if kind == "mir":
         step = steps.make_mir_finetune_step(model)
-    elif kind == "narrator":
+    elif kind.startswith("narrator"):
         from avion_tpu_torch.train.train_narrator import make_narrator_step
 
         step = make_narrator_step(model)
