@@ -3,7 +3,9 @@
 
 ``DataLoader`` runs the dataset's decoding ``__getitem__`` in a
 forkserver worker pool; each worker collates a whole batch and hands it
-back through POSIX shared memory (or the pool's pickle pipe).
+back through POSIX shared memory (or the pool's pickle pipe).  The
+forkserver starts when the first loader with workers is made, and imports
+the main module once for every worker (``forkserver_preload``).
 ``device_prefetch`` ships batches to the card ahead of the step and
 ``echo_batches`` repeats them (data echoing).  Over a mesh the loader
 shards the index order across the ``process_count`` batch groups (the
@@ -21,6 +23,7 @@ from __future__ import annotations
 import collections
 import os
 import queue
+import sys
 import threading
 from concurrent.futures import ProcessPoolExecutor
 from typing import TYPE_CHECKING, Any, Dict, Iterable, Iterator
@@ -39,6 +42,50 @@ _WORKER_DATASET = None
 # costs two extra copies, one of them in the main process)
 _SHM_MIN_BYTES = 1 << 20
 SHM_DIR = "/dev/shm"
+
+
+def forkserver_preload(dataset=None) -> list:
+    """The modules the forkserver imports once, before it forks workers:
+    this process's main module by its importable name, and the dataset's
+    module.
+
+    CPython's forkserver means to import the parent's ``__main__`` there,
+    but it asks ``spawn.get_preparation_data`` for a ``main_path`` key that
+    the function names ``init_main_from_path`` (3.12), so it never does;
+    every worker then runs the main module afresh, ``import torch`` and all,
+    before its first item (seconds a loader, on each of its workers at
+    once).  With the module imported in the forkserver, a worker's run of
+    it finds its imports done.  A ``python -m pkg.mod`` main is ``pkg.mod``;
+    a script is its file's stem, found on the forkserver's ``sys.path``,
+    which starts at the script's directory; a ``__main__`` module (``python
+    -m pytest``) is not run by the workers and is left out."""
+    main = sys.modules.get("__main__")
+    spec = getattr(main, "__spec__", None)
+    path = getattr(main, "__file__", None)
+    if spec is not None:
+        names = [] if spec.name.rpartition(".")[2] == "__main__" \
+            else [spec.name]
+    elif path:
+        names = [os.path.splitext(os.path.basename(path))[0]]
+    else:
+        names = []
+    mod = type(dataset).__module__ if dataset is not None else None
+    if mod and mod not in ("__main__", "builtins") and mod not in names:
+        names.append(mod)
+    return names
+
+
+def start_forkserver(dataset=None) -> None:
+    """Start this process's forkserver now, with :func:`forkserver_preload`'s
+    modules, so that its imports overlap what the caller does before its
+    first batch (a model's build, the card's start).  Once the forkserver
+    runs, a later call changes nothing."""
+    import multiprocessing as mp
+    from multiprocessing import forkserver
+
+    mp.get_context("forkserver").set_forkserver_preload(
+        forkserver_preload(dataset))
+    forkserver.ensure_running()
 
 
 def _worker_init(dataset):
@@ -178,6 +225,8 @@ class DataLoader:
         self.use_shm = use_shm
         self.transfers: collections.Counter = collections.Counter()
         self._pool = None
+        if num_workers > 0:
+            start_forkserver(dataset)
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -242,7 +291,7 @@ class DataLoader:
         if self._pool is None:
             # forkserver: workers never inherit this process's threads
             # (CUDA, the prefetch thread); the dataset is pickled once
-            # into each worker
+            # into each worker (the forkserver runs: ``__init__``)
             import multiprocessing as mp
 
             self._pool = ProcessPoolExecutor(

@@ -7,24 +7,39 @@ resize + flip inside the decode loop, so only crop-sized uint8 RGB frames
 reach Python.  Crop *parameters* are sampled on the host per clip by the
 samplers in ``avion_tpu_torch/data/transforms.py`` and passed in.
 
-The port loads the library when it has been built and can be loaded; it
-never builds it.  A library that exists but cannot load (copied from a
-host that has FFmpeg to one that has not) counts as unavailable, and the
-reader then decodes with OpenCV.  ``VideoReader.backend`` says which.
+Where no library exists, the first use builds it from ``SRC_DIR`` with
+its Makefile, as the JAX package's reader does: under a lock beside the
+library, to a private directory, then moved into place, so that readers
+that start together (``DataLoader`` workers) build it once and none loads
+it half-written.  Where the build fails (no compiler, no ``make``, no
+FFmpeg headers) the reader decodes with OpenCV, as JAX's does; the decoder
+is host code, not a ported kernel.  The failure is recorded in a marker
+beside the library, keyed by the hash of the Makefile and the source, and
+no process tries again while that marker stands: each worker process
+would otherwise pay a failed compile at every loader start.  A library
+that exists but cannot load (copied from a host that has FFmpeg to one
+that has not) counts as unavailable and is not rebuilt.
+``VideoReader.backend`` says which backend a reader took.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
+import hashlib
 import os
+import shutil
+import subprocess
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
 
-LIB_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                        "..", "native", "decode", "libavion_decode.so")
+SRC_DIR = os.path.normpath(os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "..", "..", "native",
+    "decode"))
+LIB_PATH = os.path.join(SRC_DIR, "libavion_decode.so")
 
 
 class DecodeError(RuntimeError):
@@ -83,10 +98,76 @@ def _bind(lib) -> None:
             + [ctypes.c_int, ctypes.c_uint32]
 
 
+def _sources_key() -> str:
+    """The hash of ``SRC_DIR``'s Makefile and source (empty where one is
+    missing), which keys the failure marker."""
+    digest = hashlib.sha256()
+    for name in ("Makefile", "avion_decode.cc"):
+        try:
+            with open(os.path.join(SRC_DIR, name), "rb") as f:
+                digest.update(f.read())
+        except OSError:
+            pass
+        digest.update(b"\0")
+    return digest.hexdigest()
+
+
+def _build() -> None:
+    """Build ``LIB_PATH`` with ``SRC_DIR``'s Makefile unless it exists or a
+    failure marker for these sources stands; a failure writes the marker
+    (``LIB_PATH + ".failed"``: the key, then make's output) and raises
+    nothing."""
+    key = _sources_key()
+    marker = LIB_PATH + ".failed"
+    try:
+        lock = open(LIB_PATH + ".lock", "a")
+    except OSError:  # a read-only tree: nothing can be built or marked
+        return
+    with lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(LIB_PATH):  # another process built it meanwhile
+            return
+        try:
+            with open(marker) as f:
+                if f.readline().strip() == key:
+                    return
+        except OSError:
+            pass
+        work = os.path.join(os.path.dirname(LIB_PATH),
+                            f".build.{os.getpid()}")
+        os.makedirs(work, exist_ok=True)
+        try:
+            # the Makefile's own rule, run in the private directory with
+            # the sources found through VPATH; -B: a library elsewhere on
+            # VPATH is no reason to skip
+            res = subprocess.run(
+                ["make", "-B", "-f", os.path.join(SRC_DIR, "Makefile"),
+                 f"VPATH={SRC_DIR}", os.path.basename(LIB_PATH)],
+                cwd=work, capture_output=True, text=True)
+            built = os.path.join(work, os.path.basename(LIB_PATH))
+            if res.returncode == 0 and os.path.exists(built):
+                os.replace(built, LIB_PATH)
+                return
+            why = f"make exited {res.returncode}\n{res.stdout}{res.stderr}"
+        except OSError as e:  # no make
+            why = f"{type(e).__name__}: {e}"
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        try:
+            with open(marker, "w") as f:
+                f.write(f"{key}\n{why}")
+        except OSError:
+            pass
+
+
 @functools.cache
 def _native_lib():
-    """The loaded library, or None when it is not built, cannot load
-    (missing FFmpeg libraries) or lacks an entry point."""
+    """The loaded library, or None when it is not built and cannot be
+    (``_build``), cannot load (missing FFmpeg libraries) or lacks an entry
+    point."""
+    if not os.path.exists(LIB_PATH) and \
+            os.path.exists(os.path.join(SRC_DIR, "Makefile")):
+        _build()
     if not os.path.exists(LIB_PATH):
         return None
     try:

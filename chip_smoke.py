@@ -19,7 +19,12 @@ benchmark tool of the port at a small size.
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. environment: torch / CUDA versions and the card's name and power limit;
+1. environment: torch / CUDA versions, the card's name and power limit, and
+   the video reader's decode backend with the seconds its first use took
+   (on a tree without ``native/decode/libavion_decode.so``, the first-use
+   build attempt: it fails where FFmpeg's headers are missing, and its
+   marker keeps the data phases' loader workers from trying again); the
+   loaders' forkserver is started, to import this script during the build;
 2. build: ``avion_tpu_torch/ops/csrc/flash_{fwd,bwd}.cu``, one ``nvcc``
    each, started together; every instance of the forward's kernel (8) and
    of the backward's two kernels (12) must report 0 spill bytes and no
@@ -55,7 +60,7 @@ Phases (each raises on failure; the script then exits non-zero):
    step; step time, clips/s, peak memory, a profiled step, the share of
    989 TFLOP/s; the forward counts of the ``full`` and ``save_attn_k10``
    policies; 4 more steps under the deterministic flag (24 + 24 + 24
-   split launches a step, p50 beside the default's); one batch-4 step
+   split launches a step, p50 beside the default's); one batch-2 step
    against the CPU in f32 (loss within 2%, gradient cosine >= 0.99); save
    and an exact resume;
 6. train at the config's default 16 frames (3137 tokens): 2 steps at
@@ -69,7 +74,8 @@ Phases (each raises on failure; the script then exits non-zero):
    waits, the gap to phase 5), 2 steps with device crop over every 4th
    row (run B), 24 + 24 launches a step and finite
    losses in both; ``crop_resize_flip_normalize`` on the card against the
-   CPU in f32 on one decoded batch (max abs error 1e-3); and a second
+   CPU in f32 on one decoded batch of CROP_BATCH clips (max abs error
+   1e-3); and a second
    ``main`` on run A's output that restores and trains no step;
 8. eval: seeded synthetic layouts of the five zero-shot suites (EK100
    MIR with 32 clips, EK100 CLS, EGTEA with 16, Charades-Ego with 16
@@ -164,7 +170,7 @@ Phases (each raises on failure; the script then exits non-zero):
    under the deterministic flag: the parameters bit for bit, the launches
    by kernel; (e) the same for ``finetune_mir.main``,
    ``finetune_cls.main``, ``videomae_pretrain.main`` and
-   ``videomae_finetune.main`` at ViT-B/16, 16 frames, batch 8, 2 steps,
+   ``videomae_finetune.main`` at ViT-B/16, 16 frames, batch 4, 2 steps,
    on the finetune and VideoMAE phases' layouts and checkpoints
    (``mesh.data=1 mesh.fsdp=1``): the logged losses, the final parameters
    (and EMA) bit for bit, every backward on the split kernels;
@@ -202,11 +208,11 @@ Phases (each raises on failure; the script then exits non-zero):
 14. egonlq: the inference kernel at the extractor's shapes (32 windows of
    785 tokens, 12 x 64; one query, 77 tokens, 8 x 64, causal); (a)
    ``egonlq.extract_features.main`` at ``CLIP_VITB16``, 4 frames, batch
-   32, on a 240 s NLQ clip (mp4v at 512x288, 30 fps; an Ego4D NLQ clip is
-   480 s) with 64 queries in the official json schema: 120 windows in 4
-   batches, ``flash_fwd`` launches exactly 12 x 4 + 12 x 64, windows/s,
+   32, on a 120 s NLQ clip (mp4v at 512x288, 30 fps; an Ego4D NLQ clip is
+   480 s) with 64 queries in the official json schema: 60 windows in 2
+   batches, ``flash_fwd`` launches exactly 12 x 2 + 12 x 64, windows/s,
    decode ms a window, ms a query, the idle share of one profiled window
-   batch, peak memory, features (120, 512) and (512,), 2 windows and 2
+   batch, peak memory, features (60, 512) and (512,), 2 windows and 2
    queries against the CPU in f32 (cosine >= 0.99); (b)
    ``egonlq.train_nlq.main`` at the ``NLQConfig`` defaults on 1024
    planted-span samples of the extractor's widths (``tests/
@@ -365,7 +371,7 @@ TRAIN_RECIPE = [f"model.name={MODEL}", f"data.clip_length={FRAMES}",
                 "optim.lr=4e-5", "optim.wd=0.05", "optim.betas=0.9,0.999",
                 "optim.warmup_epochs=1", "optim.epochs=5",
                 "optim.grad_clip_norm=1.0", "print_freq=1"]
-POLICY_BATCH, REF_BATCH = 8, 4
+POLICY_BATCH, REF_BATCH = 8, 2
 # the config's default clip length (3137 tokens), where the backward splits
 LONG_FRAMES, LONG_BATCH, LONG_STEPS = 16, 8, 2
 LAYERS = 12  # attention layers per tower of CLIP_VITB16
@@ -404,6 +410,21 @@ def phase_environment() -> str:
     log(card)
     log(f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
+    from avion_tpu_torch.data import video_reader
+
+    marker = video_reader.LIB_PATH + ".failed"
+    first_use = ("loaded the library" if os.path.exists(video_reader.LIB_PATH)
+                 else "marker stood" if os.path.exists(marker)
+                 else "build attempt")
+    t0 = time.perf_counter()
+    backend = video_reader.default_backend()
+    log(f"decode backend {backend}, first use ({first_use}) "
+        f"{time.perf_counter() - t0:.3f} s, failure marker now "
+        f"{os.path.exists(marker)}")
+    # the loaders' forkserver imports this script while the kernels build
+    from avion_tpu_torch.data.loader import start_forkserver
+
+    start_forkserver()
     return card
 
 
@@ -745,7 +766,6 @@ def _device_ms_by_kernel(fn, calls: int = 3) -> dict:
     """Device time of one call of ``fn`` by kernel name (torch.profiler),
     after a warm-up call: each name's time summed over its launches within
     a call, then the median over ``calls`` calls, each profiled alone."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -757,10 +777,9 @@ def _device_ms_by_kernel(fn, calls: int = 3) -> dict:
             fn()
             torch.cuda.synchronize()
         by_name: dict = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + \
-                    e.time_range.elapsed_us() / 1e3
+        for e in _device_events(prof):
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + \
+                e.time_range.elapsed_us() / 1e3
         per_call.append(by_name)
     names = {name for by_name in per_call for name in by_name}
     return {name: float(np.median([c.get(name, 0.0) for c in per_call]))
@@ -1025,15 +1044,23 @@ KERNEL_GROUPS = (
 )
 
 
-def _device_ms_by_name(prof) -> dict:
-    """A profile's device time (ms) by kernel or copy name."""
+def _device_events(prof) -> list:
+    """A profile's kernels and copies on the card, without the
+    ``record_function`` ranges mirrored onto its timeline
+    (``gpu_user_annotation``): such a range covers kernels already
+    counted and the gaps between them."""
     from torch.autograd import DeviceType
 
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _device_ms_by_name(prof) -> dict:
+    """A profile's device time (ms) by kernel or copy name."""
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
+    for e in _device_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
     return by_name
 
 
@@ -1054,18 +1081,19 @@ def log_device_time(by_name: dict, top: int = 15) -> None:
 def profile_step(run, batch: dict) -> dict:
     """Device busy time and idle share of one train step, by kernel;
     returns ``{"wall_ms", "busy_ms", "idle_share"}`` (empty when the
-    profiler saw no device time)."""
+    profiler saw no device time).  Only the card's activity is recorded:
+    the host's ops, which nothing here reads, are most of the events of a
+    batch-896 step and of the profiler's time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run.state, _ = run.step(run.state, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = _device_ms_by_name(prof)
-    busy = sum(by_name.values())
+    busy = _device_busy_ms(prof)
     if not busy:
         log("profile: the profiler saw no device time (not measured)")
         return {}
@@ -1360,6 +1388,7 @@ DATA_W, DATA_H, DATA_FPS, DATA_CHUNK_S = 512, 288, 30, 15
 # run A reads every 2nd of the layout's rows, run B every 4th
 DATA_STEPS, DEVICE_CROP_STEPS = 4, 2
 CROP_TOL = 1e-3  # card against CPU, f32, normalized values
+CROP_BATCH = 64  # clips of the crop check's batch (run B's: 256)
 VERBS = ("opens", "closes", "picks up", "puts down", "cuts", "washes",
          "stirs", "pours", "holds", "moves")
 NOUNS = ("the drawer", "a knife", "the onion", "the cup", "the pan",
@@ -1461,10 +1490,8 @@ def write_k400_fixture(root: str, seed: int = 0, *, videos: int = 64,
 def _device_busy_ms(prof) -> float:
     """Union of the device's activity intervals (kernels, copies) in a
     profile: the copy stream's transfers overlap the step's kernels."""
-    from torch.autograd import DeviceType
-
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in _device_events(prof))
     busy, end = 0.0, -math.inf
     for a, b in spans:
         if b > end:
@@ -1673,7 +1700,7 @@ def phase_data(tmp: str, echo_p50: float) -> dict:
         f"ms {[round(x, 3) for x in data_ms_b]}; main() wall {wall_b:.2f} s; "
         f"steps 2-{DEVICE_CROP_STEPS}: p50 step "
         f"{float(np.median(batch_ms_b[1:])):.3f} ms")
-    crop = _check_device_crop(args_b)
+    crop = _check_device_crop([*args_b, f"data.batch_size={CROP_BATCH}"])
 
     fa.reset_launches()
     again = pretrain_clip.main(args_a)
@@ -3868,7 +3895,7 @@ def _nccl_entry(tmp: str, fixture: tuple) -> dict:
                            os.path.join(tmp, "parallel"), PAR_STEPS, want)
 
 
-ENTRY_BATCH, ENTRY_STEPS = 8, 2
+ENTRY_BATCH, ENTRY_STEPS = 4, 2
 
 
 def _entry_runs(tmp: str) -> dict:
@@ -4456,9 +4483,9 @@ def phase_narrator(tmp: str, fixture: tuple) -> dict:
     return {"rows": rows, "paths": paths}
 
 
-# the EgoNLQ slice: one NLQ clip (an Ego4D NLQ clip is 480 s; 240 s here,
+# the EgoNLQ slice: one NLQ clip (an Ego4D NLQ clip is 480 s; 120 s here,
 # for time) of 512x288 at 30 fps, and 64 queries in the official schema
-NLQ_VIDEO_S, NLQ_W, NLQ_H, NLQ_FPS, NLQ_QUERIES = 240, 512, 288, 30, 64
+NLQ_VIDEO_S, NLQ_W, NLQ_H, NLQ_FPS, NLQ_QUERIES = 120, 512, 288, 30, 64
 NLQ_VDIM = NLQ_QDIM = 512  # CLIP_VITB16's embed_dim: both feature widths
 NLQ_WHERE = ("where did I put", "where was", "what did I do with",
              "how many times did I touch", "in what location did I see",

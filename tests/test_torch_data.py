@@ -29,7 +29,8 @@ from avion_tpu_torch.data import sampling as psampling
 from avion_tpu_torch.data import shards as pshards
 from avion_tpu_torch.data import transforms as ptf
 from avion_tpu_torch.data import video_reader as pvr
-from torch_native_decode import native_decode_lib, use_native  # noqa: F401
+from torch_native_decode import (backend, force_cv2,  # noqa: F401
+                                 native_decode_lib)
 
 FPS = 10
 CHUNK = 2  # seconds per chunk file
@@ -66,27 +67,6 @@ def ego4d(tmp_path_factory):
     with open(meta, "wb") as f:
         pickle.dump(rows, f)
     return root, meta
-
-
-def _force_cv2(mp):
-    """Both packages' readers decode with cv2 (native disabled in this
-    process)."""
-    mp.setattr(jvr, "_lib", None)
-    mp.setattr(jvr, "_lib_tried", True)
-    mp.setattr(pvr, "_native_lib", lambda: None)
-
-
-@pytest.fixture(params=["native", "cv2"])
-def backend(request, monkeypatch):
-    """The same decode backend on both sides: ``native`` loads the
-    session's own build of the library in both packages
-    (``torch_native_decode``), ``cv2`` disables it in both; each reader's
-    state is put back afterwards."""
-    if request.param == "cv2":
-        _force_cv2(monkeypatch)
-        return "cv2"
-    use_native(monkeypatch, request, jvr, pvr)
-    return "native"
 
 
 # with out_size=None the output is the crop's own size.  The native
@@ -351,7 +331,7 @@ def packed(ego4d, tmp_path_factory):
     root, meta = ego4d
     out = []
     with pytest.MonkeyPatch.context() as mp:
-        _force_cv2(mp)
+        force_cv2(mp, jvr, pvr)
         for mod in (jshards, pshards):
             out_dir = str(tmp_path_factory.mktemp(mod.__name__.split(".")[0]))
             index = mod.pack_shards("ego4d", root, meta, out_dir,
@@ -496,6 +476,73 @@ def test_loader_workers_match_in_process():
     if ploader.shm_free_bytes() >= 1 << 24:  # room for the batches
         assert shm_dl.transfers == {"shm": 2}
     assert pkl_dl.transfers == {"pickle": 2}
+
+
+_PRELOAD_SCRIPT = """
+import sys
+
+import numpy as np
+
+from avion_tpu_torch.data.loader import DataLoader
+
+
+class Probe:
+    def __len__(self):
+        return 4
+
+    def __getitem__(self, i):
+        return {"seen": np.array("preload_main" in sys.modules)}
+
+
+if __name__ == "__main__":
+    dl = DataLoader(Probe(), 2, num_workers=2, shuffle=False)
+    print(all(bool(b["seen"].all()) for b in dl))
+    dl.close()
+"""
+
+
+def test_forkserver_imports_the_script_once(tmp_path):
+    """A script's loader workers find the script already imported under its
+    own name by the forkserver, so their run of it as ``__mp_main__``
+    reuses its imports (CPython's own preload of ``__main__`` never
+    happens)."""
+    import subprocess
+    import sys
+
+    script = tmp_path / "preload_main.py"
+    script.write_text(_PRELOAD_SCRIPT)
+    root = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, env=env, cwd=tmp_path, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split() == ["True"]
+
+
+@pytest.mark.parametrize("main,want", [
+    (dict(spec="avion_tpu_torch.train.pretrain_clip"),
+     ["avion_tpu_torch.train.pretrain_clip"]),
+    (dict(spec="pytest.__main__"), []),
+    (dict(file="/some/dir/chip_smoke.py"), ["chip_smoke"]),
+    ({}, []),
+])
+def test_forkserver_preload_names(monkeypatch, main, want):
+    """The main module's importable name (none for a package's
+    ``__main__``, which the workers do not run), then the dataset's
+    module."""
+    import sys
+    import types
+
+    mod = types.ModuleType("__main__")
+    mod.__spec__ = (types.SimpleNamespace(name=main["spec"])
+                    if "spec" in main else None)
+    if "file" in main:
+        mod.__file__ = main["file"]
+    monkeypatch.setitem(sys.modules, "__main__", mod)
+    assert ploader.forkserver_preload() == want
+    ds = pds.VideoCaptionDataset.__new__(pds.VideoCaptionDataset)
+    assert ploader.forkserver_preload(ds) == \
+        want + ["avion_tpu_torch.data.datasets"]
 
 
 def test_small_shm_takes_the_pickle_path(monkeypatch):

@@ -13,12 +13,10 @@ import pytest
 cv2 = pytest.importorskip("cv2")
 
 from avion_tpu.data import datasets as jds
-from avion_tpu.data import video_reader as jvr
 from avion_tpu.train.finetune_cls import load_actions as jax_load_actions
 from avion_tpu_torch.data import datasets as pds
-from avion_tpu_torch.data import video_reader as pvr
 from avion_tpu_torch.train.finetune_cls import load_actions
-from torch_native_decode import native_decode_lib, use_native  # noqa: F401
+from torch_native_decode import backend, native_decode_lib  # noqa: F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 if ROOT not in sys.path:
@@ -37,21 +35,6 @@ CROP = 24
 def layout(tmp_path_factory):
     return chip_smoke.write_eval_fixtures(
         str(tmp_path_factory.mktemp("eval")), seed=0, **TINY)
-
-
-@pytest.fixture(params=["native", "cv2"])
-def backend(request, monkeypatch):
-    """The same decode backend on both sides: ``native`` loads the
-    session's own build of the library in both packages
-    (``torch_native_decode``), ``cv2`` disables it in both; each reader's
-    state is put back afterwards."""
-    if request.param == "cv2":
-        monkeypatch.setattr(jvr, "_lib", None)
-        monkeypatch.setattr(jvr, "_lib_tried", True)
-        monkeypatch.setattr(pvr, "_native_lib", lambda: None)
-        return "cv2"
-    use_native(monkeypatch, request, jvr, pvr)
-    return "native"
 
 
 def _classy_args(layout, dataset):

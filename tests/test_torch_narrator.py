@@ -38,6 +38,7 @@ from avion_tpu_torch.models.pt_import import params_from_jax
 from avion_tpu_torch.models.registry import create_model, register_model
 from avion_tpu_torch.optim import factory
 from avion_tpu_torch.train import train_narrator
+from torch_native_decode import backend, native_decode_lib  # noqa: F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 if ROOT not in sys.path:
@@ -310,7 +311,7 @@ def _stub_caption(frames):
             "the same words"]
 
 
-def test_narrate_rows_match_jax(ego4d, tmp_path):
+def test_narrate_rows_match_jax(ego4d, tmp_path, backend):
     from avion_tpu.tools import narrator as jax_tool
     from avion_tpu_torch.tools import narrator as tool
 

@@ -41,6 +41,7 @@ from test_torch_parallel_finetune import (MESH_IDS, MESHES, OPT, check_layout,
                                           compare_step, jax_mesh_step,
                                           perturbed)
 from torch_dist import run_ranks
+from torch_native_decode import backend, native_decode_lib  # noqa: F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 if ROOT not in sys.path:
@@ -199,10 +200,11 @@ def seeded_items(monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["pretrain", "finetune"])
-def test_rank_rows_match_jax_loader(k400, seeded_items, kind):
+def test_rank_rows_match_jax_loader(k400, seeded_items, backend, kind):
     """Over 2 batch groups, each group's batches (videos, tube masks or
     RandAugment'ed views, labels) equal the JAX loader's for the same
-    process: the same clips at the same global positions."""
+    process: the same clips at the same global positions, decoded by the
+    same backend."""
     root, meta = k400
     if kind == "pretrain":
         kw = dict(clip_length=4, clip_stride=2, crop_size=32, patch_size=16,

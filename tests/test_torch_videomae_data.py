@@ -3,7 +3,8 @@ and cube random erasing bit for bit on the same ``RandomState``, and every
 ``KineticsDataset`` and ``VideoClassyDataset('kinetics')`` item (training
 views with every item's draws from seed 0, and the multi-view test) on a
 layout ``chip_smoke.write_k400_fixture`` writes, with every side a multiple
-of 8 (the native decoder's heap fault, ROADMAP)."""
+of 8 (the native decoder's heap fault, ROADMAP), through each decode backend
+pinned on both sides."""
 
 import os.path as osp
 import sys
@@ -18,6 +19,7 @@ from avion_tpu.data import rand_augment as jra
 from avion_tpu_torch.data import datasets as pds
 from avion_tpu_torch.data import rand_augment as pra
 from avion_tpu_torch.train.videomae_finetune import AugmentedK400
+from torch_native_decode import backend, native_decode_lib  # noqa: F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 if ROOT not in sys.path:
@@ -66,7 +68,7 @@ def test_rand_augment_and_erase_are_bit_equal():
 
 
 @pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
-def test_kinetics_items_match_jax(k400, seeded_items, training):
+def test_kinetics_items_match_jax(k400, seeded_items, backend, training):
     root, meta = k400
     kw = dict(clip_length=4, clip_stride=2, crop_size=CROP, patch_size=16,
               tubelet_size=2, mask_ratio=0.75, is_training=training)
@@ -81,7 +83,8 @@ def test_kinetics_items_match_jax(k400, seeded_items, training):
         _assert_items_equal(item, j[i])
 
 
-def test_kinetics_classy_training_views_match_jax(k400, seeded_items):
+def test_kinetics_classy_training_views_match_jax(k400, seeded_items,
+                                                  backend):
     root, meta = k400
     kw = dict(is_training=True, clip_length=4, clip_stride=2, num_sample=2)
     aug = dict(crop_size=CROP, mode="rrc", hflip_prob=0.5)
@@ -99,7 +102,7 @@ def test_kinetics_classy_training_views_match_jax(k400, seeded_items):
 
 
 @pytest.mark.parametrize("views", [(1, 1), (5, 3)], ids=["1x1", "5x3"])
-def test_kinetics_test_views_match_jax(k400, views):
+def test_kinetics_test_views_match_jax(k400, backend, views):
     root, meta = k400
     kw = dict(is_training=False, clip_length=4, clip_stride=2,
               num_clips=views[0], num_crops=views[1])
@@ -116,7 +119,7 @@ def test_kinetics_test_views_match_jax(k400, views):
         _assert_items_equal(item, j[i])
 
 
-def test_augmented_k400_matches_jax(k400, seeded_items):
+def test_augmented_k400_matches_jax(k400, seeded_items, backend):
     from avion_tpu.train.videomae_finetune import AugmentedK400 as JaxAug
 
     root, meta = k400

@@ -4,7 +4,10 @@ test session from ``native/decode/avion_decode.cc`` (the flags of
 the xdist workers share: the build takes a file lock, compiles to a name of
 its own and moves the library into place, so that no worker loads it
 half-written.  The tests then point both packages' readers at it, whether
-or not a library happens to exist in ``native/decode``.
+or not a library happens to exist in ``native/decode``.  Every test that
+decodes one file through both packages takes the ``backend`` fixture, so
+that which decoder each side uses is never left to whichever process
+happened to build ``native/decode`` first.
 
 It skips only where ``g++``, ``pkg-config`` or FFmpeg's development files
 are missing; any other build failure fails the test."""
@@ -78,3 +81,26 @@ def use_native(monkeypatch, request, jvr, pvr) -> None:
     request.addfinalizer(pvr._native_lib.cache_clear)
     assert jvr.native_available(), "the JAX reader did not load " + lib
     assert pvr.native_available(), "the port's reader did not load " + lib
+
+
+def force_cv2(monkeypatch, jvr, pvr) -> None:
+    """Both packages' readers decode with cv2 (native disabled in this
+    process)."""
+    monkeypatch.setattr(jvr, "_lib", None)
+    monkeypatch.setattr(jvr, "_lib_tried", True)
+    monkeypatch.setattr(pvr, "_native_lib", lambda: None)
+
+
+@pytest.fixture(params=["native", "cv2"])
+def backend(request, monkeypatch):
+    """The same decode backend on both sides: ``native`` loads the
+    session's own build of the library in both packages, ``cv2`` disables
+    it in both; each reader's state is put back afterwards."""
+    from avion_tpu.data import video_reader as jvr
+    from avion_tpu_torch.data import video_reader as pvr
+
+    if request.param == "cv2":
+        force_cv2(monkeypatch, jvr, pvr)
+        return "cv2"
+    use_native(monkeypatch, request, jvr, pvr)
+    return "native"
