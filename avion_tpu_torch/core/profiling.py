@@ -7,9 +7,16 @@
   ``tools.profile_step.analyze_trace``).  Where CUDA is present and the
   profiler cannot start, it raises: a trace without the card's activity
   would pass for one with it.
-- ``annotate(name)``: a named region (``record_function``) that shows in
-  the trace; ``CLIP.encode_image`` / ``encode_text`` enter one each.
-- ``wallclock(label)``: prints the wall time of a block.
+- ``span(name)``: a named region of the program (``record_function``, so
+  it lands on the profiler's timeline beside the card's kernels).  The
+  program's names start with ``avion.``: ``train.steps`` opens
+  ``avion.step`` and its phases, ``models.clip`` / ``models.videomae``
+  one span a tower.  With no profiler active it reads one flag and
+  records nothing.
+- ``backward_mark(x, name)``: ``x`` through an identity whose backward
+  records a zero-length ``name`` where the gradient reaches ``x``: the
+  start of a tower's backward on the autograd engine's thread.  With no
+  profiler active it returns ``x`` itself and adds no autograd node.
 - ``card_line(device)``: the card's name and power limit as
   ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
   them, which the tools print beside every time they measure;
@@ -26,6 +33,7 @@ import time
 from typing import Callable, Iterator
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 _TRACES = itertools.count()
 
@@ -48,17 +56,53 @@ def trace(logdir: str) -> Iterator[str]:
     prof.export_chrome_trace(path)
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    with torch.profiler.record_function(name):
-        yield
+def _profiling() -> bool:
+    # set by torch.profiler's start and stop, for checks on the hot path
+    return _autograd_profiler._is_profiler_enabled
 
 
-@contextlib.contextmanager
-def wallclock(label: str, sink=print) -> Iterator[None]:
-    t0 = time.perf_counter()
-    yield
-    sink(f"[{label}] {time.perf_counter() - t0:.3f}s")
+class span:
+    """``with span(name):`` records the block as ``name`` when a profiler
+    is active, and does nothing else otherwise."""
+
+    __slots__ = ("name", "_record")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._record = None
+
+    def __enter__(self) -> None:
+        if _profiling():
+            self._record = torch.profiler.record_function(self.name)
+            self._record.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        if self._record is not None:
+            self._record.__exit__(*exc)
+            self._record = None
+
+
+class _BackwardMark(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, name: str) -> torch.Tensor:
+        ctx.name = name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        with torch.profiler.record_function(ctx.name):
+            pass
+        return grad, None
+
+
+def backward_mark(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x``; under an active profiler, through an identity whose backward
+    records the zero-length ``name`` inside the engine's own
+    ``autograd::engine::evaluate_function`` op (so no other op's
+    enclosing op changes)."""
+    if not (_profiling() and torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _BackwardMark.apply(x, name)
 
 
 def card_line(device: torch.device) -> str:

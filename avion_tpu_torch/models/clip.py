@@ -8,7 +8,10 @@ with ``exp(logit_scale)``, whose gradient is blocked under
 With ``use_logit_bias`` (SigLIP's head) it also returns the learnable f32
 scalar ``logit_bias``, initialised to ``logit_bias_init``.
 With pooling ``none`` the visual tower's tokens are normalized without the
-projection, as the JAX tower returns them before its ``proj``.
+projection, as the JAX tower returns them before its ``proj``.  Under a
+profiler each tower's forward is the span ``avion.tower.visual`` /
+``avion.tower.text``, and its output carries the backward mark
+``avion.tower.<tower>.bwd`` (``core.profiling``).
 
 :class:`VideoClassifier`: dropout and a linear f32 ``fc_cls`` on the
 visual tower's width features (the reference's ``model_clip.py:15-38``)."""
@@ -22,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from avion_tpu_torch.core.profiling import annotate
+from avion_tpu_torch.core.profiling import backward_mark, span
 from avion_tpu_torch.models.layers import (LayerNorm, LayerScale, gelu,
                                            lecun_normal_, quick_gelu)
 from avion_tpu_torch.models.text import TextTransformer
@@ -103,20 +106,20 @@ class CLIP(nn.Module):
                      generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
         """[B, T, H, W, C] video -> [B, embed_dim] unit f32 (pooling
-        ``none``: [B, S, width], unprojected); a trace shows it as the
-        ``encode_image`` region."""
-        with annotate("encode_image"):
+        ``none``: [B, S, width], unprojected)."""
+        with span("avion.tower.visual"):
             pooled = self.visual(image, deterministic, generator)
-            if self.visual.pooling == "none":
-                return _l2norm(pooled)
-            return _l2norm(pooled @ self.image_projection.to(pooled.dtype))
+            if self.visual.pooling != "none":
+                pooled = pooled @ self.image_projection.to(pooled.dtype)
+            return backward_mark(_l2norm(pooled), "avion.tower.visual.bwd")
 
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
-        """[B, L] token ids -> [B, embed_dim] unit f32 (the
-        ``encode_text`` region of a trace)."""
-        with annotate("encode_text"):
+        """[B, L] token ids -> [B, embed_dim] unit f32."""
+        with span("avion.tower.text"):
             pooled = self.textual(text)
-            return _l2norm(pooled @ self.text_projection.to(pooled.dtype))
+            return backward_mark(
+                _l2norm(pooled @ self.text_projection.to(pooled.dtype)),
+                "avion.tower.text.bwd")
 
     def forward(self, image: torch.Tensor, text: torch.Tensor,
                 deterministic: bool = True,

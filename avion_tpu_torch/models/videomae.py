@@ -17,6 +17,11 @@ and the finetune ViT.
 - Attention goes through ``ops.flash_attention`` as in every tower.
 - :meth:`init_weights` draws the flax initializers' distributions and
   fills the position tables; a model built on the meta device needs it.
+- Under a profiler the pretraining forward records the spans
+  ``avion.tower.encoder`` (the mask's split through ``encoder_to_decoder``)
+  and ``avion.tower.decoder`` (the decoder's tokens through the head), and
+  each tower's output carries the backward mark
+  ``avion.tower.<tower>.bwd`` (``core.profiling``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from avion_tpu_torch.core.profiling import backward_mark, span
 from avion_tpu_torch.models.layers import (LayerNorm, Transformer, dense,
                                            gelu, lecun_normal_)
 
@@ -154,24 +160,29 @@ class PretrainVideoMAE(_VideoMAEBase):
         masked, with the tube mask's fixed masked count.  Returns (pred
         [B, n_masked, patch_dim] f32, masked_idx [B, n_masked]).  With
         ``deterministic=False`` DropPath draws from ``generator``."""
-        visible_idx, masked_idx = split_mask_indices(mask, self.n_visible)
-        tokens = tube_patchify(video, self.patch_size, self.tubelet_size)
-        xv = dense(_gather_tokens(tokens.to(self.dtype), visible_idx),
-                   self.patch_embed)
-        xv = xv + self.pos_embed.to(self.dtype)[visible_idx]
-        xv = self.encoder(xv, self._drop_keep(self.encoder, xv,
-                                              deterministic, generator))
-        xv = dense(self.encoder_norm(xv), self.encoder_to_decoder)
-        dpos = self.decoder_pos_embed.to(self.dtype)
-        b, n_masked = masked_idx.shape
-        dm = self.mask_token.to(self.dtype).expand(
-            b, n_masked, -1) + dpos[masked_idx]
-        full = torch.cat([xv + dpos[visible_idx], dm], dim=1)
-        full = self.decoder_norm(self.decoder(full))
-        head = self.decoder_head
-        pred = F.linear(full[:, -n_masked:].float(), head.weight.float(),
-                        head.bias.float())
-        return pred, masked_idx
+        with span("avion.tower.encoder"):
+            visible_idx, masked_idx = split_mask_indices(mask,
+                                                         self.n_visible)
+            tokens = tube_patchify(video, self.patch_size, self.tubelet_size)
+            xv = dense(_gather_tokens(tokens.to(self.dtype), visible_idx),
+                       self.patch_embed)
+            xv = xv + self.pos_embed.to(self.dtype)[visible_idx]
+            xv = self.encoder(xv, self._drop_keep(self.encoder, xv,
+                                                  deterministic, generator))
+            xv = backward_mark(
+                dense(self.encoder_norm(xv), self.encoder_to_decoder),
+                "avion.tower.encoder.bwd")
+        with span("avion.tower.decoder"):
+            dpos = self.decoder_pos_embed.to(self.dtype)
+            b, n_masked = masked_idx.shape
+            dm = self.mask_token.to(self.dtype).expand(
+                b, n_masked, -1) + dpos[masked_idx]
+            full = torch.cat([xv + dpos[visible_idx], dm], dim=1)
+            full = self.decoder_norm(self.decoder(full))
+            head = self.decoder_head
+            pred = F.linear(full[:, -n_masked:].float(), head.weight.float(),
+                            head.bias.float())
+            return backward_mark(pred, "avion.tower.decoder.bwd"), masked_idx
 
 
 class FinetuneVideoMAE(_VideoMAEBase):

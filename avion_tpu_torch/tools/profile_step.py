@@ -18,8 +18,8 @@ the trace.  In the trace each device event (``kernel``, ``gpu_memcpy``,
 (``cuda_runtime`` / ``cuda_driver``); the launch's thread and time give
 the row's
 
-- **region**: ``vision`` / ``text`` inside the ``encode_image`` /
-  ``encode_text`` annotation (``models.clip``); a backward launch takes
+- **region**: ``vision`` / ``text`` inside the ``avion.tower.visual`` /
+  ``avion.tower.text`` span (``models.clip``); a backward launch takes
   the region of the forward op with its autograd sequence number;
 - **phase**: ``bwd`` inside an ``autograd::engine::evaluate_function``
   op, else ``fwd``;
@@ -43,7 +43,7 @@ from collections import Counter, defaultdict
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-REGIONS = {"encode_image": "vision", "encode_text": "text"}
+REGIONS = {"avion.tower.visual": "vision", "avion.tower.text": "text"}
 BWD_OP = "autograd::engine::evaluate_function"
 
 

@@ -28,16 +28,29 @@ group seeds its draws (patch dropout, DropPath, tube masks) with its index
 folded in, so the groups' rows draw different masks while the ``sp`` ranks
 of a group draw the same; mixup / cutmix draws alike on every rank and
 mixes the global batch (``train.augment_device``).
+
+Under a profiler each step records the span ``avion.step`` and, inside it
+and in this order, its phases (``core.profiling.span``):
+``avion.step.prep`` (the batch onto the model's input, the generator, the
+masks and mixup), ``.forward`` (the model), ``.loss`` (the loss, the MoE
+router terms, the metrics' mean over the batch group), ``.backward``
+(``zero_grad``, ``backward()``, the mesh's reduction) and ``.update``
+(the gradient norm, the optimizer's update, the logit-scale clamp, the
+EMA), which holds ``.read``, the host's read of ``isfinite(loss)``.  The
+cached accumulation repeats prep, forward, loss and backward once a
+microbatch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
 
+from avion_tpu_torch.core.profiling import span
 from avion_tpu_torch.core.train_state import TrainState
 from avion_tpu_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD,
                                              OPENAI_MEAN, OPENAI_STD,
@@ -110,6 +123,34 @@ def _finish_backward(state: TrainState) -> None:
         state.parallel.finish_backward()
 
 
+def _phase(name: str) -> span:
+    """The step's phase ``name``, the span ``avion.step.<name>``."""
+    return span("avion.step." + name)
+
+
+def _spanned(step: Callable) -> Callable:
+    """``step`` inside the span ``avion.step``, which holds its phases."""
+
+    @functools.wraps(step)
+    def spanned(state: TrainState, batch):
+        with span("avion.step"):
+            return step(state, batch)
+
+    return spanned
+
+
+def _backward(state: TrainState, objective: torch.Tensor,
+              zero_grad: bool = True, finish: bool = True) -> None:
+    """The phase ``backward``: the gradients cleared (``zero_grad``),
+    ``objective.backward()``, and with ``finish`` the mesh's reduction."""
+    with _phase("backward"):
+        if zero_grad:
+            state.optimizer.zero_grad()
+        objective.backward()
+        if finish:
+            _finish_backward(state)
+
+
 def _group_mean(values: Dict[str, torch.Tensor],
                 group) -> Dict[str, torch.Tensor]:
     """``values`` (scalars of this rank's rows, detached) as their means
@@ -133,18 +174,29 @@ def _clamp_logit_scale(model: torch.nn.Module) -> None:
 
 def _apply_or_skip(state: TrainState, loss: torch.Tensor,
                    ema_decay: Optional[float] = None,
-                   grad_norm: Optional[torch.Tensor] = None) -> bool:
-    """The update after ``loss.backward()``: when the loss is finite (the
-    step's one host read), hand the gradients to the optimizer (which
-    clips by ``grad_norm`` when given and updates, or under ``update_freq``
+                   clip_metrics: Optional[dict] = None) -> bool:
+    """The phase ``update`` after the backward: when the loss is finite
+    (the step's one host read, the phase ``read``), hand the gradients to
+    the optimizer (which clips and updates, or under ``update_freq``
     accumulates) and average the parameters into the EMA; else leave all
-    of it.  ``state.step`` advances either way."""
-    ok = bool(torch.isfinite(loss))
-    if ok:
-        state.optimizer.update(grad_norm)
-        if state.ema is not None and ema_decay is not None:
-            state.update_ema(ema_decay)
-    state.step += 1
+    of it.  ``state.step`` advances either way.  A CLIP step passes its
+    ``clip_metrics``: the gradients' global norm joins them as
+    ``grad_norm`` (the optimizer clips by it), and an applied update
+    clamps the logit scale."""
+    with _phase("update"):
+        grad_norm = None
+        if clip_metrics is not None:
+            grad_norm = clip_metrics["grad_norm"] = \
+                state.optimizer.global_norm()
+        with _phase("read"):
+            ok = bool(torch.isfinite(loss))
+        if ok:
+            state.optimizer.update(grad_norm)
+            if clip_metrics is not None:
+                _clamp_logit_scale(state.model)
+            if state.ema is not None and ema_decay is not None:
+                state.update_ema(ema_decay)
+        state.step += 1
     return ok
 
 
@@ -169,13 +221,8 @@ def _contrastive_loss(model: torch.nn.Module, loss_type: str,
 def _finish_clip_step(state: TrainState, metrics: dict) -> dict:
     """After the backward: ``grad_norm``, the update or its skip, the
     logit-scale clamp; ``metrics`` detached, with ``step_ok``."""
-    model, opt = state.model, state.optimizer
     metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["grad_norm"] = opt.global_norm()
-    ok = _apply_or_skip(state, metrics["loss"],
-                        grad_norm=metrics["grad_norm"])
-    if ok:
-        _clamp_logit_scale(model)
+    ok = _apply_or_skip(state, metrics["loss"], clip_metrics=metrics)
     metrics["step_ok"] = float(ok)
     return metrics
 
@@ -227,22 +274,23 @@ def make_clip_train_step(model: torch.nn.Module,
 
     def step(state: TrainState, batch):
         call, model, group, rank_seed = _parallel_parts(state, seed)
-        opt = state.optimizer
-        generator = _step_generator(model, rank_seed, state.step)
-        video = prep_video(batch["video"], dtype=dtype, batch=batch,
-                           model=model, crop_size=crop_size)
-        out = call(video, batch["text"].long(), deterministic=False,
-                   generator=generator)
-        metrics = loss_fn(out["image_embed"], out["text_embed"],
-                          out["logit_scale"], out.get("logit_bias"), group)
-        metrics["logit_scale"] = out["logit_scale"]
-        obj = _add_moe(model, metrics, moe_aux_weight, moe_zloss_weight)
-        opt.zero_grad()
-        obj.backward()
-        _finish_backward(state)
+        with _phase("prep"):
+            generator = _step_generator(model, rank_seed, state.step)
+            video = prep_video(batch["video"], dtype=dtype, batch=batch,
+                               model=model, crop_size=crop_size)
+        with _phase("forward"):
+            out = call(video, batch["text"].long(), deterministic=False,
+                       generator=generator)
+        with _phase("loss"):
+            metrics = loss_fn(out["image_embed"], out["text_embed"],
+                              out["logit_scale"], out.get("logit_bias"),
+                              group)
+            metrics["logit_scale"] = out["logit_scale"]
+            obj = _add_moe(model, metrics, moe_aux_weight, moe_zloss_weight)
+        _backward(state, obj)
         return state, _finish_clip_step(state, metrics)
 
-    return step
+    return _spanned(step)
 
 
 def make_clip_accum_train_step(model: torch.nn.Module, update_freq: int,
@@ -289,58 +337,63 @@ def make_clip_accum_train_step(model: torch.nn.Module, update_freq: int,
 
     def step(state: TrainState, batch):
         call, model, group, rank_seed = _parallel_parts(state, seed)
-        opt = state.optimizer
 
         def encode(m: int, fn) -> dict:
-            mb = {k: v[m] for k, v in batch.items()}
-            video = prep_video(mb["video"], dtype=dtype, batch=mb,
-                               model=model, crop_size=crop_size)
-            return fn(video, mb["text"].long(), deterministic=False,
-                      generator=_step_generator(
-                          model, rank_seed, state.step * micro + m))
+            with _phase("prep"):
+                mb = {k: v[m] for k, v in batch.items()}
+                video = prep_video(mb["video"], dtype=dtype, batch=mb,
+                                   model=model, crop_size=crop_size)
+                generator = _step_generator(model, rank_seed,
+                                            state.step * micro + m)
+            with _phase("forward"):
+                return fn(video, mb["text"].long(), deterministic=False,
+                          generator=generator)
 
         with torch.no_grad():
             cached = [encode(m, model) for m in range(micro)]
-            zi = torch.cat([gather_batch(c["image_embed"], group)
-                            for c in cached])
-            zt = torch.cat([gather_batch(c["text_embed"], group)
-                            for c in cached])
+            with _phase("forward"):
+                zi = torch.cat([gather_batch(c["image_embed"], group)
+                                for c in cached])
+                zt = torch.cat([gather_batch(c["text_embed"], group)
+                                for c in cached])
         del cached
         rows = zi.shape[0] // micro
-        opt.zero_grad()
+        state.optimizer.zero_grad()
         total = None
         for m in range(micro):
-            sync = m == micro - 1 or state.parallel is None
-            with (contextlib.nullcontext() if sync
+            last = m == micro - 1
+            with (contextlib.nullcontext() if last or state.parallel is None
                   else state.parallel.no_sync()):
                 out = encode(m, call)
-                live = slice(m * rows, (m + 1) * rows)
-                zi_m = torch.slice_scatter(
-                    zi, gather_batch(out["image_embed"], group).to(zi.dtype),
-                    start=live.start, end=live.stop)
-                zt_m = torch.slice_scatter(
-                    zt, gather_batch(out["text_embed"], group).to(zt.dtype),
-                    start=live.start, end=live.stop)
-                scale, bias = out["logit_scale"], out.get("logit_bias")
-                if m:
-                    scale = scale.detach()
-                    bias = None if bias is None else bias.detach()
-                # the cache is the global batch already
-                metrics = loss_fn(zi_m, zt_m, scale, bias, None)
-                obj = _add_moe(model, metrics, moe_aux_weight,
-                               moe_zloss_weight, 1.0 / micro)
-                obj.backward()
+                with _phase("loss"):
+                    live = slice(m * rows, (m + 1) * rows)
+                    zi_m = torch.slice_scatter(
+                        zi, gather_batch(out["image_embed"],
+                                         group).to(zi.dtype),
+                        start=live.start, end=live.stop)
+                    zt_m = torch.slice_scatter(
+                        zt, gather_batch(out["text_embed"],
+                                         group).to(zt.dtype),
+                        start=live.start, end=live.stop)
+                    scale, bias = out["logit_scale"], out.get("logit_bias")
+                    if m:
+                        scale = scale.detach()
+                        bias = None if bias is None else bias.detach()
+                    # the cache is the global batch already
+                    metrics = loss_fn(zi_m, zt_m, scale, bias, None)
+                    obj = _add_moe(model, metrics, moe_aux_weight,
+                                   moe_zloss_weight, 1.0 / micro)
+                _backward(state, obj, zero_grad=False, finish=last)
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["logit_scale"] = out["logit_scale"].detach()
             del obj
             total = metrics if total is None else {
                 k: total[k] + v for k, v in metrics.items()}
             del out, zi_m, zt_m
-        _finish_backward(state)
         return state, _finish_clip_step(
             state, {k: v / micro for k, v in total.items()})
 
-    return step
+    return _spanned(step)
 
 
 def make_mir_finetune_step(model: torch.nn.Module, margin: float = 0.2,
@@ -358,22 +411,23 @@ def make_mir_finetune_step(model: torch.nn.Module, margin: float = 0.2,
 
     def step(state: TrainState, batch):
         call, model, group, rank_seed = _parallel_parts(state, seed)
-        opt = state.optimizer
-        generator = _step_generator(model, rank_seed, state.step)
-        video = prep_video(batch["video"], dtype=dtype, model=model)
-        out = call(video, batch["text"].long(), deterministic=False,
-                   generator=generator)
-        loss = max_margin_ranking_loss(out["image_embed"], out["text_embed"],
-                                       margin=margin, group=group)["loss"]
-        opt.zero_grad()
-        loss.backward()
-        _finish_backward(state)
+        with _phase("prep"):
+            generator = _step_generator(model, rank_seed, state.step)
+            video = prep_video(batch["video"], dtype=dtype, model=model)
+        with _phase("forward"):
+            out = call(video, batch["text"].long(), deterministic=False,
+                       generator=generator)
+        with _phase("loss"):
+            loss = max_margin_ranking_loss(
+                out["image_embed"], out["text_embed"], margin=margin,
+                group=group)["loss"]
+        _backward(state, loss)
         ok = _apply_or_skip(state, loss)
         return state, {"loss": loss.detach(),
                        "max_margin_loss": loss.detach(),
                        "step_ok": float(ok)}
 
-    return step
+    return _spanned(step)
 
 
 def make_videomae_train_step(model: torch.nn.Module, patch_size: int = 16,
@@ -397,30 +451,30 @@ def make_videomae_train_step(model: torch.nn.Module, patch_size: int = 16,
 
     def step(state: TrainState, batch):
         call, model, group, rank_seed = _parallel_parts(state, seed)
-        opt = state.optimizer
-        generator = _step_generator(model, rank_seed, state.step)
-        video = prep_video(batch["video"], dtype, mean=IMAGENET_MEAN,
-                           std=IMAGENET_STD)
-        mask = batch["mask"]
-        if regen_mask:
-            b, t, h, w, _ = video.shape
-            mask = tube_mask_device(generator, b, t // tubelet_size,
-                                    h // patch_size, w // patch_size,
-                                    model.mask_ratio, video.device)
-        torch._assert_async((mask.sum(dim=-1) == n_masked).all(),
-                            f"every row must mask {n_masked} tokens")
-        pred, masked_idx = call(video, mask, deterministic=False,
-                                generator=generator)
-        loss = videomae_loss(pred, video, masked_idx, patch_size,
-                             tubelet_size, normalize_target)["loss"]
-        opt.zero_grad()
-        loss.backward()
-        _finish_backward(state)
-        metrics = _group_mean({"loss": loss}, group)
+        with _phase("prep"):
+            generator = _step_generator(model, rank_seed, state.step)
+            video = prep_video(batch["video"], dtype, mean=IMAGENET_MEAN,
+                               std=IMAGENET_STD)
+            mask = batch["mask"]
+            if regen_mask:
+                b, t, h, w, _ = video.shape
+                mask = tube_mask_device(generator, b, t // tubelet_size,
+                                        h // patch_size, w // patch_size,
+                                        model.mask_ratio, video.device)
+            torch._assert_async((mask.sum(dim=-1) == n_masked).all(),
+                                f"every row must mask {n_masked} tokens")
+        with _phase("forward"):
+            pred, masked_idx = call(video, mask, deterministic=False,
+                                    generator=generator)
+        with _phase("loss"):
+            loss = videomae_loss(pred, video, masked_idx, patch_size,
+                                 tubelet_size, normalize_target)["loss"]
+            metrics = _group_mean({"loss": loss}, group)
+        _backward(state, loss)
         ok = _apply_or_skip(state, metrics["loss"])
         return state, {**metrics, "step_ok": float(ok)}
 
-    return step
+    return _spanned(step)
 
 
 def make_cls_train_step(model: torch.nn.Module, label_smoothing: float = 0.0,
@@ -442,28 +496,29 @@ def make_cls_train_step(model: torch.nn.Module, label_smoothing: float = 0.0,
 
     def step(state: TrainState, batch):
         call, model, group, rank_seed = _parallel_parts(state, seed)
-        opt = state.optimizer
-        generator = _step_generator(model, seed, state.step)
-        video = prep_video(batch["video"], dtype=dtype)
-        label = batch["label"]
-        if mixup_fn is not None and label.dim() == 1:
-            video, label = mixup_fn(generator, video, label, group=group)
-        if rank_seed != seed:
-            generator = _step_generator(model, rank_seed, state.step)
-        logits = call(video, deterministic=False, generator=generator)
-        if label.dim() == logits.dim():
-            loss = soft_target_cross_entropy(logits, label)
-            hard = label.argmax(dim=-1)
-        else:
-            loss = softmax_cross_entropy(logits, label.long(),
-                                         label_smoothing)
-            hard = label
-        acc = 100.0 * (logits.detach().argmax(dim=-1) == hard).float().mean()
-        opt.zero_grad()
-        loss.backward()
-        _finish_backward(state)
-        metrics = _group_mean({"loss": loss, "acc1": acc}, group)
+        with _phase("prep"):
+            generator = _step_generator(model, seed, state.step)
+            video = prep_video(batch["video"], dtype=dtype)
+            label = batch["label"]
+            if mixup_fn is not None and label.dim() == 1:
+                video, label = mixup_fn(generator, video, label, group=group)
+            if rank_seed != seed:
+                generator = _step_generator(model, rank_seed, state.step)
+        with _phase("forward"):
+            logits = call(video, deterministic=False, generator=generator)
+        with _phase("loss"):
+            if label.dim() == logits.dim():
+                loss = soft_target_cross_entropy(logits, label)
+                hard = label.argmax(dim=-1)
+            else:
+                loss = softmax_cross_entropy(logits, label.long(),
+                                             label_smoothing)
+                hard = label
+            acc = 100.0 * (logits.detach().argmax(dim=-1)
+                           == hard).float().mean()
+            metrics = _group_mean({"loss": loss, "acc1": acc}, group)
+        _backward(state, loss)
         ok = _apply_or_skip(state, metrics["loss"], ema_decay)
         return state, {**metrics, "step_ok": float(ok)}
 
-    return step
+    return _spanned(step)

@@ -60,9 +60,9 @@ from avion_tpu_torch.parallel.sharding import shard_model
 from avion_tpu_torch.train.common import over_mesh
 from avion_tpu_torch.train.loop import (finish_if_preempted, save_epoch,
                                         setup_run, train_one_epoch)
-from avion_tpu_torch.train.steps import (_apply_or_skip, _finish_backward,
+from avion_tpu_torch.train.steps import (_apply_or_skip, _backward,
                                          _group_mean, _parallel_parts,
-                                         prep_video)
+                                         _phase, _spanned, prep_video)
 
 
 def make_narrator_step(model: torch.nn.Module) -> Callable:
@@ -74,29 +74,30 @@ def make_narrator_step(model: torch.nn.Module) -> Callable:
     batch's token mean: each rank's summed NLL over the group's token
     count, times the group's size, which DDP / FSDP2 average back.  The
     VCLM draws nothing at random.  Metrics: ``loss`` (device tensor; the
-    global mean) and ``step_ok``."""
+    global mean) and ``step_ok``.  Under a profiler it records the spans
+    of ``train.steps``' steps."""
     dtype = getattr(model, "dtype", torch.bfloat16)
 
     def step(state: TrainState, batch):
         call, model, group, _ = _parallel_parts(state, 0)
-        opt = state.optimizer
-        video = prep_video(batch["video"], dtype=dtype, model=model)
-        logits = call(video, batch["text"].long())
-        nll, count = caption_nll(logits, batch["text"])
-        world = (dist.get_world_size(group)
-                 if group is not None and dist.is_initialized() else 1)
-        if world > 1:
-            count = count.detach().clone()
-            dist.all_reduce(count, group=group)
-        loss = nll * world / count.clamp_min(1.0)
-        opt.zero_grad()
-        loss.backward()
-        _finish_backward(state)
-        metrics = _group_mean({"loss": loss}, group)
+        with _phase("prep"):
+            video = prep_video(batch["video"], dtype=dtype, model=model)
+        with _phase("forward"):
+            logits = call(video, batch["text"].long())
+        with _phase("loss"):
+            nll, count = caption_nll(logits, batch["text"])
+            world = (dist.get_world_size(group)
+                     if group is not None and dist.is_initialized() else 1)
+            if world > 1:
+                count = count.detach().clone()
+                dist.all_reduce(count, group=group)
+            loss = nll * world / count.clamp_min(1.0)
+            metrics = _group_mean({"loss": loss}, group)
+        _backward(state, loss)
         ok = _apply_or_skip(state, metrics["loss"])
         return state, {**metrics, "step_ok": float(ok)}
 
-    return step
+    return _spanned(step)
 
 
 def build_model(cfg: TrainConfig, dtype=None) -> torch.nn.Module:

@@ -183,18 +183,15 @@ def test_clip_fwd_flops_and_mfu_as_jax(geom):
     assert not hasattr(flops, "V5E_PEAK_FLOPS")
 
 
-def test_profiling_trace_annotate_wallclock_on_cpu(tmp_path):
+def test_profiling_trace_span_on_cpu(tmp_path):
     model = create_model("CLIP_TINY", num_frames=FRAMES).eval()
-    lines = []
-    with profiling.wallclock("encode", sink=lines.append):
-        with profiling.trace(str(tmp_path / "tr")) as path:
-            with torch.no_grad(), profiling.annotate("outer"):
-                model.encode_image(torch.zeros(1, FRAMES, 32, 32, 3))
-                model.encode_text(torch.zeros(1, 77, dtype=torch.long))
-    assert len(lines) == 1 and lines[0].startswith("[encode] ")
+    with profiling.trace(str(tmp_path / "tr")) as path:
+        with torch.no_grad(), profiling.span("outer"):
+            model.encode_image(torch.zeros(1, FRAMES, 32, 32, 3))
+            model.encode_text(torch.zeros(1, 77, dtype=torch.long))
     with open(path) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert {"outer", "encode_image", "encode_text"} <= names
+    assert {"outer", "avion.tower.visual", "avion.tower.text"} <= names
     rows, total = profile_step.analyze_trace(str(tmp_path / "tr"))
     assert rows == [] and total == 0.0  # the CPU has no device events
 
@@ -211,14 +208,14 @@ def _step_events(t0, corr0):
     device (0, 7) runs one event per launch."""
     c = lambda i: corr0 + i  # noqa: E731
     host = [
-        _ev("user_annotation", "encode_image", 1, 1, t0, 100),
+        _ev("user_annotation", "avion.tower.visual", 1, 1, t0, 100),
         _ev("cpu_op", "aten::mm", 1, 1, t0 + 10, 10, **{"Sequence number":
                                                         t0 + 5}),
         _ev("cuda_runtime", "cudaLaunchKernel", 1, 1, t0 + 12, 2,
             correlation=c(1)),
         _ev("cuda_runtime", "cudaLaunchKernelExC", 1, 1, t0 + 50, 2,
             correlation=c(2)),
-        _ev("user_annotation", "encode_text", 1, 1, t0 + 200, 100),
+        _ev("user_annotation", "avion.tower.text", 1, 1, t0 + 200, 100),
         _ev("cuda_runtime", "cudaLaunchKernelExC", 1, 1, t0 + 210, 2,
             correlation=c(3)),
         _ev("cuda_runtime", "cudaMemcpyAsync", 1, 1, t0 + 400, 2,
