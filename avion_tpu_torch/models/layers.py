@@ -39,6 +39,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from avion_tpu_torch.ops.activation import quick_gelu  # noqa: F401
 from avion_tpu_torch.ops.attention import cached_decode_attention
 from avion_tpu_torch.ops.flash_attention import (FWD_LSE_OP, HOP_FWD_OP,
                                                  flash_attention_fused_qkv)
@@ -46,10 +47,6 @@ from avion_tpu_torch.ops.ring_attention import ring_flash_attention_packed
 from avion_tpu_torch.parallel.tensor_parallel import (column, gather_qkv,
                                                       local_heads, own_columns,
                                                       row)
-
-
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ code they share lives in ``csrc/*.cuh`` headers.  The library lands in
 ``ops/.build/`` under a name that carries the hash of its source, the
 headers and the flags: an edited source rebuilds, an unchanged one loads the
 library already there.  Nothing is compiled when a module is imported;
-:func:`library` builds at first use.
+:func:`library` builds at first use, and :func:`call` calls one of a
+library's launchers on the current CUDA stream.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import subprocess
 import tempfile
 import threading
 from typing import Dict
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".build")
@@ -70,6 +73,23 @@ def _compile(source: str, out: str) -> None:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+def call(source: str, name: str, argtypes: list, *args) -> None:
+    """Call the C function ``name`` of ``csrc/<source>``'s library with
+    ``args`` and the current CUDA stream; raise on the cudaError_t it
+    returns."""
+    lib = library(source)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.avion_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.avion_cuda_error_string.restype = ctypes.c_char_p
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} failed: "
+                           + lib.avion_cuda_error_string(err).decode())
 
 
 def library(source: str) -> ctypes.CDLL:

@@ -136,17 +136,7 @@ _SIGNATURES = {
 def _launch(source: str, name: str, kernel: str, *args) -> None:
     """Call ``name`` of the library built from ``source`` on the current
     stream, raise on a launch error, count a launch of ``kernel``."""
-    lib = _build.library(source)
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        lib.avion_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.avion_cuda_error_string.restype = ctypes.c_char_p
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{kernel} launch failed: "
-                           + lib.avion_cuda_error_string(err).decode())
+    _build.call(source, name, _SIGNATURES[name], *args)
     _count(launches, kernel)
 
 

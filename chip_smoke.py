@@ -45,6 +45,17 @@ Phases (each raises on failure; the script then exits non-zero):
    ``torch.use_deterministic_algorithms(True)``, two backwards at the
    combined route's (32, 785, 12, 64) bit-equal, each on the split dq /
    dkv kernels (no combined launch), timed beside the default route;
+   then the QuickGELU kernels (``csrc/quick_gelu.cu``) at MIR's hidden
+   tensor, [64 x 3137, 3072] bf16 (ACT_SHAPE): forward and gradient
+   against the formula in f32 (max abs error over the largest reference
+   value and RMS error over RMS reference at most one bf16 ulp, 2^-8),
+   one launch each, each timed beside its bytes bound and the plain
+   chain (the formula, and autograd's backward through it); the seeded
+   train path (5), the data phase's run A and the data-fed MIR and CLS
+   finetunes then count the pair's launches against their models' (a
+   forward and a backward per layer of a QuickGELU tower, one more
+   forward under remat, one per layer of each inference forward), and
+   the ``kernels`` line carries the pair beside the flash kernels;
 4. serve: a seeded random ``CLIP_VITB16`` checkpoint in the reference
    layout, served by ``avion_tpu_torch.serve.server.main`` at 4 frames on
    an ephemeral port; every endpoint is called, the answers checked, the
@@ -330,6 +341,7 @@ from avion_tpu_torch.core.flops import H100_PEAK_FLOPS as H100_BF16_FLOPS
 from avion_tpu_torch.core.flops import attention_bound as bound
 from avion_tpu_torch.core.flops import attn_flops
 from avion_tpu_torch.ops import _build
+from avion_tpu_torch.ops import activation as act
 from avion_tpu_torch.ops import flash_attention as fa
 
 # cuBLAS is deterministic under torch.use_deterministic_algorithms only with
@@ -360,6 +372,10 @@ LSE_TOL = 3e-2
 # dq, dk, dv: RMS error over RMS reference.  A backward without the delta
 # term is off by ~5% in dq and dk (PERF.md)
 BWD_REL_TOL = 1.5e-2
+# the MLP's hidden tensor of CLIP_VITB16's visual tower in the MIR
+# finetune: 64 clips of 3137 tokens, 4 x 768 wide
+ACT_SHAPE = (64 * 3137, 3072)
+ACT_TOL = 2.0 ** -8  # one bf16 ulp, relative
 MODEL, FRAMES, BATCH, SIZE = "CLIP_VITB16", 4, 32, 224
 # the recipe of scripts/examples/pretrain_vitb_ego4d.sh at one card's share
 # of its global batch 2048 over the reference's 8 cards; with 8 steps per
@@ -615,6 +631,62 @@ def phase_kernel() -> dict:
     _deterministic_backward(gen)
     if bad:
         raise RuntimeError("kernels disagree with their plain versions: "
+                           + "; ".join(bad))
+    return rows
+
+
+def phase_activation() -> dict:
+    """The QuickGELU kernels at ACT_SHAPE against the formula in f32,
+    timed beside their bytes bound and the plain chain; returns each
+    kernel's row."""
+    log(f"== activation: QuickGELU at {list(ACT_SHAPE)} bf16 against the "
+        f"formula in f32; max abs err / max |ref| and rms err / rms ref <= "
+        f"{ACT_TOL}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(ACT_SHAPE, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    dy = torch.randn(ACT_SHAPE, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    # each [tokens, 3072] bf16 tensor read or written once
+    pass_bytes = x.numel() * x.element_size()
+    bad, rows = [], {}
+    xr = x.detach().requires_grad_()
+    chain = act.quick_gelu_plain(xr)
+    plain = {"quick_gelu_fwd": lambda: act.quick_gelu_plain(x),
+             "quick_gelu_bwd": lambda: torch.autograd.grad(
+                 chain, xr, dy, retain_graph=True)}
+    kernel = {"quick_gelu_fwd": lambda: act.quick_gelu_op(x),
+              "quick_gelu_bwd": lambda: act.quick_gelu_bwd(x, dy)}
+    xf, dyf = x.float(), dy.float()
+    s = torch.sigmoid(act.ALPHA * xf)
+    refs = {"quick_gelu_fwd": xf * s,
+            "quick_gelu_bwd": dyf * s * (1 + act.ALPHA * xf * (1 - s))}
+    del s
+    for name, passes in (("quick_gelu_fwd", 2), ("quick_gelu_bwd", 3)):
+        act.reset_launches()
+        got = kernel[name]()
+        torch.cuda.synchronize()
+        if dict(act.launches) != {name: 1}:
+            raise RuntimeError(f"{name} launches {dict(act.launches)}")
+        ref = refs.pop(name)
+        diff = got.float() - ref
+        err = (diff.abs().max() / ref.abs().max()).item()
+        rel = (diff.norm() / ref.norm()).item()
+        del got, diff, ref
+        for key, value in (("max_abs_err", err), ("rel_rms_err", rel)):
+            if not value <= ACT_TOL:  # NaN fails too
+                bad.append(f"{name}: {key} {value} > {ACT_TOL}")
+        bound_ms = passes * pass_bytes / H100_BYTES_PER_S * 1e3
+        ms = cuda_ms(kernel[name])
+        rows[name] = {
+            "shape": list(ACT_SHAPE), "dtype": "bfloat16",
+            "max_abs_err": err, "rel_rms_err": rel, "kernel_ms": ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_share": bound_ms / ms, "plain_ms": cuda_ms(plain[name]),
+            "library_ms": None}
+        log(f"{name} " + json.dumps(rows[name]))
+    if bad:
+        raise RuntimeError("QuickGELU kernels disagree with the formula: "
                            + "; ".join(bad))
     return rows
 
@@ -1186,7 +1258,7 @@ def check_against_cpu(results, label: str, loss_tol: float = 2e-2,
 def _timed_epoch(run, loader) -> dict:
     """``train_one_epoch`` over ``loader``: each step's time and metrics,
     the epoch's summary, the kernel launches (counted from the epoch's
-    start) and the peak memory."""
+    start; QuickGELU's under ``act``) and the peak memory."""
     from avion_tpu_torch.train.loop import train_one_epoch
 
     ends, seen, inner = [], [], run.step
@@ -1201,13 +1273,15 @@ def _timed_epoch(run, loader) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()  # the path's launches, counted from here
+    act.reset_launches()
     start = time.perf_counter()
     try:
         summary = train_one_epoch(run, loader, 0)
         torch.cuda.synchronize()
     finally:
         run.step = inner
-    return {"launches": dict(fa.launches), "metrics": seen,
+    return {"launches": dict(fa.launches), "act": dict(act.launches),
+            "metrics": seen,
             "summary": summary, "peak": torch.cuda.max_memory_allocated(),
             "step_ms": np.diff([start] + ends) * 1e3}
 
@@ -1267,6 +1341,8 @@ def phase_train(tmp: str) -> dict:
         f"(per step: 24 forward-with-lse, 24 combined backward, 0 others)")
     if launches != want:
         raise RuntimeError(f"launches {launches}, expected {want}")
+    _check_act("train", res["act"], _act_launches(model), TRAIN_STEPS)
+    launches = {**launches, **res["act"]}
     steady = per_step[2:]
     p50 = float(np.median(steady))
     flops = _model_flops(model, TRAIN_BATCH)
@@ -1630,6 +1706,7 @@ def phase_data(tmp: str, echo_p50: float) -> dict:
     """The data slice's main path: ``pretrain_clip.main`` on decoded video
     at full width, host crop (run A) then device crop (run B), then a
     resume; returns run A's launches."""
+    from avion_tpu_torch.core.config import TrainConfig
     from avion_tpu_torch.data.loader import shm_free_bytes
     from avion_tpu_torch.data.video_reader import default_backend
     from avion_tpu_torch.train import pretrain_clip
@@ -1661,15 +1738,20 @@ def phase_data(tmp: str, echo_p50: float) -> dict:
     try:
         torch.cuda.synchronize()
         fa.reset_launches()  # run A's main path, counted from here
+        act.reset_launches()
         t0 = time.perf_counter()
         res_a = pretrain_clip.main(args_a)
         torch.cuda.synchronize()
-        launches_a = dict(fa.launches)
+        launches_a, act_a = dict(fa.launches), dict(act.launches)
         wall_a = time.perf_counter() - t0
     finally:
         pretrain_clip.make_clip_train_step = profiler.make_step
     batch_ms, data_ms = _check_data_run("run A (host crop)", res_a,
                                         launches_a, DATA_STEPS, out_a)
+    _check_act("run A (host crop)", act_a, _act_launches(
+        pretrain_clip.build_model(pretrain_clip.env_defaults(
+            TrainConfig().apply_overrides(args_a)))), DATA_STEPS)
+    launches_a = {**launches_a, **act_a}
     steady = np.array(batch_ms[2:])
     p50 = float(np.median(steady))
     log(f"run A per-step ms {[round(x, 3) for x in batch_ms]}, data wait ms "
@@ -2503,6 +2585,40 @@ def _vmae_launches(model) -> dict:
     return _step_launches(_vmae_towers(model))
 
 
+def _act_launches(model) -> dict:
+    """QuickGELU's launches a train step: in each tower whose MLP takes it,
+    a forward and a backward per layer, and one more forward per layer
+    where remat re-runs the block in the backward."""
+    from avion_tpu_torch.models.layers import Transformer
+
+    want: dict = {}
+    for tower in model.modules():
+        if not (isinstance(tower, Transformer) and getattr(
+                getattr(tower.resblocks[0], "mlp", None), "act",
+                None) is act.quick_gelu):
+            continue
+        n = len(tower.resblocks)
+        for name, k in (("quick_gelu_fwd", 2 if tower.remat else 1),
+                        ("quick_gelu_bwd", 1)):
+            want[name] = want.get(name, 0) + k * n
+    return want
+
+
+def _check_act(label: str, got: dict, per_step: dict, steps: int,
+               forwards: int = 0) -> None:
+    """``got``, the QuickGELU launches of a path, against ``steps`` train
+    steps of ``per_step`` and ``forwards`` inference forwards of one
+    LAYERS-deep tower."""
+    want = {k: v * steps for k, v in per_step.items()}
+    if want and forwards:
+        want["quick_gelu_fwd"] += LAYERS * forwards
+    log(f"{label}: QuickGELU launches {got} (expected {want}; a train step "
+        f"{per_step})")
+    if got != want:
+        raise RuntimeError(f"{label}: QuickGELU launches {got}, expected "
+                           f"{want}")
+
+
 def _report_run(label: str, res: dict, batch: int, steps: int,
                 per_step: dict, flops: float) -> dict:
     """Finite losses, every step applied, the launches of ``steps`` steps
@@ -3182,10 +3298,12 @@ def _ft_data(tmp: str, ckpt: str) -> dict:
         args = [*args, f"output_dir={out}"]
         torch.cuda.synchronize()
         fa.reset_launches()  # this entry's path, training and validation
+        act.reset_launches()
         t0 = time.perf_counter()
         res = entry.main(args)
         torch.cuda.synchronize()
         launches, wall = dict(fa.launches), time.perf_counter() - t0
+        act_launches = dict(act.launches)
         cfg = entry.env_defaults(TrainConfig().apply_overrides(args))
         if name == "mir":
             model = finetune_mir.build_model(cfg)
@@ -3218,6 +3336,9 @@ def _ft_data(tmp: str, ckpt: str) -> dict:
         if launches != want:
             raise RuntimeError(f"(d) {name}: launches {launches}, expected "
                                f"{want}")
+        _check_act(f"(d) {name} main", act_launches, _act_launches(model),
+                   FT_SHORT_STEPS, forwards)
+        launches = {**launches, **act_launches}
         report[name] = {"p50_ms": float(np.median(step_ms)),
                         "p50_data_ms": float(np.median(data_ms)),
                         "wall_s": wall, "launches": launches,
@@ -5880,6 +6001,7 @@ def main() -> int:
     phase_environment()
     phase_build()
     rows = phase_kernel()
+    act_rows = phase_activation()
     log(f"phases 1-3 wall {time.perf_counter() - t_start:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         t_phase = time.perf_counter()
@@ -5943,6 +6065,19 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
             "shapes": rows[name]})
+    # QuickGELU's pair: its launches from the data-fed 4-frame main path
+    # (run A); JAX's XLA fuses the formula, so it replaces no kernel there
+    for name, head in act_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "avion_tpu_torch/ops/csrc/quick_gelu.cu",
+            "replaces": None, "launches": data["host_crop"][name],
+            "launches_by_path": {path: counts[name] for path, counts in
+                                 by_path.items() if name in counts},
+            "max_abs_err": head["max_abs_err"], "ms": head["kernel_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "shape": head["shape"], "shapes": [head]})
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -11,7 +11,7 @@ import pytest
 import chip_smoke
 from avion_tpu_torch.ops import _build
 
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "quick_gelu.cu")
 HEADERS = ("flash_common.cuh", "flash_sm90.cuh")
 
 
