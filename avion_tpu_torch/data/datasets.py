@@ -83,10 +83,12 @@ def device_crop(augment: AugmentSpec, rng, is_training: bool):
 
 def caption_item(frames, caption, rng, context_length: int,
                  narration_selection: str, crop_arr=None, hflip=None,
-                 relevancy: float = 1.0) -> Dict[str, np.ndarray]:
+                 relevancy: float = 1.0,
+                 tokenizer=None) -> Dict[str, np.ndarray]:
     """The caption datasets' item: a list caption picks one narration
     (``random``) or joins them (``concat``); ``crop``/``hflip`` ride along
-    on the device_rrc path."""
+    on the device_rrc path.  The text is ``tokenize``'s, with
+    ``tokenizer`` (default CLIP's BPE)."""
     if isinstance(caption, list):
         if narration_selection == "random":
             caption = caption[rng.randint(len(caption))] if caption else ""
@@ -94,7 +96,7 @@ def caption_item(frames, caption, rng, context_length: int,
             caption = ". ".join(caption)
     item = {
         "video": frames,
-        "text": tokenize(str(caption), context_length),
+        "text": tokenize(str(caption), context_length, tokenizer),
         "relevancy": np.float32(relevancy),
     }
     if crop_arr is not None:
@@ -134,6 +136,7 @@ class VideoCaptionDataset(_PicklableCache):
         narration_selection: str = "random",
         subsample_stride: Optional[int] = None,
         decode_fast: Optional[bool] = None,
+        tokenizer=None,
     ):
         self.dataset = dataset
         self.root = root
@@ -145,6 +148,7 @@ class VideoCaptionDataset(_PicklableCache):
         self.augment = augment or AugmentSpec(
             mode="rrc" if is_training else "center")
         self.context_length = context_length
+        self.tokenizer = tokenizer  # tokenize's; None: CLIP's BPE
         self.narration_selection = narration_selection
         # fast native decode profile for training; eval keeps exact decode
         self.decode_fast = is_training if decode_fast is None else decode_fast
@@ -204,7 +208,7 @@ class VideoCaptionDataset(_PicklableCache):
                 caption)
         return caption_item(frames, caption, rng, self.context_length,
                             self.narration_selection, crop_arr, hflip,
-                            relevancy)
+                            relevancy, self.tokenizer)
 
 
 class VideoClassyDataset(_PicklableCache):

@@ -244,6 +244,20 @@ def _default_tokenizer() -> SimpleTokenizer:
     return SimpleTokenizer()
 
 
+class BosEosIds:
+    """A BPE with ``encode`` and ``eos_token_id`` (transformers'
+    ``GPT2Tokenizer``) in :func:`tokenize`'s form: GPT-2's one id for the
+    start and the end of a text first and last, padding 0 after, as
+    LaViLa's ``MyGPT2Tokenizer`` (``add_bos``) writes a caption."""
+
+    def __init__(self, bpe):
+        self.bpe = bpe
+        self.sot_token = self.eot_token = bpe.eos_token_id
+
+    def encode(self, text: str) -> List[int]:
+        return list(self.bpe.encode(text))
+
+
 def tokenize(
     texts: Union[str, List[str]],
     context_length: int = CONTEXT_LENGTH,

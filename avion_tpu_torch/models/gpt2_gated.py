@@ -19,9 +19,12 @@ cross-attention sub-block that runs BEFORE the self-attention::
 - LayerNorms are f32 (eps 1e-5); the MLP's activation is ``gelu_new`` (the
   tanh approximation), the cross MLP's squared ReLU.  A gate multiplies in
   f32, as JAX promotes a bf16 branch by an f32 gate.
-- The self-attention is ``ops.attention.attention_packed`` with
-  ``use_flash=False``: plain math, as in the JAX package (which never
-  routes it to its kernel).  The cross-attention is plain f32 math.
+- In bf16 on CUDA the self-attention runs the flash kernels, straight off
+  the fused ``c_attn`` output (``[q | k | v]``, as CLIP's text tower): the
+  forward with lse and its backward when training, the inference forward
+  otherwise.  Elsewhere it is ``ops.attention.attention_packed``'s plain
+  math, as in the JAX package (which never routes it to its kernel).  The
+  cross-attention is plain f32 math.
 - Cached decoding: :meth:`GatedGPT2LMHead.precompute_cross`,
   :meth:`~GatedGPT2LMHead.decode_one` and :func:`make_decode_cache`, with
   ``ops.attention.cached_decode_attention`` against the caches.
@@ -43,6 +46,7 @@ from torch import nn
 from avion_tpu_torch.models.layers import LayerNorm, gelu, lecun_normal_
 from avion_tpu_torch.ops.attention import (attention_packed,
                                            cached_decode_attention)
+from avion_tpu_torch.ops.flash_attention import flash_attention_fused_qkv
 
 gelu_new = gelu  # HF's "gelu_new": the tanh approximation
 
@@ -79,9 +83,13 @@ class GPT2SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.width
         qkv = self.c_attn(x)
-        o = attention_packed(qkv[..., :w], qkv[..., w:2 * w],
-                             qkv[..., 2 * w:], self.heads, causal=True,
-                             use_flash=False)
+        if qkv.is_cuda and qkv.dtype == torch.bfloat16:
+            o = flash_attention_fused_qkv(qkv, self.heads, qkv.shape[1],
+                                          causal=True)
+        else:
+            o = attention_packed(qkv[..., :w], qkv[..., w:2 * w],
+                                 qkv[..., 2 * w:], self.heads, causal=True,
+                                 use_flash=False)
         return self.c_proj(o)
 
     def decode_step(self, x1: torch.Tensor, pos: int, k_cache: torch.Tensor,

@@ -14,16 +14,26 @@ cross-attends.
 - Parameter names are the released checkpoint's (``visual.*``,
   ``text_decoder.transformer.*``, ``img_queries``, ``img_attn_pool.*``,
   ``img_attn_pool_norm``).
+- :meth:`LavilaNarrator.freeze` is LaViLa's narrator recipe
+  (``--freeze-lm-vclm --freeze-visual-vclm``): the GPT-2's own leaves and
+  the whole TimeSformer stop training.  A TimeSformer whose every leaf is
+  frozen runs its forward without recording a graph.
+- Under a profiler the forward records the spans ``avion.tower.visual``
+  (the TimeSformer), ``avion.tower.pool`` (the queries' pool) and
+  ``avion.tower.text`` (the gated GPT-2), and the marks
+  ``avion.tower.<tower>.bwd`` where each tower's backward starts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
 from torch import nn
 
+from avion_tpu_torch.core.profiling import backward_mark, span
 from avion_tpu_torch.models.gpt2_gated import (GatedGPT2LMHead,
                                                make_decode_cache)
 from avion_tpu_torch.models.layers import LayerNorm, dense, lecun_normal_
@@ -60,6 +70,16 @@ class AttentionPool(nn.Module):
         return dense(out.to(self.dtype), self.to_out)
 
 
+# LaViLa's --freeze-lm-vclm keeps an LM leaf training iff its name holds
+# one of these: the gated cross sub-blocks (ln_cross_attn, crossattention,
+# ln_2_crossattention, mlp_crossattention) and their gates
+CROSS_LEAVES = ("crossattention", "cross_attn", "alpha_")
+
+
+def _frozen(module: nn.Module) -> bool:
+    return not any(p.requires_grad for p in module.parameters())
+
+
 class LavilaNarrator(nn.Module):
     """VCLM_HF: SpaceTimeTransformer + query pool + gated GPT-2."""
 
@@ -75,6 +95,7 @@ class LavilaNarrator(nn.Module):
         super().__init__()
         self.image_size, self.num_frames = image_size, num_frames
         self.text_width, self.dtype = text_width, dtype
+        self.layers = text_layers  # the decoder's, for layer decay
         self.visual = SpaceTimeTransformer(
             image_size=image_size, patch_size=patch_size,
             num_frames=num_frames, width=vision_width, layers=vision_layers,
@@ -109,19 +130,37 @@ class LavilaNarrator(nn.Module):
                                  generator=generator)
         return self
 
+    def freeze(self) -> "LavilaNarrator":
+        """LaViLa's narrator recipe: every GPT-2 leaf but the gated cross
+        sub-blocks' (:data:`CROSS_LEAVES`) and the whole TimeSformer stop
+        training; the queries and their pool keep training."""
+        for name, p in self.text_decoder.named_parameters():
+            if not any(t in name for t in CROSS_LEAVES):
+                p.requires_grad_(False)
+        self.visual.requires_grad_(False)
+        return self
+
     def encode_image(self, video: torch.Tensor) -> torch.Tensor:
         """video [B, T, H, W, C] normalized -> [B, num_queries, text_w]."""
-        tokens = self.visual(video, cls_at_last=False)
-        q = self.img_queries.to(self.dtype)[None].expand(
-            tokens.shape[0], -1, -1)
-        return self.img_attn_pool_norm(
-            self.img_attn_pool(q, tokens)).to(self.dtype)
+        with span("avion.tower.visual"), (
+                torch.no_grad() if _frozen(self.visual)
+                else contextlib.nullcontext()):
+            tokens = self.visual(video, cls_at_last=False)
+        tokens = backward_mark(tokens, "avion.tower.visual.bwd")
+        with span("avion.tower.pool"):
+            q = self.img_queries.to(self.dtype)[None].expand(
+                tokens.shape[0], -1, -1)
+            img = self.img_attn_pool_norm(
+                self.img_attn_pool(q, tokens)).to(self.dtype)
+        return backward_mark(img, "avion.tower.pool.bwd")
 
     def forward(self, video: torch.Tensor, text: torch.Tensor) -> dict:
         """Teacher-forced logits over ``text[:, :-1]`` predicting
         ``text[:, 1:]`` (``VCLM_HF.forward``)."""
         img = self.encode_image(video)
-        return {"logits": self.text_decoder(text[:, :-1], img),
+        with span("avion.tower.text"):
+            logits = self.text_decoder(text[:, :-1], img)
+        return {"logits": backward_mark(logits, "avion.tower.text.bwd"),
                 "labels": text[:, 1:]}
 
     @staticmethod

@@ -252,8 +252,14 @@ def caption_nll(logits: torch.Tensor, tokens: torch.Tensor,
                 pad_id: int = 0):
     """(summed next-token NLL over the non-padding targets, their count),
     the two parts of :func:`caption_loss`."""
-    logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
-    targets = tokens[:, 1:].long()
+    return label_nll(logits[:, :-1], tokens[:, 1:], pad_id)
+
+
+def label_nll(logits: torch.Tensor, labels: torch.Tensor, pad_id: int = 0):
+    """(summed NLL of ``labels`` [B, S] under ``logits`` [B, S, V] over the
+    non-padding labels, their count)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    targets = labels.long()
     nll = -logp.gather(-1, targets[..., None])[..., 0]
     mask = (targets != pad_id).float()
     return (nll * mask).sum(), mask.sum()

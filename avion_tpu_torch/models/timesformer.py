@@ -13,10 +13,21 @@ Block semantics (``SpaceTimeBlock.forward``)::
 Both divided attentions keep the CLS token global: the CLS query attends
 over every token; the patch queries attend within their frame (space) or
 across the frames at their grid position (time), each group joined by the
-CLS key and value.  The attention is plain f32 math (the JAX package runs
-it as XLA math, no kernel).  Patchify is one dense product over
-channel-first patch vectors, with the released Conv2d weight [D, C, p, p]
-flattened in that order.  LayerNorms are f32 with eps 1e-6.
+CLS key and value.  On the CPU, and in an f32 tower (EgoVLP's), the
+attention is plain f32 math (the JAX package runs it as XLA math, no
+kernel).  A bf16 tower on CUDA runs each mode through the flash kernels
+of ``ops.flash_attention`` over regrouped operands: the fused qkv rows
+copied into one sequence a group, the CLS row's q, k and v in front
+(space: B * T sequences of 1 + n rows; time: B * n of 1 + T; at most the
+kernels' batch a call), whose CLS row output is dropped; the CLS query's
+attention over all 1 + T * n keys is two small bf16 products
+(:func:`_cls_attend`).  Without a gradient to take this is the inference
+kernel, with one the forward with lse and its backward.  Under a profiler
+each mode's attention (after the qkv projection, up to the output
+projection) is the span ``avion.attn.space`` or ``avion.attn.time``.
+Patchify is one dense product over channel-first patch vectors, with the
+released Conv2d weight [D, C, p, p] flattened in that order.  LayerNorms
+are f32 with eps 1e-6.
 
 Parameter names and shapes are the released checkpoint's
 (``visual.patch_embed.proj``, ``cls_token`` [1, 1, D], ``pos_embed``
@@ -34,14 +45,36 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from avion_tpu_torch.core.profiling import span
 from avion_tpu_torch.models.layers import (LayerNorm, Mlp, dense,
                                            lecun_normal_, quick_gelu)
+from avion_tpu_torch.ops.flash_attention import (MAX_BATCH,
+                                                 flash_attention_fused_qkv)
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Softmax attention over [..., S, D] in f32."""
     logits = q.float() @ k.float().transpose(-1, -2) / math.sqrt(q.shape[-1])
     return torch.softmax(logits, dim=-1) @ v.float()
+
+
+def _cls_attend(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """The CLS query (row 0) over every key of a fused ``qkv`` [B, S, 3W],
+    in ``qkv``'s dtype: [B, 1, W].  Two batched products read k and v in
+    place: the scores [B, S, H] against the CLS query laid out block-
+    diagonally [B, W, H] (head h's q in rows h * D to (h + 1) * D of column
+    h), and every head's weights against all of v, [B, H, W], whose
+    diagonal blocks are the heads' outputs."""
+    b, s, w3 = qkv.shape
+    w = w3 // 3
+    d = w // heads
+    q = qkv[:, 0, :w] * (1.0 / math.sqrt(d))
+    eye = torch.eye(heads, dtype=q.dtype, device=q.device)
+    q_blocks = (q.reshape(b, heads, d, 1) * eye[:, None]).reshape(b, w, heads)
+    p = torch.softmax(torch.bmm(qkv[..., w:2 * w], q_blocks), dim=1)
+    o = torch.bmm(p.transpose(1, 2), qkv[..., 2 * w:])  # [B, H, W]
+    o = o.reshape(b, heads, heads, d).diagonal(dim1=1, dim2=2)  # [B, D, H]
+    return o.transpose(1, 2).reshape(b, 1, w)
 
 
 class DividedAttention(nn.Module):
@@ -56,10 +89,20 @@ class DividedAttention(nn.Module):
     def forward(self, x: torch.Tensor, mode: str, f: int,
                 n: int) -> torch.Tensor:
         """x: [B, 1 + f*n, W], the patch tokens frame-major."""
-        b, s, w = x.shape
+        qkv = dense(x.to(self.dtype), self.qkv)
+        with span(f"avion.attn.{mode}"):
+            out = (self.grouped(qkv, mode, f, n)
+                   if qkv.is_cuda and qkv.dtype == torch.bfloat16
+                   else self.plain(qkv, mode, f, n))
+        return dense(out, self.proj)
+
+    def plain(self, qkv: torch.Tensor, mode: str, f: int,
+              n: int) -> torch.Tensor:
+        """The attention of a fused ``qkv`` [B, S, 3W] in f32 math."""
+        b, s, w3 = qkv.shape
         h = self.heads
-        d = w // h
-        qkv = dense(x.to(self.dtype), self.qkv).reshape(b, s, 3, h, d)
+        d = w3 // 3 // h
+        qkv = qkv.reshape(b, s, 3, h, d)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # [B, H, S, D] each
         cls_out = _attend(q[:, :, :1], k, v)  # the CLS query sees all
 
@@ -76,8 +119,33 @@ class DividedAttention(nn.Module):
         if mode == "time":
             out = out.transpose(2, 3)
         out = torch.cat([cls_out, out.reshape(b, h, f * n, d)], dim=2)
-        out = out.transpose(1, 2).reshape(b, s, w).to(self.dtype)
-        return dense(out, self.proj)
+        return out.transpose(1, 2).reshape(b, s, h * d).to(self.dtype)
+
+    def grouped(self, qkv: torch.Tensor, mode: str, f: int,
+                n: int) -> torch.Tensor:
+        """The attention of a fused ``qkv`` [B, S, 3W] through
+        ``flash_attention_fused_qkv``, one sequence a group, at most
+        ``MAX_BATCH`` sequences a call (the plain version of the kernels on
+        a CPU tensor)."""
+        b, s, w3 = qkv.shape
+        w = w3 // 3
+        patches = qkv[:, 1:].reshape(b, f, n, w3)
+        if mode == "time":
+            patches = patches.transpose(1, 2)
+        g, m = patches.shape[1], patches.shape[2]
+        seqs = qkv.new_empty(b, g, 1 + m, w3)
+        seqs[:, :, :1] = qkv[:, None, :1]
+        seqs[:, :, 1:] = patches
+        o = [flash_attention_fused_qkv(c, self.heads, 1 + m) for c in
+             seqs.view(b * g, 1 + m, w3).split(MAX_BATCH)]
+        o = o[0] if len(o) == 1 else torch.cat(o)
+        o = o.reshape(b, g, 1 + m, w)[:, :, 1:]  # each group's CLS row out
+        if mode == "time":
+            o = o.transpose(1, 2)
+        out = qkv.new_empty(b, s, w)
+        out[:, :1] = _cls_attend(qkv, self.heads)
+        out[:, 1:].view(b, f, n, w).copy_(o)
+        return out
 
 
 class SpaceTimeBlock(nn.Module):

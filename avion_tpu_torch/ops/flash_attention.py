@@ -27,7 +27,9 @@ neighbour's k / v, with the hop's bias; counted as ``flash_hop_fwd``) and
 :func:`flash_hop_fwd_plain` and :func:`flash_hop_bwd_plain`.
 
 Without a gradient to take, :func:`flash_attention_fused_qkv` runs the
-inference forward.  With one, it calls the custom op ``avion::flash_fwd_lse``
+inference forward, through the custom op ``avion::flash_fwd`` (so that a
+profiler links the kernel to an op, as it links the others).  With one, it
+calls the custom op ``avion::flash_fwd_lse``
 (forward that also returns the row logsumexp, in log2 units, f32
 ``[B, H, S]``), whose registered gradient is the custom op
 ``avion::flash_bwd``.  Being dispatcher ops, both are visible to a
@@ -70,6 +72,8 @@ SOURCE = "flash_fwd.cu"
 BWD_SOURCE = "flash_bwd.cu"
 LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 128)
+# the kernels put the batch on the grid's z dimension
+MAX_BATCH = 65535
 KERNELS = ("flash_fwd", "flash_fwd_lse", "flash_bwd_combined", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_hop_fwd", "flash_hop_bwd_dq",
            "flash_hop_bwd_dkv")
@@ -166,6 +170,8 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = w // heads
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if b > MAX_BATCH:
+        raise ValueError(f"batch {b} over the kernels' {MAX_BATCH}")
     strides = []
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dim() != 3 or x.shape[0] != b or x.shape[2] != w:
@@ -426,6 +432,17 @@ flash_fwd_lse.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 FWD_LSE_OP = torch.ops.avion.flash_fwd_lse.default
 
 
+@torch.library.custom_op("avion::flash_fwd", mutates_args=())
+def flash_fwd(qkv: torch.Tensor, heads: int, s: int, causal: bool,
+              sm_scale: float) -> torch.Tensor:
+    """Inference forward: out [B, s, W]."""
+    if qkv.device.type == "cpu":
+        _count(plain_calls, "flash_fwd")
+        return flash_attention_fused_qkv_plain(qkv, heads, s, causal=causal,
+                                               sm_scale=sm_scale)
+    return _fwd_cuda(qkv, heads, s, causal, sm_scale, with_lse=False)[0]
+
+
 def flash_attention_fused_qkv(qkv: torch.Tensor, heads: int, s: int, *,
                               causal: bool = False,
                               sm_scale: Optional[float] = None
@@ -443,11 +460,7 @@ def flash_attention_fused_qkv(qkv: torch.Tensor, heads: int, s: int, *,
         sm_scale = 1.0 / math.sqrt(d)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return flash_fwd_lse(qkv, heads, s, causal, sm_scale)[0]
-    if qkv.device.type == "cpu":
-        _count(plain_calls, "flash_fwd")
-        return flash_attention_fused_qkv_plain(qkv, heads, s, causal=causal,
-                                               sm_scale=sm_scale)
-    return _fwd_cuda(qkv, heads, s, causal, sm_scale, with_lse=False)[0]
+    return flash_fwd(qkv, heads, s, causal, sm_scale)
 
 
 @torch.library.custom_op("avion::flash_hop_fwd", mutates_args=())

@@ -9,9 +9,18 @@ Usage (the VCLM at 4 frames, batch 256 on one card)::
         optim.epochs=5 [--device cpu]
 
 It runs on CUDA unless ``--device cpu`` is given; the dataset paths fall
-back to ROOT and TRAIN_METADATA.  A ``model.name`` that does not start
-with ``VCLM`` trains ``VCLM_VITB16``; ``model.vision_heads=6
-model.text_heads=4`` gives the head_dim-128 geometry.  The clips are the
+back to ROOT and TRAIN_METADATA.  A ``model.name`` that starts with
+neither ``VCLM`` nor ``LAVILA`` trains ``VCLM_VITB16``;
+``model.vision_heads=6 model.text_heads=4`` gives the head_dim-128
+geometry.
+``model.name=VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL`` is LaViLa's
+narrator (``models.lavila``), always trained by LaViLa's recipe
+(``LavilaNarrator.freeze``): only the gated cross sub-blocks, the queries
+and their pool train, and the optimizer holds only those.  Its loss is the token mean of the next-token NLL of the
+model's ``logits`` against its ``labels``.  It reads GPT-2's ids: the
+captions are tokenized with ``tools.narrator.gpt2_tokenizer``
+(transformers' ``GPT2Tokenizer`` and its ``gpt2`` files, which it
+raises without) into LaViLa's 77 tokens.  The clips are the
 Ego4D caption layout (``VideoCaptionDataset("ego4d", ...)``, random
 resized crops), the narrations tokenized to the model's 77 tokens.  On
 CUDA both attention stacks (the visual tower and the decoder's causal
@@ -50,8 +59,10 @@ from avion_tpu_torch.core.config import TrainConfig, load_dotenv
 from avion_tpu_torch.core.train_state import TrainState
 from avion_tpu_torch.data.datasets import AugmentSpec, VideoCaptionDataset
 from avion_tpu_torch.data.loader import DataLoader
+from avion_tpu_torch.data.tokenizer import BosEosIds
 from avion_tpu_torch.data.video_reader import default_backend
-from avion_tpu_torch.models.narrator import caption_nll
+from avion_tpu_torch.models.lavila import LavilaNarrator
+from avion_tpu_torch.models.narrator import caption_nll, label_nll
 from avion_tpu_torch.models.registry import create_model
 from avion_tpu_torch.optim.factory import build_optimizer
 from avion_tpu_torch.parallel.launch import device_from_argv
@@ -65,15 +76,19 @@ from avion_tpu_torch.train.steps import (_apply_or_skip, _backward,
                                          _phase, _spanned, prep_video)
 
 
+LAVILA_CONTEXT = 77  # the tokens of a caption LaViLa's narrator reads
+
+
 def make_narrator_step(model: torch.nn.Module) -> Callable:
     """``step(state, batch) -> (state, metrics)``: the caption loss of
     ``model(video, text)`` (``video`` uint8, normalized here with OpenAI's
-    statistics, or normalized float; ``text`` [B, L] ids), backward, the
-    optimizer's update (its clip when configured), and the skip of a step
-    whose loss is not finite.  Under a batch group the loss is the global
-    batch's token mean: each rank's summed NLL over the group's token
-    count, times the group's size, which DDP / FSDP2 average back.  The
-    VCLM draws nothing at random.  Metrics: ``loss`` (device tensor; the
+    statistics, or normalized float; ``text`` [B, L] ids; a model that
+    returns ``logits`` and ``labels``, LaViLa's, is scored on those),
+    backward, the optimizer's update (its clip when configured), and the
+    skip of a step whose loss is not finite.  Under a batch group the loss
+    is the global batch's token mean: each rank's summed NLL over the
+    group's token count, times the group's size, which DDP / FSDP2 average
+    back.  The VCLM draws nothing at random.  Metrics: ``loss`` (device tensor; the
     global mean) and ``step_ok``.  Under a profiler it records the spans
     of ``train.steps``' steps."""
     dtype = getattr(model, "dtype", torch.bfloat16)
@@ -83,9 +98,11 @@ def make_narrator_step(model: torch.nn.Module) -> Callable:
         with _phase("prep"):
             video = prep_video(batch["video"], dtype=dtype, model=model)
         with _phase("forward"):
-            logits = call(video, batch["text"].long())
+            out = call(video, batch["text"].long())
         with _phase("loss"):
-            nll, count = caption_nll(logits, batch["text"])
+            nll, count = (label_nll(out["logits"], out["labels"])
+                          if isinstance(out, dict)
+                          else caption_nll(out, batch["text"]))
             world = (dist.get_world_size(group)
                      if group is not None and dist.is_initialized() else 1)
             if world > 1:
@@ -101,18 +118,23 @@ def make_narrator_step(model: torch.nn.Module) -> Callable:
 
 
 def build_model(cfg: TrainConfig, dtype=None) -> torch.nn.Module:
-    """The configured VCLM (``VCLM_VITB16`` unless ``model.name`` starts
-    with ``VCLM``) on the meta device, with ``model.vision_heads`` and
-    ``model.text_heads``."""
+    """The configured narrator (``VCLM_VITB16`` unless ``model.name``
+    starts with ``VCLM`` or ``LAVILA``) on the meta device, with
+    ``model.vision_heads`` and ``model.text_heads``; the LaViLa narrator
+    frozen by LaViLa's recipe."""
     m = cfg.model
-    name = m.name if m.name.startswith("VCLM") else "VCLM_VITB16"
+    name = (m.name if m.name.startswith(("VCLM", "LAVILA"))
+            else "VCLM_VITB16")
     with torch.device("meta"):
-        return create_model(
+        model = create_model(
             name, num_frames=cfg.data.clip_length,
             use_flash_attn=m.use_flash_attn, pipeline=m.pipeline,
             pipeline_microbatches=m.pipeline_microbatches,
             pipeline_remat=m.use_grad_checkpointing,
             vision_heads=m.vision_heads, heads=m.text_heads, dtype=dtype)
+    if isinstance(model, LavilaNarrator):
+        model.freeze()
+    return model
 
 
 def build_model_and_state(cfg: TrainConfig, niter_per_ep: int,
@@ -134,15 +156,16 @@ def build_model_and_state(cfg: TrainConfig, niter_per_ep: int,
 
 
 def build_loader(cfg: TrainConfig, context_length: int,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, tokenizer=None):
     """(dataset, ``DataLoader``) of the Ego4D caption layout with random
-    resized crops; over a ``mesh`` this rank's batch group's rows."""
+    resized crops, captions by ``tokenizer`` (``data.tokenizer.tokenize``'s;
+    default CLIP's BPE); over a ``mesh`` this rank's batch group's rows."""
     d = cfg.data
     train_ds = VideoCaptionDataset(
         "ego4d", d.root, d.train_metadata, is_training=True,
         clip_length=d.clip_length, chunk_len=d.chunk_len, fps=d.fps,
         threads=d.decode_threads, decode_fast=d.decode_fast,
-        context_length=context_length,
+        context_length=context_length, tokenizer=tokenizer,
         augment=AugmentSpec(crop_size=d.crop_size, mode="rrc",
                             scale_min=d.scale_min, scale_max=d.scale_max))
     loader = DataLoader(
@@ -172,8 +195,14 @@ def main(argv=None) -> dict:
 
 
 def _train(cfg: TrainConfig, device: torch.device, mesh: Mesh) -> dict:
-    train_ds, train_loader = build_loader(cfg, build_model(cfg).context_length,
-                                          mesh)
+    model = build_model(cfg)
+    if isinstance(model, LavilaNarrator):
+        from avion_tpu_torch.tools.narrator import gpt2_tokenizer
+
+        context, tokenizer = LAVILA_CONTEXT, BosEosIds(gpt2_tokenizer())
+    else:
+        context, tokenizer = model.context_length, None
+    train_ds, train_loader = build_loader(cfg, context, mesh, tokenizer)
     print(f"[data] {len(train_ds)} clips, decode backend "
           f"{default_backend()}, {cfg.data.num_workers} workers, batch "
           f"group {mesh.batch_index} of {mesh.n_batch_shards}")

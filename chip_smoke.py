@@ -187,7 +187,10 @@ Phases (each raises on failure; the script then exits non-zero):
    (and EMA) bit for bit, every backward on the split kernels;
 13. narrator: the kernels at the head_dim-128 decoder's (77, 4 x 128,
    causal) and the generation decoder's (30, 8 x 64, causal, forward
-   only) shapes; (a) seeded ``VCLM_VITB16`` training (ViT-B/16 at 4
+   only) shapes, and at LaViLa's training cell's (LV_KERNEL_SHAPES: the
+   divided attention's space mode, 256 x 577 rows, and time mode, 36864 x
+   5, forward only; GPT-2 XL's causal self-attention, 64 x 76 at 25 x 64,
+   with its backward); (a) seeded ``VCLM_VITB16`` training (ViT-B/16 at 4
    frames, a 12 x 512 causal decoder with gated cross-attention on every
    2nd block) through ``train_narrator.build_model_and_state``,
    ``make_narrator_step`` and ``train.loop``: the config's batch 256 as 2
@@ -213,7 +216,8 @@ Phases (each raises on failure; the script then exits non-zero):
    ``serve.server.make_server(..., narrate=NarrateService(...))``: one
    ``/v1/narrate`` of a 336 px clip (3 samples of up to LV_MAX_LEN
    tokens; latency, tokens a second, peak
-   memory; no kernel launched), then a full-width twin with 2 vision
+   memory; the inference kernel twice a visual block for each sample's
+   encode, none in the cached decoder), then a full-width twin with 2 vision
    blocks and 3 decoder layers, teacher-forced, against the CPU in f32
    (cosine >= 0.99);
 14. egonlq: the inference kernel at the extractor's shapes (32 windows of
@@ -4145,7 +4149,16 @@ LV_MODEL, LV_SIZE = "VCLM_OPENAI_TIMESFORMER_LARGE_336PX_GPT2_XL", 336
 # (f)'s tokens a sample (the captioner's default 77 took 34 s of host-bound
 # decoding for 3 samples)
 LV_MAX_LEN = 20
+LV_SAMPLES = 3  # lavila_captioner's default: one encode a sample
 LV_TWIN = dict(vision_layers=2, text_layers=3)  # the CPU reference's depth
+# LaViLa's training cell (64 clips of 4 frames at 336 px, captions of 77):
+# (shapes, check batch, time batch, forward only) of the divided
+# attention's space and time modes, which the frozen tower runs on the
+# inference kernel, and of GPT-2 XL's causal self-attention
+LV_KERNEL_SHAPES = [
+    ([("LaViLa space", 577, 16, 64, False)], 16, 256, True),
+    ([("LaViLa time", 5, 16, 64, False)], 36864, 36864, True),
+    ([("LaViLa GPT-2 XL decoder", 76, 25, 64, True)], 64, 64, False)]
 NR_DEVICE = "cuda"
 
 
@@ -4506,12 +4519,15 @@ def _lavila(tmp: str) -> dict:
     xl.init_weights(torch.Generator(device=NR_DEVICE).manual_seed(0))
     _open_gates(xl)
     n_params = sum(p.numel() for p in xl.parameters())
+    # the divided attention's two modes, a visual block, an encode
+    want = {"flash_fwd": LV_SAMPLES * 2 * len(xl.visual.blocks)}
     clip = create_model(MODEL, num_frames=FRAMES)
     load_clip_checkpoint(clip, os.path.join(tmp, "clip_vitb16_random.pt"))
     service = ClipService(clip.to(NR_DEVICE), batch=32)
     narrate = NarrateService(
         lavila_captioner(model=xl, tokenizer=_IdsTokenizer(),
-                         num_frames=FRAMES, max_len=LV_MAX_LEN),
+                         num_frames=FRAMES, num_samples=LV_SAMPLES,
+                         max_len=LV_MAX_LEN),
         clip_length=FRAMES, image_size=LV_SIZE)
     server = make_server(service, port=0, narrate=narrate)
     serve_forever_in_thread(server)
@@ -4524,7 +4540,7 @@ def _lavila(tmp: str) -> dict:
             0, 256, (1, FRAMES, LV_SIZE, LV_SIZE, 3), dtype=np.uint8)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.reset_launches()  # (f)'s path: LaViLa reaches no kernel
+        fa.reset_launches()
         body, latency = _post(url, "/v1/narrate", _frames(clips))
         peak = torch.cuda.max_memory_allocated()
         launches = dict(fa.launches)
@@ -4539,11 +4555,14 @@ def _lavila(tmp: str) -> dict:
     log(f"narrator (f) one /v1/narrate of a {LV_SIZE} px clip: latency "
         f"{latency:.3f} s, {tokens} tokens generated ({tokens / latency:.1f} "
         f"tokens/s over 3 samples), peak memory "
-        f"allocated {peak / 2**30:.3f} GiB, launches {launches}, /metrics "
-        f"narrate requests {metrics.get('requests')}")
-    if (len(narrations) != 1 or len(narrations[0]) != 3 or launches
+        f"allocated {peak / 2**30:.3f} GiB, launches {launches} (expected "
+        f"{want}), /metrics narrate requests {metrics.get('requests')}")
+    if (len(narrations) != 1 or len(narrations[0]) != LV_SAMPLES
             or not all(narrations[0])):
         raise RuntimeError(f"narrator (f): bad answer {body}")
+    if launches != want:
+        raise RuntimeError(f"narrator (f): launches {launches}, expected "
+                           f"{want}")
     del xl, clip, service, narrate
     torch.cuda.empty_cache()
 
@@ -4571,7 +4590,19 @@ def _lavila(tmp: str) -> dict:
         raise RuntimeError("narrator (f): the twin disagrees with the CPU")
     return {"latency_s": latency, "tokens": tokens,
             "tokens_per_s": tokens / latency, "peak_gib": peak / 2 ** 30,
-            "params": n_params, "twin_cosine": cos}
+            "params": n_params, "twin_cosine": cos, "launches": launches}
+
+
+def _lv_kernel_rows() -> dict:
+    """Every kernel at LV_KERNEL_SHAPES against its plain f32 version,
+    timed beside its bound; rows by kernel."""
+    rows = {name: [] for name in fa.KERNELS}
+    for shapes, check, batch, forward_only in LV_KERNEL_SHAPES:
+        got = _slice_kernel_rows(shapes, check, batch, 18, "LaViLa's shapes",
+                                 forward_only=forward_only)
+        for name in rows:
+            rows[name] += got[name]
+    return rows
 
 
 def phase_narrator(tmp: str, fixture: tuple) -> dict:
@@ -4589,6 +4620,8 @@ def phase_narrator(tmp: str, fixture: tuple) -> dict:
                                   forward_only=True)
     for name in rows:
         rows[name] += gen_rows[name]
+    for name, lv in _lv_kernel_rows().items():
+        rows[name] += lv
     seeded = _nr_seeded(tmp)
     gen = _nr_generate(seeded.pop("model"), fixture)
     torch.cuda.empty_cache()
@@ -4596,7 +4629,8 @@ def phase_narrator(tmp: str, fixture: tuple) -> dict:
     lavila = _lavila(tmp)
     paths = {**seeded["paths"], "narrator_data": data["launches"],
              "narrator_generate": gen["launches"],
-             "narrator_teacher_forced": gen["teacher_forced"]}
+             "narrator_teacher_forced": gen["teacher_forced"],
+             "narrator_lavila": lavila["launches"]}
     report = {"seeded": seeded["report"], "data": data["report"],
               "generate": gen["report"], "lavila": lavila}
     log("narrator summary " + json.dumps(report, default=float))
@@ -5781,7 +5815,8 @@ def phase_experts_pipeline(tmp: str, fixture: tuple) -> dict:
     in sequence: output and gradients, launches (12 x M each kernel);
     (d) VCLM_VITB16's pipelined decoder (6 groups) at pp = 2, 3 with its
     visual tokens' gradient, pp = 4 refused; (e) LaViLa's gated GPT-2 at
-    XL width, 6 layers, pp = 2 (plain attention, no kernel)."""
+    XL width, 6 layers, pp = 2 (its causal self-attention on the flash
+    forward with lse and the combined backward, 6 x M each)."""
     from avion_tpu_torch.models.layers import quick_gelu
     from avion_tpu_torch.ops.moe import MoEMlp, run_experts_local
     from avion_tpu_torch.parallel.pipeline import (PipelinedTransformer,
@@ -5889,8 +5924,10 @@ def phase_experts_pipeline(tmp: str, fixture: tuple) -> dict:
         lambda xi, ei: run_stages_local(gpt2, xi, 2, ei),
         lambda xi, ei: gpt2.run_units(gpt2.units(), xi, ei),
         list(gpt2.parameters()), [x, enc], check)
-    if row["launches"]:
-        bad.append(f"(e) GPT-2 launched kernels: {row['launches']}")
+    want = {"flash_fwd_lse": XP_GPT2["layers"] * XP_GPT2_MICRO,
+            "flash_bwd_combined": XP_GPT2["layers"] * XP_GPT2_MICRO}
+    if row["launches"] != want:
+        bad.append(f"(e) GPT-2 launches {row['launches']}, expected {want}")
     played.append(row)
     del gpt2, x, enc
     torch.cuda.empty_cache()

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from avion_tpu_torch.models.timesformer import DividedAttention
 from avion_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -147,6 +148,47 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     row = _qkv(1, 1, 2, 64).to(cuda, torch.bfloat16)
     with pytest.raises(ValueError):  # stride 0: no tensor map takes it
         fa.flash_attention_fused_qkv(row.expand(2, 16, 384), 2, 16)
+    many = torch.zeros(fa.MAX_BATCH + 1, 1, 384, device=cuda,
+                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="batch"):  # the grid's z
+        fa.flash_attention_fused_qkv(many, 2, 1)
+
+
+def test_divided_time_mode_past_the_kernels_batch(cuda):
+    """TimeSformer's time mode with more grid positions than one launch
+    takes (66000 sequences of 3 rows): the grouping splits them into two
+    calls, forward and backward, against the f32 path."""
+    b, f, n, h, d = 2, 2, 33000, 1, 64
+    w = h * d
+    qkv = _qkv(b, 1 + f * n, h, d).to(cuda, torch.bfloat16)
+    do = _qkv(b, 1 + f * n, h, d, seed=1)[..., :w].to(cuda, torch.bfloat16)
+    grouped = DividedAttention(w, h, torch.bfloat16).grouped
+    plain = DividedAttention(w, h, torch.float32).plain
+    y = qkv.float().requires_grad_()
+    ref = plain(y, "time", f, n)
+    ref.backward(do.float())
+    with torch.no_grad():
+        fa.reset_launches()
+        out = grouped(qkv, "time", f, n)
+        torch.cuda.synchronize()
+    assert dict(fa.launches) == {"flash_fwd": 2}
+    diff = out.float() - ref.detach()
+    assert diff.abs().max().item() <= BF16_TOL
+    assert (diff.norm() / ref.norm()).item() <= REL_TOL
+    x = qkv.clone().requires_grad_()
+    fa.reset_launches()
+    grouped(x, "time", f, n).backward(do)
+    torch.cuda.synchronize()
+    assert dict(fa.launches) == {"flash_fwd_lse": 2, "flash_bwd_combined": 2}
+    for i in range(3):
+        got = x.grad[..., i * w:(i + 1) * w].float()
+        want = y.grad[..., i * w:(i + 1) * w]
+        diff = got - want
+        # the patch rows to the kernels' tolerances; the CLS row sums the
+        # gradients of all 33000 sequences a clip, so only relatively
+        assert diff[:, 1:].abs().max().item() <= BF16_TOL
+        assert (diff.norm() / want.norm()).item() <= 1.5e-2
+        assert (diff[:, 0].norm() / want[:, 0].norm()).item() <= 1.5e-2
 
 
 @pytest.mark.parametrize("b,s,h,d,causal,combined", [
